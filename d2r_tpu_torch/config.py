@@ -148,6 +148,22 @@ _VISION_PRESETS = {
 }
 
 
+def register_text_preset(name: str, factory) -> None:
+    """Register a custom text-tower preset resolvable via ``bert_name``."""
+    _TEXT_PRESETS[name] = factory
+
+
+def register_vision_preset(name: str, factory) -> None:
+    """Register a custom vision-tower preset resolvable via ``vit_name``."""
+    _VISION_PRESETS[name] = factory
+
+
+# The JAX package's four optimizer lowerings (d2r_tpu/train/optimizer.py,
+# make_optimizer) compute one function, the reference's 4-group AdamW; the
+# port has one implementation for all four names.
+OPTIMIZER_IMPLS = ("grouped", "fused", "fused_leaf", "multi_transform")
+
+
 @dataclasses.dataclass(frozen=True)
 class D2RConfig:
     """Full experiment config; field names and defaults are the JAX
@@ -284,6 +300,23 @@ class D2RConfig:
             bad.append(f"alpha={self.alpha}")
         if self.text_config().position_style != "absolute":
             bad.append(f"position_style={self.text_config().position_style!r}")
+        # training knobs: rematerialisation and scanned layers are JAX
+        # program transforms with no counterpart here yet; bf16 Adam moments
+        # would change the update
+        if self.remat:
+            bad.append("remat=True")
+        if self.remat_ffn_act:
+            bad.append("remat_ffn_act=True")
+        if self.scan_layers:
+            bad.append("scan_layers=True")
+        if self.adam_mu_dtype != "float32":
+            bad.append(f"adam_mu_dtype={self.adam_mu_dtype!r}")
+        if self.optimizer_impl not in OPTIMIZER_IMPLS:
+            bad.append(f"optimizer_impl={self.optimizer_impl!r}")
+        # the JAX package reads no CLIP hidden dropout (only
+        # attention_dropout), so a non-zero one has no defined place
+        if self.vision_config().dropout != 0.0:
+            bad.append(f"vision dropout={self.vision_config().dropout}")
         if bad:
             raise NotImplementedError(
                 "d2r_tpu_torch does not support " + ", ".join(bad)

@@ -1,0 +1,46 @@
+// Dropout bits of the fused-attention kernels (K1, K2): Philox4x32-10.
+//
+// Element (b, h, i, j) of the (B, H, L, S) probability tile takes word
+// j % 4 of Philox4x32-10 at counter (j / 4, i, h, b) under the key
+// (seed mod 2^32, seed >> 32). The mask therefore depends on no grid or
+// tile size: K1 and K2 regenerate the same bits without storing them, and
+// d2r_tpu_torch/ops/kernels/fused_attention.py::dropout_keep_mask computes
+// them in plain tensor ops. An element is kept iff its bits are >= the
+// threshold min(int(rate * 2^32), 2^32 - 1), the rule of
+// d2r_tpu/ops/kernels/fused_attention.py::_keep_mask.
+//
+// Rounds and key schedule as Random123's philox4x32_R and cuRAND's
+// curand_Philox4x32_10; the tests hold the plain version to Random123's
+// known-answer vectors.
+
+#pragma once
+
+#include <stdint.h>
+
+namespace d2r {
+
+__device__ __forceinline__ uint32_t dropout_bits(unsigned long long seed, uint32_t b,
+                                                 uint32_t h, uint32_t i, uint32_t j) {
+  constexpr uint32_t kM0 = 0xD2511F53u, kM1 = 0xCD9E8D57u;
+  constexpr uint32_t kW0 = 0x9E3779B9u, kW1 = 0xBB67AE85u;
+  uint32_t c0 = j >> 2, c1 = i, c2 = h, c3 = b;
+  uint32_t k0 = (uint32_t)seed, k1 = (uint32_t)(seed >> 32);
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r) {
+      k0 += kW0;
+      k1 += kW1;
+    }
+    const uint32_t hi0 = __umulhi(kM0, c0), lo0 = kM0 * c0;
+    const uint32_t hi1 = __umulhi(kM1, c2), lo1 = kM1 * c2;
+    const uint32_t n0 = hi1 ^ c1 ^ k0, n2 = hi0 ^ c3 ^ k1;
+    c0 = n0;
+    c1 = lo1;
+    c2 = n2;
+    c3 = lo0;
+  }
+  const uint32_t w = j & 3u;
+  return w == 0 ? c0 : w == 1 ? c1 : w == 2 ? c2 : c3;
+}
+
+}  // namespace d2r

@@ -1,10 +1,12 @@
 // Short-sequence fused attention, forward (K1), for Hopper (sm_90a).
 //
-// Replaces d2r_tpu/ops/kernels/fused_attention.py::_fwd_kernel at dropout
-// rate 0. Per (batch b, head h), for every query row i:
+// Replaces d2r_tpu/ops/kernels/fused_attention.py::_fwd_kernel. Per
+// (batch b, head h), for every query row i:
 //
 //   s[j] = (q[b,i,h,:] . k[b,j,h,:]) * scale + bias[b,j]      (fp32)
 //   p[j] = exp(s[j] - max s) / sum exp(s - max s)               (fp32)
+//   with dropout: p[j] = keep(b,h,i,j) ? p[j] * 1/(1-rate) : 0  (fp32,
+//                 fused_attention.py:90-92; bits: dropout_philox.cuh)
 //   p[j] rounded to the input type (fused_attention.py:94)
 //   out[b,i,h,:] = sum_j p[j] * v[b,j,h,:]                      (fp32 acc)
 //
@@ -37,6 +39,8 @@
 
 #include <math.h>
 
+#include "dropout_philox.cuh"
+
 namespace {
 
 constexpr int kWarps = 4;
@@ -67,7 +71,8 @@ fused_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            T* __restrict__ out, int L, int S, int H, int D,
                            long long q_bs, long long q_rs, long long k_bs,
                            long long k_rs, long long v_bs, long long v_rs,
-                           float scale) {
+                           float scale, unsigned int threshold, float inv_keep,
+                           unsigned long long seed, int dropout) {
   extern __shared__ float smem[];
   const int ld = D + 1;
   float* ks = smem;               // [S][ld]
@@ -141,7 +146,13 @@ fused_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int t = 0; t < kPerLane; ++t) {
       const int j = lane + 32 * t;
-      if (j < S) pw[j] = to_float(from_float<T>(e[t] / sum));
+      if (j < S) {
+        float p = e[t] / sum;
+        if (dropout)
+          p = d2r::dropout_bits(seed, (uint32_t)b, h, row, j) >= threshold ? p * inv_keep
+                                                                           : 0.f;
+        pw[j] = to_float(from_float<T>(p));
+      }
     }
     __syncwarp();
 
@@ -172,7 +183,8 @@ template <typename T>
 int launch(const void* q, const void* k, const void* v, const float* bias,
            void* out, int B, int L, int S, int H, int D, long long q_bs,
            long long q_rs, long long k_bs, long long k_rs, long long v_bs,
-           long long v_rs, float scale, cudaStream_t stream) {
+           long long v_rs, float scale, unsigned int threshold, float inv_keep,
+           unsigned long long seed, int dropout, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (2 * (size_t)S * (D + 1) + (size_t)kWarps * D + (size_t)kWarps * S);
   if (smem > 48 * 1024) {
@@ -185,13 +197,15 @@ int launch(const void* q, const void* k, const void* v, const float* bias,
   fused_attention_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       bias, static_cast<T*>(out), L, S, H, D, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs,
-      scale);
+      scale, threshold, inv_keep, seed, dropout);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. bias may be null (no key bias).
+// dropout = 0: no dropout (threshold, inv_keep and seed unused); else keep
+// iff the element's Philox bits >= threshold, kept p times inv_keep.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int d2r_fused_attention_fwd(int dtype, const void* q, const void* k,
                                        const void* v, const void* bias, void* out,
@@ -199,6 +213,8 @@ extern "C" int d2r_fused_attention_fwd(int dtype, const void* q, const void* k,
                                        long long q_bs, long long q_rs,
                                        long long k_bs, long long k_rs,
                                        long long v_bs, long long v_rs, float scale,
+                                       unsigned int threshold, float inv_keep,
+                                       unsigned long long seed, int dropout,
                                        void* stream) {
   if (B < 1 || L < 1 || S < 1 || H < 1 || D < 1 || L > kMaxSeq || S > kMaxSeq ||
       D > kMaxDim || B > 65535 || H > 65535)
@@ -207,9 +223,10 @@ extern "C" int d2r_fused_attention_fwd(int dtype, const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<float>(q, k, v, b, out, B, L, S, H, D, q_bs, q_rs, k_bs, k_rs,
-                         v_bs, v_rs, scale, st);
+                         v_bs, v_rs, scale, threshold, inv_keep, seed, dropout, st);
   if (dtype == 1)
     return launch<__nv_bfloat16>(q, k, v, b, out, B, L, S, H, D, q_bs, q_rs, k_bs,
-                                 k_rs, v_bs, v_rs, scale, st);
+                                 k_rs, v_bs, v_rs, scale, threshold, inv_keep, seed,
+                                 dropout, st);
   return (int)cudaErrorInvalidValue;
 }

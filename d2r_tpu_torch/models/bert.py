@@ -1,6 +1,9 @@
-"""BERT text tower (counterpart of ``d2r_tpu/models/bert.py``), eval only:
-embeddings with absolute positions, post-LN blocks, exact-erf GELU and the
-additive (1-mask)*-10000 key bias. Submodule names are the Flax module
+"""BERT text tower (counterpart of ``d2r_tpu/models/bert.py``): embeddings
+with absolute positions, post-LN blocks, exact-erf GELU and the additive
+(1-mask)*-10000 key bias. In train mode dropout runs at
+``hidden_dropout_prob`` on the embeddings, the attention output and the FFN
+output, and at ``attention_probs_dropout_prob`` on the attention
+probabilities (inside the fused kernel). Submodule names are the Flax module
 names, so each parameter has the path of its Flax leaf."""
 
 from __future__ import annotations
@@ -11,16 +14,22 @@ from torch import nn
 from d2r_tpu_torch.config import TextEncoderConfig
 from d2r_tpu_torch.models.layers import (
     ACT2FN,
+    Dropout,
     Embed,
     LayerNorm,
     QKVDense,
     TorchLinear,
+    attention_dropout,
 )
 from d2r_tpu_torch.ops.attention import dot_product_attention, merge_heads, split_heads
 
 
 class BertEmbeddings(nn.Module):
-    """word + token_type + position embeddings, then LayerNorm."""
+    """word + token_type + position embeddings, then LayerNorm and dropout.
+
+    The PAD row of the word table gets no gradient, as torch's
+    ``nn.Embedding(padding_idx=pad)`` in the reference: the lookups at PAD
+    positions are detached (``d2r_tpu/models/bert.py:80-91``)."""
 
     def __init__(self, cfg: TextEncoderConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -34,18 +43,22 @@ class BertEmbeddings(nn.Module):
         self.position_embeddings = Embed(c.max_position_embeddings, c.hidden_size, dtype)
         self.token_type_embeddings = Embed(c.type_vocab_size, c.hidden_size, dtype)
         self.LayerNorm = LayerNorm(c.hidden_size, c.layer_norm_eps, dtype)
+        self.dropout = Dropout(c.hidden_dropout_prob)
 
-    def forward(self, input_ids: torch.Tensor,
-                token_type_ids: torch.Tensor) -> torch.Tensor:
+    def forward(self, input_ids: torch.Tensor, token_type_ids: torch.Tensor,
+                rng=None) -> torch.Tensor:
         seq_len = input_ids.shape[1]
         if seq_len > self.cfg.max_position_embeddings:
             raise ValueError(f"seq_len {seq_len} exceeds max_position_embeddings "
                              f"{self.cfg.max_position_embeddings}")
         positions = torch.arange(seq_len, device=input_ids.device)[None, :]
-        x = (self.word_embeddings(input_ids)
+        words = self.word_embeddings(input_ids)
+        is_pad = (input_ids == self.cfg.pad_token_id)[..., None]
+        words = torch.where(is_pad, words.detach(), words)
+        x = (words
              + self.token_type_embeddings(token_type_ids)
              + self.position_embeddings(positions))
-        return self.LayerNorm(x)
+        return self.dropout(self.LayerNorm(x), rng)
 
 
 class BertSelfAttention(nn.Module):
@@ -54,25 +67,29 @@ class BertSelfAttention(nn.Module):
         self.cfg = cfg
         self.qkv = QKVDense(cfg.hidden_size, cfg.hidden_size, dtype)
 
-    def forward(self, x: torch.Tensor, key_bias) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, key_bias, rng=None) -> torch.Tensor:
         h = self.cfg.num_attention_heads
         q, k, v = self.qkv(x)
+        rate, seed = attention_dropout(self, self.cfg.attention_probs_dropout_prob, rng)
         ctx = dot_product_attention(split_heads(q, h), split_heads(k, h),
                                     split_heads(v, h), key_bias=key_bias,
-                                    scale=self.cfg.head_dim ** -0.5)
+                                    scale=self.cfg.head_dim ** -0.5,
+                                    dropout_rate=rate, dropout_seed=seed)
         return merge_heads(ctx)
 
 
 class BertSelfOutput(nn.Module):
-    """dense -> LayerNorm(x + input)."""
+    """dense -> dropout -> LayerNorm(x + input)."""
 
     def __init__(self, cfg: TextEncoderConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dense = TorchLinear(cfg.hidden_size, cfg.hidden_size, dtype=dtype)
         self.LayerNorm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, dtype)
+        self.dropout = Dropout(cfg.hidden_dropout_prob)
 
-    def forward(self, hidden: torch.Tensor, input_tensor: torch.Tensor) -> torch.Tensor:
-        return self.LayerNorm(self.dense(hidden) + input_tensor)
+    def forward(self, hidden: torch.Tensor, input_tensor: torch.Tensor,
+                rng=None) -> torch.Tensor:
+        return self.LayerNorm(self.dropout(self.dense(hidden), rng) + input_tensor)
 
 
 class BertLayer(nn.Module):
@@ -87,11 +104,12 @@ class BertLayer(nn.Module):
         self.intermediate_dense = TorchLinear(c.hidden_size, c.intermediate_size, dtype=dtype)
         self.output_dense = TorchLinear(c.intermediate_size, c.hidden_size, dtype=dtype)
         self.output_LayerNorm = LayerNorm(c.hidden_size, c.layer_norm_eps, dtype)
+        self.output_dropout = Dropout(c.hidden_dropout_prob)
 
-    def forward(self, x: torch.Tensor, key_bias=None) -> torch.Tensor:
-        x = self.attention_output(self.attention_self(x, key_bias), x)
+    def forward(self, x: torch.Tensor, key_bias=None, rng=None) -> torch.Tensor:
+        x = self.attention_output(self.attention_self(x, key_bias, rng), x, rng)
         h = self.output_dense(self.act(self.intermediate_dense(x)))
-        return self.output_LayerNorm(h + x)
+        return self.output_LayerNorm(self.output_dropout(h, rng) + x)
 
 
 class BertEncoder(nn.Module):
@@ -103,7 +121,7 @@ class BertEncoder(nn.Module):
         for i in range(self.num_layers):
             self.add_module(f"layer_{i}", BertLayer(cfg, dtype))
 
-    def forward(self, x: torch.Tensor, key_bias=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, key_bias=None, rng=None) -> torch.Tensor:
         for i in range(self.num_layers):
-            x = getattr(self, f"layer_{i}")(x, key_bias)
+            x = getattr(self, f"layer_{i}")(x, key_bias, rng)
         return x

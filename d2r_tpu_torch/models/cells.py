@@ -8,7 +8,7 @@ gate): ``CELL_NAMES``.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -86,7 +86,8 @@ class GlobalLocalAlignmentCell(nn.Module):
         self.fc_2 = _linear(cfg, dtype)
         self.saf = AttentionFiltration(d, dtype)
 
-    def forward(self, text: torch.Tensor, image: torch.Tensor) -> CellOut:
+    def forward(self, text: torch.Tensor, image: torch.Tensor,
+                valid: Optional[torch.Tensor] = None) -> CellOut:
         path_prob = self.router(text)
         text_aware_image = self.cma(text, image)
         sim_local = torch.square(text - text_aware_image)
@@ -94,7 +95,7 @@ class GlobalLocalAlignmentCell(nn.Module):
         sim_global = torch.square(self.text_cls_pool(text) - self.image_cls_pool(image))
         sim_global = self.fc_2(l2norm(self.fc_sim_tranglo(sim_global), dim=-1))
         sim_emb = torch.cat([sim_global[:, None, :], sim_local], dim=1)
-        sim_emb = self.saf(sim_emb)                               # (B, D)
+        sim_emb = self.saf(sim_emb, valid)                        # (B, D)
         return sim_emb[:, None, :].expand(-1, text.shape[1], -1), path_prob
 
 

@@ -53,12 +53,13 @@ class DynamicRoutingLayer(nn.Module):
         self.gesc = GlobalEnhancedSemanticCell(cfg, num_out_path, dtype)
 
     def forward(self, streams: Optional[torch.Tensor], primary: Optional[torch.Tensor],
-                context: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                context: torch.Tensor, valid: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         eps = 1e-8
         inputs = [primary] * NUM_CELLS if streams is None else list(streams)
         outs = [
             self.ric(inputs[0]),
-            self.glac(inputs[1], context),
+            self.glac(inputs[1], context, valid),
             self.imrc(inputs[2]),
             self.cmrc(inputs[3], context),
             self.crcmc(inputs[4], context),
@@ -86,8 +87,9 @@ class DynamicRoutingLayer(nn.Module):
 
 class InteractionModule(nn.Module):
     """Routing pipeline of one branch. ``reversed_mode=False``: text is
-    primary and image the context; ``True``: the other way round. Returns
-    the fused stream (B, L, D) and the (B, B) path-similarity Gram."""
+    primary and image the context; ``True``: the other way round. ``valid``
+    (B,) reaches every GLAC cell's train-mode BatchNorm. Returns the fused
+    stream (B, L, D) and the (B, B) path-similarity Gram."""
 
     def __init__(self, cfg: D2RConfig, reversed_mode: bool = False, dtype=torch.float32):
         super().__init__()
@@ -100,15 +102,16 @@ class InteractionModule(nn.Module):
             self.add_module(f"dynamic_itr_l1_{i}", DynamicRoutingLayer(cfg, NUM_CELLS, dtype))
         self.dynamic_itr_l2 = DynamicRoutingLayer(cfg, 1, dtype)
 
-    def forward(self, text: torch.Tensor, image: torch.Tensor):
+    def forward(self, text: torch.Tensor, image: torch.Tensor,
+                valid: Optional[torch.Tensor] = None):
         primary, context = (image, text) if self.reversed_mode else (text, image)
         batch = primary.shape[0]
-        streams, paths_l0 = self.dynamic_itr_l0(None, primary, context)
+        streams, paths_l0 = self.dynamic_itr_l0(None, primary, context, valid)
         pieces = [paths_l0.reshape(batch, -1)]
         for i in range(self.num_mid):
-            streams, p = getattr(self, f"dynamic_itr_l1_{i}")(streams, None, context)
+            streams, p = getattr(self, f"dynamic_itr_l1_{i}")(streams, None, context, valid)
             pieces.append(p.reshape(batch, -1))
-        final_streams, paths_l2 = self.dynamic_itr_l2(streams, None, context)
+        final_streams, paths_l2 = self.dynamic_itr_l2(streams, None, context, valid)
         pieces.append(paths_l2.reshape(batch, -1))
         paths = torch.cat(pieces, dim=-1).float()
         return final_streams[0], torch.matmul(paths, paths.T)

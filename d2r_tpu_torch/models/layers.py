@@ -1,8 +1,12 @@
 """Shared building blocks (counterpart of ``d2r_tpu/models/layers.py``).
 
 Every module takes the compute ``dtype`` and casts its input and weights to
-it at use, as the JAX modules do; LayerNorm and BatchNorm compute in fp32
-and return the compute type. Weights are stored torch-style
+it at use, as the JAX modules do (parameters stay fp32, in training too);
+LayerNorm and BatchNorm compute in fp32 and return the compute type.
+``nn.Module.training`` plays the part of the JAX modules' ``deterministic=
+False, use_running_average=False``: dropout runs and BatchNorm uses and
+updates batch statistics. Dropout draws only from the :class:`DropoutRNG`
+the caller passes down. Weights are stored torch-style
 (``weight`` is (out, in)); ``d2r_tpu_torch/weights.py`` translates the Flax
 layouts. Parameters are created empty: :func:`init_weights` fills them from
 an explicit ``torch.Generator``, in the JAX package's init families.
@@ -11,7 +15,7 @@ an explicit ``torch.Generator``, in the JAX package's init families.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -143,16 +147,66 @@ class Embed(nn.Module):
         return F.embedding(ids.long(), self.weight).to(self.dtype)
 
 
+class DropoutRNG:
+    """The randomness of one training forward, passed down explicitly (the
+    global RNG is never read). ``host`` is a CPU generator: its draws are
+    the attention kernels' dropout seeds, host ints that cost no device
+    sync. ``device`` is a generator on the model's device, seeded from the
+    first draw, for the hidden dropout masks."""
+
+    def __init__(self, seed: int, device):
+        self.host = torch.Generator().manual_seed(int(seed))
+        self.device = torch.Generator(device=device).manual_seed(self.next_seed())
+
+    def next_seed(self) -> int:
+        """A fresh 63-bit seed from the host generator."""
+        return int(torch.randint(0, 2 ** 63 - 1, (1,), generator=self.host))
+
+
+class Dropout(nn.Module):
+    """Inverted dropout, as Flax's ``nn.Dropout``: in train mode an element
+    is kept with probability 1 - rate and scaled by 1/(1-rate), with the
+    mask drawn from ``rng.device``; the identity in eval mode or at rate 0."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor, rng: Optional[DropoutRNG]) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if rng is None:
+            raise ValueError("train-mode dropout needs a DropoutRNG")
+        keep = torch.rand(x.shape, generator=rng.device, device=x.device) >= self.rate
+        return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
+
+
+def attention_dropout(module: nn.Module, rate: float,
+                      rng: Optional[DropoutRNG]) -> Tuple[float, Optional[int]]:
+    """(rate, seed) for ``dot_product_attention``: a fresh seed from ``rng``
+    in train mode at a non-zero rate, else no dropout."""
+    if not module.training or rate == 0.0:
+        return 0.0, None
+    if rng is None:
+        raise ValueError("train-mode attention dropout needs a DropoutRNG")
+    return rate, rng.next_seed()
+
+
 class TorchBatchNorm(nn.Module):
-    """torch.nn.BatchNorm1d in eval mode over the last axis: normalise with
-    the running statistics, in fp32. (Train-mode statistics come with the
-    training slice.)"""
+    """torch.nn.BatchNorm1d over the last axis, statistics in fp32.
+
+    Eval mode normalises with the running statistics. Train mode normalises
+    with the biased batch statistics over every leading axis and updates the
+    running ones in place with momentum 0.1 and the UNBIASED variance.
+    ``row_valid`` (B,) restricts the batch statistics to the valid rows
+    (a wrap-padded final batch), as ``d2r_tpu/models/layers.py:140-206``."""
 
     def __init__(self, num_features: int, eps: float = 1e-5,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, momentum: float = 0.1):
         super().__init__()
         self.dtype = dtype
         self.eps = eps
+        self.momentum = momentum
         self.weight = _param(num_features)
         self.bias = _param(num_features)
         self.register_buffer("running_mean", torch.empty(num_features))
@@ -164,8 +218,29 @@ class TorchBatchNorm(nn.Module):
         self.running_mean.zero_()
         self.running_var.fill_(1.0)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = (x.float() - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
+    def forward(self, x: torch.Tensor,
+                row_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x32 = x.float()
+        if not self.training:
+            mean, var = self.running_mean, self.running_var
+        else:
+            axes = tuple(range(x.ndim - 1))
+            if row_valid is not None:
+                w = row_valid.to(torch.float32).reshape((x.shape[0],) + (1,) * (x.ndim - 1))
+                count = torch.sum(w) * math.prod(x.shape[1:-1])
+                mean = torch.sum(x32 * w, dim=axes) / count
+                var = torch.sum(w * torch.square(x32 - mean), dim=axes) / count
+                unbiased_n = count / torch.clamp(count - 1.0, min=1.0)
+            else:
+                mean = torch.mean(x32, dim=axes)
+                var = torch.mean(torch.square(x32 - mean), dim=axes)
+                n = math.prod(x.shape[:-1])
+                unbiased_n = n / max(n - 1, 1)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+                self.running_var.copy_((1 - m) * self.running_var + m * (var * unbiased_n))
+        y = (x32 - mean) * torch.rsqrt(var + self.eps)
         y = y * self.weight + self.bias
         return y.to(self.dtype)
 

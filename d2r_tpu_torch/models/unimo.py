@@ -1,7 +1,13 @@
-"""The full D2R network (counterpart of ``d2r_tpu/models/unimo.py``), forward
-and eval only: the two towers, one extra self-attention layer per branch,
-dynamic routing in both directions, BLOCK fusion and the ``fc`` head, with
-CE plus the negative-signed JS loss.
+"""The full D2R network (counterpart of ``d2r_tpu/models/unimo.py``): the two
+towers, one extra self-attention layer per branch, dynamic routing in both
+directions, BLOCK fusion and the ``fc`` head, with CE plus the
+negative-signed JS loss.
+
+``model.train()`` is the JAX package's ``deterministic=False,
+use_running_average=False``: dropout runs, drawing from the
+:class:`~d2r_tpu_torch.models.layers.DropoutRNG` passed as ``rng``, and the
+SAF BatchNorms use and update batch statistics over the ``valid`` rows.
+``model.eval()`` is ``deterministic=True, use_running_average=True``.
 
 Both routing branches consume the RAW tower outputs, not the self-attended
 ones; the self-attended ones only feed the CLS Gram matrices of the JS loss.
@@ -17,7 +23,13 @@ from torch import nn
 from d2r_tpu_torch.config import D2RConfig, resolve_device
 from d2r_tpu_torch.models.bert import BertEmbeddings, BertEncoder, BertLayer
 from d2r_tpu_torch.models.interaction import InteractionModule
-from d2r_tpu_torch.models.layers import BertPooler, LayerNorm, TorchLinear, init_weights
+from d2r_tpu_torch.models.layers import (
+    BertPooler,
+    DropoutRNG,
+    LayerNorm,
+    TorchLinear,
+    init_weights,
+)
 from d2r_tpu_torch.models.vit import CLIPEncoderLayer, CLIPVisionEmbeddings, CLIPVisionEncoder
 from d2r_tpu_torch.models.xmodules import BlockFusion
 from d2r_tpu_torch.ops.attention import padding_key_bias
@@ -48,20 +60,21 @@ class D2RModel(nn.Module):
         self.block_fusion = BlockFusion(tc.hidden_size, tc.hidden_size, dtype=dt)
 
     def forward(self, input_ids, attention_mask, token_type_ids, pixel_values,
-                valid: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                valid: Optional[torch.Tensor] = None,
+                rng: Optional[DropoutRNG] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         c = self.cfg
         vision_emb = self.vision_pre_layernorm(self.vision_embeddings(pixel_values))
         key_bias = padding_key_bias(attention_mask)
-        text_emb = self.text_embeddings(input_ids, token_type_ids)
+        text_emb = self.text_embeddings(input_ids, token_type_ids, rng)
 
-        vision_out = self.encoder_vision_layers(vision_emb)
-        text_out = self.encoder_text_layers(text_emb, key_bias)
+        vision_out = self.encoder_vision_layers(vision_emb, rng)
+        text_out = self.encoder_text_layers(text_emb, key_bias, rng)
 
-        text_cls = self.text_cls_pool(self.self_text(text_out, key_bias))
-        vision_cls = self.vision_cls_pool(self.self_vision(vision_out))
+        text_cls = self.text_cls_pool(self.self_text(text_out, key_bias, rng))
+        vision_cls = self.vision_cls_pool(self.self_vision(vision_out, rng))
 
-        text_stream, sim_paths = self.itr_module(text_out, vision_out)
-        vision_stream, rev_sim_paths = self.Reversed_itr_module(text_out, vision_out)
+        text_stream, sim_paths = self.itr_module(text_out, vision_out, valid)
+        vision_stream, rev_sim_paths = self.Reversed_itr_module(text_out, vision_out, valid)
 
         text_cls, vision_cls = text_cls.float(), vision_cls.float()
         js_loss = path_consistency_loss(
@@ -75,7 +88,9 @@ class D2RModel(nn.Module):
 
 class D2RClassifier(nn.Module):
     """D2RModel plus the task head and CE loss. Returns
-    ``(loss, logits, {"ce_loss", "js_loss"})``."""
+    ``(loss, logits, {"ce_loss", "js_loss"})``. ``valid`` (B,) masks
+    wrap-padded rows out of the losses and the BatchNorm statistics; ``rng``
+    feeds dropout in train mode."""
 
     def __init__(self, cfg: D2RConfig):
         super().__init__()
@@ -85,10 +100,11 @@ class D2RClassifier(nn.Module):
         self.fc = TorchLinear(tc.hidden_size, cfg.num_classes, dtype=cfg.dtype)
 
     def forward(self, input_ids, attention_mask, token_type_ids, labels,
-                pixel_values, valid: Optional[torch.Tensor] = None
+                pixel_values, valid: Optional[torch.Tensor] = None,
+                rng: Optional[DropoutRNG] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
         pooled, js_loss = self.model(input_ids, attention_mask, token_type_ids,
-                                     pixel_values, valid)
+                                     pixel_values, valid, rng)
         logits = self.fc(pooled)
         ce = cross_entropy_loss(logits, labels, valid)
         return ce + js_loss, logits, {"ce_loss": ce, "js_loss": js_loss}

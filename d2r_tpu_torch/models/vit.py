@@ -1,7 +1,9 @@
-"""CLIP-ViT vision tower (counterpart of ``d2r_tpu/models/vit.py``), eval
-only: on-device uint8 normalisation, bias-free conv patch embedding, class
-token, learned positions, and pre-LN quick-gelu blocks. No attention mask:
-all tokens attend."""
+"""CLIP-ViT vision tower (counterpart of ``d2r_tpu/models/vit.py``):
+on-device uint8 normalisation, bias-free conv patch embedding, class token,
+learned positions, and pre-LN quick-gelu blocks. No attention mask: all
+tokens attend. In train mode the attention probabilities drop out at
+``attention_dropout`` (0 in the presets), as in the JAX package; its only
+dropout site (the config check refuses a non-zero hidden ``dropout``)."""
 
 from __future__ import annotations
 
@@ -12,7 +14,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from d2r_tpu_torch.config import VisionEncoderConfig
-from d2r_tpu_torch.models.layers import ACT2FN, Embed, LayerNorm, QKVDense, TorchLinear
+from d2r_tpu_torch.models.layers import (
+    ACT2FN,
+    Embed,
+    LayerNorm,
+    QKVDense,
+    TorchLinear,
+    attention_dropout,
+)
 from d2r_tpu_torch.ops.attention import dot_product_attention, merge_heads, split_heads
 
 # CLIP's pixel statistics (copied from d2r_tpu/data/image.py)
@@ -79,11 +88,13 @@ class CLIPAttention(nn.Module):
         self.qkv = QKVDense(cfg.hidden_size, cfg.hidden_size, dtype)
         self.out_proj = TorchLinear(cfg.hidden_size, cfg.hidden_size, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rng=None) -> torch.Tensor:
         h = self.cfg.num_attention_heads
         q, k, v = self.qkv(x)
+        rate, seed = attention_dropout(self, self.cfg.attention_dropout, rng)
         ctx = dot_product_attention(split_heads(q, h), split_heads(k, h),
-                                    split_heads(v, h), scale=self.cfg.head_dim ** -0.5)
+                                    split_heads(v, h), scale=self.cfg.head_dim ** -0.5,
+                                    dropout_rate=rate, dropout_seed=seed)
         return self.out_proj(merge_heads(ctx))
 
 
@@ -100,8 +111,8 @@ class CLIPEncoderLayer(nn.Module):
         self.mlp_fc1 = TorchLinear(c.hidden_size, c.intermediate_size, dtype=dtype)
         self.mlp_fc2 = TorchLinear(c.intermediate_size, c.hidden_size, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.self_attn(self.layer_norm1(x))
+    def forward(self, x: torch.Tensor, rng=None) -> torch.Tensor:
+        x = x + self.self_attn(self.layer_norm1(x), rng)
         return x + self.mlp_fc2(self.act(self.mlp_fc1(self.layer_norm2(x))))
 
 
@@ -114,7 +125,7 @@ class CLIPVisionEncoder(nn.Module):
         for i in range(self.num_layers):
             self.add_module(f"layer_{i}", CLIPEncoderLayer(cfg, dtype))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rng=None) -> torch.Tensor:
         for i in range(self.num_layers):
-            x = getattr(self, f"layer_{i}")(x)
+            x = getattr(self, f"layer_{i}")(x, rng)
         return x

@@ -6,6 +6,7 @@ stacked einsum."""
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 from torch import nn
@@ -40,7 +41,8 @@ class CrossModalAlignment(nn.Module):
 
 class AttentionFiltration(nn.Module):
     """SGRAF SAF pool: sigmoid(BN(Linear(sim_emb))) -> L1-normalised weights
-    -> weighted sum -> L2 norm. The BatchNorm runs on its running stats."""
+    -> weighted sum -> L2 norm. In train mode the BatchNorm takes the batch
+    statistics of the ``row_valid`` rows and updates its running ones."""
 
     def __init__(self, sim_dim: int, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -54,11 +56,12 @@ class AttentionFiltration(nn.Module):
         self.attn_sim_w_kernel.data.uniform_(-r, r, generator=gen)
         self.attn_sim_w_bias.data.zero_()
 
-    def forward(self, sim_emb: torch.Tensor) -> torch.Tensor:
+    def forward(self, sim_emb: torch.Tensor,
+                row_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(B, L+1, D) -> (B, D)."""
         scores = (torch.matmul(sim_emb.to(self.dtype), self.attn_sim_w_kernel.to(self.dtype))
                   + self.attn_sim_w_bias.to(self.dtype))         # (B, L+1, 1)
-        scores = self.bn(scores)
+        scores = self.bn(scores, row_valid)
         weights = l1norm(torch.sigmoid(scores[..., 0]), dim=-1)  # (B, L+1)
         pooled = torch.einsum("bl,bld->bd", weights.float(), sim_emb.float())
         return l2norm(pooled.to(self.dtype), dim=-1)

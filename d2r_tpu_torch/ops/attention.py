@@ -3,10 +3,10 @@
 All attention of the model goes through :func:`dot_product_attention`, over
 (B, L, H, D) tensors in the projection layout (no head transposes):
 
-* L, S <= 128 and D <= 128: the fused kernel K1
+* L, S <= 128 and D <= 128: the fused kernels, K1 forward and K2 backward
   (``ops/kernels/fused_attention.py``). On a CUDA tensor that launches the
-  CUDA kernel; on a CPU tensor it runs the kernel's plain version. Every
-  site of the D2R-base model is in this band.
+  CUDA kernels; on a CPU tensor it runs their plain versions. Every site of
+  the D2R-base model is in this band.
 * kv length >= 256 on a CUDA tensor: the JAX package sends this to its
   long-context kernel, K3, which the port has not ported yet, so it raises.
 * anything else: the plain einsum math, as the JAX package's XLA path.
@@ -38,22 +38,30 @@ def dot_product_attention(
     *,
     key_bias: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
+    dropout_rate: float = 0.0,
+    dropout_seed: Optional[int] = None,
 ) -> torch.Tensor:
-    """Scaled dot-product attention, no dropout (the port runs eval only).
+    """Scaled dot-product attention with post-softmax dropout.
 
     q: (B, L, H, D); k, v: (B, S, H, D); key_bias: additive (B, S) or None;
-    scale defaults to 1/sqrt(D). Returns (B, L, H, D) in q's type.
+    scale defaults to 1/sqrt(D). Dropout at ``dropout_rate`` runs when
+    ``dropout_seed`` is an int (training) and not when it is None (eval);
+    its bits are the kernels' (``dropout_keep_mask``) on every path.
+    Returns (B, L, H, D) in q's type.
     """
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    if dropout_seed is None:
+        dropout_rate = 0.0
     if supports_fused_small(q, k):
-        return fused_attention_small(q, k, v, key_bias, scale)
+        return fused_attention_small(q, k, v, key_bias, scale, dropout_rate, dropout_seed)
     if q.is_cuda and k.shape[1] >= LONG_KV_LEN:
         raise NotImplementedError(
             f"kv length {k.shape[1]} >= {LONG_KV_LEN} needs the long-context "
             "kernel K3 (d2r_tpu/ops/kernels/flash_attention.py), which is not "
             "ported yet; see ROADMAP.md Queue 2")
-    return fused_attention_small_plain(q, k, v, key_bias, scale)
+    return fused_attention_small_plain(q, k, v, key_bias, scale, dropout_rate,
+                                       dropout_seed)
 
 
 def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:

@@ -25,7 +25,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # every kernel source of the port, by the name its library is built under
-SOURCES = {"fused_attention_fwd": "fused_attention_fwd.cu"}
+SOURCES = {"fused_attention_fwd": "fused_attention_fwd.cu",
+           "fused_attention_bwd": "fused_attention_bwd.cu"}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -48,8 +49,12 @@ def _paths(name: str):
 
 
 def _stale(name: str) -> bool:
+    """Missing, or older than its source or any header of ``csrc``."""
     src, so = _paths(name)
-    return not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(src)
+    if not os.path.exists(so):
+        return True
+    headers = [os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(".cuh")]
+    return os.path.getmtime(so) < max(os.path.getmtime(f) for f in [src, *headers])
 
 
 def build_all(names: List[str] = None) -> Dict[str, str]:

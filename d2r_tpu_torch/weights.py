@@ -1,4 +1,7 @@
-"""Load a Flax variable tree of the JAX package into the port's model.
+"""Move weights between a Flax variable tree of the JAX package and the
+port's model: :func:`load_jax_variables` / :func:`from_jax_variables` load
+one, :func:`to_jax_variables` writes the port's parameters and buffers back
+out as one, in Flax names and layouts.
 
 The port's modules carry the Flax module names, so a Flax leaf
 ``params/model/.../qkv/kernel`` lands on the port module
@@ -21,9 +24,9 @@ any other          the leaf's own name         the parameter of that name
 stacked ``merge_kernel{0,1}``/``merge_bias{0,1}`` and the vision tower's
 ``class_embedding`` keep their names and layouts.)
 
-Coverage is strict: a Flax leaf with no place in the port, a port parameter
-or buffer that no leaf sets, or a shape that differs, raises and names the
-key.
+Coverage is strict in both directions: a Flax leaf with no place in the
+port, a port parameter or buffer that no leaf sets (or that maps to no
+leaf), or a shape that differs, raises and names the key.
 """
 
 from __future__ import annotations
@@ -109,3 +112,62 @@ def from_jax_variables(cfg: D2RConfig, variables: Mapping) -> D2RClassifier:
     """A port ``D2RClassifier`` on the CPU, in fp32 and eval mode, holding the
     weights of the JAX package's ``D2RClassifier(cfg)`` variables."""
     return load_jax_variables(D2RClassifier(cfg), variables).eval()
+
+
+def _to_flax(module: nn.Module, name: str, t: np.ndarray):
+    """(collection, Flax leaf name, array in the Flax layout) of the port
+    tensor ``name`` of ``module``: the inverse of :func:`_translate`."""
+    if isinstance(module, TorchLinear):
+        table = {"weight": ("kernel", lambda a: a.T), "bias": ("bias", None)}
+    elif isinstance(module, QKVDense):
+        h = module.hidden
+        table = {"weight": ("kernel", lambda a: a.T.reshape(a.shape[1], 3, h)),
+                 "bias": ("bias", lambda a: a.reshape(3, h))}
+    elif isinstance(module, Embed):
+        table = {"weight": ("embedding", None)}
+    elif isinstance(module, LayerNorm):
+        table = {"weight": ("scale", None), "bias": ("bias", None)}
+    elif isinstance(module, PatchConv):
+        table = {"weight": ("kernel", lambda a: a.transpose(2, 3, 1, 0))}
+    elif isinstance(module, TorchBatchNorm):
+        table = {"weight": ("scale", None), "bias": ("bias", None),
+                 "running_mean": ("mean", None), "running_var": ("var", None)}
+    else:
+        table = {n: (n, None) for n, _ in module.named_parameters(recurse=False)}
+    if name not in table:
+        return None
+    leaf, fn = table[name]
+    collection = "batch_stats" if name.startswith("running_") else "params"
+    return collection, leaf, (t if fn is None or t is None else fn(t))
+
+
+def flax_path(model: nn.Module, key: str) -> str:
+    """The '/'-joined Flax path (collection left out) of the port's
+    parameter or buffer ``key``, e.g. ``fc.weight`` -> ``fc/kernel``."""
+    *prefix, name = key.split(".")
+    got = _to_flax(model.get_submodule(".".join(prefix)), name, None)
+    if got is None:
+        raise KeyError(f"port key {key!r} has no Flax leaf")
+    return "/".join(prefix + [got[1]])
+
+
+def to_jax_variables(model: nn.Module) -> Dict[str, dict]:
+    """The port model's parameters and buffers as the Flax tree
+    ``{"params": ..., "batch_stats": ...}`` of numpy fp32 arrays in Flax
+    layouts, which :func:`load_jax_variables` takes back unchanged."""
+    tree: Dict[str, dict] = {"params": {}, "batch_stats": {}}
+    for key, t in model.state_dict().items():
+        *prefix, name = key.split(".")
+        # a copy: on the CPU .numpy() would share memory with the live tensor
+        got = _to_flax(model.get_submodule(".".join(prefix)), name,
+                       t.detach().to("cpu", torch.float32).numpy().copy())
+        if got is None:
+            raise KeyError(f"port key {key!r} has no Flax leaf")
+        collection, leaf, arr = got
+        node = tree[collection]
+        for part in prefix:
+            node = node.setdefault(part, {})
+        if leaf in node:
+            raise KeyError(f"port key {key!r} sets Flax leaf {leaf!r} twice")
+        node[leaf] = np.ascontiguousarray(arr)
+    return tree

@@ -107,10 +107,9 @@ def test_padding_key_bias_and_heads_match_jax():
 
 
 def test_plain_dropout_is_seeded_and_mean_preserving():
-    """Dropout exists in the plain version only (the kernel's arrives with the
-    training slice): post-softmax, scaled by 1/(1-rate), bits fixed by the
-    seed. With v = 1 every output is a row sum of dropped-out probabilities,
-    whose mean is 1."""
+    """The plain version's dropout (the kernels' Philox bits): post-softmax,
+    scaled by 1/(1-rate), bits fixed by the seed. With v = 1 every output is
+    a row sum of dropped-out probabilities, whose mean is 1."""
     q, k, v, bias = _inputs(8, 16, 16, 2, 8, True, seed=4)
     q, k, bias = _t(q), _t(k), _t(bias)
     v = torch.ones(8, 16, 2, 8)

@@ -1,5 +1,12 @@
-"""The port's CUDA kernels on the card. Every test is marked ``cuda`` and
-skips itself where ``torch.cuda.is_available()`` is false.
+"""The port's CUDA kernels on the card: K1 (forward, with and without
+dropout) and K2 (backward) against their plain versions, and the serving
+and training paths launching them at every attention site. Every test is
+marked ``cuda`` and skips itself where ``torch.cuda.is_available()`` is
+false.
+
+Tolerances: K1 as in chip_smoke (fp32 1e-5, bf16 2e-2 absolute); K2 scaled
+by the output's magnitude, fp32 1e-5 and bf16 2e-2 of max(1, max |ref|)
+(one bf16 ulp at |x| is 2^-8 |x|).
 
 This file imports neither JAX nor ``d2r_tpu``, because the GPU machine has
 no JAX; ``tests/conftest.py`` does, so run it there without the conftest:
@@ -49,14 +56,21 @@ def test_cuda_kernel_matches_plain(cuda, dtype, tol):
 
 @pytest.mark.cuda
 def test_cuda_wrapper_raises_instead_of_falling_back(cuda):
+    """Forward and backward: fp16 and unreadable strides raise, on the card
+    no plain version runs."""
     q = torch.randn(2, 8, 2, 16, device=cuda)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tfa.fused_attention_small(q, q, q, None, 0.25, dropout_rate=0.1, dropout_seed=1)
     t = q.transpose(1, 2)                     # (B, H, L, D) memory seen as (B, L, H, D)
     with pytest.raises(ValueError, match="head stride"):
         tfa.fused_attention_small(t, t, t, None, 0.25)
     with pytest.raises(TypeError):
         tfa.fused_attention_small(q.half(), q.half(), q.half(), None, 0.25)
+    with pytest.raises(ValueError, match="head stride"):
+        tfa.fused_attention_small_bwd(t, t, t, None, q, 0.25)
+    h = q.half()
+    with pytest.raises(TypeError):
+        tfa.fused_attention_small_bwd(h, h, h, None, h, 0.25, dropout_rate=0.1, dropout_seed=1)
+    with pytest.raises(TypeError):                 # a g of another type than q
+        tfa.fused_attention_small_bwd(q, q, q, None, h, 0.25)
     long = torch.randn(1, 256, 2, 16, device=cuda)
     with pytest.raises(NotImplementedError, match="K3"):
         tattn.dot_product_attention(long, long, long)
@@ -87,3 +101,116 @@ def test_cuda_predictor_launches_k1_at_every_site(cuda):
     assert tfa.fused_attention_small.launches == 14
     ref = cpu.predict(ids, mask, np.zeros_like(ids), pixels)
     np.testing.assert_allclose(got["probs"], ref["probs"], atol=1e-5)
+
+
+GEOMETRIES = ((3, 64, 12, 64, True), (2, 50, 12, 64, False), (1, 64, 16, 48, False),
+              (5, 50, 16, 48, True), (2, 128, 2, 128, True), (1, 7, 3, 8, True))
+K2_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def _qkv(cuda, dtype, b, l, h, d, with_bias, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    qkv = torch.randn((b, l, 3, h * d), generator=g, device=cuda).to(dtype)
+    q, k, v = (qkv[:, :, i].view(b, l, h, d) for i in range(3))
+    bias = None
+    if with_bias:
+        lengths = torch.randint(1, l + 1, (b, 1), generator=g, device=cuda)
+        bias = tattn.padding_key_bias(torch.arange(l, device=cuda)[None] < lengths)
+    grad = torch.randn((b, l, h, d), generator=g, device=cuda).to(dtype)
+    return q, k, v, bias, grad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+def test_cuda_dropout_forward_matches_plain(cuda, dtype, tol):
+    """K1 with dropout against the plain version with the same seed: the
+    masks are the same Philox bits."""
+    for i, (b, l, h, d, with_bias) in enumerate(GEOMETRIES):
+        q, k, v, bias, _ = _qkv(cuda, dtype, b, l, h, d, with_bias, seed=i)
+        for rate, seed in ((0.1, 7), (0.5, 2 ** 40 + 3)):
+            out = tfa.fused_attention_small(q, k, v, bias, d ** -0.5, rate, seed)
+            torch.cuda.synchronize()
+            ref = tfa.fused_attention_small_plain(q, k, v, bias, d ** -0.5, rate, seed)
+            assert (out.float() - ref.float()).abs().max().item() <= tol, (b, l, h, d, rate)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_backward_matches_plain(cuda, dtype):
+    """K2 against its plain version with and without dropout, dbias on
+    request, and the same bits on a second run (no atomics in dq, dk, dv)."""
+    for i, (b, l, h, d, with_bias) in enumerate(GEOMETRIES):
+        q, k, v, bias, g = _qkv(cuda, dtype, b, l, h, d, with_bias, seed=10 + i)
+        for rate, seed in ((0.0, None), (0.1, 11)):
+            before = tfa.fused_attention_small_bwd.launches
+            got = tfa.fused_attention_small_bwd(q, k, v, bias, g, d ** -0.5, rate, seed)
+            again = tfa.fused_attention_small_bwd(q, k, v, bias, g, d ** -0.5, rate, seed,
+                                                  need_dbias=False)
+            torch.cuda.synchronize()
+            assert tfa.fused_attention_small_bwd.launches == before + 2
+            assert again[3] is None
+            ref = tfa.fused_attention_small_bwd_plain(q, k, v, bias, g, d ** -0.5, rate, seed)
+            for name, x, y, z in zip(("dq", "dk", "dv"), got, again, ref):
+                assert x.shape == z.shape and x.dtype == z.dtype and x.is_contiguous()
+                assert torch.equal(x, y), name
+                tol = K2_TOL[dtype] * max(1.0, z.float().abs().max().item())
+                assert (x.float() - z.float()).abs().max().item() <= tol, (name, b, l, h, d)
+            tol = 1e-4 * max(1.0, ref[3].abs().max().item())
+            assert (got[3] - ref[3]).abs().max().item() <= tol, ("dbias", b, l, h, d)
+
+
+@pytest.mark.cuda
+def test_cuda_dropout_v_ones_identity(cuda):
+    """tests/test_fused_attention_small.py's TPU dropout test on the card:
+    seeded, mean-preserving, and K2 regenerates K1's mask (sum dv = sum out)."""
+    q, k, _, bias, _ = _qkv(cuda, torch.float32, 8, 16, 2, 8, True, seed=3)
+    v = torch.ones(8, 16, 2, 8, device=cuda, requires_grad=True)
+    run = lambda s: tfa.fused_attention_small(q, k, v, bias, 8 ** -0.5, 0.5, s)
+    o1, o2, o3 = run(1234), run(1234), run(999)
+    assert torch.equal(o1, o2) and not torch.equal(o1, o3)
+    assert abs(o1.mean().item() - 1.0) < 0.1
+    o1.sum().backward()
+    torch.testing.assert_close(v.grad.sum(), o1.sum(), rtol=1e-3, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_launches_k1_and_k2_at_every_site(cuda):
+    """A tiny DR_step=4 model, one train step: 3 text + 3 vision + 2 x 4
+    IMRC sites = 14 K1 and 14 K2 launches. With dropout off the card's loss
+    and fc gradient match the CPU's in fp32."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+
+    from d2r_tpu_torch import config as tconfig
+    from d2r_tpu_torch.models.unimo import build_model
+    from d2r_tpu_torch.train.state import create_train_state, make_train_step
+    tc = dataclasses.replace(tconfig.tiny_test_config().text_config(),
+                             hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    tconfig.register_text_preset("tiny-bert-dropout-0", lambda: tc)
+    rng = np.random.default_rng(0)
+    ids = rng.integers(5, 128, size=(4, 16)).astype(np.int32)
+    mask = np.ones_like(ids)
+    mask[1, 9:] = 0
+    ids *= mask
+    batch = dict(input_ids=ids, attention_mask=mask, token_type_ids=np.zeros_like(ids),
+                 labels=np.array([0, 1, 2, 1], np.int32),
+                 pixel_values=rng.standard_normal((4, 3, 32, 32)).astype(np.float32))
+    step = make_train_step()
+    for name in ("tiny-bert", "tiny-bert-dropout-0"):
+        cfg = tconfig.tiny_test_config(DR_step=4, bert_name=name)
+        model = build_model(cfg, device="cpu", seed=0)
+        gpu = create_train_state(cfg, 10, device=cuda, model=copy.deepcopy(model))
+        tfa.fused_attention_small.launches = tfa.fused_attention_small_bwd.launches = 0
+        gpu, m = step(gpu, batch, 3)
+        torch.cuda.synchronize()
+        assert tfa.fused_attention_small.launches == 14
+        assert tfa.fused_attention_small_bwd.launches == 14
+        assert torch.isfinite(m["loss"]).item()
+        if name == "tiny-bert-dropout-0":
+            cpu = create_train_state(cfg, 10, device="cpu", model=model)
+            cpu, ref = step(cpu, batch, 3)
+            assert abs(m["loss"].item() - ref["loss"].item()) <= 1e-4
+            torch.testing.assert_close(gpu.model.fc.weight.grad.cpu(), cpu.model.fc.weight.grad,
+                                       atol=1e-4, rtol=0)

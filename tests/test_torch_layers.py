@@ -143,7 +143,7 @@ def test_batch_norm_eval_matches_jax():
     jm = jl.TorchBatchNorm(1)
     v = {"params": {"scale": np.array([1.3], np.float32), "bias": np.array([-0.2], np.float32)},
          "batch_stats": {"mean": np.array([0.4], np.float32), "var": np.array([2.5], np.float32)}}
-    _close(_load(tl.TorchBatchNorm(1), v)(torch.from_numpy(x)),
+    _close(_load(tl.TorchBatchNorm(1), v).eval()(torch.from_numpy(x)),
            jm.apply(v, jnp.asarray(x), use_running_average=True))
 
 
