@@ -16,19 +16,30 @@ Phases; any failure exits non-zero without the final ``ok`` line:
    strided views of one (B, L, 3, H*D) tensor, as the QKV projection gives
    them. Times from CUDA events (L2-warm, inputs under 50 MB): the kernel,
    its plain version and ``scaled_dot_product_attention`` as a yardstick.
-3. The main path at full width: ``D2RClassifier`` with
+3. K3 against its plain version the same way, at D2R-large's vision-site
+   geometry (B=32, L=S=257, H=16, D=64, strided QKV views, no bias) and
+   three off-path shapes (L=200, S=333, D=48, B=4, H=8 with a padding bias;
+   L=S=1024, H=16, D=128 at batch 2; L=S=300, H=4, D=256, the widest head,
+   at batch 2 with a bias), max abs error <= 1e-5 in fp32 and <= 4e-3 of
+   max(1, max |ref|) in bf16 (one ulp of outputs in [0.5, 1): tighter than
+   K1's rounding of p to bf16, which K3 does not do); times against SDPA and
+   the bound. Then K3's autograd backward (the plain twin)
+   on the card against the CPU, fp32, B=2 at the 257-token site with a
+   bias: within 1e-5 of max(1, max |grad|).
+4. The main path at full width, D2R-base: ``D2RClassifier`` with
    ``D2RConfig(DR_step=4, max_seq=64, compute_dtype="bfloat16")``
    (BERT-base + CLIP ViT-B/32, 768 wide, 12+1 layers a tower), random
    weights from a seeded ``torch.Generator``, behind
    ``Predictor(batch_buckets=(1, 8, 32))``: warmup, then requests of 1, 3,
    8, 20 and 40 rows (uint8 pixels, made with numpy from a seed), then the
    per-bucket latency. Launch counts are set to 0 just before and read just
-   after: K1 must launch exactly 34 times per bucket-sized forward. Then a
-   torch.profiler trace of 3 forwards at buckets 1 and 32: kernels per
-   forward, device busy time and idle share, K1's share, the top kernels.
-4. The same model in fp32 (TF32 off), batch 2, on the CPU through the plain
+   after: K1 must launch exactly 34 times per bucket-sized forward, K3
+   never. Then a torch.profiler trace of 3 forwards at buckets 1 and 32:
+   kernels per forward, device busy time and idle share, K1's and K3's
+   share, the top kernels.
+5. The same model in fp32 (TF32 off), batch 2, on the CPU through the plain
    path and on the card through the kernel: logits within 1e-3.
-5. Training at full width, ``bench.py``'s recipe: the same D2R-base, batch
+6. Training at full width, ``bench.py``'s recipe: the same D2R-base, batch
    64, bf16 compute, fp32 parameters, AdamW at the reference's four groups
    (``d2r_tpu_torch.train.state``), on a batch made with numpy the way
    ``synthetic_batch`` makes it (PAD ids included): 3 warm-up steps and 10
@@ -38,7 +49,7 @@ Phases; any failure exits non-zero without the final ``ok`` line:
    embedding row got an exactly zero gradient (AdamW's decoupled weight
    decay still shrinks it, as in the reference). Then a torch.profiler
    trace of one step.
-6. One train step of D2R-base in fp32 (TF32 off), batch 2, dropout off
+7. One train step of D2R-base in fp32 (TF32 off), batch 2, dropout off
    through a registered dropout-0 preset, two ill-conditioned spots of the
    random weights moved off (see the phase), on the CPU (plain path) and on the card (K1/K2):
    loss within 1e-4; the gradients of ``fc``, one BERT ``qkv``, one CLIP
@@ -47,6 +58,19 @@ Phases; any failure exits non-zero without the final ``ok`` line:
    BatchNorm running statistics agree too. Beside it, the same step on the
    card with every attention site through the plain versions: the kernels'
    own share of the difference.
+8-11. Phases 4-7 again for D2R-large, the scaled recipe
+   (``tools/perf_sweep.py`` "scaled_large": RoBERTa-large + CLIP ViT-L/14,
+   ``embed_size=hid_IMRC=1024``, 16 IMRC heads, 24+1 layers a tower at
+   widths 1024/4096/16 heads, ``DR_step=4``, ``max_seq=64``; without the
+   recipe's v5e fitting knobs ``scan_layers``, ``remat`` and bf16 Adam
+   moments, which the port refuses). Requests and batches take RoBERTa's
+   ids: ``<s>`` = 0 first, ``<pad>`` = 1 past each length. Per forward, 29
+   sites on K1 (24 + 1 RoBERTa layers, 4 text-branch IMRC cells, L=S=64) and
+   29 on K3 (24 + 1 CLIP-L layers, 4 image-branch IMRC cells, L=S=257):
+   serving must launch each exactly 29 times a bucket forward; training at
+   batch 16 launches K1, K2 and K3 29 times a step, and the PAD row is row
+   1. The fp32 train step card against CPU adds the image-branch IMRC
+   ``sa_qkv`` (K3's path, as the CLIP-L ``qkv`` is) to the leaves.
 
 Phase 2 also holds K1 with dropout (rate 0.1 at the BERT site, 0.5 at the
 CLIP site, batch 64) against its plain version with the same seed (same
@@ -59,8 +83,8 @@ backward through autograd as the yardstick, and K2's bound (bytes of q, k,
 v, g, dq, dk, dv at 3.35 TB/s against 10*B*H*L*S*D operations at the
 type's peak).
 
-It prints one ``kernels`` JSON line (K1 and K2; ``launches`` counts the
-serving and training runs of phases 3 and 5), the card line, and last
+It prints one ``kernels`` JSON line (K1, K2 and K3; ``launches`` counts the
+serving and training runs of both configurations), the card line, and last
 ``{"ok": true, "device": {...}}``. The full report also goes to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -76,15 +100,48 @@ HBM_BYTES_PER_S = 3.35e12                      # H100 SXM
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}  # CUDA-core fp32; dense bf16
 BUCKETS = (1, 8, 32)
 REQUESTS = (1, 3, 8, 20, 40)
-K1_SITES_PER_FORWARD = 34
 # (name, L=S, H, D, key bias): the four K1 geometries of the main path
 K1_SITES = (("bert", 64, 12, 64, True), ("clip", 50, 12, 64, False),
             ("imrc_text", 64, 16, 48, False), ("imrc_image", 50, 16, 48, False))
 K1_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # K2: scaled by max(1, max |ref|), one bf16 ulp at |x| being 2^-8 |x|
 K2_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# K3: in bf16 scaled by max(1, max |ref|) too, one ulp of outputs in
+# [0.5, 1), below the 1e-3 to 4e-3 that rounding p to bf16 (K1's rounding,
+# not K3's) gives at the CLIP-L site
+K3_TOL = {"float32": 1e-5, "bfloat16": 4e-3}
 TRAIN_BATCH = 64
 WARMUP_STEPS, TIMED_STEPS = 3, 10
+# (name, B, L, S, H, D, key bias): K3 at the main-path geometry of D2R-large
+# (CLIP-L layers and image-branch IMRC cells, bucket 32), then three
+# off-path shapes for the loop bounds, the bias and the widest head
+K3_SHAPES = (("clip_l", 32, 257, 257, 16, 64, False),
+             ("ragged_bias", 4, 200, 333, 8, 48, True),
+             ("long_d128", 2, 1024, 1024, 16, 128, False),
+             ("wide_d256", 2, 300, 300, 4, 256, True))
+# The two configurations driven at full width, with their attention sites a
+# forward: K1 at L, S <= 128 (K2 their backward in training), K3 at the
+# 257-token vision sites. D2R-base is the serving and bench recipe
+# (tools/serve_bench.py:66-67, bench.py): BERT-base + CLIP ViT-B/32, 13 BERT
+# + 13 CLIP + 8 IMRC sites. D2R-large is the scaled recipe
+# (tools/perf_sweep.py:88-92, "scaled_large"): RoBERTa-large + CLIP ViT-L/14,
+# 25 RoBERTa + 4 text-branch IMRC sites on K1, 25 CLIP-L + 4 image-branch
+# IMRC sites on K3, without the recipe's v5e fitting knobs (scan_layers,
+# remat, bf16 Adam moments), which the port refuses.
+MODELS = {
+    "base": {"label": "D2R-base", "suffix": "", "tag": "", "k1": 34, "k3": 0,
+             "train_batch": TRAIN_BATCH, "cfg": dict(DR_step=4, max_seq=64)},
+    "large": {"label": "D2R-large", "suffix": "_large", "tag": " large", "k1": 29, "k3": 29,
+              "train_batch": 16,
+              "cfg": dict(bert_name="roberta-large", vit_name="clip-vit-large-patch14",
+                          embed_size=1024, num_head_IMRC=16, hid_IMRC=1024, DR_step=4,
+                          max_seq=64)},
+}
+
+
+def model_config(key, **overrides):
+    from d2r_tpu_torch.config import D2RConfig
+    return D2RConfig(**{**MODELS[key]["cfg"], **overrides})
 
 
 def log(msg):
@@ -310,43 +367,166 @@ def dropout_identity(failures):
     return {"sum_dv": a, "sum_out": b}
 
 
+def k3_inputs(b, l, s, h, d, with_bias, dtype, seed):
+    """q, k, v for K3. At L = S they are strided views of one (B, L, 3, H*D)
+    tensor, as the QKV projection gives them; otherwise q is a view of a
+    (B, L, 2, H*D) tensor and k, v of one (B, S, 2, H*D), strided all the
+    same. The bias is a random padding bias."""
+    import torch
+    from d2r_tpu_torch.ops.attention import padding_key_bias
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if l == s:
+        qkv = torch.randn((b, l, 3, h * d), generator=g, device="cuda").to(dtype)
+        q, k, v = (qkv[:, :, i].view(b, l, h, d) for i in range(3))
+    else:
+        qx = torch.randn((b, l, 2, h * d), generator=g, device="cuda").to(dtype)
+        kv = torch.randn((b, s, 2, h * d), generator=g, device="cuda").to(dtype)
+        q = qx[:, :, 0].view(b, l, h, d)
+        k, v = (kv[:, :, i].view(b, s, h, d) for i in range(2))
+    bias = None
+    if with_bias:
+        lengths = torch.randint(4, s + 1, (b, 1), generator=g, device="cuda")
+        bias = padding_key_bias((torch.arange(s, device="cuda")[None, :] < lengths).int())
+    return q, k, v, bias
+
+
+def phase_k3(report):
+    """K3 against its plain version on the card at the main-path geometry
+    (CLIP-L and image-branch IMRC sites, batch 32) and three off-path
+    shapes, fp32 (TF32 off) and bf16 (error scaled by max(1, max |ref|)); times against SDPA and the bound; the
+    autograd backward (the plain twin) on the card against the CPU."""
+    import torch
+    import torch.nn.functional as F
+    from d2r_tpu_torch.ops.kernels import flash_attention as fl
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rows, failures = [], []
+    for dtype_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dtype_name)
+        for i, (site, b, l, s, h, d, with_bias) in enumerate(K3_SHAPES):
+            q, k, v, bias = k3_inputs(b, l, s, h, d, with_bias, dtype, seed=500 + i)
+            scale = d ** -0.5
+            before = fl.flash_attention.launches
+            out = fl.flash_attention(q, k, v, bias, scale)
+            torch.cuda.synchronize()
+            ref = fl.flash_attention_plain(q, k, v, bias, scale)
+            err = (out.float() - ref.float()).abs().max().item()
+            ref_max = ref.float().abs().max().item()
+            size = max(1.0, ref_max) if dtype == torch.bfloat16 else 1.0
+            if not (err <= K3_TOL[dtype_name] * size and torch.isfinite(out).all().item()
+                    and fl.flash_attention.launches == before + 1):
+                failures.append(f"K3 {site} {dtype_name}: max abs err {err} "
+                                f"(max |ref| {ref_max})")
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            mask = None if bias is None else bias.to(dtype)[:, None, None, :]
+            sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=scale)
+            bound_ms, bound_by = k1_bound(b, l, s, h, d, dtype_name, with_bias)
+            rows.append({
+                "site": site, "dtype": dtype_name, "B": b, "L": l, "S": s, "H": h, "D": d,
+                "bias": with_bias, "max_abs_err": err, "max_abs_ref": ref_max,
+                "sdpa_max_abs_diff": (out.float() - sdpa().transpose(1, 2).float()).abs().max().item(),
+                "ms": cuda_time_ms(lambda: fl.flash_attention(q, k, v, bias, scale), iters=20),
+                "plain_ms": cuda_time_ms(lambda: fl.flash_attention_plain(q, k, v, bias, scale),
+                                         iters=20),
+                "library_ms": cuda_time_ms(sdpa, iters=20),
+                "bound_ms": bound_ms, "bound_by": bound_by})
+            r = rows[-1]
+            log(f"[K3] {site:11s} {dtype_name:8s} B{b} L{l} S{s} H{h} D{d}: err {err:.3g} "
+                f"(max |ref| {ref_max:.3g}; vs sdpa {r['sdpa_max_abs_diff']:.3g}) "
+                f"kernel {r['ms'] * 1e3:.2f} us, "
+                f"plain {r['plain_ms'] * 1e3:.2f} us, sdpa {r['library_ms'] * 1e3:.2f} us, "
+                f"bound {bound_ms * 1e3:.2f} us ({bound_by})")
+    report["k3_sites"] = rows
+
+    # backward: the plain twin through autograd, card against CPU (fp32)
+    _, b, l, s, h, d, _ = K3_SHAPES[0]
+    q, k, v, bias = k3_inputs(2, l, s, h, d, True, torch.float32, seed=600)
+    g = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(601),
+                    device="cuda")
+    errs = {}
+    grads = []
+    for dev in ("cuda", "cpu"):
+        leaves = [x.detach().to(dev).contiguous().requires_grad_() for x in (q, k, v)]
+        out = fl.flash_attention(*leaves, bias.to(dev), d ** -0.5)
+        out.backward(g.to(dev))
+        grads.append([x.grad.cpu() for x in leaves])
+    for name, got, ref in zip(("dq", "dk", "dv"), *grads):
+        errs[name] = (got - ref).abs().max().item() / max(1.0, ref.abs().max().item())
+    report["k3_backward_card_vs_cpu"] = errs
+    log(f"[K3 backward] fp32 B2 L=S={l}, bias: card against CPU, error / max(1, max |ref|): "
+        f"{ {n: float(f'{e:.3g}') for n, e in errs.items()} }")
+    if not max(errs.values()) <= 1e-5:
+        failures.append(f"K3 backward card vs CPU: {errs}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
+def special_ids(tc):
+    """(first-token id, PAD id) of the text tower's vocabulary: RoBERTa's
+    ``<s>`` = 0 and ``<pad>`` = 1; for BERT the ``[CLS]`` = 2 and PAD 0 that
+    ``d2r_tpu/data/dataset.py::synthetic_batch`` draws."""
+    return (0 if tc.position_style == "roberta" else 2), tc.pad_token_id
+
+
 def make_requests(cfg, seed=0):
     import numpy as np
     rng = np.random.default_rng(seed)
     tc, vc = cfg.text_config(), cfg.vision_config()
+    first, pad = special_ids(tc)
     out = []
     for n in REQUESTS:
         lengths = rng.integers(4, cfg.max_seq + 1, size=n)
         mask = (np.arange(cfg.max_seq)[None, :] < lengths[:, None]).astype(np.int32)
-        ids = rng.integers(5, tc.vocab_size, size=(n, cfg.max_seq)).astype(np.int32) * mask
-        ids[:, 0] = 2
+        ids = rng.integers(5, tc.vocab_size, size=(n, cfg.max_seq)).astype(np.int32)
+        ids = np.where(mask == 1, ids, pad).astype(np.int32)
+        ids[:, 0] = first
         pixels = rng.integers(0, 256, size=(n, 3, vc.image_size, vc.image_size)).astype(np.uint8)
         out.append((ids, mask, np.zeros_like(ids), pixels))
     return out
 
 
-def phase_main_path(report):
+def counters():
+    """The launch counters of the kernels whose launches a forward makes."""
+    from d2r_tpu_torch.ops.kernels import flash_attention as fl
+    from d2r_tpu_torch.ops.kernels import fused_attention as fa
+    return {"k1": fa.fused_attention_small, "k2": fa.fused_attention_small_bwd,
+            "k3": fl.flash_attention}
+
+
+def zero_counts():
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in counters().items()}
+
+
+def phase_main_path(report, key="base"):
+    """Serving at full width through ``Predictor``: warmup, requests, the
+    launch counts, per-bucket latency, and a profile at buckets 1 and 32."""
     import numpy as np
     import torch
-    from d2r_tpu_torch.config import D2RConfig
     from d2r_tpu_torch.models.unimo import build_model
-    from d2r_tpu_torch.ops.kernels import fused_attention as fa
     from d2r_tpu_torch.serve import Predictor
 
-    cfg = D2RConfig(DR_step=4, max_seq=64, compute_dtype="bfloat16")
+    spec = MODELS[key]
+    tag = f"[main{spec['tag']}]"
+    cfg = model_config(key, compute_dtype="bfloat16")
     t0 = time.perf_counter()
     model = build_model(cfg, device="cuda", seed=0)
     pred = Predictor(cfg, model, batch_buckets=BUCKETS, device="cuda")
-    log(f"[main] D2R-base bf16 built in {time.perf_counter() - t0:.1f} s "
-        f"({sum(p.numel() for p in model.parameters()) / 1e6:.1f} M parameters)")
+    params = sum(p.numel() for p in model.parameters())
+    log(f"{tag} {spec['label']} bf16 built in {time.perf_counter() - t0:.1f} s "
+        f"({params / 1e6:.1f} M parameters)")
     requests = make_requests(cfg)
 
-    fa.fused_attention_small.launches = 0
+    zero_counts()
     forwards = 0
     t0 = time.perf_counter()
     pred.warmup()
     forwards += len(BUCKETS)
-    log(f"[main] warmup of buckets {BUCKETS}: {time.perf_counter() - t0:.1f} s")
+    log(f"{tag} warmup of buckets {BUCKETS}: {time.perf_counter() - t0:.1f} s")
     for ids, mask, tt, pixels in requests:
         n = ids.shape[0]
         out = pred.predict(ids, mask, tt, pixels)
@@ -356,7 +536,7 @@ def phase_main_path(report):
         assert out["label"].shape == (n,), out["label"].shape
         assert np.isfinite(probs).all(), "non-finite probabilities"
         assert np.abs(probs.sum(-1) - 1.0).max() <= 1e-3, probs.sum(-1)
-        log(f"[main] request of {n:2d} rows: labels {np.bincount(out['label'], minlength=3).tolist()}, "
+        log(f"{tag} request of {n:2d} rows: labels {np.bincount(out['label'], minlength=3).tolist()}, "
             f"max prob {probs.max():.4f}")
 
     latency = {}
@@ -384,21 +564,26 @@ def phase_main_path(report):
         forwards += 5
         latency[b] = {"forward_ms_median": float(np.median(ms)), "forward_ms": ms,
                       "predict_ms_median": float(np.median(e2e))}
-        log(f"[main] bucket {b:2d}: forward {np.median(ms):.2f} ms (CUDA events, median of 7), "
+        log(f"{tag} bucket {b:2d}: forward {np.median(ms):.2f} ms (CUDA events, median of 7), "
             f"predict {np.median(e2e):.2f} ms (host clock, median of 5)")
-    launches = fa.fused_attention_small.launches
-    report["main"] = {"forwards": forwards, "k1_launches": launches, "latency": latency}
-    log(f"[main] K1 launches {launches} over {forwards} forwards")
-    assert launches == K1_SITES_PER_FORWARD * forwards, (
-        f"K1 launched {launches} times, expected {K1_SITES_PER_FORWARD} x {forwards}")
+    launches = read_counts()
+    report["main" + spec["suffix"]] = {
+        "config": spec["label"], "parameters": params, "forwards": forwards,
+        "k1_launches": launches["k1"], "k3_launches": launches["k3"], "latency": latency}
+    log(f"{tag} K1 launches {launches['k1']}, K3 launches {launches['k3']} over "
+        f"{forwards} forwards")
+    for name in ("k1", "k3"):
+        want = spec[name] * forwards
+        assert launches[name] == want, (
+            f"{name.upper()} launched {launches[name]} times, expected {spec[name]} x {forwards}")
 
     for b in (1, BUCKETS[-1]):
         ids, mask, tt, _ = requests[-1]
         args = [torch.from_numpy(x[:b]).cuda() for x in (ids, mask, tt)]
         args.append(torch.randint(0, 256, (b, 3, vc.image_size, vc.image_size),
                                   dtype=torch.uint8, device="cuda"))
-        report["main"][f"profile_b{b}"] = prof = profile_forwards(pred, args)
-        log(f"[profile] bucket {b:2d}: " + json.dumps(prof))
+        report["main" + spec["suffix"]][f"profile_b{b}"] = prof = profile_forwards(pred, args)
+        log(f"[profile{spec['tag']}] bucket {b:2d}: " + json.dumps(prof))
     return launches
 
 
@@ -437,55 +622,63 @@ def device_profile(fn, n, unit):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     k1 = sum(v for k, v in by_name.items() if "fused_attention_fwd" in k)
     k2 = sum(v for k, v in by_name.items() if "fused_attention_bwd" in k)
+    k3 = sum(v for k, v in by_name.items() if "flash_attention_fwd" in k)
     return {f"{unit}s": n, f"kernels_per_{unit}": len(spans) / n,
             f"window_ms_per_{unit}": window / n / 1e3,
             f"device_busy_ms_per_{unit}": busy / n / 1e3,
             "device_idle_share": 1.0 - busy / window,
             f"k1_ms_per_{unit}": k1 / n / 1e3, f"k2_ms_per_{unit}": k2 / n / 1e3,
+            f"k3_ms_per_{unit}": k3 / n / 1e3,
             f"top_kernels_ms_per_{unit}": {k[:60]: v / n / 1e3 for k, v in top}}
 
 
-def phase_card_vs_cpu(report):
+def phase_card_vs_cpu(report, key="base"):
+    """The model in fp32 (TF32 off), batch 2, on the CPU through the plain
+    versions and on the card through the kernels: logits within 1e-3."""
     import copy
     import numpy as np
     import torch
-    from d2r_tpu_torch.config import D2RConfig
     from d2r_tpu_torch.models.unimo import build_model
-    from d2r_tpu_torch.ops.kernels import fused_attention as fa
 
+    spec = MODELS[key]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = D2RConfig(DR_step=4, max_seq=64, compute_dtype="float32")
+    cfg = model_config(key, compute_dtype="float32")
     cpu_model = build_model(cfg, device="cpu", seed=1)
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
     ids, mask, tt, pixels = (x[:2] for x in make_requests(cfg, seed=7)[1])
     args = [torch.from_numpy(x) for x in (ids, mask, tt, np.zeros(2, np.int64), pixels)]
-    before = fa.fused_attention_small.launches
     with torch.inference_mode():
         _, cpu_logits, cpu_aux = cpu_model(*args)
+        zero_counts()
         _, gpu_logits, gpu_aux = gpu_model(*(a.cuda() for a in args))
-    launched = fa.fused_attention_small.launches - before
+        launched = read_counts()
     err = (gpu_logits.cpu() - cpu_logits).abs().max().item()
     js_err = abs(gpu_aux["js_loss"].item() - cpu_aux["js_loss"].item())
-    report["card_vs_cpu"] = {"logits_max_abs_err": err, "js_loss_abs_err": js_err,
-                             "k1_launches": launched}
-    log(f"[cpu-vs-card] fp32 D2R-base batch 2: logits max abs err {err:.3g}, "
-        f"js_loss err {js_err:.3g}, K1 launches on the card {launched}")
-    assert launched == K1_SITES_PER_FORWARD, launched
+    report["card_vs_cpu" + spec["suffix"]] = {
+        "logits_max_abs_err": err, "js_loss_abs_err": js_err,
+        "k1_launches": launched["k1"], "k3_launches": launched["k3"]}
+    log(f"[cpu-vs-card{spec['tag']}] fp32 {spec['label']} batch 2: logits max abs err "
+        f"{err:.3g}, js_loss err {js_err:.3g}, K1 / K3 launches on the card "
+        f"{launched['k1']} / {launched['k3']}")
+    assert (launched["k1"], launched["k3"]) == (spec["k1"], spec["k3"]), launched
     assert torch.isfinite(cpu_logits).all() and err <= 1e-3, err
 
 
-def synthetic_batch(batch_size, max_seq, image_size, vocab_size, seed, num_classes=3):
+def synthetic_batch(batch_size, max_seq, image_size, vocab_size, seed, num_classes=3,
+                    first_id=2, pad_id=0):
     """``d2r_tpu/data/dataset.py::synthetic_batch``'s draws, in its order:
-    random lengths (ids past them are PAD, id 0), [CLS] first, random
-    labels, normal pixels."""
+    random lengths (ids past them are ``pad_id``), ``first_id`` first,
+    random labels, normal pixels. The JAX function pads with 0 and starts
+    with 2 whatever the tokenizer; RoBERTa batches here take ``<s>`` = 0 and
+    ``<pad>`` = 1 instead (:func:`special_ids`)."""
     import numpy as np
     rng = np.random.default_rng(seed)
     lengths = rng.integers(4, max_seq + 1, size=batch_size)
     input_ids = rng.integers(5, vocab_size, size=(batch_size, max_seq)).astype(np.int32)
     attention_mask = (np.arange(max_seq)[None, :] < lengths[:, None]).astype(np.int32)
-    input_ids *= attention_mask
-    input_ids[:, 0] = 2
+    input_ids = np.where(attention_mask == 1, input_ids, pad_id).astype(np.int32)
+    input_ids[:, 0] = first_id
     return {"input_ids": input_ids, "attention_mask": attention_mask,
             "token_type_ids": np.zeros((batch_size, max_seq), np.int32),
             "labels": rng.integers(0, num_classes, size=batch_size).astype(np.int32),
@@ -493,30 +686,40 @@ def synthetic_batch(batch_size, max_seq, image_size, vocab_size, seed, num_class
                                        ).astype(np.float32)}
 
 
-def phase_train(report):
-    """D2R-base at bench.py's recipe on the card: warm-up, timed steps, the
-    launch counts, what moved, one profiled step."""
+def model_batch(cfg, batch_size, seed):
+    """:func:`synthetic_batch` with the special ids of ``cfg``'s text tower."""
+    tc = cfg.text_config()
+    first, pad = special_ids(tc)
+    return synthetic_batch(batch_size, cfg.max_seq, cfg.vision_config().image_size,
+                           tc.vocab_size, seed, first_id=first, pad_id=pad)
+
+
+def phase_train(report, key="base"):
+    """Training at full width on the card (bf16 compute, fp32 parameters,
+    4-group AdamW): warm-up, timed steps, the launch counts, what moved, one
+    profiled step."""
     import numpy as np
     import torch
-    from d2r_tpu_torch.config import D2RConfig
     from d2r_tpu_torch.ops.kernels import fused_attention as fa
     from d2r_tpu_torch.train.state import create_train_state, make_train_step
 
-    cfg = D2RConfig(DR_step=4, max_seq=64, batch_size=TRAIN_BATCH, compute_dtype="bfloat16")
+    spec = MODELS[key]
+    tag, batch_size = f"[train{spec['tag']}]", spec["train_batch"]
+    cfg = model_config(key, batch_size=batch_size, compute_dtype="bfloat16")
+    pad = cfg.text_config().pad_token_id
     t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
     state = create_train_state(cfg, total_steps=1000, device="cuda", seed=0)
     model = state.model
-    vc = cfg.vision_config()
-    batch = {k: torch.from_numpy(v).cuda() for k, v in synthetic_batch(
-        TRAIN_BATCH, cfg.max_seq, vc.image_size, cfg.text_config().vocab_size, seed=0).items()}
+    batch = {k: torch.from_numpy(v).cuda() for k, v in model_batch(cfg, batch_size, 0).items()}
     initial = {n: p.detach().clone() for n, p in model.named_parameters()}
     initial.update({n: b.detach().clone() for n, b in model.named_buffers() if "running" in n})
-    log(f"[train] D2R-base, batch {TRAIN_BATCH}, bf16 compute, fp32 parameters: state "
+    log(f"{tag} {spec['label']}, batch {batch_size}, bf16 compute, fp32 parameters: state "
         f"built in {time.perf_counter() - t0:.1f} s; "
-        f"{int((batch['input_ids'] == 0).sum())} PAD ids in the batch")
+        f"{int((batch['input_ids'] == pad).sum())} PAD ids (id {pad}) in the batch")
     step = make_train_step()
 
-    fa.fused_attention_small.launches = fa.fused_attention_small_bwd.launches = 0
+    zero_counts()
     losses, step_ms = [], []
     t0 = time.perf_counter()
     for i in range(WARMUP_STEPS + TIMED_STEPS):
@@ -530,42 +733,45 @@ def phase_train(report):
             step_ms.append(start.elapsed_time(end))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    k1, k2 = fa.fused_attention_small.launches, fa.fused_attention_small_bwd.launches
+    launches = read_counts()
     steps = WARMUP_STEPS + TIMED_STEPS
     losses = [float(x) for x in losses]
     med = float(np.median(step_ms))
-    out = {"batch": TRAIN_BATCH, "steps": steps, "k1_launches": k1, "k2_launches": k2,
+    out = {"config": spec["label"], "batch": batch_size, "steps": steps,
+           "k1_launches": launches["k1"], "k2_launches": launches["k2"],
+           "k3_launches": launches["k3"],
            "losses": losses, "step_ms": step_ms, "step_ms_median": med,
-           "samples_per_s": TRAIN_BATCH / (med / 1e3), "wall_s": wall,
+           "samples_per_s": batch_size / (med / 1e3), "wall_s": wall,
            "g_copies": fa.fused_attention_small_bwd.g_copies,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-    report["train"] = out
-    log(f"[train] {steps} steps: K1 {k1} and K2 {k2} launches; losses "
-        f"{[round(x, 4) for x in losses]}")
-    log(f"[train] step {med:.2f} ms (CUDA events, median of {TIMED_STEPS}), "
+    report["train" + spec["suffix"]] = out
+    log(f"{tag} {steps} steps: K1 {launches['k1']}, K2 {launches['k2']} and K3 "
+        f"{launches['k3']} launches; losses {[round(x, 4) for x in losses]}")
+    log(f"{tag} step {med:.2f} ms (CUDA events, median of {TIMED_STEPS}), "
         f"{out['samples_per_s']:.1f} samples/s, peak memory {out['peak_mem_gb']:.1f} GB")
-    assert k1 == K1_SITES_PER_FORWARD * steps, f"K1 launched {k1}, expected 34 x {steps}"
-    assert k2 == K1_SITES_PER_FORWARD * steps, f"K2 launched {k2}, expected 34 x {steps}"
+    for name, per_step in (("k1", spec["k1"]), ("k2", spec["k1"]), ("k3", spec["k3"])):
+        assert launches[name] == per_step * steps, (
+            f"{name.upper()} launched {launches[name]}, expected {per_step} x {steps}")
     assert all(math.isfinite(x) for x in losses), losses
 
     still = [n for n, p in list(model.named_parameters()) + list(model.named_buffers())
              if n in initial and torch.equal(p, initial[n])]
-    pad_grad = model.model.text_embeddings.word_embeddings.weight.grad[0]
+    pad_grad = model.model.text_embeddings.word_embeddings.weight.grad[pad]
     out["unchanged"] = still
     out["pad_row_grad_max"] = pad_grad.abs().max().item()
-    log(f"[train] unchanged parameters and BatchNorm buffers: {still}; PAD row grad "
+    log(f"{tag} unchanged parameters and BatchNorm buffers: {still}; PAD row {pad} grad "
         f"max |g| {out['pad_row_grad_max']}")
     assert not still, f"did not move: {still}"
     assert out["pad_row_grad_max"] == 0.0
 
     out["profile"] = prof = device_profile(lambda: step(state, batch, 1), 1, "step")
-    log("[profile] train step: " + json.dumps(prof))
-    return k1, k2
+    log(f"[profile{spec['tag']}] train step: " + json.dumps(prof))
+    return launches
 
 
-def phase_train_card_vs_cpu(report):
-    """One fp32 train step of D2R-base, batch 2, dropout off, on the CPU
-    (plain path) and on the card (K1/K2)."""
+def phase_train_card_vs_cpu(report, key="base"):
+    """One fp32 train step, batch 2, dropout off, on the CPU (plain path)
+    and on the card (the kernels)."""
     import copy
     import dataclasses
     import torch
@@ -573,16 +779,19 @@ def phase_train_card_vs_cpu(report):
     from d2r_tpu_torch.models.unimo import build_model
     from d2r_tpu_torch.models.xmodules import CrossModalAlignment
     from d2r_tpu_torch.ops import attention as tattn
+    from d2r_tpu_torch.ops.kernels import flash_attention as fl
     from d2r_tpu_torch.ops.kernels import fused_attention as fa
     from d2r_tpu_torch.train.state import create_train_state, make_train_step
 
+    spec = MODELS[key]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    tc = dataclasses.replace(tconfig.bert_base_config(), hidden_dropout_prob=0.0,
+    base = model_config(key)
+    tc = dataclasses.replace(base.text_config(), hidden_dropout_prob=0.0,
                              attention_probs_dropout_prob=0.0)
-    tconfig.register_text_preset("bert-base-uncased-dropout-0", lambda: tc)
-    cfg = tconfig.D2RConfig(DR_step=4, max_seq=64, compute_dtype="float32", warmup_ratio=0.0,
-                            bert_name="bert-base-uncased-dropout-0")
+    name = f"{base.bert_name}-dropout-0"
+    tconfig.register_text_preset(name, lambda: tc)
+    cfg = model_config(key, compute_dtype="float32", warmup_ratio=0.0, bert_name=name)
     cpu_model = build_model(cfg, device="cpu", seed=1)
     # Two spots where the model itself turns fp32 rounding into gradient
     # noise, moved off for this check. BLOCK fusion's merge biases go to
@@ -603,35 +812,38 @@ def phase_train_card_vs_cpu(report):
     gpu = create_train_state(cfg, 100, device="cuda", model=copy.deepcopy(cpu_model))
     plain = create_train_state(cfg, 100, device="cuda", model=copy.deepcopy(cpu_model))
     cpu = create_train_state(cfg, 100, device="cpu", model=cpu_model)
-    batch = synthetic_batch(2, cfg.max_seq, cfg.vision_config().image_size,
-                            cfg.text_config().vocab_size, seed=7)
+    batch = model_batch(cfg, 2, seed=7)
     step = make_train_step()
-    before = (fa.fused_attention_small.launches, fa.fused_attention_small_bwd.launches)
+    zero_counts()
     gpu, gm = step(gpu, batch, 0)
     torch.cuda.synchronize()
-    launched = (fa.fused_attention_small.launches - before[0],
-                fa.fused_attention_small_bwd.launches - before[1])
+    counts = read_counts()
+    launched = (counts["k1"], counts["k2"], counts["k3"])
     t0 = time.perf_counter()
     cpu, cm = step(cpu, batch, 0)
     cpu_s = time.perf_counter() - t0
     # the kernels' own share of the difference: the same step on the card
     # with every attention site through the plain versions (autograd)
-    dispatch = tattn.fused_attention_small
+    dispatch = (tattn.fused_attention_small, tattn.flash_attention)
     tattn.fused_attention_small = (lambda q, k, v, bias, scale, rate=0.0, seed=None:
                                    fa.fused_attention_small_plain(q, k, v, bias, scale, rate, seed))
+    tattn.flash_attention = fl.flash_attention_plain
     try:
         plain, _ = step(plain, batch, 0)
     finally:
-        tattn.fused_attention_small = dispatch
+        tattn.fused_attention_small, tattn.flash_attention = dispatch
     pp = dict(plain.model.named_parameters())
     loss_err = abs(gm["loss"].item() - cm["loss"].item())
     leaves = ("fc.weight", "model.encoder_text_layers.layer_0.attention_self.qkv.weight",
               "model.encoder_vision_layers.layer_0.self_attn.qkv.weight",
               "model.itr_module.dynamic_itr_l0.imrc.sa_qkv.weight",
               "model.itr_module.dynamic_itr_l0.glac.saf.bn.weight")
+    if spec["k3"]:   # the image-branch IMRC cell: K3's path at D2R-large
+        leaves += ("model.Reversed_itr_module.dynamic_itr_l0.imrc.sa_qkv.weight",)
     gp, cp = dict(gpu.model.named_parameters()), dict(cpu.model.named_parameters())
-    out = {"loss_abs_err": loss_err, "launches": launched, "cpu_step_s": cpu_s, "leaves": {}}
-    ok = loss_err <= 1e-4 and launched == (K1_SITES_PER_FORWARD,) * 2
+    out = {"config": spec["label"], "loss_abs_err": loss_err, "launches": launched,
+           "cpu_step_s": cpu_s, "leaves": {}}
+    ok = loss_err <= 1e-4 and launched == (spec["k1"], spec["k1"], spec["k3"])
     for name in leaves:
         ref, got = cp[name].grad, gp[name].grad.cpu()
         rel = ((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30)).item()
@@ -651,13 +863,13 @@ def phase_train_card_vs_cpu(report):
     out["running_stats_max_abs_err"] = max(
         (gb[n].cpu() - cb[n]).abs().max().item() for n in cb if "running" in n)
     ok = ok and out["running_stats_max_abs_err"] <= 1e-4
-    report["train_card_vs_cpu"] = out
-    log(f"[train cpu-vs-card] fp32 D2R-base batch 2, dropout off: loss err {loss_err:.3g}, "
-        f"launches K1/K2 {launched}, running stats err {out['running_stats_max_abs_err']:.3g}, "
-        f"CPU step {cpu_s:.1f} s")
+    report["train_card_vs_cpu" + spec["suffix"]] = out
+    log(f"[train cpu-vs-card{spec['tag']}] fp32 {spec['label']} batch 2, dropout off: loss err "
+        f"{loss_err:.3g}, launches K1/K2/K3 {launched}, running stats err "
+        f"{out['running_stats_max_abs_err']:.3g}, CPU step {cpu_s:.1f} s")
     for name, r in out["leaves"].items():
-        log(f"[train cpu-vs-card]   {name}: grad rel err {r['grad_rel_err']:.3g} "
-            f"(card, K1/K2 against plain attention: "
+        log(f"[train cpu-vs-card{spec['tag']}]   {name}: grad rel err {r['grad_rel_err']:.3g} "
+            f"(card, kernels against plain attention: "
             f"{r['kernels_vs_plain_on_card_rel_err']:.3g}), "
             f"param max diff {r['param_max_abs_diff']:.3g} (lr {r['lr']:.3g}), "
             f"share beyond 1e-3 lr {r['param_share_beyond_1e-3_lr']:.2e}")
@@ -673,11 +885,16 @@ def main():
 
     report = {"card": card_line()}
     log(f"[card] {report['card']}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    phases = [("build", phase_build), ("kernels", phase_kernels),
-              ("main_path", phase_main_path), ("card_vs_cpu", phase_card_vs_cpu),
-              ("train", phase_train), ("train_card_vs_cpu", phase_train_card_vs_cpu)]
+    paths = {}   # launch counts of each path's run, by phase
+    phases = [("build", phase_build), ("kernels", phase_kernels), ("k3", phase_k3)]
+    for key in MODELS:
+        suffix = MODELS[key]["suffix"]
+        phases += [("main_path" + suffix, lambda r, k=key: phase_main_path(r, k)),
+                   ("card_vs_cpu" + suffix, lambda r, k=key: phase_card_vs_cpu(r, k)),
+                   ("train" + suffix, lambda r, k=key: phase_train(r, k)),
+                   ("train_card_vs_cpu" + suffix,
+                    lambda r, k=key: phase_train_card_vs_cpu(r, k))]
     failed = []
-    main_launches = train_launches = None
     for name, fn in phases:
         t0 = time.perf_counter()
         try:
@@ -688,10 +905,9 @@ def main():
             if name == "build":
                 break
             continue
-        if name == "main_path":
-            main_launches = got
-        if name == "train":
-            train_launches = got
+        if name.startswith(("main_path", "train")) and "card_vs_cpu" not in name:
+            paths[name] = got
+        report.setdefault("phase_s", {})[name] = time.perf_counter() - t0
         log(f"[{name}] ok in {time.perf_counter() - t0:.1f} s")
 
     os.makedirs("chiprun_out", exist_ok=True)
@@ -702,22 +918,31 @@ def main():
         return 1
 
     # times at the most frequent site of each path (K1: serving, B=32, rate 0;
-    # K2: training, B=64, rate 0.1); the error over every check of the kernel
+    # K2: training, B=64, rate 0.1; K3: the CLIP-L site, B=32); the error
+    # over every check of the kernel; launches over every serving and
+    # training run
     k1 = next(r for r in report["k1_sites"] if r["site"] == "bert" and r["dtype"] == "bfloat16")
     k2 = next(r for r in report["k2_sites"]
               if r["site"] == "bert" and r["dtype"] == "bfloat16" and r["rate"] > 0)
+    k3 = next(r for r in report["k3_sites"] if r["site"] == "clip_l" and r["dtype"] == "bfloat16")
     k1_err = max(r["max_abs_err"] for r in report["k1_sites"] + report["k1_dropout"])
+    launches = {n: sum(c[n] for c in paths.values()) for n in ("k1", "k2", "k3")}
     row = lambda r: {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     print(json.dumps({"kernels": [
         {"name": "fused_attention_fwd", "route": "cuda",
          "source": "d2r_tpu_torch/csrc/fused_attention_fwd.cu",
          "replaces": "d2r_tpu/ops/kernels/fused_attention.py:65",
-         "launches": main_launches + train_launches[0], "max_abs_err": k1_err, **row(k1)},
+         "launches": launches["k1"], "max_abs_err": k1_err, **row(k1)},
         {"name": "fused_attention_bwd", "route": "cuda",
          "source": "d2r_tpu_torch/csrc/fused_attention_bwd.cu",
          "replaces": "d2r_tpu/ops/kernels/fused_attention.py:101",
-         "launches": train_launches[1],
-         "max_abs_err": max(r["max_abs_err"] for r in report["k2_sites"]), **row(k2)}]}))
+         "launches": launches["k2"],
+         "max_abs_err": max(r["max_abs_err"] for r in report["k2_sites"]), **row(k2)},
+        {"name": "flash_attention_fwd", "route": "cuda",
+         "source": "d2r_tpu_torch/csrc/flash_attention_fwd.cu",
+         "replaces": "d2r_tpu/ops/kernels/flash_attention.py:37",
+         "launches": launches["k3"],
+         "max_abs_err": max(r["max_abs_err"] for r in report["k3_sites"]), **row(k3)}]}))
     print(report["card"])
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -36,8 +36,8 @@ class TextEncoderConfig:
     type_vocab_size: int = 2
     layer_norm_eps: float = 1e-12
     pad_token_id: int = 0
-    # "absolute" (BERT) or "roberta" (HF RoBERTa position ids); the port
-    # implements "absolute" only so far.
+    # "absolute" (BERT) or "roberta" (HF RoBERTa position ids, derived from
+    # the attention mask; rows 0..pad_token_id reserved)
     position_style: str = "absolute"
 
     @property
@@ -298,8 +298,6 @@ class D2RConfig:
             bad.append("use_sentic_graph=True")
         if self.alpha != 0.0:
             bad.append(f"alpha={self.alpha}")
-        if self.text_config().position_style != "absolute":
-            bad.append(f"position_style={self.text_config().position_style!r}")
         # training knobs: rematerialisation and scanned layers are JAX
         # program transforms with no counterpart here yet; bf16 Adam moments
         # would change the update

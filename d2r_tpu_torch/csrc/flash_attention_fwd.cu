@@ -1,0 +1,283 @@
+// Long-context attention, forward (K3), for Hopper (sm_90a).
+//
+// Replaces d2r_tpu/ops/kernels/flash_attention.py::_attention_kernel. Per
+// (batch b, head h), for every query row i, over the keys j < S in tiles:
+//
+//   qs[:]  = q[b,i,h,:] * scale                          (fp32, :48)
+//   s[j]   = qs . k[b,j,h,:] + bias[b,j]                 (fp32)
+//   m      = max(m_prev, max_j s[j]), m starting at -1e30
+//   p[j]   = exp(s[j] - m); c = exp(m_prev - m)          (fp32)
+//   l      = l * c + sum_j p[j]
+//   acc    = acc * c + sum_j p[j] * v[b,j,h,:]           (p stays fp32, :65)
+//   out[b,i,h,:] = acc / l, cast once to the input type  (:73)
+//
+// for any L, S >= 1 and D <= 256, fp32 or bf16, with the additive (B,S)
+// fp32 key bias or none. No dropout (the JAX dispatch sends dropout
+// elsewhere). Keys past S are not padded but absent: loop bounds stop at S.
+//
+// What bounds it on the H100: at the vision sites of D2R-large (L = S = 257,
+// D = 64) it does 4*L*S*D operations per (b,h) against 2*(L+2S)*D bytes in
+// bf16, about 86 operations a byte. In bf16 that is under the tensor cores'
+// ridge (~295), so the bound is bytes; in fp32 on the CUDA cores (~20 a
+// byte) it is operations. This first version runs every product on the
+// CUDA cores in fp32, so operations and shared-memory traffic bound it; a
+// tensor-core (wgmma) version with a TMA ring is later work.
+//
+// Layout: q is (B,L,H,D), k and v (B,S,H,D), with the head stride D and
+// the element stride 1 but any batch and row stride, so the strided views
+// of the fused QKV projection are read without copies. out is a contiguous
+// (B,L,H,D).
+//
+// Grid: (ceil(L / 32) query tiles, H, B), 8 warps a block, 4 query rows a
+// warp. Each block stages its 32 query rows once (scaled, fp32) and then
+// walks the keys in tiles of 64, staged in shared memory as fp32: K
+// transposed to [d][j] with rows of 65 floats, so the 32 lanes, each
+// scoring its own keys, read 32 different banks; V as [j][d], lanes owning
+// columns. A warp scores its 4 rows at once, so each K value read from
+// shared memory feeds 4 products and each q read is one 16-byte broadcast;
+// p goes through a per-warp row of shared memory to the p.V products.
+// The staged tiles take 48.25 KiB at D = 64, 88.5 KiB at D = 128 and
+// 169 KiB at D = 256, so the launch raises the dynamic shared-memory limit
+// past 48 KiB.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <math.h>
+
+namespace {
+
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kRowsPerWarp = 4;
+constexpr int kRowsPerBlock = kWarps * kRowsPerWarp;  // 32
+constexpr int kTileK = 64;                            // keys a tile: 2 a lane
+constexpr int kLdK = kTileK + 1;                      // K^T row, padded
+constexpr int kMaxDim = 256;
+constexpr float kNegInit = -1e30f;                    // flash_attention.py:34
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);  // round to nearest even, as XLA's astype
+}
+
+__device__ __forceinline__ float lane_of(const float4& x, int i) {
+  return i == 0 ? x.x : i == 1 ? x.y : i == 2 ? x.z : x.w;
+}
+
+// NT = ceil(D / 32): the columns a lane owns in p.V (d = lane + 32 t).
+template <typename T, int NT>
+__global__ void __launch_bounds__(kThreads)
+flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, const float* __restrict__ bias,
+                           T* __restrict__ out, int L, int S, int H, int D,
+                           long long q_bs, long long q_rs, long long k_bs,
+                           long long k_rs, long long v_bs, long long v_rs,
+                           float scale) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int dp = (D + 3) & ~3;               // q rows and K^T rows padded to 4
+  float* qs = smem;                          // [kRowsPerBlock][dp]
+  float* kt = qs + kRowsPerBlock * dp;       // [dp][kLdK]
+  float* vs = kt + dp * kLdK;                // [kTileK][D]
+  float* ps = vs + kTileK * D;               // [kWarps][kRowsPerWarp][kTileK]
+
+  const int h = blockIdx.y;
+  const long long b = blockIdx.z;
+  const int row0 = blockIdx.x * kRowsPerBlock;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+
+  // Stage the block's query rows, scaled; rows past L and columns past D
+  // are zero, so they add nothing to a score.
+  const T* qb = q + b * q_bs + (long long)h * D;
+  for (int i = tid; i < kRowsPerBlock * dp; i += kThreads) {
+    const int r = i / dp;
+    const int d = i - r * dp;
+    const int row = row0 + r;
+    qs[i] = (row < L && d < D) ? to_float(qb[row * q_rs + d]) * scale : 0.f;
+  }
+  // K^T rows past D stay zero for every tile (uninitialised shared memory
+  // could hold a NaN pattern, and 0 * NaN is NaN).
+  for (int i = D * kLdK + tid; i < dp * kLdK; i += kThreads) kt[i] = 0.f;
+
+  float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][NT];
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+    m[r] = kNegInit;
+    l[r] = 0.f;  // this lane's share of the row sum
+#pragma unroll
+    for (int t = 0; t < NT; ++t) acc[r][t] = 0.f;
+  }
+
+  const T* kb = k + b * k_bs + (long long)h * D;
+  const T* vb = v + b * v_bs + (long long)h * D;
+  const float* bb = bias == nullptr ? nullptr : bias + b * S;
+  const float4* qw = reinterpret_cast<const float4*>(qs + warp * kRowsPerWarp * dp);
+  float* pw = ps + warp * kRowsPerWarp * kTileK;
+
+  for (int j0 = 0; j0 < S; j0 += kTileK) {
+    const int nk = min(kTileK, S - j0);
+    __syncthreads();  // the previous tile is no longer read (and qs is staged)
+    for (int i = tid; i < kTileK * D; i += kThreads) {
+      const int j = i / D;
+      const int d = i - j * D;
+      float kv = 0.f, vv = 0.f;  // keys past S: zero, so p.V meets no NaN
+      if (j < nk) {
+        kv = to_float(kb[(long long)(j0 + j) * k_rs + d]);
+        vv = to_float(vb[(long long)(j0 + j) * v_rs + d]);
+      }
+      kt[d * kLdK + j] = kv;
+      vs[i] = vv;
+    }
+    __syncthreads();
+
+    // Scores: lane owns keys lane and lane + 32 of the tile, for 4 rows.
+    float s[kRowsPerWarp][2];
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) s[r][0] = s[r][1] = 0.f;
+    for (int d4 = 0; d4 < dp / 4; ++d4) {
+      float4 qv[kRowsPerWarp];
+#pragma unroll
+      for (int r = 0; r < kRowsPerWarp; ++r) qv[r] = qw[r * (dp / 4) + d4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float* kr = kt + (4 * d4 + e) * kLdK;
+        const float k0 = kr[lane];
+        const float k1 = kr[lane + 32];
+#pragma unroll
+        for (int r = 0; r < kRowsPerWarp; ++r) {
+          const float qd = lane_of(qv[r], e);
+          s[r][0] = fmaf(qd, k0, s[r][0]);
+          s[r][1] = fmaf(qd, k1, s[r][1]);
+        }
+      }
+    }
+    const bool in0 = lane < nk, in1 = lane + 32 < nk;
+    const float b0 = (bb != nullptr && in0) ? bb[j0 + lane] : 0.f;
+    const float b1 = (bb != nullptr && in1) ? bb[j0 + lane + 32] : 0.f;
+
+    // Online softmax, one row at a time; the max is warp-wide, the sum stays
+    // per lane until the end (the correction factor is the same on every
+    // lane, so the lanes' partial sums rescale like the whole).
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+      const float s0 = in0 ? s[r][0] + b0 : -INFINITY;
+      const float s1 = in1 ? s[r][1] + b1 : -INFINITY;
+      float mt = fmaxf(s0, s1);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, o));
+      const float m_new = fmaxf(m[r], mt);
+      const float c = expf(m[r] - m_new);
+      const float p0 = expf(s0 - m_new);  // exp(-inf) = 0 for absent keys
+      const float p1 = expf(s1 - m_new);
+      m[r] = m_new;
+      l[r] = l[r] * c + (p0 + p1);
+#pragma unroll
+      for (int t = 0; t < NT; ++t) acc[r][t] *= c;
+      pw[r * kTileK + lane] = p0;
+      pw[r * kTileK + lane + 32] = p1;
+    }
+    __syncwarp();
+
+    // p.V: lane owns columns lane + 32 t; p read 4 keys at a time.
+    const float4* pw4 = reinterpret_cast<const float4*>(pw);
+    for (int j4 = 0; j4 < (nk + 3) / 4; ++j4) {
+      float4 pv[kRowsPerWarp];
+#pragma unroll
+      for (int r = 0; r < kRowsPerWarp; ++r) pv[r] = pw4[r * (kTileK / 4) + j4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float* vr = vs + (4 * j4 + e) * D;
+#pragma unroll
+        for (int t = 0; t < NT; ++t) {
+          const int d = lane + 32 * t;
+          const float x = d < D ? vr[d] : 0.f;
+#pragma unroll
+          for (int r = 0; r < kRowsPerWarp; ++r)
+            acc[r][t] = fmaf(lane_of(pv[r], e), x, acc[r][t]);
+        }
+      }
+    }
+    __syncwarp();  // pw is rewritten by the next tile
+  }
+
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+    float sum = l[r];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    const int row = row0 + warp * kRowsPerWarp + r;
+    if (row >= L) continue;
+    T* orow = out + ((b * L + row) * H + h) * (long long)D;
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      const int d = lane + 32 * t;
+      if (d < D) orow[d] = from_float<T>(acc[r][t] / sum);
+    }
+  }
+}
+
+size_t smem_bytes(int D) {
+  const size_t dp = (D + 3) & ~3;
+  return sizeof(float) * (kRowsPerBlock * dp + dp * kLdK + (size_t)kTileK * D +
+                          (size_t)kWarps * kRowsPerWarp * kTileK);
+}
+
+// NT = ceil(D / 32), picked at compile time from 1 up to kMaxDim / 32.
+template <typename T, int NT = 1>
+int launch(const void* q, const void* k, const void* v, const float* bias, void* out,
+           int B, int L, int S, int H, int D, long long q_bs, long long q_rs,
+           long long k_bs, long long k_rs, long long v_bs, long long v_rs, float scale,
+           cudaStream_t stream) {
+  if constexpr (NT < kMaxDim / 32) {
+    if (D > 32 * NT)
+      return launch<T, NT + 1>(q, k, v, bias, out, B, L, S, H, D, q_bs, q_rs, k_bs, k_rs,
+                               v_bs, v_rs, scale, stream);
+  }
+  const size_t smem = smem_bytes(D);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_attention_fwd_kernel<T, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid((L + kRowsPerBlock - 1) / kRowsPerBlock, H, B);
+  flash_attention_fwd_kernel<T, NT><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias,
+      static_cast<T*>(out), L, S, H, D, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. bias may be null (no key bias).
+// Returns the cudaError_t of the launch (0 on success).
+extern "C" int d2r_flash_attention_fwd(int dtype, const void* q, const void* k,
+                                       const void* v, const void* bias, void* out,
+                                       int B, int L, int S, int H, int D,
+                                       long long q_bs, long long q_rs,
+                                       long long k_bs, long long k_rs,
+                                       long long v_bs, long long v_rs, float scale,
+                                       void* stream) {
+  if (B < 1 || L < 1 || S < 1 || H < 1 || D < 1 || D > kMaxDim || B > 65535 ||
+      H > 65535)
+    return (int)cudaErrorInvalidValue;
+  const float* bp = static_cast<const float*>(bias);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch<float>(q, k, v, bp, out, B, L, S, H, D, q_bs, q_rs, k_bs, k_rs, v_bs,
+                         v_rs, scale, st);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(q, k, v, bp, out, B, L, S, H, D, q_bs, q_rs, k_bs, k_rs,
+                                 v_bs, v_rs, scale, st);
+  return (int)cudaErrorInvalidValue;
+}

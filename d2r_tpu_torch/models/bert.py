@@ -1,12 +1,14 @@
 """BERT text tower (counterpart of ``d2r_tpu/models/bert.py``): embeddings
-with absolute positions, post-LN blocks, exact-erf GELU and the additive
-(1-mask)*-10000 key bias. In train mode dropout runs at
+with absolute (BERT) or RoBERTa positions, post-LN blocks, exact-erf GELU
+and the additive (1-mask)*-10000 key bias. In train mode dropout runs at
 ``hidden_dropout_prob`` on the embeddings, the attention output and the FFN
 output, and at ``attention_probs_dropout_prob`` on the attention
 probabilities (inside the fused kernel). Submodule names are the Flax module
 names, so each parameter has the path of its Flax leaf."""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -27,16 +29,21 @@ from d2r_tpu_torch.ops.attention import dot_product_attention, merge_heads, spli
 class BertEmbeddings(nn.Module):
     """word + token_type + position embeddings, then LayerNorm and dropout.
 
+    Positions are ``0..seq_len-1`` (``position_style="absolute"``) or
+    RoBERTa's, derived from the attention mask as HF's
+    ``create_position_ids_from_input_ids``: ``cumsum(mask) * mask +
+    pad_token_id``, so real tokens take rows ``pad+1, pad+2, ...`` and padded
+    slots the ``pad_token_id`` row (``d2r_tpu/models/bert.py:45-67``).
+
     The PAD row of the word table gets no gradient, as torch's
     ``nn.Embedding(padding_idx=pad)`` in the reference: the lookups at PAD
     positions are detached (``d2r_tpu/models/bert.py:80-91``)."""
 
     def __init__(self, cfg: TextEncoderConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
-        if cfg.position_style != "absolute":
-            raise NotImplementedError(
-                f"position_style {cfg.position_style!r}: the port has absolute "
-                "positions only so far")
+        if cfg.position_style not in ("absolute", "roberta"):
+            raise ValueError(f"unknown position_style {cfg.position_style!r}; "
+                             "known: 'absolute', 'roberta'")
         self.cfg = cfg
         c = cfg
         self.word_embeddings = Embed(c.vocab_size, c.hidden_size, dtype)
@@ -45,13 +52,31 @@ class BertEmbeddings(nn.Module):
         self.LayerNorm = LayerNorm(c.hidden_size, c.layer_norm_eps, dtype)
         self.dropout = Dropout(c.hidden_dropout_prob)
 
+    def position_ids(self, input_ids: torch.Tensor,
+                     attention_mask: Optional[torch.Tensor]) -> torch.Tensor:
+        """(1, L) or (B, L) rows of the position table. Checked on the host
+        against the table's size: out of range, a CUDA gather would be a
+        device-side assert, not a clean error."""
+        c, seq_len = self.cfg, input_ids.shape[1]
+        if c.position_style == "absolute":
+            if seq_len > c.max_position_embeddings:
+                raise ValueError(f"seq_len {seq_len} exceeds max_position_embeddings "
+                                 f"{c.max_position_embeddings}")
+            return torch.arange(seq_len, device=input_ids.device)[None, :]
+        if attention_mask is None:
+            raise ValueError("position_style='roberta' needs the attention mask to "
+                             "derive position ids")
+        if seq_len + c.pad_token_id + 1 > c.max_position_embeddings:
+            raise ValueError(
+                f"roberta positions need max_position_embeddings >= seq_len + "
+                f"pad_token_id + 1 = {seq_len + c.pad_token_id + 1}, have "
+                f"{c.max_position_embeddings}")
+        mask = attention_mask.to(torch.int32)
+        return torch.cumsum(mask, dim=1, dtype=torch.int32) * mask + c.pad_token_id
+
     def forward(self, input_ids: torch.Tensor, token_type_ids: torch.Tensor,
-                rng=None) -> torch.Tensor:
-        seq_len = input_ids.shape[1]
-        if seq_len > self.cfg.max_position_embeddings:
-            raise ValueError(f"seq_len {seq_len} exceeds max_position_embeddings "
-                             f"{self.cfg.max_position_embeddings}")
-        positions = torch.arange(seq_len, device=input_ids.device)[None, :]
+                rng=None, attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        positions = self.position_ids(input_ids, attention_mask)
         words = self.word_embeddings(input_ids)
         is_pad = (input_ids == self.cfg.pad_token_id)[..., None]
         words = torch.where(is_pad, words.detach(), words)

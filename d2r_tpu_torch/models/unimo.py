@@ -65,7 +65,8 @@ class D2RModel(nn.Module):
         c = self.cfg
         vision_emb = self.vision_pre_layernorm(self.vision_embeddings(pixel_values))
         key_bias = padding_key_bias(attention_mask)
-        text_emb = self.text_embeddings(input_ids, token_type_ids, rng)
+        text_emb = self.text_embeddings(input_ids, token_type_ids, rng,
+                                        attention_mask=attention_mask)
 
         vision_out = self.encoder_vision_layers(vision_emb, rng)
         text_out = self.encoder_text_layers(text_emb, key_bias, rng)

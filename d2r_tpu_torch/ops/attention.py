@@ -4,15 +4,22 @@ All attention of the model goes through :func:`dot_product_attention`, over
 (B, L, H, D) tensors in the projection layout (no head transposes):
 
 * L, S <= 128 and D <= 128: the fused kernels, K1 forward and K2 backward
-  (``ops/kernels/fused_attention.py``). On a CUDA tensor that launches the
-  CUDA kernels; on a CPU tensor it runs their plain versions. Every site of
-  the D2R-base model is in this band.
-* kv length >= 256 on a CUDA tensor: the JAX package sends this to its
-  long-context kernel, K3, which the port has not ported yet, so it raises.
-* anything else: the plain einsum math, as the JAX package's XLA path.
+  (``ops/kernels/fused_attention.py``). Every site of D2R-base is in this
+  band, and the text-side sites of D2R-large (L = S = 64).
+* otherwise, with no attention dropout and D <= 256: the long-context
+  kernel K3 (``ops/kernels/flash_attention.py``), backward through its
+  plain twin as in the JAX package. The vision-side sites of D2R-large
+  (257 tokens: 24 + 1 CLIP-L layers and 4 IMRC cells) take it.
+* with attention dropout outside K1's band: the plain einsum math, as the
+  JAX package's XLA path computes it there (no kernel of either package
+  takes dropout there). No site of either configuration takes this branch.
+* with no dropout and D above 256: no kernel of the port takes it, so a
+  tensor off the CPU raises (the JAX package's K3 has no limit on D).
 
-The JAX package leaves its short-sequence kernel opt-in on the TPU, a TPU
-measurement; the H100 takes K1 for every short site.
+On a CUDA tensor the kernels' branches launch the CUDA kernels; on a CPU
+tensor they run the kernels' plain versions. The JAX package's gates were
+TPU measurements (its short-sequence kernel is opt-in, and K3 starts at a
+kv length of 256); on the H100 every site a kernel can take goes to it.
 """
 
 from __future__ import annotations
@@ -21,14 +28,12 @@ from typing import Optional
 
 import torch
 
+from d2r_tpu_torch.ops.kernels.flash_attention import MAX_DIM, flash_attention, supports_flash
 from d2r_tpu_torch.ops.kernels.fused_attention import (
     fused_attention_small,
     fused_attention_small_plain,
     supports_fused_small,
 )
-
-# at / above this kv length the JAX package runs its long-context kernel
-LONG_KV_LEN = 256
 
 
 def dot_product_attention(
@@ -55,11 +60,13 @@ def dot_product_attention(
         dropout_rate = 0.0
     if supports_fused_small(q, k):
         return fused_attention_small(q, k, v, key_bias, scale, dropout_rate, dropout_seed)
-    if q.is_cuda and k.shape[1] >= LONG_KV_LEN:
-        raise NotImplementedError(
-            f"kv length {k.shape[1]} >= {LONG_KV_LEN} needs the long-context "
-            "kernel K3 (d2r_tpu/ops/kernels/flash_attention.py), which is not "
-            "ported yet; see ROADMAP.md Queue 2")
+    if dropout_rate == 0.0:
+        if supports_flash(q):
+            return flash_attention(q, k, v, key_bias, scale)
+        if q.device.type != "cpu":
+            raise NotImplementedError(
+                f"no kernel of the port takes attention with D={q.shape[-1]} > "
+                f"{MAX_DIM} on {q.device}; see ROADMAP.md Queue 4")
     return fused_attention_small_plain(q, k, v, key_bias, scale, dropout_rate,
                                        dropout_seed)
 

@@ -71,8 +71,9 @@ def test_dot_product_attention_matches_jax(geom):
 
 @pytest.mark.parametrize("l", [160, 256])
 def test_long_sequences_take_plain_math_on_cpu(l):
-    """Above the kernel's 128 (the band, and the K3 range) the CPU runs the
-    einsum math, as JAX's XLA path does."""
+    """Above K1's 128 the CPU runs K3's plain version (the scale before the
+    product, p in fp32), which matches JAX's XLA path in fp32; K1 is not
+    used."""
     q, k, v, bias = _inputs(1, l, l, 2, 8, True, seed=2)
     before = tfa.fused_attention_small.launches
     ref = jattn.dot_product_attention(_j(q), _j(k), _j(v), key_bias=_j(bias))

@@ -1,12 +1,16 @@
 """The port's CUDA kernels on the card: K1 (forward, with and without
-dropout) and K2 (backward) against their plain versions, and the serving
-and training paths launching them at every attention site. Every test is
+dropout), K2 (backward) and K3 (long-context forward) against their plain
+versions, and the serving and training paths launching them at every
+attention site. Every test is
 marked ``cuda`` and skips itself where ``torch.cuda.is_available()`` is
 false.
 
 Tolerances: K1 as in chip_smoke (fp32 1e-5, bf16 2e-2 absolute); K2 scaled
 by the output's magnitude, fp32 1e-5 and bf16 2e-2 of max(1, max |ref|)
-(one bf16 ulp at |x| is 2^-8 |x|).
+(one bf16 ulp at |x| is 2^-8 |x|); K3 as in chip_smoke, fp32 1e-5
+absolute and bf16 4e-3 of max(1, max |ref|), one ulp of outputs in
+[0.5, 1), tight enough to tell K3's rounding (p fp32 into p.V) from K1's
+(p rounded to bf16).
 
 This file imports neither JAX nor ``d2r_tpu``, because the GPU machine has
 no JAX; ``tests/conftest.py`` does, so run it there without the conftest:
@@ -18,6 +22,7 @@ import pytest
 import torch
 
 from d2r_tpu_torch.ops import attention as tattn
+from d2r_tpu_torch.ops.kernels import flash_attention as tfl
 from d2r_tpu_torch.ops.kernels import fused_attention as tfa
 
 
@@ -72,8 +77,11 @@ def test_cuda_wrapper_raises_instead_of_falling_back(cuda):
     with pytest.raises(TypeError):                 # a g of another type than q
         tfa.fused_attention_small_bwd(q, q, q, None, h, 0.25)
     long = torch.randn(1, 256, 2, 16, device=cuda)
-    with pytest.raises(NotImplementedError, match="K3"):
-        tattn.dot_product_attention(long, long, long)
+    lt = long.transpose(1, 2)
+    with pytest.raises(ValueError, match="head stride"):
+        tfl.flash_attention(lt, lt, lt, None, 0.25)
+    with pytest.raises(TypeError):
+        tfl.flash_attention(long.half(), long.half(), long.half(), None, 0.25)
 
 
 @pytest.mark.cuda
@@ -214,3 +222,43 @@ def test_cuda_train_step_launches_k1_and_k2_at_every_site(cuda):
             assert abs(m["loss"].item() - ref["loss"].item()) <= 1e-4
             torch.testing.assert_close(gpu.model.fc.weight.grad.cpu(), cpu.model.fc.weight.grad,
                                        atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 4e-3)])
+def test_cuda_k3_matches_plain(cuda, dtype, tol):
+    """K3 against its plain version on strided views at L != S with a
+    padding bias (a ragged last key tile, D not a multiple of 32), at the
+    257-token site without one, and at heads wider than K1 takes (D = 136
+    and the widest, 256); one launch each through the dispatch."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    for b, l, s, h, d, with_bias in ((2, 150, 300, 3, 40, True), (2, 257, 257, 4, 64, False),
+                                     (1, 120, 300, 2, 136, True), (1, 300, 300, 2, 256, True)):
+        qx = torch.randn((b, l, 2, h * d), generator=g, device=cuda).to(dtype)
+        kv = torch.randn((b, s, 2, h * d), generator=g, device=cuda).to(dtype)
+        q = qx[:, :, 0].view(b, l, h, d)
+        k, v = (kv[:, :, i].view(b, s, h, d) for i in range(2))
+        bias = None
+        if with_bias:
+            lengths = torch.randint(1, s + 1, (b, 1), generator=g, device=cuda)
+            bias = tattn.padding_key_bias(torch.arange(s, device=cuda)[None] < lengths)
+        before = tfl.flash_attention.launches
+        out = tattn.dot_product_attention(q, k, v, key_bias=bias)
+        torch.cuda.synchronize()
+        assert tfl.flash_attention.launches == before + 1
+        ref = tfl.flash_attention_plain(q, k, v, bias, d ** -0.5)
+        assert out.shape == q.shape and out.is_contiguous() and out.dtype == dtype
+        err = (out.float() - ref.float()).abs().max().item()
+        size = max(1.0, ref.float().abs().max().item()) if dtype == torch.bfloat16 else 1.0
+        assert err <= tol * size, (b, l, s, h, d, err)
+
+
+@pytest.mark.cuda
+def test_cuda_dispatch_raises_for_heads_wider_than_k3(cuda):
+    """D above 256 without dropout: no kernel takes it, and the card runs
+    no plain version in its place."""
+    x = torch.randn(1, 300, 1, 264, device=cuda)
+    before = tfl.flash_attention.launches
+    with pytest.raises(NotImplementedError, match="no kernel of the port"):
+        tattn.dot_product_attention(x, x, x)
+    assert tfl.flash_attention.launches == before

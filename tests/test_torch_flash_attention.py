@@ -1,0 +1,172 @@
+"""K3, the long-context attention kernel, on the CPU: the port's plain
+version and autograd function against the JAX package's kernel, and the
+dispatch that sends a site to it.
+
+The JAX side runs ``flash_attention_forward`` in Pallas interpret mode, as
+``tests/test_flash_attention.py`` does, on (B, H, L, D); the port takes the
+same numpy inputs transposed to (B, L, H, D). Shapes: the 257-token CLIP-L
+site at a small batch, a multi-tile grid with L != S and a narrow head, and
+a short query against a long key set; each with and without a
+(1 - mask) * -10000 padding bias. Tolerances: fp32 atol 2e-5 (the kernel's
+online softmax against one softmax, as the JAX test allows); bf16 atol
+2e-2 (one bf16 ulp of outputs below 2, rounded once on each side);
+gradients (the custom VJP's XLA twin against the port's plain twin) atol
+1e-5.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from d2r_tpu.ops.kernels.flash_attention import flash_attention as jflash
+from d2r_tpu.ops.kernels.flash_attention import flash_attention_forward
+from d2r_tpu_torch.ops import attention as tattn
+from d2r_tpu_torch.ops.kernels import flash_attention as tfl
+from d2r_tpu_torch.ops.kernels import fused_attention as tfa
+
+# (B, H, L, S, D)
+SHAPES = [(1, 2, 257, 257, 64), (1, 1, 200, 333, 8), (2, 2, 64, 300, 16)]
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def _inputs(b, h, l, s, d, with_bias, seed):
+    """q (B, H, L, D), k and v (B, H, S, D), and a padding bias (B, S)."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, h, l, d)).astype(np.float32)
+    k = rng.standard_normal((b, h, s, d)).astype(np.float32)
+    v = rng.standard_normal((b, h, s, d)).astype(np.float32)
+    bias = None
+    if with_bias:
+        lengths = rng.integers(s // 3, s + 1, size=(b, 1))
+        mask = (np.arange(s)[None, :] < lengths).astype(np.float32)
+        bias = (1.0 - mask) * -10000.0
+    return q, k, v, bias
+
+
+def _port(x, dtype=torch.float32):
+    """(B, H, N, D) numpy -> (B, N, H, D) tensor."""
+    return torch.from_numpy(np.ascontiguousarray(x.transpose(0, 2, 1, 3))).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_plain_matches_jax_interpret(shape, with_bias, dtype):
+    b, h, l, s, d = shape
+    q, k, v, bias = _inputs(*shape, with_bias, seed=sum(shape))
+    scale = d ** -0.5
+    jd = jnp.dtype(dtype)
+    ref = flash_attention_forward(jnp.asarray(q, jd), jnp.asarray(k, jd), jnp.asarray(v, jd),
+                                  None if bias is None else jnp.asarray(bias), scale,
+                                  interpret=True)
+    td = getattr(torch, dtype)
+    out = tfl.flash_attention(_port(q, td), _port(k, td), _port(v, td),
+                              None if bias is None else torch.from_numpy(bias), scale)
+    assert out.dtype == td and out.shape == (b, l, h, d)
+    got = out.float().numpy().transpose(0, 2, 1, 3)
+    np.testing.assert_allclose(got, np.asarray(ref, np.float32), atol=TOL[dtype], rtol=0)
+
+
+def test_gradient_matches_jax_custom_vjp():
+    b, h, l, s, d = SHAPES[0]
+    q, k, v, bias = _inputs(b, h, l, s, d, True, seed=7)
+    g = np.random.default_rng(8).standard_normal((b, h, l, d)).astype(np.float32)
+    scale = d ** -0.5
+    jbias = jnp.asarray(bias)
+    _, vjp = jax.vjp(lambda q_, k_, v_: jflash(q_, k_, v_, jbias, scale),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    refs = vjp(jnp.asarray(g))
+    leaves = [_port(x).requires_grad_() for x in (q, k, v)]
+    out = tfl.flash_attention(*leaves, torch.from_numpy(bias), scale)
+    out.backward(_port(g))
+    for name, leaf, ref in zip(("dq", "dk", "dv"), leaves, refs):
+        np.testing.assert_allclose(leaf.grad.numpy().transpose(0, 2, 1, 3), np.asarray(ref),
+                                   atol=1e-5, rtol=0, err_msg=name)
+
+
+def test_backward_differentiates_the_twin_and_gives_no_bias_gradient():
+    """The backward is the plain twin's gradient (the einsum path at rate
+    0: p rounded to q's type, the scale after the product), not the
+    forward's, and the bias gets None, as the JAX custom VJP returns."""
+    rng = np.random.default_rng(9)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 150, 2, 8)).astype(np.float32))
+               .to(torch.bfloat16).requires_grad_() for _ in range(3))
+    bias = torch.zeros(2, 150, requires_grad=True)
+    g = torch.from_numpy(rng.standard_normal((2, 150, 2, 8)).astype(np.float32)).bfloat16()
+    tfl.flash_attention(q, k, v, bias, 0.3).backward(g)
+    twin = [x.detach().requires_grad_() for x in (q, k, v)]
+    tfa.fused_attention_small_plain(*twin, None, 0.3).backward(g)
+    for got, ref in zip((q, k, v), twin):
+        assert got.grad.dtype == torch.bfloat16
+        torch.testing.assert_close(got.grad, ref.grad, atol=0, rtol=0)
+    assert bias.grad is None
+
+
+def test_strided_qkv_views_match_contiguous():
+    rng = np.random.default_rng(3)
+    b, l, h, d = 2, 140, 3, 24
+    qkv = torch.from_numpy(rng.standard_normal((b, l, 3, h * d)).astype(np.float32))
+    q, k, v = (tattn.split_heads(qkv[:, :, i], h) for i in range(3))
+    assert not q.is_contiguous()
+    out = tfl.flash_attention(q, k, v, None, d ** -0.5)
+    ref = tfl.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), None, d ** -0.5)
+    torch.testing.assert_close(out, ref, atol=0, rtol=0)
+
+
+def _counting(monkeypatch, module, name):
+    calls = []
+    fn = getattr(module, name)
+    monkeypatch.setattr(module, name, lambda *a, **kw: calls.append(1) or fn(*a, **kw))
+    return calls
+
+
+@pytest.mark.parametrize("l,s,d", [(257, 257, 16), (64, 200, 16), (200, 64, 16),
+                                   (8, 8, 136), (300, 300, 256)])
+def test_dispatch_sends_long_sites_without_dropout_to_k3(monkeypatch, l, s, d):
+    """Outside K1's band (L or S above 128, or D above 128), no dropout and
+    D <= 256: K3's function, which on the CPU runs its plain version."""
+    rng = np.random.default_rng(l + s + d)
+    q = torch.from_numpy(rng.standard_normal((1, l, 2, d)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((1, s, 2, d)).astype(np.float32))
+    k3 = _counting(monkeypatch, tfl, "flash_attention_plain")
+    k1 = _counting(monkeypatch, tfa, "fused_attention_small_plain")     # K1 on the CPU
+    plain = _counting(monkeypatch, tattn, "fused_attention_small_plain")
+    out = tattn.dot_product_attention(q, k, k, dropout_rate=0.1)   # eval: no seed, no dropout
+    assert (len(k3), len(k1), len(plain)) == (1, 0, 0)
+    torch.testing.assert_close(out, tfl.flash_attention_plain(q, k, k, None, d ** -0.5),
+                               atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("l,d", [(200, 16), (8, 136)])
+def test_dispatch_sends_dropout_outside_k1_to_the_plain_math(monkeypatch, l, d):
+    """Dropout outside K1's band (L above 128, or D above 128): the einsum
+    math of the dispatch's last branch, as the JAX package's XLA path."""
+    rng = np.random.default_rng(l + d)
+    k3 = _counting(monkeypatch, tfl, "flash_attention_plain")
+    plain = _counting(monkeypatch, tattn, "fused_attention_small_plain")
+    x = torch.from_numpy(rng.standard_normal((1, l, 2, d)).astype(np.float32))
+    tattn.dot_product_attention(x, x, x, dropout_rate=0.1, dropout_seed=3)
+    assert (len(k3), len(plain)) == (0, 1)
+
+
+def test_k3_refuses_devices_without_a_kernel():
+    q = torch.empty(1, 200, 2, 8, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        tattn.dot_product_attention(q, q, q)
+    assert tfl.supports_flash(torch.empty(1, 4, 1, 256))
+    assert not tfl.supports_flash(torch.empty(1, 4, 1, 264))
+
+
+def test_heads_wider_than_k3_raise_off_the_cpu_and_run_plain_on_it():
+    """D above 256 without dropout: no kernel of the port takes it, so a
+    tensor off the CPU raises instead of running the plain math there."""
+    with pytest.raises(NotImplementedError, match="no kernel of the port"):
+        wide = torch.empty(1, 300, 1, 264, device="meta")
+        tattn.dot_product_attention(wide, wide, wide)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal((1, 8, 1, 264))
+                         .astype(np.float32))
+    torch.testing.assert_close(tattn.dot_product_attention(x, x, x),
+                               tfa.fused_attention_small_plain(x, x, x, None, 264 ** -0.5),
+                               atol=0, rtol=0)

@@ -63,8 +63,9 @@ def test_no_library_attention_or_compile_in_the_port():
                     f"{path}:{node.lineno} uses {node.attr}")
 
 
-def test_cuda_wrapper_has_no_fallback_except():
-    tree = ast.parse((PKG / "ops" / "kernels" / "fused_attention.py").read_text())
+@pytest.mark.parametrize("wrapper", ["fused_attention.py", "flash_attention.py"])
+def test_cuda_wrapper_has_no_fallback_except(wrapper):
+    tree = ast.parse((PKG / "ops" / "kernels" / wrapper).read_text())
     assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
 
 
@@ -121,7 +122,7 @@ def test_config_reads_jax_config_json(tmp_path):
 
 @pytest.mark.parametrize("override", [
     {"quant_train": "int8"}, {"pipeline_stages": 2}, {"use_sentic_graph": True},
-    {"alpha": 0.5}, {"bert_name": "roberta-large"}])
+    {"alpha": 0.5}, {"remat": True}])
 def test_config_values_the_port_cannot_honour_raise(override):
     from d2r_tpu_torch.config import tiny_test_config
     from d2r_tpu_torch.models.unimo import D2RClassifier
