@@ -19,8 +19,10 @@
 
 namespace d2r {
 
-__device__ __forceinline__ uint32_t dropout_bits(unsigned long long seed, uint32_t b,
-                                                 uint32_t h, uint32_t i, uint32_t j) {
+// The four words of the call that covers keys 4 (j / 4) .. 4 (j / 4) + 3
+// of row i: word w belongs to key 4 (j / 4) + w.
+__device__ __forceinline__ uint4 dropout_words(unsigned long long seed, uint32_t b,
+                                               uint32_t h, uint32_t i, uint32_t j) {
   constexpr uint32_t kM0 = 0xD2511F53u, kM1 = 0xCD9E8D57u;
   constexpr uint32_t kW0 = 0x9E3779B9u, kW1 = 0xBB67AE85u;
   uint32_t c0 = j >> 2, c1 = i, c2 = h, c3 = b;
@@ -39,8 +41,15 @@ __device__ __forceinline__ uint32_t dropout_bits(unsigned long long seed, uint32
     c2 = n2;
     c3 = lo0;
   }
+  return make_uint4(c0, c1, c2, c3);
+}
+
+// The bits of element (b, h, i, j).
+__device__ __forceinline__ uint32_t dropout_bits(unsigned long long seed, uint32_t b,
+                                                 uint32_t h, uint32_t i, uint32_t j) {
+  const uint4 c = dropout_words(seed, b, h, i, j);
   const uint32_t w = j & 3u;
-  return w == 0 ? c0 : w == 1 ? c1 : w == 2 ? c2 : c3;
+  return w == 0 ? c.x : w == 1 ? c.y : w == 2 ? c.z : c.w;
 }
 
 }  // namespace d2r

@@ -1,4 +1,5 @@
-// Short-sequence fused attention, forward (K1), for Hopper (sm_90a).
+// Short-sequence fused attention, forward (K1), for Hopper (sm_90a): a bf16
+// kernel on the tensor cores and an fp32 kernel on the CUDA cores.
 //
 // Replaces d2r_tpu/ops/kernels/fused_attention.py::_fwd_kernel. Per
 // (batch b, head h), for every query row i:
@@ -18,9 +19,7 @@
 // 2*(L+2S)*D bytes in bf16, about L/3 operations a byte, far below the
 // ~295 a byte at which the tensor cores become the limit. So the design
 // reads each input once from device memory into shared memory and never
-// writes the (L,S) scores or probabilities anywhere: they live in registers
-// and a per-warp row of shared memory. The products run on the CUDA cores
-// in fp32; a tensor-core (wgmma) version is later work.
+// writes the (L,S) scores or probabilities anywhere.
 //
 // Layout: q is (B,L,H,D) and k, v are (B,S,H,D) with the head stride D and
 // the element stride 1, but any batch and row stride. The fused QKV
@@ -28,11 +27,41 @@
 // stride of 3*H*D; passing the strides lets the kernel read those views
 // without copies. out is a contiguous (B,L,H,D).
 //
-// Grid: (ceil(L / 8) query tiles, H, B), 4 warps a block, 2 query rows a
-// warp. Batch 1 at 12 heads and L = 64 still gives 96 blocks. Each block
-// stages its (b,h)'s K and V in shared memory as fp32, with rows padded to
-// D+1 floats so that the 32 lanes of a warp, each scoring its own key,
-// read 32 different banks.
+// bf16: tensor cores (fused_attention_fwd_bf16_kernel). The JAX kernel has
+// no online softmax: it softmaxes the whole (L,S) tile (:83-97), and S,
+// D <= 128 let one block hold it. Grid (H, B), one block a (b,h): 384
+// blocks at the BERT site (B = 32, H = 12). ceil(L/16) warps, 16 query
+// rows each. The block stages q, K and V of its (b,h) once, as bf16, by
+// 16-byte cp.async (rows and columns zero-filled up to multiples of 16),
+// and then each warp
+//   - multiplies its q rows by K on the tensor cores (mma.sync m16n8k16,
+//     bf16 operands, fp32 sums; D = 48 takes three k16 steps), then
+//     applies scale and bias in fp32, as :83-86;
+//   - softmaxes each full row in registers (max and sum over the 4 lanes
+//     that hold a row, by __shfl_xor_sync), p = e / sum in fp32;
+//   - with dropout, keeps p * 1/(1-rate) where the element's Philox bits
+//     pass the threshold: a lane holds keys 2t, 2t+1 of each n8 tile in
+//     rows g and g+8, so the lanes t and t^1 need the same two Philox calls
+//     (counter (j/4, row)); each makes one of them and the two swap the
+//     halves by shuffle;
+//   - rounds p to bf16 (:93-96) straight from the score accumulators into
+//     the A operand of p.V, and accumulates p.V in fp32.
+// The score product, the scale, bias and mask step, the p.V product and the
+// row store are mma_bf16.cuh's, shared with K3; the whole-row softmax and
+// the dropout are this kernel's.
+// Why mma.sync and not wgmma: a warpgroup product takes 64 rows, and at
+// L, S <= 64 each (b,h) is one such tile; at L/3 operations a byte the
+// kernel is bytes-bound whatever unit multiplies, and the warp-level
+// product keeps each warp's rows, softmax and dropout in its own registers.
+// Shared memory: 27 KiB at L = S = D = 64, 102 KiB at L = S = D = 128.
+//
+// fp32: CUDA cores (fused_attention_fwd_kernel), the first design, kept as
+// it was: the card-versus-CPU checks hold it bit for bit to the plain
+// version, which TF32 would break. Grid (ceil(L / 8) query tiles, H, B), 4
+// warps a block, 2 query rows a warp. Each block stages its (b,h)'s K and
+// V in shared memory as fp32, with rows padded to D+1 floats so that the
+// 32 lanes of a warp, each scoring its own key, read 32 different banks;
+// probabilities pass through a per-warp row of shared memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -40,6 +69,7 @@
 #include <math.h>
 
 #include "dropout_philox.cuh"
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -201,6 +231,175 @@ int launch(const void* q, const void* k, const void* v, const float* bias,
   return (int)cudaGetLastError();
 }
 
+// ---- bf16 on the tensor cores ----
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kTcMaxWarps = kMaxSeq / 16;  // 16 query rows a warp
+
+// SMAX, DMAX: the key count and head width the registers are sized for
+// (64 or 128 each); the loops run over the S keys and D columns present,
+// rounded up to 16.
+template <int SMAX, int DMAX>
+__global__ void __launch_bounds__(kTcMaxWarps * 32)
+fused_attention_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                const bf16* __restrict__ v, const float* __restrict__ bias,
+                                bf16* __restrict__ out, int L, int S, int H, int D,
+                                long long q_bs, long long q_rs, long long k_bs,
+                                long long k_rs, long long v_bs, long long v_rs, float scale,
+                                unsigned int threshold, float inv_keep,
+                                unsigned long long seed, int dropout, int vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nthreads = blockDim.x;
+  const int rows_q = nthreads / 2;  // 16 a warp
+  const int s16 = (S + 15) & ~15;
+  const int d16 = (D + 15) & ~15;
+  const int ld = d16 + 8;
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [rows_q][ld]
+  bf16* ks = qs + rows_q * ld;                   // [s16][ld]
+  bf16* vs = ks + s16 * ld;                      // [s16][ld]
+
+  const int h = blockIdx.y;
+  const long long b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+
+  d2r::zero_pad_columns(qs, ld, rows_q + 2 * s16, D, d16, tid, nthreads);
+  d2r::load_tile(qs, ld, q + b * q_bs + (long long)h * D, q_rs, rows_q, L, D, vec, tid,
+                 nthreads);
+  d2r::load_tile(ks, ld, k + b * k_bs + (long long)h * D, k_rs, s16, S, D, vec, tid,
+                 nthreads);
+  d2r::load_tile(vs, ld, v + b * v_bs + (long long)h * D, v_rs, s16, S, D, vec, tid,
+                 nthreads);
+  d2r::cp_async_commit();
+  d2r::cp_async_wait<0>();
+  __syncthreads();
+
+  const int nkd = d16 / 16;  // k16 steps over the head
+  const int row_w = warp * 16;
+
+  // scores: bf16 q . k, fp32 sums
+  float s[SMAX / 8][4];
+#pragma unroll
+  for (int n = 0; n < SMAX / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < DMAX / 16; ++kk) {
+    if (kk >= nkd) break;
+    uint32_t a[4];
+    d2r::ldmatrix_x4(a, qs + (row_w + lane % 16) * ld + kk * 16 + (lane / 16) * 8);
+    d2r::score_step<SMAX>(s, a, ks, ld, kk, S, lane);
+  }
+  // scale and bias in fp32 after the product (:83-86), keys past S to -inf
+  d2r::scale_bias_mask<SMAX>(s, scale, bias == nullptr ? nullptr : bias + b * S, S, t4);
+
+  // softmax over each full row: rows g (r = 0) and g + 8 (r = 1)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float m = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < SMAX / 8; ++n) m = fmaxf(m, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+    float sum = 0.f;
+#pragma unroll
+    for (int n = 0; n < SMAX / 8; ++n) {
+#pragma unroll
+      for (int e = 2 * r; e < 2 * r + 2; ++e) {
+        s[n][e] = expf(s[n][e] - m);  // 0 past S
+        sum += s[n][e];
+      }
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+#pragma unroll
+    for (int n = 0; n < SMAX / 8; ++n) {
+      s[n][2 * r] /= sum;
+      s[n][2 * r + 1] /= sum;
+    }
+  }
+
+  // dropout: this lane's keys 2t4, 2t4 + 1 of n8 tile n share one Philox
+  // call with lane t4 ^ 1's; the even lane makes row g's call, the odd lane
+  // row g + 8's, and each sends the other the two words it needs
+  if (dropout) {
+    const bool odd = t4 & 1;
+    const uint32_t row = row_w + g + (odd ? 8 : 0);
+#pragma unroll
+    for (int n = 0; n < SMAX / 8; ++n) {
+      if (n * 8 >= S) break;
+      const uint4 w = d2r::dropout_words(seed, (uint32_t)b, h, row, n * 8 + 2 * t4);
+      const uint32_t got0 = __shfl_xor_sync(0xffffffffu, odd ? w.x : w.z, 1);
+      const uint32_t got1 = __shfl_xor_sync(0xffffffffu, odd ? w.y : w.w, 1);
+      const uint32_t bits[4] = {odd ? got0 : w.x, odd ? got1 : w.y,   // row g
+                                odd ? w.z : got0, odd ? w.w : got1};  // row g + 8
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = bits[e] >= threshold ? s[n][e] * inv_keep : 0.f;
+    }
+  }
+
+  // p.V: p rounded to bf16 (:93-96) as the A operand, fp32 accumulation
+  float acc[DMAX / 8][4];
+#pragma unroll
+  for (int n = 0; n < DMAX / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < SMAX / 16; ++kk) {
+    if (kk * 16 >= S) break;
+    uint32_t a[1][4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)  // a0..a3: (row g, row g + 8) x (keys 0-7, 8-15)
+      a[0][e] =
+          d2r::pack_bf16(s[2 * kk + e / 2][2 * (e % 2)], s[2 * kk + e / 2][2 * (e % 2) + 1]);
+    d2r::pv_step<DMAX, 1>(acc, a, vs, ld, kk, nkd, lane);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_w + g + 8 * r;
+    if (row < L) d2r::store_row<DMAX>(out + ((b * L + row) * H + h) * (long long)D, acc, r, 1.f,
+                                      D, t4);
+  }
+}
+
+template <int SMAX, int DMAX>
+int launch_bf16(const void* q, const void* k, const void* v, const float* bias, void* out,
+                int B, int L, int S, int H, int D, long long q_bs, long long q_rs,
+                long long k_bs, long long k_rs, long long v_bs, long long v_rs, float scale,
+                unsigned int threshold, float inv_keep, unsigned long long seed, int dropout,
+                cudaStream_t stream) {
+  const int warps = (L + 15) / 16;
+  const size_t ld = ((D + 15) & ~15) + 8;
+  const size_t smem = sizeof(bf16) * (16 * warps + 2 * ((S + 15) & ~15)) * ld;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(fused_attention_fwd_bf16_kernel<SMAX, DMAX>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int vec = d2r::vec_ok(q, D, q_bs, q_rs) && d2r::vec_ok(k, D, k_bs, k_rs) &&
+                  d2r::vec_ok(v, D, v_bs, v_rs);
+  const dim3 grid(1, H, B);
+  fused_attention_fwd_bf16_kernel<SMAX, DMAX><<<grid, 32 * warps, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      bias, static_cast<bf16*>(out), L, S, H, D, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, scale,
+      threshold, inv_keep, seed, dropout, vec);
+  return (int)cudaGetLastError();
+}
+
+template <int SMAX>
+int launch_bf16_d(int D, const void* q, const void* k, const void* v, const float* bias,
+                  void* out, int B, int L, int S, int H, long long q_bs, long long q_rs,
+                  long long k_bs, long long k_rs, long long v_bs, long long v_rs, float scale,
+                  unsigned int threshold, float inv_keep, unsigned long long seed, int dropout,
+                  cudaStream_t stream) {
+  if (D <= 64)
+    return launch_bf16<SMAX, 64>(q, k, v, bias, out, B, L, S, H, D, q_bs, q_rs, k_bs, k_rs,
+                                 v_bs, v_rs, scale, threshold, inv_keep, seed, dropout, stream);
+  return launch_bf16<SMAX, 128>(q, k, v, bias, out, B, L, S, H, D, q_bs, q_rs, k_bs, k_rs,
+                                v_bs, v_rs, scale, threshold, inv_keep, seed, dropout, stream);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. bias may be null (no key bias).
@@ -224,9 +423,12 @@ extern "C" int d2r_fused_attention_fwd(int dtype, const void* q, const void* k,
   if (dtype == 0)
     return launch<float>(q, k, v, b, out, B, L, S, H, D, q_bs, q_rs, k_bs, k_rs,
                          v_bs, v_rs, scale, threshold, inv_keep, seed, dropout, st);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, b, out, B, L, S, H, D, q_bs, q_rs, k_bs,
-                                 k_rs, v_bs, v_rs, scale, threshold, inv_keep, seed,
-                                 dropout, st);
+  if (dtype == 1) {
+    if (S <= 64)
+      return launch_bf16_d<64>(D, q, k, v, b, out, B, L, S, H, q_bs, q_rs, k_bs, k_rs, v_bs,
+                               v_rs, scale, threshold, inv_keep, seed, dropout, st);
+    return launch_bf16_d<128>(D, q, k, v, b, out, B, L, S, H, q_bs, q_rs, k_bs, k_rs, v_bs,
+                              v_rs, scale, threshold, inv_keep, seed, dropout, st);
+  }
   return (int)cudaErrorInvalidValue;
 }

@@ -17,9 +17,16 @@ einsum path of the dispatch, which computes what ``_xla_attention`` does
 p.V). It returns no bias gradient.
 
 What bounds K3 on the H100 is bytes in bf16 and operations in fp32 (see the
-source's header); this first version runs its products on the CUDA cores.
-It reads q, k and v through their batch and row strides, so the strided
-views of the fused QKV projection need no copies.
+source's header). In bf16 the kernel runs its products on the tensor cores
+(``mma.sync``, fp32 sums) over K and V tiles brought in by ``cp.async``, and
+keeps the JAX rounding as closely as bf16 operands allow: the scale is
+applied in fp32 to the fp32 sum of the raw bf16 products (the JAX kernel
+scales q first: the two differ by fp32 rounding alone), and p enters p.V as
+two bf16 terms, hi = bf16(p) and lo = bf16(p - hi), into one fp32
+accumulator, within one output ulp of fp32 p. In fp32 it runs on the CUDA
+cores, with exactly the rounding above. It reads q, k and v through their
+batch and row strides, so the strided views of the fused QKV projection
+need no copies.
 
 :func:`flash_attention` launches the kernel for CUDA tensors and raises for
 what it cannot take; only a tensor on the CPU goes to the plain version.
