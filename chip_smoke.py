@@ -88,11 +88,16 @@ CLIP site, batch 64) against its plain version with the same seed (same
 Philox bits, so the same tolerances), and K2 against its plain version at
 the four site geometries, batch 64, fp32 and bf16, at rate 0 and, at the
 BERT site, 0.1, with dbias from a bias that requires grad there; K2 runs
-twice and must give the same bits. With v = 1, sum(dv) = sum(out) checks
-that K2 regenerates K1's mask. Times: K2, its plain version, SDPA's
-backward through autograd as the yardstick, and K2's bound (bytes of q, k,
-v, g, dq, dk, dv at 3.35 TB/s against 10*B*H*L*S*D operations at the
-type's peak).
+twice and must give the same bits. In bf16 at most ``K2_BF16_DIFF_SHARE``
+(1%) of each of dq, dk and dv may differ from the plain version at all,
+and a control, the plain version with pd and d(logits) left unrounded,
+must exceed that share. Then K2 at ``K2_EDGES`` (K1's edge geometries),
+fp32 and bf16, rate 0 and 0.1, with dbias wherever there is a bias, errors
+and shares only. With v = 1, sum(dv) = sum(out) checks that K2 regenerates
+K1's mask. Times: K2, its plain version, SDPA's backward through autograd
+as the yardstick (at the bf16 sites on the card alone too), and K2's bound
+(bytes of q, k, v, g, dq, dk, dv at 3.35 TB/s against 10*B*H*L*S*D
+operations at the type's peak).
 
 It prints one ``kernels`` JSON line (K1, K2 and K3; ``launches`` counts the
 serving and training runs of both configurations; ``ms``, ``plain_ms`` and
@@ -133,6 +138,16 @@ WARMUP_STEPS, TIMED_STEPS = 3, 10
 # rounding, in about 40% (tests/test_torch_flash_attention.py). The max
 # error alone cannot tell the two apart: both stay within K3_TOL.
 K3_BF16_DIFF_SHARE = 0.01
+# K2 in bf16: the largest share of the dq, dk and dv outputs that may
+# differ from the plain version's at all. The tensor-core kernel keeps the
+# JAX kernel's rounding points, so it differs only by fp32 summation order;
+# the control, the plain version with pd and d(logits) left in fp32 (the
+# roundings of fused_attention.py:136 and :151 dropped, ``k2_unrounded``),
+# must exceed the share wherever S > 1 (with one key d(logits) is 0 and p
+# is 1). Both stay within K2_TOL, so the max error alone cannot tell
+# them apart (tests/test_torch_attention_bwd.py holds the plain version's
+# rounding to JAX's interpret-mode kernel).
+K2_BF16_DIFF_SHARE = 0.01
 # (name, B, L, S, H, D, key bias, row pad): K3 at the main-path geometry of
 # D2R-large (CLIP-L layers and image-branch IMRC cells, bucket 32), then
 # three off-path shapes for the loop bounds, the bias and the widest head
@@ -155,6 +170,10 @@ K3_SHAPES = (("clip_l", 32, 257, 257, 16, 64, False, 0),
 K1_EDGES = (("d40", 4, 64, 64, 6, 40, True, 0), ("l7_s128", 4, 7, 128, 4, 64, True, 0),
             ("d128", 2, 128, 128, 4, 128, True, 0), ("l1_s1", 8, 1, 1, 4, 64, False, 0),
             ("d37_odd", 4, 50, 50, 4, 37, True, 0), ("row_pad", 4, 64, 64, 6, 64, True, 4))
+# K2 at the same edges of its bf16 tiling: 7 queries by 128 keys (one warp
+# with rows, seven more with keys only), the largest tile and shared memory
+# (128 by 128 by 128), dbias wherever there is a bias
+K2_EDGES = K1_EDGES
 # The two configurations driven at full width, with their attention sites a
 # forward: K1 at L, S <= 128 (K2 their backward in training), K3 at the
 # 257-token vision sites. D2R-base is the serving and bench recipe
@@ -407,10 +426,63 @@ def k2_bound(b, l, s, h, d, dtype_name):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def k2_unrounded(q, k, v, bias, g, scale, rate, seed):
+    """The control of the bf16 share check: K2's plain version on fp32
+    copies of the inputs, so that pd and d(logits) stay fp32 before their
+    products, with dq, dk, dv rounded once to the inputs' type."""
+    from d2r_tpu_torch.ops.kernels import fused_attention as fa
+    out = fa.fused_attention_small_bwd_plain(q.float(), k.float(), v.float(), bias, g.float(),
+                                             scale, rate, seed)
+    return [x.to(q.dtype) for x in out[:3]]
+
+
+def k2_compare(q, k, v, bias, g, scale, rate, seed, need_dbias):
+    """K2 twice against its plain version: the errors of dq, dk, dv (and
+    dbias when asked) and, in bf16, the shares of outputs that differ from
+    the plain version at all, the kernel's and the unrounded control's.
+    Returns (errs, shares, ok)."""
+    import torch
+    from d2r_tpu_torch.ops.kernels import fused_attention as fa
+    run = lambda: fa.fused_attention_small_bwd(q, k, v, bias, g, scale, rate, seed,
+                                               need_dbias=need_dbias)
+    before = fa.fused_attention_small_bwd.launches
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    ref = fa.fused_attention_small_bwd_plain(q, k, v, bias, g, scale, rate, seed)
+    dtype_name = str(q.dtype).split(".")[-1]
+    errs, shares = {}, {}
+    ok = fa.fused_attention_small_bwd.launches == before + 2
+    for name, x, y, z in zip(("dq", "dk", "dv"), got, again, ref):
+        errs[name] = (x.float() - z.float()).abs().max().item()
+        tol = K2_TOL[dtype_name] * max(1.0, z.float().abs().max().item())
+        ok = ok and errs[name] <= tol and torch.equal(x, y) and torch.isfinite(x).all().item()
+    if need_dbias:
+        errs["dbias"] = (got[3] - ref[3]).abs().max().item()
+        ok = ok and errs["dbias"] <= 1e-4 * max(1.0, ref[3].abs().max().item())
+    if q.dtype == torch.bfloat16:
+        control = k2_unrounded(q, k, v, bias, g, scale, rate, seed)
+        for name, x, c, z in zip(("dq", "dk", "dv"), got, control, ref):
+            shares[name] = (x != z).float().mean().item()
+            shares[name + "_control"] = (c != z).float().mean().item()
+            ok = ok and shares[name] <= K2_BF16_DIFF_SHARE and (
+                k.shape[1] == 1 or shares[name + "_control"] > K2_BF16_DIFF_SHARE)
+    return errs, shares, ok
+
+
+def share_note(shares):
+    """The bf16 shares of a K2 check, for its log line."""
+    if not shares:
+        return ""
+    return ("; differs from plain in " + ", ".join(
+        f"{n} {shares[n]:.3g} (control {shares[n + '_control']:.3g})" for n in ("dq", "dk", "dv")))
+
+
 def k2_checks(failures):
     """K2 against its plain version at the four site geometries, batch 64,
     fp32 and bf16, rate 0 and (BERT) 0.1; dbias at the BERT site; the same
-    bits on a second run. Times against SDPA's backward."""
+    bits on a second run; in bf16 the share of outputs that differ, against
+    the unrounded control. Times against SDPA's backward, the bf16 sites on
+    the card alone too. Then ``K2_EDGES``, errors and shares only."""
     import torch
     import torch.nn.functional as F
     from d2r_tpu_torch.ops.kernels import fused_attention as fa
@@ -424,21 +496,12 @@ def k2_checks(failures):
                             device="cuda").to(dtype)
             scale, seed = d ** -0.5, (12345 if rate else None)
             need_dbias = with_bias
+            errs, shares, ok = k2_compare(q, k, v, bias, g, scale, rate, seed, need_dbias)
+            if not ok:
+                failures.append(f"K2 {site} {dtype_name} rate {rate}: errs {errs}, "
+                                f"shares {shares}")
             run = lambda: fa.fused_attention_small_bwd(q, k, v, bias, g, scale, rate, seed,
                                                        need_dbias=need_dbias)
-            got, again = run(), run()
-            torch.cuda.synchronize()
-            ref = fa.fused_attention_small_bwd_plain(q, k, v, bias, g, scale, rate, seed)
-            errs, ok = {}, True
-            for name, x, y, z in zip(("dq", "dk", "dv"), got, again, ref):
-                errs[name] = (x.float() - z.float()).abs().max().item()
-                tol = K2_TOL[dtype_name] * max(1.0, z.float().abs().max().item())
-                ok = ok and errs[name] <= tol and torch.equal(x, y)
-            if need_dbias:
-                errs["dbias"] = (got[3] - ref[3]).abs().max().item()
-                ok = ok and errs["dbias"] <= 1e-4 * max(1.0, ref[3].abs().max().item())
-            if not ok:
-                failures.append(f"K2 {site} {dtype_name} rate {rate}: errs {errs}")
             qt, kt, vt = (x.detach().transpose(1, 2).contiguous().requires_grad_()
                           for x in (q, k, v))
             mask = None if bias is None else bias.to(dtype)[:, None, None, :]
@@ -450,19 +513,39 @@ def k2_checks(failures):
             rows.append({
                 "site": site, "dtype": dtype_name, "B": b, "L": l, "H": h, "D": d,
                 "rate": rate, "dbias": need_dbias, "max_abs_err": max(errs.values()),
-                "errs": errs, "ms": cuda_time_ms(run),
+                "errs": errs, **({"diff_shares": shares} if shares else {}),
+                "ms": cuda_time_ms(run),
                 "plain_ms": cuda_time_ms(lambda: fa.fused_attention_small_bwd_plain(
                     q, k, v, bias, g, scale, rate, seed)),
                 "library_ms": cuda_time_ms(sdpa_bwd),
                 "bound_ms": bound_ms, "bound_by": bound_by})
             r = rows[-1]
-            if (site, dtype_name) == ("bert", "bfloat16") and rate > 0:   # kernels line
+            if dtype_name == "bfloat16":   # the kernels line's site is BERT at rate 0.1
                 r.update(device_times(run, sdpa_bwd))
             log(f"[K2] {site:10s} {dtype_name:8s} B{b} rate {rate}: errs "
-                f"{ {k_: float(f'{v_:.3g}') for k_, v_ in errs.items()} }, "
+                f"{ {k_: float(f'{v_:.3g}') for k_, v_ in errs.items()} }{share_note(shares)}, "
                 f"kernel {r['ms'] * 1e3:.2f} us, plain {r['plain_ms'] * 1e3:.2f} us, "
                 f"sdpa bwd {r['library_ms'] * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
                 f"({bound_by})" + device_note(r))
+    for dtype_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dtype_name)
+        for i, (site, b, l, s, h, d, with_bias, pad) in enumerate(K2_EDGES):
+            q, k, v, bias = k3_inputs(b, l, s, h, d, with_bias, dtype, seed=800 + i, row_pad=pad)
+            g = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(900 + i),
+                            device="cuda").to(dtype)
+            for rate in (0.0, 0.1):
+                seed = 2 ** 35 + i if rate else None
+                errs, shares, ok = k2_compare(q, k, v, bias, g, d ** -0.5, rate, seed, with_bias)
+                if not ok:
+                    failures.append(f"K2 edge {site} {dtype_name} rate {rate}: errs {errs}, "
+                                    f"shares {shares}")
+                rows.append({"site": "edge_" + site, "dtype": dtype_name, "B": b, "L": l,
+                             "S": s, "H": h, "D": d, "rate": rate, "dbias": with_bias,
+                             "row_pad": pad, "max_abs_err": max(errs.values()), "errs": errs,
+                             **({"diff_shares": shares} if shares else {})})
+                log(f"[K2 edge] {site:8s} {dtype_name:8s} B{b} L{l} S{s} H{h} D{d} row pad {pad} "
+                    f"rate {rate}: errs { {k_: float(f'{v_:.3g}') for k_, v_ in errs.items()} }"
+                    f"{share_note(shares)}")
     return rows
 
 

@@ -52,4 +52,28 @@ __device__ __forceinline__ uint32_t dropout_bits(unsigned long long seed, uint32
   return w == 0 ? c.x : w == 1 ? c.y : w == 2 ? c.z : c.w;
 }
 
+// The bits of the four elements that a lane holds of n8 tile n in a warp's
+// 16-row mma.m16n8k16 accumulator (mma_bf16.cuh): rows row0 + g and
+// row0 + g + 8 (g = lane / 4), keys 8n + 2t and 8n + 2t + 1 (t = lane % 4),
+// in the fragment's order c0 (g, 2t), c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8,
+// 2t+1). Lanes t and t ^ 1 need the same two Philox calls (one counter per
+// row and group of four keys): the even lane makes row g's, the odd lane
+// row g + 8's, and each sends the other the two words it needs, so one
+// call a lane covers its four elements. Every lane of the warp must call
+// it with the same n (shuffles).
+__device__ __forceinline__ void fragment_dropout_bits(uint32_t (&bits)[4],
+                                                      unsigned long long seed, uint32_t b,
+                                                      uint32_t h, int row0, int n, int lane) {
+  const int g = lane / 4, t4 = lane % 4;
+  const bool odd = t4 & 1;
+  const uint32_t row = row0 + g + (odd ? 8 : 0);
+  const uint4 w = dropout_words(seed, b, h, row, n * 8 + 2 * t4);
+  const uint32_t got0 = __shfl_xor_sync(0xffffffffu, odd ? w.x : w.z, 1);
+  const uint32_t got1 = __shfl_xor_sync(0xffffffffu, odd ? w.y : w.w, 1);
+  bits[0] = odd ? got0 : w.x;  // row g
+  bits[1] = odd ? got1 : w.y;
+  bits[2] = odd ? w.z : got0;  // row g + 8
+  bits[3] = odd ? w.w : got1;
+}
+
 }  // namespace d2r

@@ -294,46 +294,16 @@ fused_attention_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restri
   // scale and bias in fp32 after the product (:83-86), keys past S to -inf
   d2r::scale_bias_mask<SMAX>(s, scale, bias == nullptr ? nullptr : bias + b * S, S, t4);
 
-  // softmax over each full row: rows g (r = 0) and g + 8 (r = 1)
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float m = -INFINITY;
-#pragma unroll
-    for (int n = 0; n < SMAX / 8; ++n) m = fmaxf(m, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
-    float sum = 0.f;
-#pragma unroll
-    for (int n = 0; n < SMAX / 8; ++n) {
-#pragma unroll
-      for (int e = 2 * r; e < 2 * r + 2; ++e) {
-        s[n][e] = expf(s[n][e] - m);  // 0 past S
-        sum += s[n][e];
-      }
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-#pragma unroll
-    for (int n = 0; n < SMAX / 8; ++n) {
-      s[n][2 * r] /= sum;
-      s[n][2 * r + 1] /= sum;
-    }
-  }
+  // softmax over each full row, p = e / sum in fp32 (:87-89)
+  d2r::softmax_rows<SMAX>(s);
 
-  // dropout: this lane's keys 2t4, 2t4 + 1 of n8 tile n share one Philox
-  // call with lane t4 ^ 1's; the even lane makes row g's call, the odd lane
-  // row g + 8's, and each sends the other the two words it needs
+  // dropout: lanes t4 and t4 ^ 1 share their Philox calls
   if (dropout) {
-    const bool odd = t4 & 1;
-    const uint32_t row = row_w + g + (odd ? 8 : 0);
 #pragma unroll
     for (int n = 0; n < SMAX / 8; ++n) {
       if (n * 8 >= S) break;
-      const uint4 w = d2r::dropout_words(seed, (uint32_t)b, h, row, n * 8 + 2 * t4);
-      const uint32_t got0 = __shfl_xor_sync(0xffffffffu, odd ? w.x : w.z, 1);
-      const uint32_t got1 = __shfl_xor_sync(0xffffffffu, odd ? w.y : w.w, 1);
-      const uint32_t bits[4] = {odd ? got0 : w.x, odd ? got1 : w.y,   // row g
-                                odd ? w.z : got0, odd ? w.w : got1};  // row g + 8
+      uint32_t bits[4];
+      d2r::fragment_dropout_bits(bits, seed, (uint32_t)b, h, row_w, n, lane);
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = bits[e] >= threshold ? s[n][e] * inv_keep : 0.f;
     }
@@ -347,10 +317,7 @@ fused_attention_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restri
   for (int kk = 0; kk < SMAX / 16; ++kk) {
     if (kk * 16 >= S) break;
     uint32_t a[1][4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e)  // a0..a3: (row g, row g + 8) x (keys 0-7, 8-15)
-      a[0][e] =
-          d2r::pack_bf16(s[2 * kk + e / 2][2 * (e % 2)], s[2 * kk + e / 2][2 * (e % 2) + 1]);
+    d2r::pack_a<SMAX>(a[0], s, kk);
     d2r::pv_step<DMAX, 1>(acc, a, vs, ld, kk, nkd, lane);
   }
 

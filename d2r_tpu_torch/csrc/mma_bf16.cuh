@@ -1,8 +1,10 @@
-// Warp-level tensor-core pieces of the bf16 attention kernels (K1, K3):
+// Warp-level tensor-core pieces of the bf16 attention kernels (K1, K2, K3):
 // 16-byte cp.async with zero fill, ldmatrix, and mma.sync m16n8k16 with
-// bf16 operands and fp32 accumulation, plus what both kernels do with them:
-// the tile loader, the score product, the scale/bias/mask step, the p.V
-// product and the row store.
+// bf16 operands and fp32 accumulation, plus what the kernels do with them:
+// the tile loader, the score product, the scale/bias/mask step, the
+// whole-row softmax (K1, K2), the A operand packed from fp32 fragments or
+// read transposed from a stored tile (K2), the p.V product and the row
+// store.
 //
 // Fragment layouts of mma.m16n8k16 (PTX ISA, "Matrix fragments"), with
 // g = lane / 4 and t = lane % 4:
@@ -130,7 +132,7 @@ inline bool vec_ok(const void* p, int D, long long bs, long long rs) {
          rs % 8 == 0;
 }
 
-// The pieces of a warp's attention tile that K1 and K3 share. The warp
+// The pieces of a warp's attention tile that the kernels share. The warp
 // owns 16 query rows; a lane holds rows g and g + 8 (g = lane / 4) of the
 // fp32 fragments, t4 = lane % 4. NKEY and DMAX are the key count and head
 // width the registers are sized for; the loops stop at the nk keys and
@@ -173,9 +175,64 @@ __device__ __forceinline__ void scale_bias_mask(float (&s)[NKEY / 8][4], float s
   }
 }
 
+// softmax over each full row of the warp's (16, NKEY) tile in place, in
+// fp32: rows g (r = 0) and g + 8 (r = 1), max and sum over the 4 lanes that
+// hold a row by __shfl_xor_sync, p = e / sum; keys at -inf become 0.
+template <int NKEY>
+__device__ __forceinline__ void softmax_rows(float (&s)[NKEY / 8][4]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float m = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < NKEY / 8; ++n) m = fmaxf(m, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+    float sum = 0.f;
+#pragma unroll
+    for (int n = 0; n < NKEY / 8; ++n) {
+#pragma unroll
+      for (int e = 2 * r; e < 2 * r + 2; ++e) {
+        s[n][e] = expf(s[n][e] - m);
+        sum += s[n][e];
+      }
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+#pragma unroll
+    for (int n = 0; n < NKEY / 8; ++n) {
+      s[n][2 * r] /= sum;
+      s[n][2 * r + 1] /= sum;
+    }
+  }
+}
+
+// The A operand of k16 step kk from a warp's (16, NKEY) fp32 tile, rounded
+// to bf16: a0..a3 are (row g, row g + 8) x (keys 0-7, 8-15) of the step,
+// i.e. n8 tiles 2kk and 2kk + 1 of the accumulator layout.
+template <int NKEY>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&s)[NKEY / 8][4],
+                                       int kk) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    a[e] = pack_bf16(s[2 * kk + e / 2][2 * (e % 2)], s[2 * kk + e / 2][2 * (e % 2) + 1]);
+}
+
+// The A operand of a product over a stored (rows, cols) bf16 tile read
+// transposed: A = T^T restricted to the 16 columns at c0 (A's rows) and
+// the 16 rows at r0 (A's k16 step), for a tile T at t with row stride ld.
+// ldmatrix.trans turns the four 8x8 blocks (r0 + 0/8, c0 + 0/8) into the
+// fragment layout above: a0 from (r0, c0), a1 from (r0, c0 + 8), a2 from
+// (r0 + 8, c0), a3 from (r0 + 8, c0 + 8).
+__device__ __forceinline__ void load_a_trans(uint32_t (&a)[4], const __nv_bfloat16* t, int ld,
+                                             int r0, int c0, int lane) {
+  ldmatrix_x4_trans(a, t + (r0 + (lane / 16) * 8 + lane % 8) * ld + c0 + ((lane / 8) % 2) * 8);
+}
+
 // p.V over the 16 keys of k16 step kk: acc += a[i] . V for each of the NA
 // A operands in turn (K1: p rounded to bf16; K3: its hi and lo halves),
 // V the tile's rows at vt (row stride ld), read transposed by ldmatrix.
+// K2 runs its dq, dk and dv products through it too, with K, Q or G in
+// V's place (rows are the contracted dimension).
 template <int DMAX, int NA>
 __device__ __forceinline__ void pv_step(float (&acc)[DMAX / 8][4], const uint32_t (&a)[NA][4],
                                         const __nv_bfloat16* vt, int ld, int kk, int nkd,

@@ -14,13 +14,14 @@ on request, dbias = the sum over heads and queries of d(logits).
 What bounds both on the H100 is bytes, not operations: at the model's sites
 they do about L/3 (K1) and 5L/6 (K2) operations per byte read, far under
 the card's ridge. Each reads q, k, v (and g) once, keeps scores and
-probabilities on chip and writes only its outputs. K1 in bf16 stages one
-(b, h) a block by ``cp.async`` and runs both products on the tensor cores
-(``mma.sync``, fp32 sums), with p rounded to bf16 between them as the JAX
-kernel rounds it; K1 in fp32 and K2 run on the CUDA cores. They read q, k
-and v through their batch and row strides, so the strided views that the
-fused QKV projection yields need no copies. See the sources' headers for
-the grids and the shared-memory layouts.
+probabilities on chip and writes only its outputs. In bf16 each stages one
+(b, h) a block by ``cp.async`` and runs its products on the tensor cores
+(``mma.sync``, fp32 sums), rounding to bf16 where the JAX kernel rounds: K1
+p before p.V; K2, in one pass, pd before dv and d(logits) before dq and dk,
+drawing each dropout bit once. In fp32 both run on the CUDA cores. They
+read q, k and v through their batch and row strides, so the strided views
+that the fused QKV projection yields need no copies. See the sources'
+headers for the grids and the shared-memory layouts.
 
 Dropout bits come from Philox4x32-10 keyed on a 64-bit seed, with the
 counter made from (b, h, query row, key column): the mask depends on no grid

@@ -92,6 +92,35 @@ def test_autograd_function_matches_jax_interpret(geom):
         _close(leaf.grad, r, name)
 
 
+@pytest.mark.parametrize("geom", ["bert_like", "odd_bias"])
+def test_bf16_rounding_matches_jax_interpret(geom):
+    """The yardstick of bf16 K2's share check on the card: in bf16 the
+    plain version keeps the JAX kernel's rounding points (pd rounded before
+    dv, d(logits) before dq and dk, ``fused_attention.py:136, :151``), so
+    at most 1% of its dq, dk, dv differ from the interpret-mode kernel's at
+    all, while the control that leaves both unrounded differs in at least
+    10% of each. The max error alone cannot tell the two apart."""
+    q, k, v, bias, g = _inputs(*GEOMETRIES[geom], seed=3)
+    bf = lambda x: torch.from_numpy(x).to(torch.bfloat16)
+    qt, kt, vt, gt = (bf(x) for x in (q, k, v, g))
+    scale = q.shape[-1] ** -0.5
+    jq, jk, jv, jg = (jnp.asarray(x.float().numpy(), jnp.bfloat16) for x in (qt, kt, vt, gt))
+    f = lambda q_, k_, v_, b_: jfused(q_, k_, v_, b_, scale, interpret=True)
+    _, vjp = jax.vjp(f, jq, jk, jv, jnp.asarray(bias))
+    ref = [torch.from_numpy(np.array(x.astype(jnp.float32))) for x in vjp(jg)]
+    got = tfa.fused_attention_small_bwd_plain(qt, kt, vt, torch.from_numpy(bias), gt, scale)
+    # on fp32 copies of the inputs nothing is rounded before the products
+    control = tfa.fused_attention_small_bwd_plain(qt.float(), kt.float(), vt.float(),
+                                                  torch.from_numpy(bias), gt.float(), scale)
+    for name, a, c, r in zip(("dq", "dk", "dv"), got, control, ref):
+        c = c.to(torch.bfloat16)
+        assert a.dtype == torch.bfloat16
+        share = (a.float() != r).float().mean().item()
+        control_share = (c.float() != r).float().mean().item()
+        assert share <= 0.01 and control_share >= 0.10, (name, share, control_share)
+    _close(got[3], ref[3], "b")
+
+
 def test_bwd_wrapper_routes_cpu_to_plain_and_drops_dbias_on_request():
     q, k, v, bias, g = (torch.from_numpy(x) for x in _inputs(*GEOMETRIES["odd_bias"], seed=2))
     before = tfa.fused_attention_small_bwd.launches

@@ -1,13 +1,15 @@
 """The port's CUDA kernels on the card: K1 (forward, with and without
-dropout), K2 (backward) and K3 (long-context forward) against their plain
-versions, and the serving and training paths launching them at every
-attention site. Every test is
-marked ``cuda`` and skips itself where ``torch.cuda.is_available()`` is
-false.
+dropout), K2 (backward, at the sites and at the edges of its bf16 tiling)
+and K3 (long-context forward) against their plain versions, and the
+serving and training paths launching them at every attention site. Every
+test is marked ``cuda`` and skips itself where ``torch.cuda.is_available()``
+is false.
 
 Tolerances: K1 as in chip_smoke (fp32 1e-5, bf16 2e-2 absolute); K2 scaled
 by the output's magnitude, fp32 1e-5 and bf16 2e-2 of max(1, max |ref|)
-(one bf16 ulp at |x| is 2^-8 |x|); K3 as in chip_smoke, fp32 1e-5
+(one bf16 ulp at |x| is 2^-8 |x|), and in bf16 at most 1% of dq, dk, dv
+differing from the plain version at all, where the control with pd and
+d(logits) left unrounded differs in more; K3 as in chip_smoke, fp32 1e-5
 absolute and bf16 4e-3 of max(1, max |ref|), one ulp of outputs in
 [0.5, 1). That bound does not tell K3's rounding (p fp32 into p.V, which
 the bf16 kernel carries as p = hi + lo) from K1's (p rounded to bf16); the
@@ -144,29 +146,50 @@ def test_cuda_dropout_forward_matches_plain(cuda, dtype, tol):
             assert (out.float() - ref.float()).abs().max().item() <= tol, (b, l, h, d, rate)
 
 
+def _check_k2(q, k, v, bias, g, rate, seed, shape):
+    """K2 twice (dbias on the first call only, when there is a bias)
+    against its plain version: shapes, the same bits, the error, dbias and,
+    in bf16, the share of outputs that differ against the unrounded
+    control's."""
+    d = q.shape[-1]
+    before = tfa.fused_attention_small_bwd.launches
+    got = tfa.fused_attention_small_bwd(q, k, v, bias, g, d ** -0.5, rate, seed)
+    again = tfa.fused_attention_small_bwd(q, k, v, bias, g, d ** -0.5, rate, seed,
+                                          need_dbias=False)
+    torch.cuda.synchronize()
+    assert tfa.fused_attention_small_bwd.launches == before + 2
+    assert again[3] is None
+    ref = tfa.fused_attention_small_bwd_plain(q, k, v, bias, g, d ** -0.5, rate, seed)
+    # on fp32 copies of the inputs pd and d(logits) stay unrounded
+    control = tfa.fused_attention_small_bwd_plain(q.float(), k.float(), v.float(), bias,
+                                                  g.float(), d ** -0.5, rate, seed)
+    for name, x, y, z, c in zip(("dq", "dk", "dv"), got, again, ref, control):
+        c = c.to(q.dtype)
+        assert x.shape == z.shape and x.dtype == z.dtype and x.is_contiguous()
+        assert torch.equal(x, y), name
+        tol = K2_TOL[q.dtype] * max(1.0, z.float().abs().max().item())
+        assert (x.float() - z.float()).abs().max().item() <= tol, (name, shape, rate)
+        if q.dtype == torch.bfloat16:
+            share = (x != z).float().mean().item()
+            assert share <= 0.01, (name, shape, rate, share)
+            if k.shape[1] > 1:   # with one key d(logits) is 0 and p is 1
+                assert (c != z).float().mean().item() > 0.01, (name, shape, rate)
+    tol = 1e-4 * max(1.0, ref[3].abs().max().item())
+    assert (got[3] - ref[3]).abs().max().item() <= tol, ("dbias", shape, rate)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_backward_matches_plain(cuda, dtype):
     """K2 against its plain version with and without dropout, dbias on
-    request, and the same bits on a second run (no atomics in dq, dk, dv)."""
+    request, the same bits on a second run (no atomics in dq, dk, dv), and
+    in bf16 the JAX kernel's rounding points: at most 1% of the outputs
+    differ from the plain version, where dropping the rounding of pd and
+    d(logits) differs in more."""
     for i, (b, l, h, d, with_bias) in enumerate(GEOMETRIES):
         q, k, v, bias, g = _qkv(cuda, dtype, b, l, h, d, with_bias, seed=10 + i)
         for rate, seed in ((0.0, None), (0.1, 11)):
-            before = tfa.fused_attention_small_bwd.launches
-            got = tfa.fused_attention_small_bwd(q, k, v, bias, g, d ** -0.5, rate, seed)
-            again = tfa.fused_attention_small_bwd(q, k, v, bias, g, d ** -0.5, rate, seed,
-                                                  need_dbias=False)
-            torch.cuda.synchronize()
-            assert tfa.fused_attention_small_bwd.launches == before + 2
-            assert again[3] is None
-            ref = tfa.fused_attention_small_bwd_plain(q, k, v, bias, g, d ** -0.5, rate, seed)
-            for name, x, y, z in zip(("dq", "dk", "dv"), got, again, ref):
-                assert x.shape == z.shape and x.dtype == z.dtype and x.is_contiguous()
-                assert torch.equal(x, y), name
-                tol = K2_TOL[dtype] * max(1.0, z.float().abs().max().item())
-                assert (x.float() - z.float()).abs().max().item() <= tol, (name, b, l, h, d)
-            tol = 1e-4 * max(1.0, ref[3].abs().max().item())
-            assert (got[3] - ref[3]).abs().max().item() <= tol, ("dbias", b, l, h, d)
+            _check_k2(q, k, v, bias, g, rate, seed, (b, l, h, d))
 
 
 @pytest.mark.cuda
@@ -301,6 +324,26 @@ def test_cuda_k1_tile_edges(cuda, dtype, tol):
             assert out.shape == q.shape and out.is_contiguous()
             err = (out.float() - ref.float()).abs().max().item()
             assert err <= tol, (b, l, s, h, d, rate, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_k2_tile_edges(cuda, dtype):
+    """K2 at K1's edges of the bf16 tiling, with and without dropout: D = 40
+    (not a multiple of 16), 7 query rows against 128 keys (warps with keys
+    but no rows), the largest tile and shared memory L = S = D = 128, L = S
+    = 1, and the views that only element loads stage: D = 37 (odd-width
+    stores too) and rows 4 elements longer than the heads' fused width;
+    dbias wherever there is a bias."""
+    for i, (b, l, s, h, d, with_bias, pad) in enumerate(
+            ((3, 64, 64, 5, 40, True, 0), (2, 7, 128, 3, 64, True, 0),
+             (2, 128, 128, 2, 128, True, 0), (4, 1, 1, 3, 64, False, 0),
+             (3, 50, 50, 4, 37, True, 0), (2, 64, 64, 3, 64, True, 4))):
+        q, k, v, bias = _views(cuda, dtype, b, l, s, h, d, with_bias, seed=40 + i, pad=pad)
+        g = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(50 + i),
+                        device=cuda).to(dtype)
+        for rate, seed in ((0.0, None), (0.1, 9)):
+            _check_k2(q, k, v, bias, g, rate, seed, (b, l, s, h, d, pad))
 
 
 @pytest.mark.cuda
