@@ -83,6 +83,21 @@ Phases; any failure exits non-zero without the final ``ok`` line:
    1. The fp32 train step card against CPU adds the image-branch IMRC
    ``sa_qkv`` (K3's path, as the CLIP-L ``qkv`` is) to the leaves.
 
+12. The training entry point as a user runs it: ``d2r_tpu_torch.cli.main``
+   at ``run.sh``'s recipe (``TRAINER_RECIPE``: D2R-base, batch 64, bf16) for
+   two epochs on ``write_fake_dataset(n=512, image_size=256,
+   corrupt_every=50)`` through the port's tokenizer, decoders, loader,
+   trainer and checkpoints. The items that decode to the fallback frame
+   must be exactly the corrupt files. Counts set to 0 before, read after:
+   34 K1 and 34 K2 launches a train step and 34 K1 an eval batch; finite
+   losses; the best model and ``config.json`` saved. The trainer's own
+   samples/s and the shares of its epoch loop, step time (CUDA events a
+   step: median, quartiles and extremes), host wait on the loader, eval and
+   checkpoint-save times and bytes, and K1's and K2's card time a step from
+   the run's ``--profile_dir`` trace. Then the restore probe:
+   ``--only_test --load_path <best_model>`` gives the trained run's test
+   loss bit for bit.
+
 Phase 2 also holds K1 with dropout (rate 0.1 at the BERT site, 0.5 at the
 CLIP site, batch 64) against its plain version with the same seed (same
 Philox bits, so the same tolerances), and K2 against its plain version at
@@ -174,6 +189,20 @@ K1_EDGES = (("d40", 4, 64, 64, 6, 40, True, 0), ("l7_s128", 4, 7, 128, 4, 64, Tr
 # with rows, seven more with keys only), the largest tile and shared memory
 # (128 by 128 by 128), dbias wherever there is a bias
 K2_EDGES = K1_EDGES
+# The training entry point (phase 12): run.sh's recipe (MVSA-Single:
+# batch 64, max_seq 64, DR_step 4, JS weights 0.9 / 0.3, lr 1e-5, warmup
+# 0.2) in bf16, on a fabricated dataset of 512 posts with 256-pixel JPEGs,
+# every 50th file corrupt, for two epochs
+TRAINER_RECIPE = ["--batch_size", "64", "--max_seq", "64", "--DR_step", "4",
+                  "--compute_dtype", "bfloat16", "--weight_js_1", "0.9",
+                  "--weight_js_2", "0.3", "--weight_diff", "0", "--lr", "1e-5",
+                  "--warmup_ratio", "0.2"]
+TRAINER_DATA = {"n": 512, "image_size": 256, "corrupt_every": 50}
+TRAINER_EPOCHS = 2
+# train steps a dispatch: one, so that CUDA events time each step; the first
+# (warm-up) and the second (traced by --profile_dir) are left out of the
+# step statistics, which leaves 14 of the 16 steps
+TRAINER_DISPATCH = 1
 # The two configurations driven at full width, with their attention sites a
 # forward: K1 at L, S <= 128 (K2 their backward in training), K3 at the
 # 257-token vision sites. D2R-base is the serving and bench recipe
@@ -815,6 +844,17 @@ def profile_forwards(pred, args, n=3):
     return device_profile(lambda: pred._forward(*args), n, "forward")
 
 
+def busy_time(spans):
+    """The length of the union of sorted (start, end) spans."""
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy, cur_s, cur_e = busy + cur_e - cur_s, s, e
+        else:
+            cur_e = max(cur_e, e)
+    return busy + cur_e - cur_s
+
+
 def device_profile(fn, n, unit):
     """Device busy share and kernel time by name over ``n`` back-to-back
     calls of ``fn``, from torch.profiler's CUDA kernel events."""
@@ -833,13 +873,7 @@ def device_profile(fn, n, unit):
     if not spans:
         return {"device_time": "not measured (no CUDA events in the trace)"}
     spans.sort()
-    busy, cur_s, cur_e = 0.0, *spans[0]
-    for s, e in spans[1:]:
-        if s > cur_e:
-            busy, cur_s, cur_e = busy + cur_e - cur_s, s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy += cur_e - cur_s
+    busy = busy_time(spans)
     window = spans[-1][1] - spans[0][0]
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     k1 = sum(v for k, v in by_name.items() if "fused_attention_fwd" in k)
@@ -1098,6 +1132,170 @@ def phase_train_card_vs_cpu(report, key="base"):
     assert ok, "train step card against CPU out of tolerance"
 
 
+def trace_kernel_ms(path):
+    """ms of K1 and K2 in a torch.profiler chrome trace, and the device busy
+    ms (the union of its kernels' spans)."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("cat") == "kernel" and e.get("dur", 0) > 0]
+    k1 = sum(e["dur"] for e in events if "fused_attention_fwd" in e["name"]) / 1e3
+    k2 = sum(e["dur"] for e in events if "fused_attention_bwd" in e["name"]) / 1e3
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events)
+    return {"k1_ms": k1, "k2_ms": k2, "busy_ms": busy_time(spans) / 1e3,
+            "window_ms": (spans[-1][1] - spans[0][0]) / 1e3, "kernels": len(events)}
+
+
+def phase_train_cli(report):
+    """The training entry point as a user runs it: ``d2r_tpu_torch.cli.main``
+    on a fabricated dataset (``TRAINER_DATA``, corrupt images included),
+    D2R-base at ``run.sh``'s recipe for ``TRAINER_EPOCHS`` epochs; then the
+    restore probe, ``--only_test --load_path <best_model>``, whose test loss
+    must equal the trained run's bit for bit. Launch counts: 34 K1 and 34 K2
+    a train step, 34 K1 an eval batch. ``--steps_per_dispatch`` is
+    ``TRAINER_DISPATCH``; the step statistics leave out the dispatch that
+    warms up (the first) and the one ``--profile_dir`` traces (the
+    second)."""
+    import logging
+    import shutil
+    import numpy as np
+    from d2r_tpu_torch import cli
+    from d2r_tpu_torch.data import native_image, native_text
+    from d2r_tpu_torch.data.dataset import MSDDataset, MSDProcessor, write_fake_dataset
+
+    root = os.path.join("build", "chip_smoke_train_cli")
+    shutil.rmtree(root, ignore_errors=True)
+    messages = []
+    handler = logging.Handler()
+    handler.emit = lambda record: messages.append(record.getMessage())
+    logging.getLogger("d2r_tpu_torch").addHandler(handler)
+    try:
+        t0 = time.perf_counter()
+        paths = write_fake_dataset(os.path.join(root, "data"), **TRAINER_DATA)
+        write_s = time.perf_counter() - t0
+        cfg = cli.config_from_args(cli.build_arg_parser().parse_args(TRAINER_RECIPE))
+        vc = cfg.vision_config()
+        # which decoder served: corrupt files decode to the fallback image
+        # (a constant 128 frame) or the grey frame (128 too); every other
+        # image is random noise
+        ds = MSDDataset(MSDProcessor({k: paths[k] for k in ("train", "dev", "test")},
+                                     cfg.bert_name, vocab_size=cfg.text_config().vocab_size),
+                        paths["img_dir"], max_seq=cfg.max_seq, mode="train",
+                        image_size=vc.image_size, num_vision_tokens=vc.num_tokens,
+                        pixel_transfer=cfg.pixel_transfer)
+        t0 = time.perf_counter()
+        fallback = sum(bool((ds[i]["pixel_values"] == 128).all()) for i in range(len(ds)))
+        corrupt = len(range(0, TRAINER_DATA["n"], TRAINER_DATA["corrupt_every"]))
+        decode = {"native_image": native_image.native_available(),
+                  "native_text": native_text.native_available(),
+                  "fallback_items": fallback, "corrupt_files": corrupt,
+                  "decode_s": time.perf_counter() - t0, "write_s": write_s}
+        log(f"[train_cli] {TRAINER_DATA['n']} samples written in {write_s:.1f} s; native "
+            f"decoder {'built' if decode['native_image'] else 'NOT built (PIL serves)'}; "
+            f"{fallback} items decoded to the fallback frame, {corrupt} files corrupt")
+        assert fallback == corrupt, decode
+
+        out = os.path.join(root, "output")
+        flags = TRAINER_RECIPE + [
+            "--num_epochs", str(TRAINER_EPOCHS), "--train_json", paths["train"],
+            "--dev_json", paths["dev"], "--test_json", paths["test"],
+            "--img_dir", paths["img_dir"], "--steps_per_dispatch", str(TRAINER_DISPATCH)]
+        run = lambda name, extra: flags + ["--save_path", os.path.join(out, name),
+                                           "--metrics_jsonl", os.path.join(out, name + ".jsonl"),
+                                           *extra]
+        records = lambda name: [json.loads(line) for line in open(os.path.join(out, name + ".jsonl"))]
+
+        zero_counts()
+        t0 = time.perf_counter()
+        cli.main(run("train", ["--profile_dir", os.path.join(out, "profile")]))
+        train_s = time.perf_counter() - t0
+        launches = read_counts()
+        rec = records("train")
+        summary = next(r for r in rec if r["kind"] == "summary")
+        test = next(r for r in rec if r["kind"] == "test")
+        dev = [r for r in rec if r["kind"] == "dev"]
+        steps = summary["steps"]
+        batches = math.ceil(TRAINER_DATA["n"] / cfg.batch_size)   # a split, a pass
+        eval_batches = batches * (len(dev) + 1)
+        best = os.path.join(out, "train", "best_model")
+        prof = trace_kernel_ms(os.path.join(out, "profile", "trace.json"))
+        timed = summary["step_ms"][2:]   # neither the first nor the traced dispatch
+        quartiles = [float(x) for x in np.percentile(timed, [0, 25, 50, 75, 100])]
+        # the epoch loop's time by part: the dispatches' CUDA-event spans,
+        # the dev evaluations, the best-model saves, and the host's other
+        # work (waits on the loader, stacking and copies, the trace export)
+        loop_s = summary["elapsed_s"]
+        parts = {"dispatches": sum(summary["step_ms"]) * TRAINER_DISPATCH / 1e3,
+                 "dev_evals": sum(summary["eval_ms"]) / 1e3,
+                 "saves": sum(summary["checkpoint_save_ms"]) / 1e3}
+        parts["rest"] = loop_s - sum(parts.values())
+        result = {
+            "decode": decode, "steps": steps, "eval_batches": eval_batches, "wall_s": train_s,
+            "k1_launches": launches["k1"], "k2_launches": launches["k2"],
+            "samples_per_sec": summary["samples_per_sec"], "loop_s": loop_s,
+            "loop_share": {k: v / loop_s for k, v in parts.items()},
+            "step_ms": summary["step_ms"], "step_ms_median": quartiles[2],
+            "step_ms_min_q1_median_q3_max": quartiles, "steps_timed": len(timed),
+            "loader_wait_ms_median": float(np.median(summary["loader_wait_ms"])),
+            "loader_wait_ms": summary["loader_wait_ms"], "dev_eval_ms": summary["eval_ms"],
+            "checkpoint_save_ms": summary["checkpoint_save_ms"],
+            "checkpoint_bytes": summary["checkpoint_bytes"],
+            "train_losses": [r["loss"] for r in rec if r["kind"] == "train_window"],
+            "dev": dev, "test": test,
+            "profiled_dispatch": {**prof, "k1_ms_per_step": prof["k1_ms"] / TRAINER_DISPATCH,
+                                  "k2_ms_per_step": prof["k2_ms"] / TRAINER_DISPATCH}}
+        report["train_cli"] = result
+        log(f"[train_cli] D2R-base, run.sh recipe, {TRAINER_EPOCHS} epochs: {steps} steps, "
+            f"{eval_batches} eval batches, K1 {launches['k1']}, K2 {launches['k2']} launches; "
+            f"{train_s:.1f} s")
+        log(f"[train_cli] trainer's samples/s {summary['samples_per_sec']:.2f} over a "
+            f"{loop_s:.2f} s epoch loop: " + ", ".join(
+                f"{k} {v:.2f} s ({v / loop_s:.1%})" for k, v in parts.items()))
+        log(f"[train_cli] step ms (CUDA events, {TRAINER_DISPATCH} step(s) a dispatch; "
+            f"{len(timed)} of {len(summary['step_ms'])} dispatches, the warm-up and the "
+            f"traced one left out): median {quartiles[2]:.2f}, min / q1 / q3 / max "
+            f"{quartiles[0]:.2f} / {quartiles[1]:.2f} / {quartiles[3]:.2f} / "
+            f"{quartiles[4]:.2f}; all {[round(x, 2) for x in summary['step_ms']]}")
+        bare = report.get("train", {}).get("step_ms_median")
+        if bare:   # phase 6's bare train_step at the same batch, in this run
+            result["step_ms_median_over_phase6"] = quartiles[2] / bare
+            log(f"[train_cli] median step / phase 6's bare step {bare:.2f} ms: "
+                f"{quartiles[2] / bare:.3f}")
+        log(f"[train_cli] host wait on the loader a step: median "
+            f"{result['loader_wait_ms_median']:.2f} ms, max {max(summary['loader_wait_ms']):.2f}")
+        log(f"[train_cli] dev eval ms {[round(x, 1) for x in summary['eval_ms']]}; checkpoint "
+            f"save ms {[round(x, 1) for x in summary['checkpoint_save_ms']]}, bytes "
+            f"{summary['checkpoint_bytes']}")
+        log(f"[train_cli] traced dispatch ({TRAINER_DISPATCH} step(s)): K1 "
+            f"{prof['k1_ms'] / TRAINER_DISPATCH:.3f} ms and K2 "
+            f"{prof['k2_ms'] / TRAINER_DISPATCH:.3f} ms a step, device busy "
+            f"{prof['busy_ms'] / TRAINER_DISPATCH:.2f} ms a step in a "
+            f"{prof['window_ms'] / TRAINER_DISPATCH:.2f} ms window")
+        log(f"[train_cli] losses by window {[round(x, 4) for x in result['train_losses']]}; "
+            f"dev F1 {[round(r['f_score'], 4) for r in dev]}; test loss {test['loss']!r}")
+        assert launches["k2"] == 34 * steps, launches
+        assert launches["k1"] == 34 * (steps + eval_batches), launches
+        assert all(math.isfinite(x) for x in result["train_losses"] + [test["loss"]])
+        assert any(m.startswith("Save best model") for m in messages), "no best model saved"
+        assert os.path.exists(os.path.join(out, "train", "config.json"))
+        assert os.path.exists(os.path.join(best, "model.pth"))
+
+        # the restore probe: a freshly built model in the same process loads
+        # best_model and tests
+        zero_counts()
+        cli.main(run("probe", ["--only_test", "--load_path", best]))
+        probe_launches = read_counts()
+        probe = next(r for r in records("probe") if r["kind"] == "test")
+        result["restore_probe"] = {"test_loss": probe["loss"], "launches": probe_launches}
+        log(f"[train_cli] restore probe: test loss {probe['loss']!r} (trained run "
+            f"{test['loss']!r}), K1 {probe_launches['k1']}, K2 {probe_launches['k2']}")
+        assert probe_launches == {"k1": 34 * batches, "k2": 0, "k3": 0}, probe_launches
+        assert probe["loss"] == test["loss"] and probe["f_score"] == test["f_score"]
+        return {n: launches[n] + probe_launches[n] for n in launches}
+    finally:
+        logging.getLogger("d2r_tpu_torch").removeHandler(handler)
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1116,6 +1314,7 @@ def main():
                    ("train" + suffix, lambda r, k=key: phase_train(r, k)),
                    ("train_card_vs_cpu" + suffix,
                     lambda r, k=key: phase_train_card_vs_cpu(r, k))]
+    phases.append(("train_cli", phase_train_cli))
     failed = []
     for name, fn in phases:
         t0 = time.perf_counter()

@@ -164,6 +164,27 @@ def register_vision_preset(name: str, factory) -> None:
 OPTIMIZER_IMPLS = ("grouped", "fused", "fused_leaf", "multi_transform")
 
 
+_PARALLEL = "Queue 1 item 9 (parallel)"
+_EXTRAS = "Queue 1 item 11 (trainer extras)"
+# (field, the CLI flag that sets it, test that it is in use, the ROADMAP.md
+# item that ports it): run-level settings of the JAX package the port has no
+# counterpart for; the model and the trainer both refuse them
+UNPORTED = (
+    ("async_checkpoint", "--async_checkpoint", lambda c: c.async_checkpoint, _EXTRAS),
+    ("debug_nans", "--debug_nans", lambda c: c.debug_nans, _EXTRAS),
+    ("prng_impl", "--prng_impl", lambda c: c.prng_impl != "rbg", _EXTRAS),
+    ("sentic_lexicon_path", "--sentic_lexicon", lambda c: c.sentic_lexicon_path is not None,
+     "Queue 1 item 10 (data/sentic.py)"),
+    ("mesh_shape", "--mesh_data/--mesh_stage/--mesh_model",
+     lambda c: tuple(c.mesh_shape) not in ((-1,), (1,)), _PARALLEL),
+    ("pipeline_microbatches", "--pipeline_microbatches",
+     lambda c: c.pipeline_microbatches != 0, _PARALLEL),
+    ("mesh_topology", "--mesh_topology", lambda c: c.mesh_topology, _PARALLEL),
+    ("seq_shard", "--seq_shard", lambda c: c.seq_shard, _PARALLEL),
+    ("fabric_shard", "--fabric_shard", lambda c: c.fabric_shard, _PARALLEL),
+)
+
+
 @dataclasses.dataclass(frozen=True)
 class D2RConfig:
     """Full experiment config; field names and defaults are the JAX
@@ -288,8 +309,10 @@ class D2RConfig:
 
     def check_supported(self) -> None:
         """Raise on settings the port cannot honour yet (it never ignores
-        one silently)."""
-        bad = []
+        one silently): those of :data:`UNPORTED`, named with their flag and
+        the ROADMAP.md item that ports them, and the values below."""
+        bad = [f"{field}={getattr(self, field)!r} ({flag}, ROADMAP.md {item})"
+               for field, flag, used, item in UNPORTED if used(self)]
         if self.quant_train != "none":
             bad.append(f"quant_train={self.quant_train!r}")
         if self.pipeline_stages > 1:
@@ -321,9 +344,17 @@ class D2RConfig:
                 + " yet (see ROADMAP.md, Queue 1)")
 
 
+def save_config_json(cfg: D2RConfig, path: str) -> None:
+    """Write ``cfg`` as JSON, the JAX package's ``save_config_json`` format
+    (which its ``load_config_json`` reads), so checkpoints describe their
+    own geometry."""
+    with open(path, "w") as f:
+        json.dump(dataclasses.asdict(cfg), f, indent=1, sort_keys=True)
+
+
 def load_config_json(path: str) -> D2RConfig:
-    """Read a ``config.json`` written by the JAX package's
-    ``save_config_json``. Unknown keys are dropped; tuple fields are coerced
+    """Read a ``config.json`` written by :func:`save_config_json` or the JAX
+    package's. Unknown keys are dropped; tuple fields are coerced
     back from lists."""
     with open(path) as f:
         d = json.load(f)

@@ -66,7 +66,7 @@ def dot_product_attention(
         if q.device.type != "cpu":
             raise NotImplementedError(
                 f"no kernel of the port takes attention with D={q.shape[-1]} > "
-                f"{MAX_DIM} on {q.device}; see ROADMAP.md Queue 4")
+                f"{MAX_DIM} on {q.device}; see ROADMAP.md Queue 3 (gap: K3 beyond D = 256)")
     return fused_attention_small_plain(q, k, v, key_bias, scale, dropout_rate,
                                        dropout_seed)
 

@@ -47,7 +47,7 @@ def test_import_leaves_jax_and_d2r_tpu_unloaded():
     p = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=300)
     assert p.returncode == 0, p.stdout + p.stderr
-    assert int(p.stdout.split()[0]) >= 14, p.stdout   # every module was imported
+    assert int(p.stdout.split()[0]) >= 35, p.stdout   # every module was imported
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(REPO)))
@@ -80,6 +80,29 @@ def test_entry_points_default_to_cuda_and_refuse_a_missing_gpu():
         build_model(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Predictor(cfg, build_model(cfg, device="cpu"))
+
+
+def test_cli_defaults_to_cuda_and_refuses_a_missing_gpu(tmp_path):
+    """Without --device the CLI asks for the card, and stops before it
+    reads any data."""
+    if torch.cuda.is_available():
+        pytest.skip("this check is for hosts without a GPU")
+    from d2r_tpu_torch import cli
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["--bert_name", "tiny-bert", "--vit_name", "tiny-vit",
+                  "--train_json", str(tmp_path / "absent.json"),
+                  "--save_path", str(tmp_path / "out")])
+    assert not (tmp_path / "out").exists()
+
+
+def test_native_bridges_build_under_build_not_native():
+    """The JAX package builds the same C sources into native/; the port's
+    libraries go to build/native/."""
+    from d2r_tpu_torch.data import native_image, native_lib, native_text
+    assert pathlib.Path(native_lib.BUILD_DIR) == REPO / "build" / "native"
+    assert pathlib.Path(native_lib.NATIVE_SRC) == REPO / "native"
+    for bridge in (native_image, native_text):
+        assert pathlib.Path(bridge._LIB_PATH).parent == REPO / "build" / "native"
 
 
 def test_wrapper_refuses_devices_without_a_kernel():

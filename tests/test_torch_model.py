@@ -42,6 +42,16 @@ MODULES = (
        for layer in ("dynamic_itr_l0", "dynamic_itr_l2") for c in CELLS])
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the tiny model's ops are too small to share, and
+    beside the suite's other workers more threads only contend."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def random_variables(model, args, seed=0):
     """A Flax variable tree of ``model`` filled with seeded numpy values:
     kernels at half the fan-in scale, LayerNorm scales near 1, positive BN

@@ -72,6 +72,16 @@ jconfig.register_text_preset(NODROP, lambda: _nodrop(jconfig))
 tconfig.register_text_preset(NODROP, lambda: _nodrop(tconfig))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the tiny model's ops are too small to share, and
+    beside the suite's other workers more threads only contend."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _configs(**kw):
     kw = {"bert_name": NODROP, "optimizer_impl": "multi_transform", "warmup_ratio": 0.0, **kw}
     return jconfig.tiny_test_config(**kw), tconfig.tiny_test_config(**kw)
