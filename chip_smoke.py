@@ -41,13 +41,19 @@ Phases; any failure exits non-zero without the final ``ok`` line:
    ``D2RConfig(DR_step=4, max_seq=64, compute_dtype="bfloat16")``
    (BERT-base + CLIP ViT-B/32, 768 wide, 12+1 layers a tower), random
    weights from a seeded ``torch.Generator``, behind
-   ``Predictor(batch_buckets=(1, 8, 32))``: warmup, then requests of 1, 3,
-   8, 20 and 40 rows (uint8 pixels, made with numpy from a seed), then the
-   per-bucket latency. Launch counts are set to 0 just before and read just
-   after: K1 must launch exactly 34 times per bucket-sized forward, K3
-   never. Then a torch.profiler trace of 3 forwards at buckets 1 and 32:
-   kernels per forward, device busy time and idle share, K1's and K3's
-   share, the top kernels.
+   ``Predictor(batch_buckets=(1, 8, 32))``, which runs each bucket as one
+   CUDA graph: warmup (each bucket's eager forward, then its capture), then
+   requests of 1, 3, 8, 20 and 40 rows (uint8 pixels, made with numpy from
+   a seed), which replay. Launch counts are set to 0 just before the warmup
+   and read after it: a wrapper counts host calls, so K1 must be called
+   2 x 34 times a bucket (the eager forward and the capture), K3 never;
+   the requests call no wrapper. Then at every bucket the replayed
+   probabilities against the eager forward's on the same buffers (equal
+   bit for bit), forward ms (CUDA events) and predict ms (host clock),
+   eager beside replay, ``latency_stats`` at bucket 8, and torch.profiler
+   traces of 3 eager and 3 replayed forwards at buckets 1 and 32: kernels
+   per forward (34 K1 kernels by name in each, K3 none), device busy time
+   and idle share, K1's and K3's share, the top kernels.
 5. The same model in fp32 (TF32 off), batch 2, on the CPU through the plain
    path and on the card through the kernel: logits within 1e-3.
 6. Training at full width, ``bench.py``'s recipe: the same D2R-base, batch
@@ -78,7 +84,8 @@ Phases; any failure exits non-zero without the final ``ok`` line:
    ids: ``<s>`` = 0 first, ``<pad>`` = 1 past each length. Per forward, 29
    sites on K1 (24 + 1 RoBERTa layers, 4 text-branch IMRC cells, L=S=64) and
    29 on K3 (24 + 1 CLIP-L layers, 4 image-branch IMRC cells, L=S=257):
-   serving must launch each exactly 29 times a bucket forward; training at
+   serving must call each wrapper 2 x 29 times a bucket at warmup and the
+   traces show 29 of each a replayed forward; training at
    batch 16 launches K1, K2 and K3 29 times a step, and the PAD row is row
    1. The fp32 train step card against CPU adds the image-branch IMRC
    ``sa_qkv`` (K3's path, as the CLIP-L ``qkv`` is) to the leaves.
@@ -98,6 +105,25 @@ Phases; any failure exits non-zero without the final ``ok`` line:
    ``--only_test --load_path <best_model>`` gives the trained run's test
    loss bit for bit.
 
+13. The HTTP service as a user runs it: ``server.build_service`` (the code
+   of ``python -m d2r_tpu_torch.server``) on a D2R-base checkpoint (the
+   phase-4 model, saved with ``save_checkpoint`` and ``save_config_json``
+   under ``build/``, removed at the end), buckets 1/8/32, a 5 ms batching
+   window, on an ephemeral port. 256 posts made with numpy from a seed
+   (texts, 256-pixel JPEGs, every 50th corrupt): (a) 64 one at a time; (b)
+   192 from 16 client threads, with (d) a /reload of the same checkpoint
+   issued as (b) starts and one more client posting until it returns; a
+   traced burst of 32 more (one graph launch a flush, 34 K1 kernels each);
+   (c) one /predict_batch of 32 (bit-equal to ``Predictor.predict`` of the
+   same rows); (e) a body over ``MAX_BODY_BYTES`` (413). Every answer but (e)
+   is 200, with the label of and probabilities within 2e-2 of each post
+   alone; /metrics counts exactly the requests sent and one reload. HTTP ms
+   p50 / p95 / p99 at (a) and (b), posts/s and mean flush size at (b), and
+   replay ms by bucket. Then (a), (b), (c) and (e) again on a service of
+   its own with ``--quantize int8``, whose labels must agree with the
+   unquantized service's wherever that one's top probability leads by more
+   than 0.1.
+
 Phase 2 also holds K1 with dropout (rate 0.1 at the BERT site, 0.5 at the
 CLIP site, batch 64) against its plain version with the same seed (same
 Philox bits, so the same tolerances), and K2 against its plain version at
@@ -115,7 +141,9 @@ as the yardstick (at the bf16 sites on the card alone too), and K2's bound
 operations at the type's peak).
 
 It prints one ``kernels`` JSON line (K1, K2 and K3; ``launches`` counts the
-serving and training runs of both configurations; ``ms``, ``plain_ms`` and
+wrappers' host calls in the serving and training runs of both
+configurations and the HTTP phase, a graph capture counting once and a
+replay not at all; ``ms``, ``plain_ms`` and
 ``library_ms`` back to back from the host, ``device_ms`` and
 ``library_device_ms`` the card alone), the card line, and last
 ``{"ok": true, "device": {...}}``. The full report also goes to
@@ -203,6 +231,12 @@ TRAINER_EPOCHS = 2
 # (warm-up) and the second (traced by --profile_dir) are left out of the
 # step statistics, which leaves 14 of the 16 steps
 TRAINER_DISPATCH = 1
+# The HTTP service (phase 13): 256 posts, the first 64 sent one at a time,
+# the other 192 from 16 client threads; a traced burst of 32 more; buckets
+# 1/8/32 and a 5 ms batching window
+SERVE_POSTS, SERVE_SEQUENTIAL, SERVE_TRACED = 256, 64, 32
+SERVE_CLIENTS = 16
+SERVE_MAX_WAIT_MS = 5
 # The two configurations driven at full width, with their attention sites a
 # forward: K1 at L, S <= 128 (K2 their backward in training), K3 at the
 # 257-token vision sites. D2R-base is the serving and bench recipe
@@ -754,12 +788,15 @@ def read_counts():
 
 
 def phase_main_path(report, key="base"):
-    """Serving at full width through ``Predictor``: warmup, requests, the
-    launch counts, per-bucket latency, and a profile at buckets 1 and 32."""
+    """Serving at full width through ``Predictor``: warmup (one CUDA graph a
+    bucket: an eager forward, then its capture), requests (replays), the
+    launch counts at capture, replay against eager at every bucket, forward
+    and predict ms eager beside replay, ``latency_stats`` at bucket 8, and
+    profiles of eager and replayed forwards at buckets 1 and 32."""
     import numpy as np
     import torch
     from d2r_tpu_torch.models.unimo import build_model
-    from d2r_tpu_torch.serve import Predictor
+    from d2r_tpu_torch.serve import Predictor, latency_stats
 
     spec = MODELS[key]
     tag = f"[main{spec['tag']}]"
@@ -772,16 +809,24 @@ def phase_main_path(report, key="base"):
         f"({params / 1e6:.1f} M parameters)")
     requests = make_requests(cfg)
 
+    # the main path: warmup captures every bucket (each capture runs the
+    # eager forward once, then records it: two host calls a site), then the
+    # requests replay graphs and call no wrapper
     zero_counts()
-    forwards = 0
     t0 = time.perf_counter()
     pred.warmup()
-    forwards += len(BUCKETS)
-    log(f"{tag} warmup of buckets {BUCKETS}: {time.perf_counter() - t0:.1f} s")
+    warm_s = time.perf_counter() - t0
+    launches = read_counts()
+    log(f"{tag} warmup of buckets {BUCKETS} (eager forward + capture each): {warm_s:.1f} s; "
+        f"host calls K1 {launches['k1']}, K3 {launches['k3']}")
+    for name in ("k1", "k3"):
+        want = 2 * spec[name] * len(BUCKETS)
+        assert launches[name] == want, (
+            f"{name.upper()} called {launches[name]} times at warmup, expected 2 x "
+            f"{spec[name]} x {len(BUCKETS)} (eager + capture a bucket)")
     for ids, mask, tt, pixels in requests:
         n = ids.shape[0]
         out = pred.predict(ids, mask, tt, pixels)
-        forwards += math.ceil(n / BUCKETS[-1])
         probs = out["probs"]
         assert probs.shape == (n, cfg.num_classes), probs.shape
         assert out["label"].shape == (n,), out["label"].shape
@@ -789,59 +834,75 @@ def phase_main_path(report, key="base"):
         assert np.abs(probs.sum(-1) - 1.0).max() <= 1e-3, probs.sum(-1)
         log(f"{tag} request of {n:2d} rows: labels {np.bincount(out['label'], minlength=3).tolist()}, "
             f"max prob {probs.max():.4f}")
+    assert read_counts() == launches, ("a replay called a kernel wrapper", read_counts())
+    assert sorted(pred.graphs) == [(b, np.dtype(np.uint8)) for b in BUCKETS], list(pred.graphs)
 
-    latency = {}
-    vc = cfg.vision_config()
+    # replay against eager on the same static buffers, and the timings
+    ids, mask, tt, pixels = requests[-1]
+    latency, equal = {}, {}
     for b in BUCKETS:
-        ids, mask, tt, _ = requests[-1]
-        dev = lambda x: torch.from_numpy(x[:b]).cuda()
-        args = (dev(ids), dev(mask), dev(tt),
-                torch.randint(0, 256, (b, 3, vc.image_size, vc.image_size),
-                              dtype=torch.uint8, device="cuda"))
-        ms = []
-        for _ in range(7):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            pred._forward(*args)
-            end.record()
-            torch.cuda.synchronize()
-            ms.append(start.elapsed_time(end))
-        forwards += 7
-        e2e = []
+        g = pred.graph(b)
+        rows = (ids[:b], mask[:b], tt[:b], pixels[:b])
+        pred._stage(g, rows)
+        replayed = pred._replay(g, b)
+        eager = pred._forward(*g.inputs).cpu().numpy()
+        equal[b] = {"bit_equal": bool(np.array_equal(replayed, eager)),
+                    "max_abs_diff": float(np.abs(replayed - eager).max())}
+        timed = {}
+        for mode, fn in (("eager", lambda: pred._forward(*g.inputs)),
+                         ("replay", g.graph.replay)):
+            ms = []
+            for _ in range(7):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn()
+                end.record()
+                torch.cuda.synchronize()
+                ms.append(start.elapsed_time(end))
+            timed[mode] = ms
+        e2e = {"eager": [], "replay": []}
         for _ in range(5):
+            t0 = time.perf_counter()   # the eager predict: pad, copy, forward, download
+            pred._forward(*pred._padded(rows, b)).cpu().numpy()
+            e2e["eager"].append((time.perf_counter() - t0) * 1e3)
             t0 = time.perf_counter()
-            pred.predict(ids[:b], mask[:b], tt[:b], requests[-1][3][:b])
-            e2e.append((time.perf_counter() - t0) * 1e3)
-        forwards += 5
-        latency[b] = {"forward_ms_median": float(np.median(ms)), "forward_ms": ms,
-                      "predict_ms_median": float(np.median(e2e))}
-        log(f"{tag} bucket {b:2d}: forward {np.median(ms):.2f} ms (CUDA events, median of 7), "
-            f"predict {np.median(e2e):.2f} ms (host clock, median of 5)")
-    launches = read_counts()
-    report["main" + spec["suffix"]] = {
-        "config": spec["label"], "parameters": params, "forwards": forwards,
-        "k1_launches": launches["k1"], "k3_launches": launches["k3"], "latency": latency}
-    log(f"{tag} K1 launches {launches['k1']}, K3 launches {launches['k3']} over "
-        f"{forwards} forwards")
-    for name in ("k1", "k3"):
-        want = spec[name] * forwards
-        assert launches[name] == want, (
-            f"{name.upper()} launched {launches[name]} times, expected {spec[name]} x {forwards}")
+            pred.predict(*rows)
+            e2e["replay"].append((time.perf_counter() - t0) * 1e3)
+        latency[b] = {f"{m}_forward_ms_median": float(np.median(timed[m])) for m in timed}
+        latency[b].update({f"{m}_predict_ms_median": float(np.median(e2e[m])) for m in e2e})
+        latency[b].update({"forward_ms": timed, "predict_ms": e2e})
+        log(f"{tag} bucket {b:2d}: replay {'==' if equal[b]['bit_equal'] else '!='} eager "
+            f"(max abs diff {equal[b]['max_abs_diff']:.3g}); forward eager "
+            f"{latency[b]['eager_forward_ms_median']:.2f} / replay "
+            f"{latency[b]['replay_forward_ms_median']:.2f} ms (CUDA events, median of 7); "
+            f"predict eager {latency[b]['eager_predict_ms_median']:.2f} / replay "
+            f"{latency[b]['replay_predict_ms_median']:.2f} ms (host clock, median of 5)")
+    stats8 = {}
+    batch8 = dict(zip(("input_ids", "attention_mask", "token_type_ids", "pixel_values"),
+                      (x[:8] for x in requests[-1])))
+    for resident in (False, True):
+        st = latency_stats(pred, batch8, iters=20, warmup=3, device_resident=resident)
+        stats8["device_resident" if resident else "predict"] = {k: v * 1e3 for k, v in st.items()}
+    log(f"{tag} latency_stats, bucket 8 (ms): " + json.dumps(stats8))
+    result = report["main" + spec["suffix"]] = {
+        "config": spec["label"], "parameters": params, "warmup_s": warm_s,
+        "k1_launches": launches["k1"], "k3_launches": launches["k3"],
+        "replay_vs_eager": equal, "latency": latency, "latency_stats_b8_ms": stats8}
 
     for b in (1, BUCKETS[-1]):
-        ids, mask, tt, _ = requests[-1]
-        args = [torch.from_numpy(x[:b]).cuda() for x in (ids, mask, tt)]
-        args.append(torch.randint(0, 256, (b, 3, vc.image_size, vc.image_size),
-                                  dtype=torch.uint8, device="cuda"))
-        report["main" + spec["suffix"]][f"profile_b{b}"] = prof = profile_forwards(pred, args)
-        log(f"[profile{spec['tag']}] bucket {b:2d}: " + json.dumps(prof))
+        g = pred.graph(b)
+        for mode, fn in (("eager", lambda: pred._forward(*g.inputs)), ("replay", g.graph.replay)):
+            result[f"profile_{mode}_b{b}"] = prof = device_profile(fn, 3, "forward")
+            log(f"[profile{spec['tag']}] {mode} bucket {b:2d}: " + json.dumps(prof))
+            for name in ("k1", "k3"):
+                got = prof.get(f"{name}_kernels_per_forward")
+                assert got == spec[name], (
+                    f"{mode} bucket {b}: {got} {name.upper()} kernels a forward in the "
+                    f"trace, expected {spec[name]}")
+    bad = [b for b in BUCKETS if not equal[b]["bit_equal"]]
+    assert not bad, f"replay differs from eager at buckets {bad}: {equal}"
     return launches
-
-
-def profile_forwards(pred, args, n=3):
-    """Device busy share and kernel time by name over ``n`` back-to-back
-    bucket forwards."""
-    return device_profile(lambda: pred._forward(*args), n, "forward")
 
 
 def busy_time(spans):
@@ -864,18 +925,20 @@ def device_profile(fn, n, unit):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    spans, by_name = [], {}
+    spans, by_name, calls = [], {}, {}
     for e in prof.events():
         if (e.device_type == torch.autograd.DeviceType.CUDA and e.time_range.elapsed_us() > 0
                 and not getattr(e, "is_user_annotation", False)):   # e.g. Optimizer.step
             spans.append((e.time_range.start, e.time_range.end))
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+            calls[e.name] = calls.get(e.name, 0) + 1
     if not spans:
         return {"device_time": "not measured (no CUDA events in the trace)"}
     spans.sort()
     busy = busy_time(spans)
     window = spans[-1][1] - spans[0][0]
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    count = lambda key: sum(c for k, c in calls.items() if key in k) / n
     k1 = sum(v for k, v in by_name.items() if "fused_attention_fwd" in k)
     k2 = sum(v for k, v in by_name.items() if "fused_attention_bwd" in k)
     k3 = sum(v for k, v in by_name.items() if "flash_attention_fwd" in k)
@@ -885,6 +948,9 @@ def device_profile(fn, n, unit):
             "device_idle_share": 1.0 - busy / window,
             f"k1_ms_per_{unit}": k1 / n / 1e3, f"k2_ms_per_{unit}": k2 / n / 1e3,
             f"k3_ms_per_{unit}": k3 / n / 1e3,
+            f"k1_kernels_per_{unit}": count("fused_attention_fwd"),
+            f"k2_kernels_per_{unit}": count("fused_attention_bwd"),
+            f"k3_kernels_per_{unit}": count("flash_attention_fwd"),
             f"top_kernels_ms_per_{unit}": {k[:60]: v / n / 1e3 for k, v in top}}
 
 
@@ -1296,6 +1362,324 @@ def phase_train_cli(report):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def make_posts(n, image_size, corrupt_every, seed=0):
+    """``n`` posts made with numpy from ``seed``: a text of 3-40 words and a
+    JPEG of ``image_size`` pixels (PIL, random noise), every
+    ``corrupt_every``-th image bytes that decode to nothing."""
+    import base64
+    import io
+    import numpy as np
+    from PIL import Image
+    rng = np.random.default_rng(seed)
+    words = ("good bad happy sad sunny rain love hate great awful the a day night photo "
+             "friends #fun @you !! ... so not very what a").split()
+    posts = []
+    for i in range(n):
+        text = " ".join(rng.choice(words, size=int(rng.integers(3, 41))))
+        if i % corrupt_every == 0:
+            img = b"\xff\xd8 not a jpeg " + rng.integers(0, 256, 64, dtype=np.uint8).tobytes()
+        else:
+            buf = io.BytesIO()
+            Image.fromarray(rng.integers(0, 256, (image_size, image_size, 3), dtype=np.uint8)
+                            ).save(buf, "JPEG")
+            img = buf.getvalue()
+        posts.append({"text": text, "image_b64": base64.b64encode(img).decode()})
+    return posts
+
+
+def http_post(url, payload, timeout=120):
+    """(status, body, ms) of one POST with a JSON body."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"}, method="POST")
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            status, body = r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        status, body = e.code, json.loads(e.read())
+    return status, body, (time.perf_counter() - t0) * 1e3
+
+
+def percentiles(ms):
+    xs = sorted(ms)
+    pick = lambda q: xs[min(int(q * len(xs)), len(xs) - 1)]
+    return {"p50": pick(0.5), "p95": pick(0.95), "p99": pick(0.99), "max": xs[-1],
+            "count": len(xs)}
+
+
+def run_clients(url, posts, indices, clients, answers):
+    """POST ``posts[i]`` for every i of ``indices`` to ``url/predict`` from
+    ``clients`` threads; the answers go to ``answers[i]`` as (status, body,
+    ms). Returns the wall seconds."""
+    import threading
+    shares = [indices[c::clients] for c in range(clients)]
+
+    def client(mine):
+        for i in mine:
+            answers[i] = http_post(url + "/predict", posts[i])
+
+    threads = [threading.Thread(target=client, args=(mine,)) for mine in shares]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    assert not any(t.is_alive() for t in threads), "a client thread hung"
+    return time.perf_counter() - t0
+
+
+def get_json(url):
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=30) as r:
+        return json.loads(r.read())
+
+
+def replay_kernels(prof, tmp_dir):
+    """From a torch.profiler trace: the ``cudaGraphLaunch`` calls, and the
+    K1 kernels and all kernels each of them ran (a graph's kernels carry its
+    launch's correlation id)."""
+    from collections import Counter
+    path = os.path.join(tmp_dir, "serve_trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    os.remove(path)
+    launches = [e["args"]["correlation"] for e in events
+                if e.get("cat") == "cuda_runtime" and e.get("name") == "cudaGraphLaunch"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    k1 = Counter(e["args"].get("correlation") for e in kernels
+                 if "fused_attention_fwd" in e["name"])
+    every = Counter(e["args"].get("correlation") for e in kernels)
+    return {"graph_launches": len(launches),
+            "k1_per_launch": sorted(Counter(k1[c] for c in launches).items()),
+            "kernels_per_launch": sorted(Counter(every[c] for c in launches).items()),
+            "kernels_outside_launches": sum(every.values()) - sum(every[c] for c in launches)}
+
+
+def serve_http_run(best, posts, quantize, report_key, reference=None):
+    """One service built by ``server.build_service`` (what ``python -m
+    d2r_tpu_torch.server`` runs) on an ephemeral port, and its traffic:
+    (a) one client, one /predict at a time; (b) ``SERVE_CLIENTS`` client
+    threads; for the unquantized service also (d) a /reload of the same
+    checkpoint issued as (b) starts, with one more client posting until it
+    returns, and a profiler trace of a second (b)-like burst; (c)
+    one /predict_batch of 32 items; (e) a body over MAX_BODY_BYTES. Checks
+    every answer against a direct ``Predictor.predict`` of that post alone
+    (and, for int8, the labels against ``reference`` where its top
+    probability leads by more than 0.1) and /metrics against the requests
+    sent."""
+    import base64
+    import http.client
+    import threading
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from d2r_tpu_torch import server
+    from d2r_tpu_torch.serve import latency_stats
+
+    tag = f"[serve_http {report_key}]"
+    flags = ["--load_path", best, "--port", "0", "--batch_buckets",
+             ",".join(map(str, BUCKETS)), "--max_wait_ms", str(SERVE_MAX_WAIT_MS)]
+    t0 = time.perf_counter()
+    svc, httpd = server.build_service(server.build_arg_parser().parse_args(
+        flags + (["--quantize", quantize] if quantize else [])))
+    build_s = time.perf_counter() - t0
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    out = {"build_s": build_s}
+    try:
+        # each post alone through the service's own predictor (bucket 1)
+        items = [svc.preprocess(p["text"], base64.b64decode(p["image_b64"])) for p in posts]
+        stack = lambda rows: [np.stack([it[k] for it in rows]) for k in
+                              ("input_ids", "attention_mask", "token_type_ids", "pixel_values")]
+        direct = np.concatenate([svc.predictor.predict(*stack([it]))["probs"] for it in items])
+        log(f"{tag} service built in {build_s:.1f} s; {len(posts)} posts alone: labels "
+            f"{np.bincount(direct.argmax(-1), minlength=3).tolist()}")
+        answers, sent = {}, 0
+        n_a, n_b = SERVE_SEQUENTIAL, len(posts) - SERVE_SEQUENTIAL
+        for i in range(n_a):                                             # (a)
+            answers[i] = http_post(url + "/predict", posts[i])
+        sent += n_a
+        snap0 = get_json(url + "/metrics")
+        reload_out, hammer = {}, []
+        stop = threading.Event()
+        if quantize is None:                                             # (d)
+            def reload():
+                t = time.perf_counter()
+                reload_out["status"], reload_out["body"], _ = http_post(
+                    url + "/reload", {"load_path": best}, timeout=600)
+                reload_out["s"] = time.perf_counter() - t
+                stop.set()
+
+            def keep_posting():
+                k = 0
+                while not stop.is_set():
+                    hammer.append((k % len(posts),) + http_post(
+                        url + "/predict", posts[k % len(posts)]))
+                    k += 1
+
+            side = [threading.Thread(target=reload), threading.Thread(target=keep_posting)]
+            for t in side:
+                t.start()
+        b_s = run_clients(url, posts, list(range(n_a, n_a + n_b)), SERVE_CLIENTS, answers)  # (b)
+        if quantize is None:
+            for t in side:
+                t.join(timeout=600)
+            assert not any(t.is_alive() for t in side), "the reload or its client hung"
+            assert reload_out["status"] == 200, reload_out
+        sent += n_b + len(hammer)
+        snap1 = get_json(url + "/metrics")
+        flushes_b = snap1["flushes_total"] - snap0["flushes_total"]
+
+        traced = {}
+        if quantize is None:   # K1 a replay, from the card's trace of a (b)-like burst
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                run_clients(url, posts, list(range(SERVE_TRACED)), SERVE_CLIENTS, traced)
+                torch.cuda.synchronize()
+            sent += SERVE_TRACED
+            flushes_t = get_json(url + "/metrics")["flushes_total"] - snap1["flushes_total"]
+            out["traced_burst"] = burst = replay_kernels(prof, os.path.dirname(best))
+            burst.update(requests=SERVE_TRACED, flushes=flushes_t)
+            log(f"{tag} traced burst: {SERVE_TRACED} requests in {flushes_t} flushes; "
+                f"{burst['graph_launches']} graph launches in the trace, K1 kernels a "
+                f"launch {burst['k1_per_launch']}, kernels a launch {burst['kernels_per_launch']}")
+            assert burst["graph_launches"] == flushes_t, burst
+            assert [c for c, _ in burst["k1_per_launch"]] == [MODELS["base"]["k1"]], burst
+
+        status, body, c_ms = http_post(url + "/predict_batch", {"items": posts[:32]})  # (c)
+        assert status == 200, body
+        sent += 32
+        want = svc.predictor.predict(*stack(items[:32]))["probs"]
+        got = np.asarray([r["probs"] for r in body["results"]], np.float32)
+        out["batch_c"] = {"ms": c_ms, "bit_equal": bool(np.array_equal(got, want)),
+                          "max_abs_diff": float(np.abs(got - want).max())}
+        assert np.array_equal(got, want), ("(c) differs from Predictor.predict", out["batch_c"])
+
+        conn = http.client.HTTPConnection(url.split("//", 1)[1], timeout=30)   # (e)
+        try:
+            conn.putrequest("POST", "/predict")
+            conn.putheader("Content-Type", "application/json")
+            conn.putheader("Content-Length", str(server.MAX_BODY_BYTES + 1))
+            conn.endheaders()
+            conn.send(b'{"text": "too large"}')
+            resp = conn.getresponse()
+            out["oversized_status"] = resp.status
+            resp.read()
+        finally:
+            conn.close()
+        assert out["oversized_status"] == 413, out["oversized_status"]
+
+        replies = [(i, *answers[i]) for i in sorted(answers)] + hammer + [
+            (i, *traced[i]) for i in sorted(traced)]
+        bad = [(i, s) for i, s, _, _ in replies if s != 200]
+        assert not bad, f"{len(bad)} requests failed: {bad[:5]}"
+        probs = np.asarray([b["probs"] for _, _, b, _ in replies], np.float32)
+        idx = [i for i, _, _, _ in replies]
+        diff = np.abs(probs - direct[idx]).max(axis=-1)
+        flips = int((probs.argmax(-1) != direct[idx].argmax(-1)).sum())
+        metrics = get_json(url + "/metrics")
+        lat = lambda ids: percentiles([answers[i][2] for i in ids])
+        out.update({
+            "requests_sent": sent, "metrics": metrics,
+            "a": lat(range(n_a)), "b": lat(range(n_a, n_a + n_b)),
+            "b_posts_per_s": n_b / b_s, "b_wall_s": b_s,
+            "b_flushes": flushes_b, "b_mean_flush": (n_b + len(hammer)) / flushes_b,
+            "reload": {k: v for k, v in reload_out.items() if k != "body"},
+            "reload_requests_during": len(hammer),
+            "max_abs_diff_vs_alone": float(diff.max()), "label_flips_vs_alone": flips,
+            "replay_ms_p50_by_bucket": {}})
+        for b in BUCKETS:
+            rows = dict(zip(("input_ids", "attention_mask", "token_type_ids", "pixel_values"),
+                            stack(items[:b])))
+            out["replay_ms_p50_by_bucket"][b] = latency_stats(
+                svc.predictor, rows, iters=20, warmup=3, device_resident=True)["p50"] * 1e3
+        log(f"{tag} (a) {n_a} sequential: HTTP ms p50 {out['a']['p50']:.2f}, p95 "
+            f"{out['a']['p95']:.2f}, p99 {out['a']['p99']:.2f}")
+        log(f"{tag} (b) {n_b} from {SERVE_CLIENTS} clients in {b_s:.2f} s: "
+            f"{out['b_posts_per_s']:.1f} posts/s, HTTP ms p50 {out['b']['p50']:.2f}, p95 "
+            f"{out['b']['p95']:.2f}, p99 {out['b']['p99']:.2f}; {flushes_b} flushes, mean "
+            f"flush {out['b_mean_flush']:.2f} rows (with {len(hammer)} posts of the reload's "
+            f"client)")
+        if reload_out:
+            log(f"{tag} (d) reload under load: status {reload_out['status']} in "
+                f"{reload_out['s']:.1f} s, {len(hammer)} requests answered meanwhile")
+        log(f"{tag} (c) /predict_batch of 32: {c_ms:.2f} ms, bit equal to Predictor.predict; "
+            f"(e) oversized body: {out['oversized_status']}")
+        log(f"{tag} answers against each post alone: max abs diff {diff.max():.3g}, label "
+            f"flips {flips}; /metrics requests {metrics['requests_total']} (sent {sent}), "
+            f"errors {metrics['errors_total']}, reloads {metrics['reloads_total']}, mean "
+            f"flush {metrics['batch_size']['mean']:.2f}")
+        log(f"{tag} replay + download ms (latency_stats, device resident, p50) by bucket: "
+            + json.dumps({b: round(v, 3) for b, v in out["replay_ms_p50_by_bucket"].items()}))
+        assert diff.max() <= 2e-2 and flips == 0, (diff.max(), flips)
+        assert metrics["requests_total"] == sent and metrics["errors_total"] == 0, metrics
+        assert metrics["reloads_total"] == (0 if quantize else 1), metrics
+        if reference is not None:   # int8 labels against the unquantized service's
+            top2 = np.sort(reference, axis=-1)
+            decisive = (top2[:, -1] - top2[:, -2]) > 0.1
+            same = direct.argmax(-1) == reference.argmax(-1)
+            agree = same[decisive]
+            out["int8_label_agreement"] = {"decisive": int(decisive.sum()),
+                                           "agree": int(agree.sum()), "all_agree": int(same.sum()),
+                                           "max_abs_diff": float(np.abs(direct - reference).max())}
+            log(f"{tag} int8 against unquantized: labels agree on {int(agree.sum())} of "
+                f"{int(decisive.sum())} decisive posts (top probability ahead by > 0.1) and on "
+                f"{int(same.sum())} of all {len(same)}; max abs diff "
+                f"{out['int8_label_agreement']['max_abs_diff']:.3g}")
+            assert agree.all(), out["int8_label_agreement"]
+        return out, direct
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        svc.close()
+        thread.join(timeout=30)
+
+
+def phase_serve_http(report):
+    """The HTTP service at full width, D2R-base (``D2RConfig(DR_step=4,
+    max_seq=64, compute_dtype="bfloat16")``, random weights from seed 0,
+    saved with ``save_checkpoint`` and ``save_config_json`` under
+    ``build/``), through ``server.build_service``: ``SERVE_POSTS`` posts of
+    text and 256-pixel JPEGs, every 50th corrupt; then the same traffic on
+    its own ``--quantize int8`` service (:func:`serve_http_run`)."""
+    import shutil
+    import types
+    from d2r_tpu_torch.config import save_config_json
+    from d2r_tpu_torch.models.unimo import build_model
+    from d2r_tpu_torch.train.checkpoint import save_checkpoint
+
+    root = os.path.join("build", "chip_smoke_serve_http")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        cfg = model_config("base", compute_dtype="bfloat16")
+        best = os.path.join(root, "best_model")
+        t0 = time.perf_counter()
+        save_checkpoint(best, types.SimpleNamespace(model=build_model(cfg, device="cpu", seed=0)))
+        save_config_json(cfg, os.path.join(root, "config.json"))
+        posts = make_posts(SERVE_POSTS, 256, 50, seed=13)
+        log(f"[serve_http] checkpoint saved and {len(posts)} posts made in "
+            f"{time.perf_counter() - t0:.1f} s")
+        zero_counts()
+        result = {}
+        result["bf16"], dense = serve_http_run(best, posts, None, "bf16")
+        result["int8"], _ = serve_http_run(best, posts, "int8", "int8", reference=dense)
+        launches = read_counts()
+        result["launches"] = launches
+        report["serve_http"] = result
+        # each service build, and the reload, captures every bucket: an eager
+        # forward and its capture, two host calls a site; replays make none
+        want = 2 * MODELS["base"]["k1"] * len(BUCKETS) * 3
+        log(f"[serve_http] K1 host calls {launches['k1']} (3 builds of {len(BUCKETS)} "
+            f"buckets, eager + capture), K3 {launches['k3']}")
+        assert launches == {"k1": want, "k2": 0, "k3": 0}, launches
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1315,6 +1699,7 @@ def main():
                    ("train_card_vs_cpu" + suffix,
                     lambda r, k=key: phase_train_card_vs_cpu(r, k))]
     phases.append(("train_cli", phase_train_cli))
+    phases.append(("serve_http", phase_serve_http))
     failed = []
     for name, fn in phases:
         t0 = time.perf_counter()
@@ -1326,7 +1711,7 @@ def main():
             if name == "build":
                 break
             continue
-        if name.startswith(("main_path", "train")) and "card_vs_cpu" not in name:
+        if name.startswith(("main_path", "train", "serve")) and "card_vs_cpu" not in name:
             paths[name] = got
         report.setdefault("phase_s", {})[name] = time.perf_counter() - t0
         log(f"[{name}] ok in {time.perf_counter() - t0:.1f} s")

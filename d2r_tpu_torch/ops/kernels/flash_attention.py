@@ -162,7 +162,9 @@ def flash_attention(
     return FlashAttention.apply(q, k, v, bias, float(scale))
 
 
-# launches of the K3 kernel since the count was last set to 0
+# host calls that launched the K3 kernel since the count was last set to 0:
+# a call under CUDA graph capture counts once (it records the kernel), and a
+# replay of the graph counts not at all
 flash_attention.launches = 0
 
 

@@ -361,7 +361,9 @@ def fused_attention_small(
     return FusedAttention.apply(q, k, v, bias, float(scale), dropout_rate, dropout_seed)
 
 
-# launches of the K1 kernel since the count was last set to 0
+# host calls that launched the K1 kernel since the count was last set to 0:
+# a call under CUDA graph capture counts once (it records the kernel), and a
+# replay of the graph counts not at all
 fused_attention_small.launches = 0
 
 

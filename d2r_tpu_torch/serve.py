@@ -1,17 +1,35 @@
 """Serving path (counterpart of ``d2r_tpu/serve.py``): a bucketed batch
-predictor over a ``D2RClassifier``.
+predictor over a ``D2RClassifier``, and ``latency_stats``.
 
 Requests are padded up to the nearest batch bucket and to the one sequence
 length, run, and the padding rows stripped. There is exactly one sequence
 bucket: the Router mean-pools over padded tokens, so the same request padded
 to two lengths would give two answers. Rows are independent (BatchNorm runs
 on its running statistics), so batch padding changes nothing.
+
+On a CUDA device each (batch bucket, pixel dtype) runs as one CUDA graph,
+the port's counterpart of the JAX package's one jitted program per bucket
+(JAX retraces per input dtype, so the dtype is part of the key). Its first
+request or ``warmup`` runs the eager forward once on static input buffers
+(building the kernels and warming cuBLAS), then captures it into a graph
+pool that all buckets of the predictor share. Every request after that
+copies its padded rows into the static buffers through pinned host buffers,
+replays the graph on the caller's stream and copies the probabilities out,
+so it allocates nothing on the device. A capture fails loudly; nothing falls
+back to the eager path on the card. On the CPU ``predict`` runs the eager
+forward.
+
+Captures use ``capture_error_mode="thread_local"``: a server builds and
+warms a new predictor on one thread while another thread keeps replaying
+the old one (``server.InferenceService.reload``).
 """
 
 from __future__ import annotations
 
 import bisect
-from typing import Dict, Optional, Sequence
+import threading
+import time
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -20,6 +38,7 @@ from torch import nn
 from d2r_tpu_torch.config import D2RConfig, resolve_device
 from d2r_tpu_torch.models.layers import Embed, QKVDense, TorchLinear
 from d2r_tpu_torch.models.vit import PatchConv
+from d2r_tpu_torch.quant import Int8Weight, quantize_model
 
 
 @torch.no_grad()
@@ -28,26 +47,61 @@ def compute_cast(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     ``d2r_tpu/train/state.py::_compute_cast`` selects them: the ``kernel`` and
     ``embedding`` leaves (Linear, QKV, conv and embedding weights). Biases,
     LayerNorm, BatchNorm and the other parameters stay fp32 and are cast at
+    use. Int8 weights stay int8: they are dequantized to the compute type at
     use."""
     if dtype == torch.float32:
         return model
     for m in model.modules():
-        if isinstance(m, (TorchLinear, QKVDense, Embed, PatchConv)):
+        if (isinstance(m, (TorchLinear, QKVDense, Embed, PatchConv))
+                and not isinstance(m, Int8Weight)):
             m.weight.data = m.weight.data.to(dtype)
     return model
 
 
+def pad_into(buf: np.ndarray, x: np.ndarray) -> None:
+    """Write ``x`` into the leading rows (and, for 2-D inputs, the leading
+    columns) of ``buf`` and zero the rest: ``np.pad`` with zeros, in
+    place."""
+    if x.ndim != buf.ndim or any(d > s for d, s in zip(x.shape, buf.shape)) or (
+            x.ndim > 2 and x.shape[1:] != buf.shape[1:]):
+        raise ValueError(f"an input of shape {x.shape} does not fit the bucket's {buf.shape}")
+    n = x.shape[0]
+    if x.shape[1:] != buf.shape[1:]:
+        buf[:n] = 0
+    buf[n:] = 0
+    buf[(slice(0, n),) + tuple(slice(0, d) for d in x.shape[1:])] = x
+
+
+class _BucketGraph:
+    """One captured bucket forward: pinned host staging buffers, the static
+    device inputs they are copied into, the graph, its probabilities on the
+    device and their pinned host copy."""
+
+    def __init__(self, host: List[torch.Tensor], inputs: List[torch.Tensor],
+                 graph: "torch.cuda.CUDAGraph", probs: torch.Tensor):
+        self.host = host
+        self.inputs = inputs
+        self.graph = graph
+        self.probs = probs
+        self.probs_host = torch.empty(probs.shape, dtype=probs.dtype, pin_memory=True)
+
+
 class Predictor:
     """Bucketed batch predictor. Takes ownership of ``model``: it is moved to
-    ``device`` and its matrix weights cast to the config's compute type."""
+    ``device``, its matrix weights quantized when ``quantize="int8"``
+    (``quant.quantize_model``), and the others cast to the config's compute
+    type."""
 
     def __init__(self, cfg: D2RConfig, model: nn.Module,
                  batch_buckets: Sequence[int] = (1, 8, 32),
                  seq_buckets: Optional[Sequence[int]] = None,
-                 device="cuda"):
+                 device="cuda", quantize: Optional[str] = None):
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.model = compute_cast(model.eval().to(self.device), cfg.dtype)
+        model = model.eval().to(self.device)
+        if quantize:
+            quantize_model(model, quantize)
+        self.model = compute_cast(model, cfg.dtype)
         self.batch_buckets = sorted(batch_buckets)
         seq_buckets = sorted(seq_buckets or [cfg.max_seq])
         if len(seq_buckets) != 1:
@@ -57,6 +111,11 @@ class Predictor:
                 "so bucket choice would change predictions. Use exactly one seq "
                 "bucket (default: cfg.max_seq).")
         self.seq_len = seq_buckets[0]
+        self.graphs: Dict[tuple, _BucketGraph] = {}
+        self._pool = None
+        self._stream = None
+        # one request at a time owns the static buffers of the graphs
+        self._lock = threading.Lock()
 
     def _bucket(self, n: int) -> int:
         i = bisect.bisect_left(self.batch_buckets, n)
@@ -64,11 +123,66 @@ class Predictor:
 
     @torch.inference_mode()
     def _forward(self, input_ids, attention_mask, token_type_ids, pixel_values):
-        """One bucket-sized forward on device tensors -> fp32 probabilities."""
+        """One bucket-sized eager forward on device tensors -> fp32
+        probabilities."""
         labels = torch.zeros(input_ids.shape[0], dtype=torch.long, device=self.device)
         _, logits, _ = self.model(input_ids, attention_mask, token_type_ids,
                                   labels, pixel_values)
         return torch.softmax(logits.float(), dim=-1)
+
+    def _static_shapes(self, b: int):
+        vc = self.cfg.vision_config()
+        l = self.seq_len
+        return [(b, l)] * 3 + [(b, vc.num_channels, vc.image_size, vc.image_size)]
+
+    def graph(self, b: int, pixel_dtype=np.uint8) -> _BucketGraph:
+        """The captured forward of batch bucket ``b`` for pixels of
+        ``pixel_dtype``, captured at first use."""
+        key = (b, np.dtype(pixel_dtype))
+        if key not in self.graphs:
+            self.graphs[key] = self._capture(b, key[1])
+        return self.graphs[key]
+
+    def _capture(self, b: int, pixel_dtype: np.dtype) -> _BucketGraph:
+        if self.device.type != "cuda":
+            raise RuntimeError(f"CUDA graphs need a CUDA device, not {self.device}")
+        dtypes = [torch.int32] * 3 + [torch.from_numpy(np.zeros(0, pixel_dtype)).dtype]
+        host = [torch.zeros(s, dtype=dt).pin_memory()
+                for s, dt in zip(self._static_shapes(b), dtypes)]
+        host[1].fill_(1)   # a full attention mask for the warm-up run
+        with torch.cuda.device(self.device):
+            if self._stream is None:
+                self._stream = torch.cuda.Stream()
+                self._pool = torch.cuda.graph_pool_handle()
+            inputs = [h.to(self.device) for h in host]
+            stream = self._stream
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                self._forward(*inputs)           # builds the kernels, warms cuBLAS
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=self._pool, stream=stream,
+                                  capture_error_mode="thread_local"):
+                probs = self._forward(*inputs)
+            torch.cuda.current_stream().wait_stream(stream)
+        return _BucketGraph(host, inputs, graph, probs)
+
+    def _stage(self, g: _BucketGraph, arrays: Sequence[np.ndarray]) -> None:
+        """Write ``arrays`` into the pinned buffers of ``g`` and queue their
+        copies into its static inputs on the current stream."""
+        for host, x in zip(g.host, arrays):
+            pad_into(host.numpy(), x)
+        with torch.cuda.device(self.device):
+            for dst, src in zip(g.inputs, g.host):
+                dst.copy_(src, non_blocking=True)
+
+    def _replay(self, g: _BucketGraph, n: int) -> np.ndarray:
+        """Replay ``g`` on the current stream and return the first ``n`` rows
+        of its probabilities."""
+        with torch.cuda.device(self.device):
+            g.graph.replay()
+            g.probs_host.copy_(g.probs, non_blocking=True)
+            torch.cuda.current_stream().synchronize()
+        return g.probs_host.numpy()[:n].copy()
 
     def predict(self, input_ids: np.ndarray, attention_mask: np.ndarray,
                 token_type_ids: np.ndarray, pixel_values: np.ndarray
@@ -88,25 +202,83 @@ class Predictor:
                     for i in range(0, n, max_b)]
             return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
         b = self._bucket(n)
-
-        def pad(x, cols=None):
-            widths = [(0, b - x.shape[0])] + [(0, 0)] * (x.ndim - 1)
-            if cols is not None:
-                widths[1] = (0, cols - x.shape[1])
-            return torch.from_numpy(np.ascontiguousarray(np.pad(x, widths))).to(self.device)
-
-        probs = self._forward(pad(input_ids, self.seq_len), pad(attention_mask, self.seq_len),
-                              pad(token_type_ids, self.seq_len), pad(pixel_values))
-        probs = probs[:n].cpu().numpy()
+        arrays = (input_ids, attention_mask, token_type_ids, pixel_values)
+        if self.device.type == "cuda":
+            with self._lock:
+                g = self.graph(b, pixel_values.dtype)
+                self._stage(g, arrays)
+                probs = self._replay(g, n)
+        else:
+            probs = self._forward(*self._padded(arrays, b))[:n].numpy()
         return {"label": probs.argmax(-1), "probs": probs}
 
+    def _padded(self, arrays: Sequence[np.ndarray], b: int) -> List[torch.Tensor]:
+        """``arrays`` zero-padded to ``b`` rows and the sequence length, as
+        tensors on the device."""
+        out = []
+        for x, shape in zip(arrays, self._static_shapes(b)):
+            widths = [(0, s - d) for s, d in zip(shape, x.shape)]
+            out.append(torch.from_numpy(np.ascontiguousarray(np.pad(x, widths))
+                                        ).to(self.device))
+        return out
+
     def warmup(self, pixel_dtype=np.uint8) -> None:
-        """Run every bucket once before serving (builds the kernels and warms
-        the allocator and the library autotuners)."""
-        vc = self.cfg.vision_config()
-        l = self.seq_len
+        """Prepare every bucket before serving: on a CUDA device, capture its
+        graph for pixels of ``pixel_dtype`` (the dtype requests will carry);
+        on the CPU, run it once."""
         for b in self.batch_buckets:
-            self.predict(np.zeros((b, l), np.int32), np.ones((b, l), np.int32),
-                         np.zeros((b, l), np.int32),
-                         np.zeros((b, vc.num_channels, vc.image_size, vc.image_size),
-                                  pixel_dtype))
+            if self.device.type == "cuda":
+                with self._lock:
+                    self.graph(b, pixel_dtype)
+            else:
+                vc = self.cfg.vision_config()
+                l = self.seq_len
+                self.predict(np.zeros((b, l), np.int32), np.ones((b, l), np.int32),
+                             np.zeros((b, l), np.int32),
+                             np.zeros((b, vc.num_channels, vc.image_size, vc.image_size),
+                                      pixel_dtype))
+
+
+def _times(run, iters: int, warmup: int) -> List[float]:
+    out = []
+    for i in range(warmup + iters):
+        t0 = time.perf_counter()
+        run()
+        if i >= warmup:
+            out.append(time.perf_counter() - t0)
+    return out
+
+
+def latency_stats(predictor: Predictor, batch: Dict[str, np.ndarray],
+                  iters: int = 20, warmup: int = 3,
+                  device_resident: bool = False) -> Dict[str, float]:
+    """Steady-state request latency (seconds): mean / p50 / p95.
+
+    ``device_resident=True`` stages the padded inputs on the device once and
+    times only the forward (on a CUDA device, the graph's replay) plus the
+    download of the probabilities: the model-side latency. The default
+    times the whole ``predict``, padding and host-to-device copies
+    included."""
+    arrays = [batch[k] for k in ("input_ids", "attention_mask", "token_type_ids",
+                                 "pixel_values")]
+    n = arrays[0].shape[0]
+    if not device_resident:
+        times = _times(lambda: predictor.predict(*arrays), iters, warmup)
+    elif n > predictor.batch_buckets[-1]:
+        raise ValueError(f"device_resident timing takes one bucket; got {n} rows")
+    else:
+        b = predictor._bucket(n)
+        with predictor._lock:   # the staged buffers stay put while timed
+            if predictor.device.type == "cuda":
+                g = predictor.graph(b, arrays[3].dtype)
+                predictor._stage(g, arrays)
+                times = _times(lambda: predictor._replay(g, n), iters, warmup)
+            else:
+                args = predictor._padded(arrays, b)
+                times = _times(lambda: predictor._forward(*args)[:n].numpy(), iters, warmup)
+    xs = sorted(times)
+    return {
+        "mean": sum(xs) / len(xs),
+        "p50": xs[len(xs) // 2],
+        "p95": xs[min(int(len(xs) * 0.95), len(xs) - 1)],
+    }

@@ -23,7 +23,8 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from d2r_tpu_torch.config import load_config_json
+from d2r_tpu_torch.config import load_config_json, resolve_device
+from d2r_tpu_torch.models.unimo import D2RClassifier
 
 MODEL_FILE = "model.pth"
 TRAIN_STATE_FILE = "train_state.pth"
@@ -94,6 +95,19 @@ def restore_checkpoint(path: str, state):
         state.scheduler.load_state_dict(saved["scheduler"])
         state.step = int(saved["step"])
     return state
+
+
+def restore_model(load_path: str, cfg, device="cuda"):
+    """The serving counterpart of the JAX package's ``restore_variables``: a
+    ``D2RClassifier(cfg)`` in eval mode on ``device`` holding the weights of
+    the checkpoint at ``load_path``. Only ``model.pth`` is read; optimizer
+    state, when saved, is skipped. A checkpoint of another geometry
+    raises."""
+    dev = resolve_device(device)
+    model = D2RClassifier(cfg)
+    model.load_state_dict(torch.load(_model_file(load_path), map_location="cpu",
+                                     weights_only=True))
+    return model.eval().to(dev)
 
 
 # D2RConfig fields that fix the parameters' shapes and names; the JAX

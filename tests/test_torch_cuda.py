@@ -88,10 +88,9 @@ def test_cuda_wrapper_raises_instead_of_falling_back(cuda):
         tfl.flash_attention(long.half(), long.half(), long.half(), None, 0.25)
 
 
-@pytest.mark.cuda
-def test_cuda_predictor_launches_k1_at_every_site(cuda):
-    """A tiny DR_step=4 model: 3 text + 3 vision + 2 x 4 IMRC sites = 14
-    launches a forward, and the card's fp32 probabilities match the CPU's."""
+def _tiny_predictors(cuda, quantize=None, compute_dtype="float32", buckets=(2, 4)):
+    """A tiny DR_step=4 model behind a CPU and a card Predictor, and a
+    request of 3 rows (one with padding)."""
     import copy
 
     import numpy as np
@@ -99,20 +98,111 @@ def test_cuda_predictor_launches_k1_at_every_site(cuda):
     from d2r_tpu_torch.config import tiny_test_config
     from d2r_tpu_torch.models.unimo import build_model
     from d2r_tpu_torch.serve import Predictor
-    cfg = tiny_test_config(DR_step=4)
+    cfg = tiny_test_config(DR_step=4, compute_dtype=compute_dtype)
     model = build_model(cfg, device="cpu", seed=0)
-    cpu = Predictor(cfg, copy.deepcopy(model), batch_buckets=(2, 4), device="cpu")
-    gpu = Predictor(cfg, model, batch_buckets=(2, 4), device=cuda)
+    cpu = Predictor(cfg, copy.deepcopy(model), batch_buckets=buckets, device="cpu",
+                    quantize=quantize)
+    gpu = Predictor(cfg, model, batch_buckets=buckets, device=cuda, quantize=quantize)
     rng = np.random.default_rng(0)
     ids = rng.integers(5, 128, size=(3, cfg.max_seq)).astype(np.int32)
     mask = np.ones_like(ids)
     mask[1, 9:] = 0
     pixels = rng.integers(0, 256, size=(3, 3, 32, 32)).astype(np.uint8)
+    return cpu, gpu, (ids, mask, np.zeros_like(ids), pixels)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantize", [None, "int8"])
+def test_cuda_predictor_launches_k1_at_every_site(cuda, quantize):
+    """A tiny DR_step=4 model: 3 text + 3 vision + 2 x 4 IMRC sites = 14
+    K1 launches a forward. The first request of a bucket runs the eager
+    forward once and captures it (14 + 14 host calls); replays make none.
+    The card's fp32 probabilities match the CPU's, int8 too."""
+    import numpy as np
+    cpu, gpu, args = _tiny_predictors(cuda, quantize)
     tfa.fused_attention_small.launches = 0
-    got = gpu.predict(ids, mask, np.zeros_like(ids), pixels)
-    assert tfa.fused_attention_small.launches == 14
-    ref = cpu.predict(ids, mask, np.zeros_like(ids), pixels)
+    got = gpu.predict(*args)
+    assert tfa.fused_attention_small.launches == 28
+    again = gpu.predict(*args)
+    assert tfa.fused_attention_small.launches == 28
+    np.testing.assert_array_equal(again["probs"], got["probs"])
+    ref = cpu.predict(*args)
     np.testing.assert_allclose(got["probs"], ref["probs"], atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_cuda_replay_equals_eager_bit_for_bit(cuda, compute_dtype):
+    """At every bucket the replayed probabilities equal the eager forward's
+    on the same static buffers, bit for bit, and one graph is captured a
+    (bucket, pixel dtype): uint8 at warmup, float32 at its first request."""
+    import numpy as np
+    _, gpu, (ids, mask, tt, pixels) = _tiny_predictors(cuda, compute_dtype=compute_dtype)
+    gpu.warmup()
+    assert set(gpu.graphs) == {(2, np.dtype(np.uint8)), (4, np.dtype(np.uint8))}
+    for n in (1, 3):
+        g = gpu.graph(gpu._bucket(n))
+        gpu._stage(g, (ids[:n], mask[:n], tt[:n], pixels[:n]))
+        replayed = gpu._replay(g, n)
+        eager = gpu._forward(*g.inputs)[:n].cpu().numpy()
+        np.testing.assert_array_equal(replayed, eager)
+    gpu.predict(ids, mask, tt, pixels.astype(np.float32))
+    gpu.predict(ids[:1], mask[:1], tt[:1], pixels[:1])
+    assert set(gpu.graphs) == {(2, np.dtype(np.uint8)), (4, np.dtype(np.uint8)),
+                               (4, np.dtype(np.float32))}
+
+
+@pytest.mark.cuda
+def test_cuda_predictor_never_runs_the_eager_path_after_warmup(cuda, monkeypatch):
+    """After warmup, requests of every bucket (and one chunked over two)
+    replay graphs only."""
+    import numpy as np
+    _, gpu, (ids, mask, tt, pixels) = _tiny_predictors(cuda)
+    gpu.warmup()
+
+    def eager(*_):
+        raise AssertionError("the eager forward ran after warmup")
+
+    monkeypatch.setattr(gpu, "_forward", eager)
+    for n in (1, 2, 3):
+        out = gpu.predict(ids[:n], mask[:n], tt[:n], pixels[:n])
+        assert out["probs"].shape == (n, 3)
+    rep = lambda x: np.concatenate([x, x])
+    assert gpu.predict(rep(ids), rep(mask), rep(tt), rep(pixels))["probs"].shape == (6, 3)
+
+
+@pytest.mark.cuda
+def test_cuda_capture_while_another_thread_replays(cuda):
+    """A server's reload: one thread captures a new predictor's graphs while
+    another keeps replaying the old one. Every replay gives the first
+    answer, bit for bit, and the new predictor agrees with the old."""
+    import threading
+
+    import numpy as np
+    _, old, args = _tiny_predictors(cuda)
+    old.warmup()
+    first = old.predict(*args)["probs"]
+    stop, results, errors = threading.Event(), [], []
+
+    def serve():
+        try:
+            while not stop.is_set():
+                results.append(old.predict(*args)["probs"])
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    t = threading.Thread(target=serve)
+    t.start()
+    try:
+        _, new, _ = _tiny_predictors(cuda)
+        new.warmup()
+        fresh = new.predict(*args)["probs"]
+    finally:
+        stop.set()
+        t.join(timeout=60)
+    assert not t.is_alive() and not errors, errors
+    assert len(results) > 1 and all(np.array_equal(r, first) for r in results)
+    np.testing.assert_array_equal(fresh, first)
 
 
 GEOMETRIES = ((3, 64, 12, 64, True), (2, 50, 12, 64, False), (1, 64, 16, 48, False),

@@ -95,6 +95,56 @@ def test_cli_defaults_to_cuda_and_refuses_a_missing_gpu(tmp_path):
     assert not (tmp_path / "out").exists()
 
 
+SERVING_ENTRY_POINTS = {
+    "server": ["--load_path", "absent/best_model"],
+    "predict": ["--load_path", "absent/best_model", "--input", "absent.jsonl"]}
+
+
+@pytest.mark.parametrize("entry", sorted(SERVING_ENTRY_POINTS))
+def test_serving_entry_points_default_to_cuda_and_refuse_a_missing_gpu(entry):
+    """``python -m d2r_tpu_torch.server`` and ``.predict`` without
+    ``--device`` ask for the card, before they read a checkpoint."""
+    if torch.cuda.is_available():
+        pytest.skip("this check is for hosts without a GPU")
+    import importlib
+    main = importlib.import_module(f"d2r_tpu_torch.{entry}").main
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(SERVING_ENTRY_POINTS[entry])
+
+
+@pytest.mark.parametrize("flag", ["--dp", "--tp"])
+def test_multi_chip_serving_flags_are_refused(flag):
+    from d2r_tpu_torch import server
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 9"):
+        server.main(SERVING_ENTRY_POINTS["server"] + ["--device", "cpu", flag, "2"])
+
+
+BROAD = {"Exception", "BaseException", "RuntimeError"}
+
+
+def _broad(handler):
+    types = (handler.type.elts if isinstance(handler.type, ast.Tuple)
+             else [handler.type])
+    return any(t is None or (isinstance(t, ast.Name) and t.id in BROAD) for t in types)
+
+
+@pytest.mark.parametrize("module", ["serve.py", "quant.py", "server.py", "predict.py"])
+def test_serving_path_swallows_no_device_error(module):
+    """Every handler in the serving path that could catch a device error
+    (bare, ``Exception``, ``BaseException``, ``RuntimeError``) re-raises it
+    or passes the caught exception on (to a future, a 500 answer, a later
+    raise); none drops it."""
+    tree = ast.parse((PKG / module).read_text())
+    for h in (n for n in ast.walk(tree) if isinstance(n, ast.ExceptHandler)):
+        if not _broad(h):
+            continue
+        body = [n for stmt in h.body for n in ast.walk(stmt)]
+        passes_on = h.name is not None and any(
+            isinstance(n, ast.Name) and n.id == h.name for n in body)
+        assert passes_on or any(isinstance(n, ast.Raise) for n in body), (
+            f"{module}:{h.lineno} catches a device error and drops it")
+
+
 def test_native_bridges_build_under_build_not_native():
     """The JAX package builds the same C sources into native/; the port's
     libraries go to build/native/."""
