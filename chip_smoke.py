@@ -78,9 +78,9 @@ Phases; any failure exits non-zero without the final ``ok`` line:
 8-11. Phases 4-7 again for D2R-large, the scaled recipe
    (``tools/perf_sweep.py`` "scaled_large": RoBERTa-large + CLIP ViT-L/14,
    ``embed_size=hid_IMRC=1024``, 16 IMRC heads, 24+1 layers a tower at
-   widths 1024/4096/16 heads, ``DR_step=4``, ``max_seq=64``; without the
-   recipe's v5e fitting knobs ``scan_layers``, ``remat`` and bf16 Adam
-   moments, which the port refuses). Requests and batches take RoBERTa's
+   widths 1024/4096/16 heads, ``DR_step=4``, ``max_seq=64``; here without
+   the recipe's three knobs ``scan_layers``, ``remat`` and bf16 Adam
+   moments, which phase 15 adds). Requests and batches take RoBERTa's
    ids: ``<s>`` = 0 first, ``<pad>`` = 1 past each length. Per forward, 29
    sites on K1 (24 + 1 RoBERTa layers, 4 text-branch IMRC cells, L=S=64) and
    29 on K3 (24 + 1 CLIP-L layers, 4 image-branch IMRC cells, L=S=257):
@@ -140,10 +140,40 @@ as the yardstick (at the bf16 sites on the card alone too), and K2's bound
 (bytes of q, k, v, g, dq, dk, dv at 3.35 TB/s against 10*B*H*L*S*D
 operations at the type's peak).
 
+14. Fine-tuning from pretrained towers, D2R-base: ``bert.pt`` (BERT-base
+   keys, 12 layers) and ``clip_vit.pt`` (CLIP ViT-B/32 vision keys) written
+   from seeded tensors (``fabricate_pretrained``: the keys of the port's
+   mapping tables, the shapes of the tensors they land in, plus one key of
+   each whitelisted kind), loaded into a model on the card by
+   ``load_pretrained_params``: every tower tensor equals the file's bit for
+   bit (the q/k/v rows stacked, everything else as it is). Then the CLI at
+   phase 12's recipe and dataset for one epoch with ``--pretrained_dir``
+   (samples/s beside phase 12's), and again with ``--freeze_towers``, whose
+   best model's towers equal the files bit for bit. 34 K1 and 34 K2 a
+   train step, 34 K1 an eval batch.
+15. D2R-large at ``scaled_large`` as written (``SCALED_KNOBS``:
+   ``scan_layers``, ``remat``, ``adam_mu_dtype="bfloat16"``; batch 16,
+   uint8 pixels): weights from fabricated RoBERTa-large and CLIP ViT-L/14
+   files through the scanned path, checked as in 14; 3 warm-up and 10 timed
+   steps (CUDA events), step ms, samples/s and peak memory, beside the same
+   weights and batch without the three knobs. ``remat`` launches each tower
+   layer's attention again in the backward: 53 K1 (29 + 24 RoBERTa layers),
+   29 K2 and 53 K3 (29 + 24 CLIP-L layers) a step, against 29 each without.
+   One step with ``remat`` against one without from the same weights and
+   batch, dropout off and then on with one seed, and the same for
+   ``remat_ffn_act`` at D2R-base (batch 64): losses and updated parameters
+   within 1e-6 of each leaf's max |value|, the difference reported. Then
+   the CLI for one epoch of 64 posts with all of the recipe's flags and
+   ``--pretrained_dir``; eval batches launch 29 K1 and 29 K3.
+16. Phase 5 at ``alpha=0.5`` (CCR): logits within 1e-3, and the CCR loss of
+   each of the 16 cross-modal alignments that compute one (GLAC and CRCMC,
+   4 routing layers, 2 branches), which the cells discard, within 1e-3 of
+   max(1, |loss|).
+
 It prints one ``kernels`` JSON line (K1, K2 and K3; ``launches`` counts the
 wrappers' host calls in the serving and training runs of both
-configurations and the HTTP phase, a graph capture counting once and a
-replay not at all; ``ms``, ``plain_ms`` and
+configurations, the HTTP phase and phases 14-15, a graph capture
+counting once and a replay not at all; ``ms``, ``plain_ms`` and
 ``library_ms`` back to back from the host, ``device_ms`` and
 ``library_device_ms`` the card alone), the card line, and last
 ``{"ok": true, "device": {...}}``. The full report also goes to
@@ -156,6 +186,7 @@ import os
 import subprocess
 import sys
 import time
+import traceback
 
 HBM_BYTES_PER_S = 3.35e12                      # H100 SXM
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}  # CUDA-core fp32; dense bf16
@@ -237,6 +268,15 @@ TRAINER_DISPATCH = 1
 SERVE_POSTS, SERVE_SEQUENTIAL, SERVE_TRACED = 256, 64, 32
 SERVE_CLIENTS = 16
 SERVE_MAX_WAIT_MS = 5
+# D2R-large at tools/perf_sweep.py's "scaled_large" recipe as written
+# (perf_sweep.py:88-92): its three knobs, batch 16, uint8 pixels; DR_step 4
+# and max_seq 64 as the sweep runs every variant (perf_sweep.py:17-18, :129)
+SCALED_KNOBS = dict(scan_layers=True, remat=True, adam_mu_dtype="bfloat16")
+SCALED_BATCH = 16
+# the recipe's CLI run: one short epoch, 64 posts a split
+SCALED_CLI_DATA = {"n": 64, "image_size": 256, "corrupt_every": 50}
+# the CCR weight of the alpha card-vs-CPU check
+CCR_ALPHA = 0.5
 # The two configurations driven at full width, with their attention sites a
 # forward: K1 at L, S <= 128 (K2 their backward in training), K3 at the
 # 257-token vision sites. D2R-base is the serving and bench recipe
@@ -244,8 +284,8 @@ SERVE_MAX_WAIT_MS = 5
 # + 13 CLIP + 8 IMRC sites. D2R-large is the scaled recipe
 # (tools/perf_sweep.py:88-92, "scaled_large"): RoBERTa-large + CLIP ViT-L/14,
 # 25 RoBERTa + 4 text-branch IMRC sites on K1, 25 CLIP-L + 4 image-branch
-# IMRC sites on K3, without the recipe's v5e fitting knobs (scan_layers,
-# remat, bf16 Adam moments), which the port refuses.
+# IMRC sites on K3; phases 8-11 run it without the recipe's three knobs
+# (scan_layers, remat, bf16 Adam moments), phase 15 with them.
 MODELS = {
     "base": {"label": "D2R-base", "suffix": "", "tag": "", "k1": 34, "k3": 0,
              "train_batch": TRAIN_BATCH, "cfg": dict(DR_step=4, max_seq=64)},
@@ -954,20 +994,30 @@ def device_profile(fn, n, unit):
             f"top_kernels_ms_per_{unit}": {k[:60]: v / n / 1e3 for k, v in top}}
 
 
-def phase_card_vs_cpu(report, key="base"):
+def phase_card_vs_cpu(report, key="base", alpha=0.0):
     """The model in fp32 (TF32 off), batch 2, on the CPU through the plain
-    versions and on the card through the kernels: logits within 1e-3."""
+    versions and on the card through the kernels: logits within 1e-3. At
+    ``alpha != 0`` also the CCR loss of every cross-modal alignment, which
+    the cells discard: within 1e-3 of max(1, |loss|)."""
     import copy
     import numpy as np
     import torch
     from d2r_tpu_torch.models.unimo import build_model
+    from d2r_tpu_torch.models.xmodules import CrossModalAlignment
 
     spec = MODELS[key]
+    name = "card_vs_cpu" + spec["suffix"] + ("_alpha" if alpha else "")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = model_config(key, compute_dtype="float32")
+    cfg = model_config(key, compute_dtype="float32", alpha=alpha)
     cpu_model = build_model(cfg, device="cpu", seed=1)
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    ccr = {"cpu": {}, "gpu": {}}
+    for side, model in (("cpu", cpu_model), ("gpu", gpu_model)):
+        for mod_name, m in model.named_modules():
+            if isinstance(m, CrossModalAlignment) and m.with_loss:
+                m.register_forward_hook(lambda _m, _a, out, d=ccr[side], n=mod_name:
+                                        d.__setitem__(n, out[1].item()))
     ids, mask, tt, pixels = (x[:2] for x in make_requests(cfg, seed=7)[1])
     args = [torch.from_numpy(x) for x in (ids, mask, tt, np.zeros(2, np.int64), pixels)]
     with torch.inference_mode():
@@ -977,14 +1027,25 @@ def phase_card_vs_cpu(report, key="base"):
         launched = read_counts()
     err = (gpu_logits.cpu() - cpu_logits).abs().max().item()
     js_err = abs(gpu_aux["js_loss"].item() - cpu_aux["js_loss"].item())
-    report["card_vs_cpu" + spec["suffix"]] = {
-        "logits_max_abs_err": err, "js_loss_abs_err": js_err,
+    ccr_err = max((abs(ccr["gpu"][n] - v) / max(1.0, abs(v)) for n, v in ccr["cpu"].items()),
+                  default=0.0)
+    report[name] = {
+        "alpha": alpha, "logits_max_abs_err": err, "js_loss_abs_err": js_err,
+        "ccr_losses": len(ccr["cpu"]), "ccr_loss_max_err_over_max_1_abs": ccr_err,
+        "ccr_loss_range": [min(ccr["cpu"].values(), default=0.0),
+                           max(ccr["cpu"].values(), default=0.0)],
         "k1_launches": launched["k1"], "k3_launches": launched["k3"]}
-    log(f"[cpu-vs-card{spec['tag']}] fp32 {spec['label']} batch 2: logits max abs err "
-        f"{err:.3g}, js_loss err {js_err:.3g}, K1 / K3 launches on the card "
-        f"{launched['k1']} / {launched['k3']}")
+    log(f"[cpu-vs-card{spec['tag']}{' alpha ' + str(alpha) if alpha else ''}] fp32 "
+        f"{spec['label']} batch 2: logits max abs err {err:.3g}, js_loss err {js_err:.3g}, "
+        + (f"{len(ccr['cpu'])} CCR losses in {report[name]['ccr_loss_range']}, max err "
+           f"{ccr_err:.3g} of max(1, |loss|), " if alpha else "")
+        + f"K1 / K3 launches on the card {launched['k1']} / {launched['k3']}")
     assert (launched["k1"], launched["k3"]) == (spec["k1"], spec["k3"]), launched
     assert torch.isfinite(cpu_logits).all() and err <= 1e-3, err
+    # GLAC and CRCMC of each of the DR_step routing layers of both branches
+    # compute one
+    assert len(ccr["cpu"]) == (2 * cfg.DR_step * 2 if alpha else 0), ccr["cpu"]
+    assert set(ccr["gpu"]) == set(ccr["cpu"]) and ccr_err <= 1e-3, ccr_err
 
 
 def synthetic_batch(batch_size, max_seq, image_size, vocab_size, seed, num_classes=3,
@@ -1680,6 +1741,407 @@ def phase_serve_http(report):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def fabricate_pretrained(cfg, directory, seed):
+    """Write ``bert.pt`` and ``clip_vit.pt`` for ``cfg``'s two towers into
+    ``directory``, as ``transformers`` would save them, without needing
+    ``transformers``: the HF keys of the port's own mapping tables
+    (``d2r_tpu_torch/utils/weights.py``), each tensor drawn from a seeded
+    generator (0.02 N(0, 1), LayerNorm scales around 1) at the shape of the
+    port tensor it lands in (q, k and v a third of the fused rows each),
+    taken from the model built on the meta device. Plus one key of each
+    whitelisted kind (the BERT pooler and position/type-id buffers, CLIP's
+    post-LayerNorm), which the loader must skip. Returns the two state
+    dicts."""
+    import torch
+    from d2r_tpu_torch.models.unimo import D2RClassifier
+    from d2r_tpu_torch.utils import weights as uw
+    from d2r_tpu_torch.weights import flax_path
+
+    with torch.device("meta"):
+        model = D2RClassifier(cfg)
+    shapes = {flax_path(model, k): tuple(v.shape) for k, v in model.state_dict().items()}
+    tc, vc = cfg.text_config(), cfg.vision_config()
+    gen = torch.Generator().manual_seed(seed)
+    norm = ("LayerNorm.weight", "layer_norm1.weight", "layer_norm2.weight", "pre_layrnorm.weight")
+
+    def draw(key, shape):
+        t = 0.02 * torch.randn(shape, generator=gen)
+        return t + 1.0 if key.endswith(norm) else t
+
+    h, m = tc.hidden_size, tc.max_position_embeddings
+    whitelisted = (
+        {"pooler.dense.weight": draw("pooler", (h, h)), "pooler.dense.bias": draw("pooler", (h,)),
+         "embeddings.position_ids": torch.arange(m)[None],
+         "embeddings.token_type_ids": torch.zeros((1, m), dtype=torch.int64)},
+        {"post_layernorm.weight": draw("post_layernorm", (vc.hidden_size,)),
+         "post_layernorm.bias": draw("post_layernorm", (vc.hidden_size,))})
+    out = []
+    for mapping, extra, name in (
+            (uw.bert_mapping(tc.num_hidden_layers), whitelisted[0], "bert.pt"),
+            (uw.clip_vision_mapping(vc.num_hidden_layers), whitelisted[1], "clip_vit.pt")):
+        sd = {}
+        for dst, src, _ in mapping:
+            shape = shapes["model/" + "/".join(dst)]
+            srcs = src if isinstance(src, tuple) else (src,)
+            if len(srcs) == 3:       # q, k, v: a third of the fused rows each
+                shape = (shape[0] // 3,) + shape[1:]
+            sd.update({s: draw(s, shape) for s in srcs})
+        sd.update(extra)
+        torch.save(sd, os.path.join(directory, name))
+        out.append(sd)
+    return out
+
+
+def tower_mismatches(state_dict, cfg, text_sd, vision_sd):
+    """(tensors compared, port keys that differ): every tower tensor of a
+    port ``state_dict`` against the files'. The port keeps torch's layouts,
+    so each tensor must equal its file tensor as it is, except the fused
+    q/k/v projection, whose rows are the three Linears' stacked (weights and
+    biases): the one layout change the loader makes on the port's side."""
+    import torch
+    from d2r_tpu_torch.models.unimo import D2RClassifier
+    from d2r_tpu_torch.utils import weights as uw
+    from d2r_tpu_torch.weights import flax_path
+
+    with torch.device("meta"):
+        model = D2RClassifier(cfg)
+    by_path = {flax_path(model, k): k for k in model.state_dict()}
+    tc, vc = cfg.text_config(), cfg.vision_config()
+    compared, differ = 0, []
+    for mapping, sd in ((uw.bert_mapping(tc.num_hidden_layers), text_sd),
+                        (uw.clip_vision_mapping(vc.num_hidden_layers), vision_sd)):
+        for dst, src, _ in mapping:
+            key = by_path["model/" + "/".join(dst)]
+            srcs = src if isinstance(src, tuple) else (src,)
+            want = torch.cat([sd[s] for s in srcs])
+            compared += 1
+            if not torch.equal(state_dict[key].detach().cpu(), want):
+                differ.append(key)
+    return compared, differ
+
+
+def cli_run(flags, out, name, extra=()):
+    """``d2r_tpu_torch.cli.main`` with ``flags`` and a save path and metrics
+    file under ``out/name``; returns (its metrics records, the launch counts
+    of the run, seconds)."""
+    from d2r_tpu_torch import cli
+    jsonl = os.path.join(out, name + ".jsonl")
+    zero_counts()
+    t0 = time.perf_counter()
+    cli.main(list(flags) + ["--save_path", os.path.join(out, name), "--metrics_jsonl", jsonl,
+                            *extra])
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    return [json.loads(line) for line in open(jsonl)], counts, wall
+
+
+def cli_counts(records, batch_size, n):
+    """(train steps, eval batches) of a CLI run: every split holds ``n``
+    posts; each dev evaluation and the test pass run over one split."""
+    steps = next(r for r in records if r["kind"] == "summary")["steps"]
+    dev = sum(r["kind"] == "dev" for r in records)
+    return steps, math.ceil(n / batch_size) * (dev + 1)
+
+
+def phase_pretrained(report):
+    """Fine-tuning from pretrained towers at full width, D2R-base: fabricated
+    BERT-base and CLIP ViT-B/32 files (:func:`fabricate_pretrained`) loaded
+    into a model on the card, every tower tensor equal to the file's bit for
+    bit; then the CLI at ``run.sh``'s recipe, one epoch on phase 12's
+    fabricated dataset with ``--pretrained_dir`` (samples/s beside phase
+    12's), and once more with ``--freeze_towers``, whose best model's towers
+    must equal the files bit for bit. Launch counts as phase 12: 34 K1 and
+    34 K2 a train step, 34 K1 an eval batch."""
+    import shutil
+    import numpy as np
+    from d2r_tpu_torch import cli
+    from d2r_tpu_torch.data.dataset import write_fake_dataset
+    from d2r_tpu_torch.models.unimo import build_model
+    from d2r_tpu_torch.utils.weights import load_pretrained_params
+    import torch
+
+    root = os.path.join("build", "chip_smoke_pretrained")
+    shutil.rmtree(root, ignore_errors=True)
+    pre = os.path.join(root, "pretrained")
+    os.makedirs(pre)
+    try:
+        cfg = cli.config_from_args(cli.build_arg_parser().parse_args(TRAINER_RECIPE))
+        t0 = time.perf_counter()
+        text_sd, vision_sd = fabricate_pretrained(cfg, pre, seed=11)
+        write_s = time.perf_counter() - t0
+        model = build_model(cfg, device="cuda", seed=0)
+        t0 = time.perf_counter()
+        load_pretrained_params(pre, model)
+        load_s = time.perf_counter() - t0
+        compared, differ = tower_mismatches(model.state_dict(), cfg, text_sd, vision_sd)
+        del model
+        result = {"files_write_s": write_s, "load_s": load_s, "tower_tensors": compared,
+                  "tower_tensors_differing": differ}
+        log(f"[pretrained] BERT-base + CLIP ViT-B/32 files written in {write_s:.1f} s, loaded "
+            f"into the card's model in {load_s:.1f} s; {compared} tower tensors, "
+            f"{len(differ)} differing from the files")
+        assert compared > 0 and not differ, differ
+
+        paths = write_fake_dataset(os.path.join(root, "data"), **TRAINER_DATA)
+        flags = TRAINER_RECIPE + [
+            "--num_epochs", "1", "--train_json", paths["train"], "--dev_json", paths["dev"],
+            "--test_json", paths["test"], "--img_dir", paths["img_dir"],
+            "--steps_per_dispatch", str(TRAINER_DISPATCH), "--pretrained_dir", pre]
+        launches = {"k1": 0, "k2": 0, "k3": 0}
+        for name, extra in (("fine_tune", []), ("frozen", ["--freeze_towers"])):
+            records, counts, wall = cli_run(flags, root, name, extra)
+            summary = next(r for r in records if r["kind"] == "summary")
+            test = next(r for r in records if r["kind"] == "test")
+            steps, eval_batches = cli_counts(records, cfg.batch_size, TRAINER_DATA["n"])
+            best = torch.load(os.path.join(root, name, "best_model", "model.pth"),
+                              map_location="cpu", weights_only=True)
+            _, differ = tower_mismatches(best, cfg, text_sd, vision_sd)
+            result[name] = {
+                "samples_per_sec": summary["samples_per_sec"], "steps": steps,
+                "eval_batches": eval_batches, "wall_s": wall, "launches": counts,
+                "step_ms_median": float(np.median(summary["step_ms"][1:])),
+                "test_loss": test["loss"], "test_f_score": test["f_score"],
+                "tower_tensors_differing_from_files": len(differ)}
+            log(f"[pretrained] CLI {name} ({' '.join(extra) or 'towers trained'}), one epoch: "
+                f"{steps} steps, {eval_batches} eval batches, {wall:.1f} s; samples/s "
+                f"{summary['samples_per_sec']:.2f}, median step "
+                f"{result[name]['step_ms_median']:.2f} ms; K1 {counts['k1']}, K2 "
+                f"{counts['k2']}; test loss {test['loss']!r}; best model's tower tensors "
+                f"differing from the files: {len(differ)} of {compared}")
+            assert counts == {"k1": 34 * (steps + eval_batches), "k2": 34 * steps, "k3": 0}, counts
+            assert math.isfinite(test["loss"])
+            launches = {k: launches[k] + counts[k] for k in launches}
+            del best
+        assert result["frozen"]["tower_tensors_differing_from_files"] == 0
+        assert result["fine_tune"]["tower_tensors_differing_from_files"] > 0
+        phase12 = report.get("train_cli", {}).get("samples_per_sec")
+        result["phase12_samples_per_sec"] = phase12
+        if phase12:
+            log(f"[pretrained] samples/s, fine-tuning / frozen towers / phase 12 (random "
+                f"init, two epochs): {result['fine_tune']['samples_per_sec']:.2f} / "
+                f"{result['frozen']['samples_per_sec']:.2f} / {phase12:.2f}")
+        report["pretrained"] = result
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def scaled_config(**overrides):
+    """D2R-large at ``tools/perf_sweep.py``'s ``scaled_large`` recipe as
+    written (:data:`SCALED_KNOBS`, batch 16, bf16 compute)."""
+    return model_config("large", batch_size=SCALED_BATCH, compute_dtype="bfloat16",
+                        **{**SCALED_KNOBS, **overrides})
+
+
+def uint8_batch(cfg, batch_size, seed):
+    """:func:`model_batch` with raw uint8 pixels (the recipe's transfer)."""
+    import numpy as np
+    b = model_batch(cfg, batch_size, seed)
+    b["pixel_values"] = np.random.default_rng(seed).integers(
+        0, 256, size=b["pixel_values"].shape).astype(np.uint8)
+    return b
+
+
+def fresh_state(cfg, weights):
+    """A train state on the card for ``cfg`` holding ``weights`` (a CPU
+    state dict), its optimizer empty."""
+    from d2r_tpu_torch.models.unimo import D2RClassifier
+    from d2r_tpu_torch.train.state import create_train_state
+    model = D2RClassifier(cfg)
+    model.load_state_dict(weights)
+    return create_train_state(cfg, total_steps=1000, device="cuda", model=model)
+
+
+def step_pair(cfg_a, cfg_b, weights, batch, seed):
+    """One train step from ``weights`` under each config, on the same batch
+    and dropout seed: (loss a, loss b, max over leaves of max |a - b| / max
+    |a| of the updated parameters, the launch counts of b's step)."""
+    import torch
+    from d2r_tpu_torch.train.state import make_train_step
+    out = []
+    for cfg in (cfg_a, cfg_b):
+        state = fresh_state(cfg, weights)
+        zero_counts()
+        state, metrics = make_train_step()(state, batch, seed)
+        torch.cuda.synchronize()
+        out.append((metrics["loss"].item(), dict(state.model.named_parameters()), read_counts()))
+        del state
+    (loss_a, pa, _), (loss_b, pb, counts) = out
+    with torch.no_grad():
+        rel = max(((pb[n] - p).abs().max() / p.abs().max().clamp_min(1e-30)).item()
+                  for n, p in pa.items())
+    del out, pa, pb
+    torch.cuda.empty_cache()
+    return loss_a, loss_b, rel, counts
+
+
+def phase_train_scaled(report):
+    """D2R-large at the scaled recipe as written (:data:`SCALED_KNOBS`):
+    weights from fabricated RoBERTa-large and CLIP ViT-L/14 files through
+    ``load_pretrained_params`` (the scanned path), every tower tensor equal
+    to the files'; 10 timed steps after 3 warm-up ones (CUDA events), step
+    ms, samples/s and peak memory, beside the same model and batch without
+    the three knobs; ``remat`` against no remat and, at D2R-base,
+    ``remat_ffn_act`` against none, one step each from the same weights and
+    batch, dropout off then on with one seed: losses and updated parameters
+    within 1e-6 of each leaf's max |value|; then the CLI for one epoch of 64
+    posts with all of the recipe's flags and ``--pretrained_dir``.
+
+    Launches a step: without remat K1, K2 and K3 29 times each (phase 10).
+    ``remat`` runs each of the 24 RoBERTa-large and 24 CLIP-L tower layers'
+    forward again in the backward: 29 + 24 = 53 K1 and 53 K3 host calls a
+    step, K2 29 (the backward is not repeated). ``remat_ffn_act``
+    recomputes no attention: 34 K1 and 34 K2 at base. An eval batch runs
+    no backward: 29 K1 and 29 K3."""
+    import dataclasses
+    import shutil
+    import numpy as np
+    import torch
+    from d2r_tpu_torch import config as tconfig
+    from d2r_tpu_torch.models.unimo import build_model
+    from d2r_tpu_torch.train.state import make_train_step
+    from d2r_tpu_torch.utils.weights import load_pretrained_params
+
+    root = os.path.join("build", "chip_smoke_train_scaled")
+    shutil.rmtree(root, ignore_errors=True)
+    pre = os.path.join(root, "pretrained")
+    os.makedirs(pre)
+    large = MODELS["large"]
+    remat_k1 = large["k1"] + model_config("large").text_config().num_hidden_layers
+    remat_k3 = large["k3"] + model_config("large").vision_config().num_hidden_layers
+    per_step = {"recipe": {"k1": remat_k1, "k2": large["k1"], "k3": remat_k3},
+                "without_knobs": {"k1": large["k1"], "k2": large["k1"], "k3": large["k3"]}}
+    launches = {"k1": 0, "k2": 0, "k3": 0}
+    try:
+        cfg = scaled_config()
+        t0 = time.perf_counter()
+        text_sd, vision_sd = fabricate_pretrained(cfg, pre, seed=12)
+        write_s = time.perf_counter() - t0
+        model = build_model(cfg, device="cuda", seed=0)
+        t0 = time.perf_counter()
+        load_pretrained_params(pre, model)
+        load_s = time.perf_counter() - t0
+        compared, differ = tower_mismatches(model.state_dict(), cfg, text_sd, vision_sd)
+        weights = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+        del model, text_sd, vision_sd
+        torch.cuda.empty_cache()
+        result = {"files_write_s": write_s, "load_s": load_s, "tower_tensors": compared,
+                  "tower_tensors_differing": differ, "knobs": SCALED_KNOBS,
+                  "launches_per_step": per_step}
+        log(f"[train_scaled] RoBERTa-large + CLIP ViT-L/14 files written in {write_s:.1f} s, "
+            f"loaded (scanned path) in {load_s:.1f} s; {compared} tower tensors, "
+            f"{len(differ)} differing from the files")
+        assert compared > 0 and not differ, differ
+
+        batch = {k: torch.from_numpy(v).cuda()
+                 for k, v in uint8_batch(cfg, SCALED_BATCH, 0).items()}
+        plain_cfg = scaled_config(scan_layers=False, remat=False, adam_mu_dtype="float32")
+        for name, c in (("recipe", cfg), ("without_knobs", plain_cfg)):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            state = fresh_state(c, weights)
+            step = make_train_step()
+            zero_counts()
+            losses, step_ms = [], []
+            for i in range(WARMUP_STEPS + TIMED_STEPS):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                state, metrics = step(state, batch, 1)
+                end.record()
+                losses.append(metrics["loss"])
+                if i >= WARMUP_STEPS:
+                    torch.cuda.synchronize()
+                    step_ms.append(start.elapsed_time(end))
+            torch.cuda.synchronize()
+            counts = read_counts()
+            steps = WARMUP_STEPS + TIMED_STEPS
+            med = float(np.median(step_ms))
+            mu = {str(s["exp_avg"].dtype) for s in state.optimizer.state.values()}
+            result[name] = {"step_ms": step_ms, "step_ms_median": med,
+                            "samples_per_s": SCALED_BATCH / (med / 1e3),
+                            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                            "losses": [x.item() for x in losses], "launches": counts,
+                            "adam_mu_dtypes": sorted(mu)}
+            del state, step, metrics, losses
+            r = result[name]
+            log(f"[train_scaled] {name}: step {med:.2f} ms (CUDA events, median of "
+                f"{TIMED_STEPS}), {r['samples_per_s']:.1f} samples/s, peak memory "
+                f"{r['peak_mem_gb']:.2f} GB; Adam mu {r['adam_mu_dtypes']}; launches {counts}")
+            assert counts == {k: v * steps for k, v in per_step[name].items()}, counts
+            assert all(math.isfinite(x) for x in r["losses"]), r["losses"]
+            launches = {k: launches[k] + counts[k] for k in launches}
+        torch.cuda.empty_cache()
+        r, p = result["recipe"], result["without_knobs"]
+        result["step_ms_ratio"] = r["step_ms_median"] / p["step_ms_median"]
+        result["peak_mem_ratio"] = r["peak_mem_gb"] / p["peak_mem_gb"]
+        log(f"[train_scaled] recipe / without the knobs: step ms {result['step_ms_ratio']:.3f}, "
+            f"peak memory {result['peak_mem_ratio']:.3f}")
+
+        # remat against none (large) and remat_ffn_act against none (base):
+        # the same weights, batch and dropout seed, dropout off then on
+        base_cfg = model_config("base", batch_size=TRAIN_BATCH, compute_dtype="bfloat16")
+        base_weights = {k: v.detach() for k, v in
+                        build_model(base_cfg, device="cpu", seed=0).state_dict().items()}
+        checks = {}
+        for key, knob, c0, w in (("large", "remat", cfg, weights),
+                                 ("base", "remat_ffn_act", base_cfg, base_weights)):
+            b = batch if key == "large" else {
+                k: torch.from_numpy(v).cuda() for k, v in model_batch(c0, TRAIN_BATCH, 0).items()}
+            tc = c0.text_config()
+            nodrop = f"{c0.bert_name}-dropout-0"
+            tconfig.register_text_preset(nodrop, lambda tc=tc: dataclasses.replace(
+                tc, hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0))
+            for dropout, bert_name in (("off", nodrop), ("on", c0.bert_name)):
+                pair = [dataclasses.replace(c0, bert_name=bert_name, lr=1e-5, warmup_ratio=0.0,
+                                            **{knob: flag}) for flag in (False, True)]
+                loss_a, loss_b, rel, counts = step_pair(*pair, w, b, seed=3)
+                expect = ({"k1": remat_k1, "k2": large["k1"], "k3": remat_k3} if key == "large"
+                          else {"k1": 34, "k2": 34, "k3": 0})
+                checks[f"{knob}_{key}_dropout_{dropout}"] = c = {
+                    "loss": loss_a, "loss_abs_diff": abs(loss_b - loss_a),
+                    "param_max_rel_diff": rel, "launches": counts}
+                log(f"[train_scaled] {knob} against none, {MODELS[key]['label']}, dropout "
+                    f"{dropout}: loss {loss_a!r} / {loss_b!r}, updated parameters' max diff "
+                    f"{rel:.3g} of the leaf's max |value|; launches with {knob} {counts}")
+                assert counts == expect, (counts, expect)
+                assert c["loss_abs_diff"] <= 1e-6 * max(1.0, abs(loss_a)) and rel <= 1e-6, c
+        result["equality"] = checks
+
+        # the entry point with every flag of the recipe
+        from d2r_tpu_torch.data.dataset import write_fake_dataset
+        paths = write_fake_dataset(os.path.join(root, "data"), **SCALED_CLI_DATA)
+        flags = ["--bert_name", cfg.bert_name, "--vit_name", cfg.vit_name,
+                 "--embed_size", "1024", "--num_head_IMRC", "16", "--hid_IMRC", "1024",
+                 "--DR_step", str(cfg.DR_step), "--max_seq", str(cfg.max_seq),
+                 "--batch_size", str(SCALED_BATCH), "--compute_dtype", "bfloat16",
+                 "--scan_layers", "--remat", "--adam_mu_dtype", "bfloat16",
+                 "--pixel_transfer", "uint8", "--num_epochs", "1",
+                 "--train_json", paths["train"], "--dev_json", paths["dev"],
+                 "--test_json", paths["test"], "--img_dir", paths["img_dir"],
+                 "--steps_per_dispatch", "1", "--pretrained_dir", pre]
+        records, counts, wall = cli_run(flags, root, "cli")
+        steps, eval_batches = cli_counts(records, SCALED_BATCH, SCALED_CLI_DATA["n"])
+        test = next(r for r in records if r["kind"] == "test")
+        saved = tconfig.load_config_json(os.path.join(root, "cli", "config.json"))
+        result["cli"] = {"steps": steps, "eval_batches": eval_batches, "wall_s": wall,
+                         "launches": counts, "test_loss": test["loss"],
+                         "config": {k: getattr(saved, k) for k in SCALED_KNOBS}}
+        log(f"[train_scaled] CLI with the recipe's flags and --pretrained_dir, "
+            f"{SCALED_CLI_DATA['n']} posts, one epoch: {steps} steps, {eval_batches} eval "
+            f"batches, {wall:.1f} s; launches {counts}; test loss {test['loss']!r}")
+        assert result["cli"]["config"] == SCALED_KNOBS, result["cli"]["config"]
+        assert counts == {"k1": remat_k1 * steps + large["k1"] * eval_batches,
+                          "k2": large["k1"] * steps,
+                          "k3": remat_k3 * steps + large["k3"] * eval_batches}, counts
+        assert math.isfinite(test["loss"])
+        launches = {k: launches[k] + counts[k] for k in launches}
+        report["train_scaled"] = result
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1700,6 +2162,8 @@ def main():
                     lambda r, k=key: phase_train_card_vs_cpu(r, k))]
     phases.append(("train_cli", phase_train_cli))
     phases.append(("serve_http", phase_serve_http))
+    phases += [("pretrained", phase_pretrained), ("train_scaled", phase_train_scaled),
+               ("card_vs_cpu_alpha", lambda r: phase_card_vs_cpu(r, "base", alpha=CCR_ALPHA))]
     failed = []
     for name, fn in phases:
         t0 = time.perf_counter()
@@ -1708,10 +2172,12 @@ def main():
         except Exception as e:  # noqa: BLE001 - report every phase, then fail
             failed.append(name)
             log(f"[{name}] FAILED: {type(e).__name__}: {e}")
+            traceback.print_exc()
             if name == "build":
                 break
             continue
-        if name.startswith(("main_path", "train", "serve")) and "card_vs_cpu" not in name:
+        if (name.startswith(("main_path", "train", "serve", "pretrained"))
+                and "card_vs_cpu" not in name):
             paths[name] = got
         report.setdefault("phase_s", {})[name] = time.perf_counter() - t0
         log(f"[{name}] ok in {time.perf_counter() - t0:.1f} s")

@@ -35,8 +35,6 @@ _PARALLEL = "Queue 1 item 9 (parallel)"
 # refused by D2RConfig.check_supported (config.UNPORTED)
 REFUSED = (
     ("--dry_run", lambda a: a.dry_run, "Queue 1 item 11 (trainer extras)"),
-    ("--pretrained_dir", lambda a: a.pretrained_dir is not None,
-     "Queue 1 item 10 (utils/weights.py)"),
     ("--coordinator_address", lambda a: a.coordinator_address is not None, _PARALLEL),
     ("--num_processes", lambda a: a.num_processes is not None, _PARALLEL),
     ("--process_id", lambda a: a.process_id is not None, _PARALLEL),
@@ -110,7 +108,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--no_pallas", action="store_true",
                    help="the JAX package's einsum attention; here only with "
                         "--device cpu, whose plain path is the only one")
-    p.add_argument("--remat", action="store_true", help="(refused)")
+    p.add_argument("--remat", action="store_true",
+                   help="rematerialise each tower layer in the backward")
     p.add_argument("--mesh_data", default=-1, type=int,
                    help="data-parallel axis size (-1 = all devices; the port "
                         "trains on one, and refuses any size but -1 and 1)")
@@ -130,7 +129,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="this process's rank in [0, num_processes)")
     p.add_argument("--num_workers", default=16, type=int)
     p.add_argument("--pretrained_dir", default=None, type=str,
-                   help="dir with bert/ and clip/ torch state dicts (refused)")
+                   help="dir with bert.pt and clip_vit.pt, the towers' HF state "
+                        "dicts (d2r_tpu_torch/utils/weights.py)")
     p.add_argument("--debug_nans", action="store_true", help="(refused)")
     p.add_argument("--profile_dir", default=None, type=str,
                    help="write a torch.profiler trace of the second dispatch "
@@ -174,9 +174,12 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="the JAX package's four lowerings of one 4-group "
                         "AdamW; all four are that AdamW here")
     p.add_argument("--adam_mu_dtype", default="float32",
-                   choices=["float32", "bfloat16"], help="bfloat16 is refused")
+                   choices=["float32", "bfloat16"],
+                   help="Adam first-moment storage (bfloat16 with "
+                        "--optimizer_impl grouped only, as in the JAX package)")
     p.add_argument("--scan_layers", action="store_true",
-                   help="scanned tower layers (refused)")
+                   help="the JAX package's scanned tower layout for weights "
+                        "and checkpoints (the towers run the same loop)")
     p.add_argument("--seq_shard", action="store_true",
                    help="sequence parallelism (refused)")
     p.add_argument("--fabric_shard", action="store_true",
@@ -330,10 +333,18 @@ def main(argv=None) -> None:
     trainer = Trainer(train_data=train_loader, dev_data=dev_loader,
                       test_data=test_loader, cfg=cfg, logger=logger,
                       cleanup_output=args.cleanup_output, device=device)
+    if args.pretrained_dir:
+        # into the live parameters, after the optimizer exists and before
+        # the first step (d2r_tpu/cli.py:412-419)
+        from d2r_tpu_torch.utils.weights import load_pretrained_params
+        trainer.init_state()
+        load_pretrained_params(args.pretrained_dir, trainer.state.model)
+        logger.info("Loaded pretrained towers from %s", args.pretrained_dir)
     if cfg.only_test:
         if cfg.load_path:
             ckpt.check_checkpoint_geometry(cfg.load_path, cfg)
-        trainer.init_state()
+        if trainer.state is None:
+            trainer.init_state()
         if cfg.load_path:
             ckpt.restore_checkpoint(cfg.load_path, trainer.state)
         trainer.test(0)

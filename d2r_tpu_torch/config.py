@@ -3,9 +3,11 @@
 A copy of ``d2r_tpu/config.py``'s dataclasses, presets and JSON loader, so
 that a ``config.json`` written by the JAX package loads here unchanged. Every
 field of the JAX config is kept, including those that mean nothing on this
-path (``device``, ``use_pallas``, the mesh, scan and pipeline knobs): a
-checkpoint's config must load whole. :meth:`D2RConfig.check_supported` raises
-on the values the port cannot honour yet.
+path (``device``, ``use_pallas``, the mesh and pipeline knobs): a
+checkpoint's config must load whole. ``scan_layers`` sets only the layout of
+the JAX weight trees the port reads and writes (``weights.py``).
+:meth:`D2RConfig.check_supported` raises on the values the port cannot
+honour yet.
 
 Differences from the JAX package: :attr:`D2RConfig.dtype` is a
 ``torch.dtype``, and the port keeps its own copy of everything it needs.
@@ -162,6 +164,9 @@ def register_vision_preset(name: str, factory) -> None:
 # make_optimizer) compute one function, the reference's 4-group AdamW; the
 # port has one implementation for all four names.
 OPTIMIZER_IMPLS = ("grouped", "fused", "fused_leaf", "multi_transform")
+# Adam first-moment storage types; the JAX package honours bfloat16 on the
+# "grouped" path only, and so does the port (train/optimizer.py)
+ADAM_MU_DTYPES = ("float32", "bfloat16")
 
 
 _PARALLEL = "Queue 1 item 9 (parallel)"
@@ -314,23 +319,13 @@ class D2RConfig:
         bad = [f"{field}={getattr(self, field)!r} ({flag}, ROADMAP.md {item})"
                for field, flag, used, item in UNPORTED if used(self)]
         if self.quant_train != "none":
-            bad.append(f"quant_train={self.quant_train!r}")
+            bad.append(f"quant_train={self.quant_train!r} (ROADMAP.md Queue 1 item 10, "
+                       f"ops/qdot.py)")
         if self.pipeline_stages > 1:
-            bad.append(f"pipeline_stages={self.pipeline_stages}")
+            bad.append(f"pipeline_stages={self.pipeline_stages} (ROADMAP.md {_PARALLEL})")
         if self.use_sentic_graph:
-            bad.append("use_sentic_graph=True")
-        if self.alpha != 0.0:
-            bad.append(f"alpha={self.alpha}")
-        # training knobs: rematerialisation and scanned layers are JAX
-        # program transforms with no counterpart here yet; bf16 Adam moments
-        # would change the update
-        if self.remat:
-            bad.append("remat=True")
-        if self.remat_ffn_act:
-            bad.append("remat_ffn_act=True")
-        if self.scan_layers:
-            bad.append("scan_layers=True")
-        if self.adam_mu_dtype != "float32":
+            bad.append("use_sentic_graph=True (ROADMAP.md Queue 1 item 10, models/graph.py)")
+        if self.adam_mu_dtype not in ADAM_MU_DTYPES:
             bad.append(f"adam_mu_dtype={self.adam_mu_dtype!r}")
         if self.optimizer_impl not in OPTIMIZER_IMPLS:
             bad.append(f"optimizer_impl={self.optimizer_impl!r}")

@@ -22,6 +22,7 @@ from d2r_tpu_torch.models.layers import (
     QKVDense,
     TorchLinear,
     attention_dropout,
+    remat,
 )
 from d2r_tpu_torch.ops.attention import dot_product_attention, merge_heads, split_heads
 
@@ -118,11 +119,18 @@ class BertSelfOutput(nn.Module):
 
 
 class BertLayer(nn.Module):
-    """Post-LN BERT block."""
+    """Post-LN BERT block. ``remat_ffn_act``: the FFN's 4x-wide activation
+    is not kept for the backward but rebuilt from the pre-activation
+    (``act -> output_dense`` rematerialised; the dropout after it stays
+    outside), the part of the step that the JAX package's
+    ``save_anything_except_these_names("ffn_act")`` policy recomputes
+    (``d2r_tpu/train/state.py:138-147``)."""
 
-    def __init__(self, cfg: TextEncoderConfig, dtype: torch.dtype = torch.float32):
+    def __init__(self, cfg: TextEncoderConfig, dtype: torch.dtype = torch.float32,
+                 remat_ffn_act: bool = False):
         super().__init__()
         c = cfg
+        self.remat_ffn_act = remat_ffn_act
         self.act = ACT2FN[c.hidden_act]
         self.attention_self = BertSelfAttention(c, dtype)
         self.attention_output = BertSelfOutput(c, dtype)
@@ -131,22 +139,35 @@ class BertLayer(nn.Module):
         self.output_LayerNorm = LayerNorm(c.hidden_size, c.layer_norm_eps, dtype)
         self.output_dropout = Dropout(c.hidden_dropout_prob)
 
+    def ffn_out(self, pre: torch.Tensor) -> torch.Tensor:
+        return self.output_dense(self.act(pre))
+
     def forward(self, x: torch.Tensor, key_bias=None, rng=None) -> torch.Tensor:
         x = self.attention_output(self.attention_self(x, key_bias, rng), x, rng)
-        h = self.output_dense(self.act(self.intermediate_dense(x)))
+        pre = self.intermediate_dense(x)
+        h = remat(self.ffn_out, pre) if self.remat_ffn_act else self.ffn_out(pre)
         return self.output_LayerNorm(self.output_dropout(h, rng) + x)
 
 
 class BertEncoder(nn.Module):
-    """Stack of ``num_hidden_layers`` post-LN blocks, named ``layer_{i}``."""
+    """Stack of ``num_hidden_layers`` post-LN blocks, named ``layer_{i}``.
+    ``remat``: each block rematerialised (:func:`remat`), keeping only its
+    input for the backward, as ``nn.remat(BertLayer)`` at
+    ``d2r_tpu/models/bert.py:255-259``. The JAX package's ``scan_layers``
+    changes only its parameters' layout (``weights.py``): the loop is the
+    same."""
 
-    def __init__(self, cfg: TextEncoderConfig, dtype: torch.dtype = torch.float32):
+    def __init__(self, cfg: TextEncoderConfig, dtype: torch.dtype = torch.float32,
+                 remat: bool = False, remat_ffn_act: bool = False):
         super().__init__()
         self.num_layers = cfg.num_hidden_layers
+        self.remat = remat
         for i in range(self.num_layers):
-            self.add_module(f"layer_{i}", BertLayer(cfg, dtype))
+            self.add_module(f"layer_{i}", BertLayer(cfg, dtype, remat_ffn_act))
 
     def forward(self, x: torch.Tensor, key_bias=None, rng=None) -> torch.Tensor:
         for i in range(self.num_layers):
-            x = getattr(self, f"layer_{i}")(x, key_bias, rng)
+            layer = getattr(self, f"layer_{i}")
+            x = (remat(layer, x, key_bias, rng, rng=rng) if self.remat
+                 else layer(x, key_bias, rng))
         return x

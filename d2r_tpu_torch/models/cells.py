@@ -29,6 +29,12 @@ def _router(cfg: D2RConfig, num_out_path: int, dtype) -> Router:
     return Router(cfg.embed_size, num_out_path, cfg.hid_router, dtype)
 
 
+def _cma(cfg: D2RConfig, dtype) -> CrossModalAlignment:
+    """The alignment of GLAC and CRCMC, with the config's CCR ``alpha``."""
+    return CrossModalAlignment(cfg.embed_size, cfg.cma_temperature, dtype,
+                               alpha=cfg.alpha, margin=cfg.margin)
+
+
 def _linear(cfg: D2RConfig, dtype) -> TorchLinear:
     return TorchLinear(cfg.embed_size, cfg.embed_size, dtype=dtype)
 
@@ -77,7 +83,7 @@ class GlobalLocalAlignmentCell(nn.Module):
         super().__init__()
         d = cfg.embed_size
         self.router = _router(cfg, num_out_path, dtype)
-        self.cma = CrossModalAlignment(d, cfg.cma_temperature, dtype)
+        self.cma = _cma(cfg, dtype)
         self.fc_sim_tranloc = _linear(cfg, dtype)
         self.fc_1 = _linear(cfg, dtype)
         self.text_cls_pool = BertPooler(d, dtype)
@@ -89,7 +95,7 @@ class GlobalLocalAlignmentCell(nn.Module):
     def forward(self, text: torch.Tensor, image: torch.Tensor,
                 valid: Optional[torch.Tensor] = None) -> CellOut:
         path_prob = self.router(text)
-        text_aware_image = self.cma(text, image)
+        text_aware_image, _ = self.cma(text, image)     # the CCR loss is discarded
         sim_local = torch.square(text - text_aware_image)
         sim_local = self.fc_1(l2norm(self.fc_sim_tranloc(sim_local), dim=-1))
         sim_global = torch.square(self.text_cls_pool(text) - self.image_cls_pool(image))
@@ -104,14 +110,17 @@ class Refinement(nn.Module):
 
     def __init__(self, cfg: D2RConfig, dtype=torch.float32):
         super().__init__()
-        self.cma = CrossModalAlignment(cfg.embed_size, cfg.cma_temperature, dtype)
+        # its own alignment: no CCR loss and no fc_1/fc_2, whatever alpha
+        # (d2r_tpu/models/cells.py:136-139)
+        self.cma = CrossModalAlignment(cfg.embed_size, cfg.cma_temperature, dtype,
+                                       with_projections=False)
         self.fc_scale = _linear(cfg, dtype)
         self.fc_shift = _linear(cfg, dtype)
         self.fc_1 = _linear(cfg, dtype)
         self.fc_2 = _linear(cfg, dtype)
 
     def forward(self, text: torch.Tensor, image: torch.Tensor) -> torch.Tensor:
-        wei_context = self.cma(text, image)
+        wei_context, _ = self.cma(text, image)
         scaling = torch.tanh(self.fc_scale(wei_context))
         shifting = self.fc_shift(wei_context)
         modu = self.fc_1(text * scaling + shifting)
@@ -135,7 +144,7 @@ class ContextRichCrossModalCell(nn.Module):
     def __init__(self, cfg: D2RConfig, num_out_path: int, dtype=torch.float32):
         super().__init__()
         self.router = _router(cfg, num_out_path, dtype)
-        self.cma = CrossModalAlignment(cfg.embed_size, cfg.cma_temperature, dtype)
+        self.cma = _cma(cfg, dtype)
         self.fc_mlp_1 = _linear(cfg, dtype)
         self.fc_mlp_2 = _linear(cfg, dtype)
         self.fc_1 = _linear(cfg, dtype)
@@ -143,7 +152,8 @@ class ContextRichCrossModalCell(nn.Module):
 
     def forward(self, text: torch.Tensor, image: torch.Tensor) -> CellOut:
         path_prob = self.router(text)
-        q_state = torch.tanh(self.fc_mlp_1(self.cma(text, image)))
+        text_aware_image, _ = self.cma(text, image)     # the CCR loss is discarded
+        q_state = torch.tanh(self.fc_mlp_1(text_aware_image))
         k_state = torch.tanh(self.fc_mlp_2(text))
         q = self.fc_1(q_state)
         k = self.fc_2(k_state)

@@ -14,12 +14,14 @@ an explicit ``torch.Generator``, in the JAX package's init families.
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -161,6 +163,46 @@ class DropoutRNG:
     def next_seed(self) -> int:
         """A fresh 63-bit seed from the host generator."""
         return int(torch.randint(0, 2 ** 63 - 1, (1,), generator=self.host))
+
+
+def _replay_draws(rng: DropoutRNG):
+    """``checkpoint``'s ``context_fn`` for a layer drawing from ``rng``: a
+    snapshot of both generators now, as the layer's forward starts, and a
+    context for the recompute that sets them back to it and afterwards
+    returns them to where the backward found them."""
+    at_forward = (rng.host.get_state(), rng.device.get_state())
+
+    @contextlib.contextmanager
+    def replay():
+        now = (rng.host.get_state(), rng.device.get_state())
+        rng.host.set_state(at_forward[0])
+        rng.device.set_state(at_forward[1])
+        try:
+            yield
+        finally:
+            rng.host.set_state(now[0])
+            rng.device.set_state(now[1])
+
+    return contextlib.nullcontext(), replay()
+
+
+def remat(fn: Callable, *args, rng: Optional[DropoutRNG] = None):
+    """``fn(*args)`` rematerialised: its activations are not kept for the
+    backward, which runs ``fn`` again to rebuild them
+    (``torch.utils.checkpoint``, non-reentrant), as ``nn.remat`` and
+    ``jax.checkpoint`` do in the JAX package. Without autograd it is a plain
+    call.
+
+    The recompute must draw what the forward drew: the attention kernels'
+    dropout seeds from ``rng.host`` and the hidden-dropout masks from
+    ``rng.device``. ``checkpoint``'s ``preserve_rng_state`` restores only the
+    default generators, never an explicit one (and the layers draw from no
+    other), so :func:`_replay_draws` replays ``rng`` instead: the step
+    leaves both generators where it leaves them without remat."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    replay = {} if rng is None else {"context_fn": lambda: _replay_draws(rng)}
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **replay)
 
 
 class Dropout(nn.Module):

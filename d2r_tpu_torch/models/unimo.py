@@ -46,11 +46,14 @@ class D2RModel(nn.Module):
         self.vision_embeddings = CLIPVisionEmbeddings(vc, dt)
         self.vision_pre_layernorm = LayerNorm(vc.hidden_size, vc.layer_norm_eps, dt)
         self.text_embeddings = BertEmbeddings(tc, dt)
-        self.encoder_vision_layers = CLIPVisionEncoder(vc, dt)
-        self.encoder_text_layers = BertEncoder(tc, dt)
-        self.self_text = BertLayer(tc, dt)
+        # remat: the tower stacks only; remat_ffn_act: every BERT and CLIP
+        # block, as the JAX step's policy reaches every tagged activation
+        ffn = cfg.remat_ffn_act
+        self.encoder_vision_layers = CLIPVisionEncoder(vc, dt, cfg.remat, ffn)
+        self.encoder_text_layers = BertEncoder(tc, dt, cfg.remat, ffn)
+        self.self_text = BertLayer(tc, dt, ffn)
         self.text_cls_pool = BertPooler(tc.hidden_size, dt)
-        self.self_vision = CLIPEncoderLayer(vc, dt)
+        self.self_vision = CLIPEncoderLayer(vc, dt, ffn)
         self.vision_cls_pool = BertPooler(vc.hidden_size, dt)
         self.itr_module = InteractionModule(cfg, reversed_mode=False, dtype=dt)
         self.Reversed_itr_module = InteractionModule(cfg, reversed_mode=True, dtype=dt)

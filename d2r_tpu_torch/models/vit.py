@@ -21,6 +21,7 @@ from d2r_tpu_torch.models.layers import (
     QKVDense,
     TorchLinear,
     attention_dropout,
+    remat,
 )
 from d2r_tpu_torch.ops.attention import dot_product_attention, merge_heads, split_heads
 
@@ -99,11 +100,14 @@ class CLIPAttention(nn.Module):
 
 
 class CLIPEncoderLayer(nn.Module):
-    """Pre-LN ViT block."""
+    """Pre-LN ViT block. ``remat_ffn_act`` as in ``bert.BertLayer``:
+    ``act -> mlp_fc2`` rematerialised."""
 
-    def __init__(self, cfg: VisionEncoderConfig, dtype: torch.dtype = torch.float32):
+    def __init__(self, cfg: VisionEncoderConfig, dtype: torch.dtype = torch.float32,
+                 remat_ffn_act: bool = False):
         super().__init__()
         c = cfg
+        self.remat_ffn_act = remat_ffn_act
         self.act = ACT2FN[c.hidden_act]
         self.layer_norm1 = LayerNorm(c.hidden_size, c.layer_norm_eps, dtype)
         self.self_attn = CLIPAttention(c, dtype)
@@ -111,21 +115,29 @@ class CLIPEncoderLayer(nn.Module):
         self.mlp_fc1 = TorchLinear(c.hidden_size, c.intermediate_size, dtype=dtype)
         self.mlp_fc2 = TorchLinear(c.intermediate_size, c.hidden_size, dtype=dtype)
 
+    def ffn_out(self, pre: torch.Tensor) -> torch.Tensor:
+        return self.mlp_fc2(self.act(pre))
+
     def forward(self, x: torch.Tensor, rng=None) -> torch.Tensor:
         x = x + self.self_attn(self.layer_norm1(x), rng)
-        return x + self.mlp_fc2(self.act(self.mlp_fc1(self.layer_norm2(x))))
+        pre = self.mlp_fc1(self.layer_norm2(x))
+        return x + (remat(self.ffn_out, pre) if self.remat_ffn_act else self.ffn_out(pre))
 
 
 class CLIPVisionEncoder(nn.Module):
-    """Stack of pre-LN blocks, named ``layer_{i}``."""
+    """Stack of pre-LN blocks, named ``layer_{i}``; ``remat`` as in
+    ``bert.BertEncoder`` (``d2r_tpu/models/vit.py:179-183``)."""
 
-    def __init__(self, cfg: VisionEncoderConfig, dtype: torch.dtype = torch.float32):
+    def __init__(self, cfg: VisionEncoderConfig, dtype: torch.dtype = torch.float32,
+                 remat: bool = False, remat_ffn_act: bool = False):
         super().__init__()
         self.num_layers = cfg.num_hidden_layers
+        self.remat = remat
         for i in range(self.num_layers):
-            self.add_module(f"layer_{i}", CLIPEncoderLayer(cfg, dtype))
+            self.add_module(f"layer_{i}", CLIPEncoderLayer(cfg, dtype, remat_ffn_act))
 
     def forward(self, x: torch.Tensor, rng=None) -> torch.Tensor:
         for i in range(self.num_layers):
-            x = getattr(self, f"layer_{i}")(x, rng)
+            layer = getattr(self, f"layer_{i}")
+            x = remat(layer, x, rng, rng=rng) if self.remat else layer(x, rng)
         return x

@@ -6,37 +6,61 @@ stacked einsum."""
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
 from d2r_tpu_torch.models.layers import TorchBatchNorm, TorchLinear
+from d2r_tpu_torch.ops.losses import ccr_contrastive_loss
 from d2r_tpu_torch.ops.norms import l1norm, l2norm, torch_style_normalize
 
 
 class CrossModalAlignment(nn.Module):
     """Near-hard cross-modal attention: Q from text, K/V from image,
-    ``softmax(temperature * q.k^T / sqrt(d))`` in fp32. Only the alpha = 0
-    path: its contrastive loss is exactly 0 and no caller reads it, so no
-    reverse stream is computed (the config check rejects alpha != 0)."""
+    ``softmax(temperature * q.k^T / sqrt(d))`` in fp32. Returns ``(rep,
+    loss)``. At ``alpha != 0`` (with ``with_projections``) the loss is the
+    CCR term of ``d2r_tpu/models/xmodules.py:57-72``: a reverse-attention
+    stream ``softmax(temperature * (1 - attn))``, the two streams projected
+    by ``fc_1``/``fc_2`` and held by :func:`ccr_contrastive_loss` against
+    the text, all normalised; those two projections exist only then, as in
+    the JAX module. At ``alpha == 0`` the loss is exactly 0 and nothing of
+    it is computed."""
 
     def __init__(self, hidden_size: int, temperature: float = 100.0,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, alpha: float = 0.0,
+                 margin: float = 0.1, with_projections: bool = True):
         super().__init__()
         self.hidden_size = hidden_size
         self.temperature = temperature
+        self.alpha, self.margin = alpha, margin
         self.query = TorchLinear(hidden_size, hidden_size, dtype=dtype)
         self.key = TorchLinear(hidden_size, hidden_size, dtype=dtype)
         self.value = TorchLinear(hidden_size, hidden_size, dtype=dtype)
+        self.with_loss = alpha != 0.0 and with_projections
+        # the alpha == 0 loss, one tensor for every call (no launch a call)
+        self.register_buffer("zero_loss", torch.zeros(()), persistent=False)
+        if self.with_loss:
+            self.fc_1 = TorchLinear(hidden_size, hidden_size, dtype=dtype)
+            self.fc_2 = TorchLinear(hidden_size, hidden_size, dtype=dtype)
 
-    def forward(self, text_emb: torch.Tensor, image_emb: torch.Tensor) -> torch.Tensor:
+    def forward(self, text_emb: torch.Tensor, image_emb: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         q = self.query(text_emb)                                 # (B, L, D)
         k = self.key(image_emb)                                  # (B, S, D)
         v = self.value(image_emb)                                # (B, S, D)
         scores = torch.matmul(q, k.transpose(1, 2)).float() / math.sqrt(self.hidden_size)
         attn = torch.softmax(self.temperature * scores, dim=-1)
-        return torch.matmul(attn.to(q.dtype), v)
+        rep = torch.matmul(attn.to(q.dtype), v)
+        if not self.with_loss:
+            return rep, self.zero_loss
+        reverse_attn = torch.softmax(self.temperature * (1.0 - attn), dim=-1)
+        reverse_rep = torch.matmul(reverse_attn.to(q.dtype), v)
+        views = torch.stack([self.fc_1(rep), self.fc_2(reverse_rep)], dim=-2)  # (B, L, 2, D)
+        loss = ccr_contrastive_loss(torch_style_normalize(views),
+                                    torch_style_normalize(text_emb[:, :, None, :]),
+                                    alpha=self.alpha, beta=0.0, margin=self.margin)
+        return rep, loss
 
 
 class AttentionFiltration(nn.Module):

@@ -68,3 +68,28 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
         return torch.mean(nll)
     v = valid.to(torch.float32)
     return torch.sum(nll * v) / torch.clamp(torch.sum(v), min=1.0)
+
+
+def ccr_contrastive_loss(img_rep: torch.Tensor, txt_rep: torch.Tensor, alpha: float,
+                         beta: float = 0.0, margin: float = 0.2) -> torch.Tensor:
+    """CCR + CCS margin ranking loss (``d2r_tpu/ops/losses.py:127-161``).
+
+    img_rep (B, L, 2, D): the attention and reverse-attention views,
+    normalised; txt_rep (B, L, 1, D): the text view, normalised. CCR: each
+    view's score against the text vector, a hinge of ``margin`` against the
+    attention view's (the first view is the positive and adds nothing).
+    CCS: the (B, L, L) Gram of attention views against text tokens, a hinge
+    against its diagonal, the diagonal left out, the max violation a row.
+    Returns ``alpha * sum(CCR) + beta * sum(CCS)``."""
+    # 1/sqrt(D) in fp32 as JAX computes it, a host float (no device work)
+    inv_sqrt_d = (1.0 / torch.sqrt(torch.tensor(float(img_rep.shape[-1])))).item()
+    scores = torch.einsum("blvd,blud->blvu", img_rep, txt_rep)[..., 0] * inv_sqrt_d
+    cost_ccr = torch.clamp(margin + scores - scores[..., 0:1], min=0.0)
+    cost_ccr = torch.cat([torch.zeros_like(cost_ccr[..., :1]), cost_ccr[..., 1:]], dim=-1)
+
+    ccs = torch.einsum("bld,bmd->blm", img_rep[:, :, 0, :], txt_rep[:, :, 0, :]) * inv_sqrt_d
+    diag = torch.diagonal(ccs, dim1=-2, dim2=-1)[..., None]
+    cost_ccs = torch.clamp(margin + ccs - diag, min=0.0)
+    eye = torch.eye(ccs.shape[-1], dtype=torch.bool, device=ccs.device)[None]
+    cost_ccs = torch.where(eye, torch.zeros_like(cost_ccs), cost_ccs).amax(dim=-1)
+    return alpha * torch.sum(cost_ccr) + beta * torch.sum(cost_ccs)

@@ -27,6 +27,12 @@ stacked ``merge_kernel{0,1}``/``merge_bias{0,1}`` and the vision tower's
 Coverage is strict in both directions: a Flax leaf with no place in the
 port, a port parameter or buffer that no leaf sets (or that maps to no
 leaf), or a shape that differs, raises and names the key.
+
+A model whose config sets ``scan_layers`` reads and writes the JAX
+package's scanned layout: each tower's blocks as ONE subtree
+``layers_scanned/layer`` whose leaves stack the blocks' leaves on a leading
+(N,) axis (``d2r_tpu/utils/weights.py:213-270``, :func:`stack_tower_layers`).
+The port runs the same loop of blocks either way; only the tree differs.
 """
 
 from __future__ import annotations
@@ -50,6 +56,70 @@ def _flatten(tree, prefix=()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
             yield from _flatten(v, prefix + (str(k),))
         else:
             yield prefix + (str(k),), v
+
+
+TOWERS = ("encoder_text_layers", "encoder_vision_layers")
+
+
+def _map_towers(tree: Mapping, fn) -> dict:
+    """``tree`` with ``fn`` applied to each tower subtree (:data:`TOWERS`),
+    found at any depth; everything else passes through."""
+    return {k: (fn(v) if k in TOWERS else _map_towers(v, fn) if isinstance(v, Mapping) else v)
+            for k, v in tree.items()}
+
+
+def _tree_map(fn, *trees):
+    """``fn`` over the leaves of trees of one structure (nested mappings)."""
+    first = trees[0]
+    if isinstance(first, Mapping):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in first}
+    return fn(*trees)
+
+
+def _layer_names(tower: Mapping):
+    return sorted((k for k in tower if k.startswith("layer_")), key=lambda k: int(k[6:]))
+
+
+def stack_tower_layers(tree: Mapping) -> dict:
+    """Per-layer tower subtrees ``{'layer_0': t0, ..., 'layer_{N-1}'}`` ->
+    ``{'layers_scanned': {'layer': stacked}}``, each leaf stacked on a new
+    leading (N,) axis: the layout of the JAX package's ``nn.scan`` over its
+    blocks (``scan_layers``). Everything else passes through."""
+
+    def stack(tower):
+        names = _layer_names(tower)
+        if not names:
+            return tower
+        rest = {k: v for k, v in tower.items() if k not in names}
+        stacked = _tree_map(lambda *xs: np.stack([np.asarray(x) for x in xs]),
+                            *(tower[n] for n in names))
+        return {"layers_scanned": {"layer": stacked}, **rest}
+
+    return _map_towers(tree, stack)
+
+
+def unstack_tower_layers(tree: Mapping) -> dict:
+    """The inverse of :func:`stack_tower_layers`; a tower without
+    ``layers_scanned`` passes through."""
+
+    def unstack(tower):
+        if "layers_scanned" not in tower:
+            return tower
+        stacked = tower["layers_scanned"]["layer"]
+        first = stacked
+        while isinstance(first, Mapping):
+            first = next(iter(first.values()))
+        out = {f"layer_{i}": _tree_map(lambda x, i=i: np.asarray(x)[i], stacked)
+               for i in range(np.shape(first)[0])}
+        out.update({k: v for k, v in tower.items() if k != "layers_scanned"})
+        return out
+
+    return _map_towers(tree, unstack)
+
+
+def _scanned(model: nn.Module) -> bool:
+    cfg = getattr(model, "cfg", None)
+    return bool(getattr(cfg, "scan_layers", False))
 
 
 def _translate(module: nn.Module, leaf: str, a: np.ndarray):
@@ -76,7 +146,17 @@ def _translate(module: nn.Module, leaf: str, a: np.ndarray):
 
 def load_jax_variables(model: nn.Module, variables: Mapping) -> nn.Module:
     """Set every parameter and buffer of ``model`` from the Flax tree
-    ``{"params": ..., "batch_stats": ...}`` (nested mappings of arrays)."""
+    ``{"params": ..., "batch_stats": ...}`` (nested mappings of arrays), in
+    place. When ``model.cfg.scan_layers`` is set, every tower of the tree
+    must be in the scanned layout."""
+    if _scanned(model):
+        def scanned(tower):
+            if "layers_scanned" not in tower or _layer_names(tower):
+                raise KeyError("scan_layers is set but a tower of the Flax tree is not in "
+                               "the scanned layout (layers_scanned/layer)")
+            return tower
+        variables = {c: unstack_tower_layers(_map_towers(t, scanned))
+                     for c, t in variables.items()}
     expected = model.state_dict()
     state: Dict[str, torch.Tensor] = {}
     for collection in ("params", "batch_stats"):
@@ -154,7 +234,8 @@ def flax_path(model: nn.Module, key: str) -> str:
 def to_jax_variables(model: nn.Module) -> Dict[str, dict]:
     """The port model's parameters and buffers as the Flax tree
     ``{"params": ..., "batch_stats": ...}`` of numpy fp32 arrays in Flax
-    layouts, which :func:`load_jax_variables` takes back unchanged."""
+    layouts (the scanned one when ``model.cfg.scan_layers`` is set), which
+    :func:`load_jax_variables` takes back unchanged."""
     tree: Dict[str, dict] = {"params": {}, "batch_stats": {}}
     for key, t in model.state_dict().items():
         *prefix, name = key.split(".")
@@ -170,4 +251,4 @@ def to_jax_variables(model: nn.Module) -> Dict[str, dict]:
         if leaf in node:
             raise KeyError(f"port key {key!r} sets Flax leaf {leaf!r} twice")
         node[leaf] = np.ascontiguousarray(arr)
-    return tree
+    return {c: stack_tower_layers(t) for c, t in tree.items()} if _scanned(model) else tree

@@ -465,16 +465,67 @@ REFUSED_FLAGS = [["--dry_run"], ["--async_checkpoint"], ["--debug_nans"],
                  ["--process_id", "0"], ["--seq_shard"], ["--fabric_shard"]]
 
 
+# flags the CLI once refused and now honours: their case runs the CLI
+ACCEPTED_FLAGS = ("--pretrained_dir",)
+
+
+def _tiny_cli_flags(paths, epochs=1):
+    """The verify recipe's flags at tiny size on a fabricated dataset."""
+    return ["--device", "cpu", "--bert_name", "tiny-bert", "--vit_name", "tiny-vit",
+            "--embed_size", "64", "--num_head_IMRC", "4", "--hid_IMRC", "64",
+            "--hid_router", "32", "--max_seq", "16", "--batch_size", "4",
+            "--num_epochs", str(epochs), "--lr", "3e-4", "--train_json", paths["train"],
+            "--dev_json", paths["dev"], "--test_json", paths["test"],
+            "--img_dir", paths["img_dir"], "--compute_dtype", "float32", "--no_pallas",
+            "--num_workers", "2"]
+
+
+def _cli_fine_tunes_frozen_pretrained_towers(tmp_path):
+    """``--pretrained_dir`` with ``--freeze_towers``: one epoch on the tiny
+    recipe from tiny HF state dicts (``tests/test_torch_pretrained.py``);
+    the best model's towers equal the files' bit for bit (through the
+    loader, the layout change included) and the rest of the model trained."""
+    pytest.importorskip("transformers")
+    from test_torch_pretrained import _state_dicts
+
+    from d2r_tpu_torch.train.optimizer import is_trainable
+    from d2r_tpu_torch.utils.weights import load_pretrained_state_dicts
+    from d2r_tpu_torch.weights import flax_path
+
+    text, vision = _state_dicts("bert")
+    pre = tmp_path / "pretrained"
+    pre.mkdir()
+    torch.save(text, pre / "bert.pt")
+    torch.save(vision, pre / "clip_vit.pt")
+    paths = tdata.write_fake_dataset(str(tmp_path / "d"), n=12, image_size=64,
+                                     corrupt_every=5)
+    out = tmp_path / "out"
+    tcli.main(_tiny_cli_flags(paths) + ["--pretrained_dir", str(pre), "--freeze_towers",
+                                        "--save_path", str(out)])
+    cfg = tconfig.load_config_json(str(out / "config.json"))
+    want = load_pretrained_state_dicts(D2RClassifier(cfg), text, vision)
+    got = torch.load(out / "best_model" / tckpt.MODEL_FILE, weights_only=True)
+    frozen = [n for n, _ in want.named_parameters() if not is_trainable(flax_path(want, n))]
+    assert frozen and all(torch.equal(got[n], want.state_dict()[n]) for n in frozen)
+    assert not torch.equal(got["fc.weight"], want.state_dict()["fc.weight"])
+
+
 @pytest.mark.parametrize("argv", REFUSED_FLAGS, ids=lambda a: a[0])
 def test_refused_flags_raise_naming_themselves(argv, tmp_path):
     """The CLI's own refusals (flags without a config field) and the
     config's (``config.UNPORTED``) both name the flag and its ROADMAP item;
-    the mesh flags share one entry, hence the two below."""
+    the mesh flags share one entry, hence the two below. A flag of
+    :data:`ACCEPTED_FLAGS` is no longer refused: its case runs it."""
+    assert len(REFUSED_FLAGS) == (len(tcli.REFUSED) + len(tconfig.UNPORTED) + 2
+                                  + len(ACCEPTED_FLAGS))
+    if argv[0] in ACCEPTED_FLAGS:
+        assert all(flag != argv[0] for flag, _, _ in tcli.REFUSED)
+        _cli_fine_tunes_frozen_pretrained_towers(tmp_path)
+        return
     with pytest.raises(NotImplementedError,
                        match=re.escape(argv[0]) + r"[ /,][^;]*ROADMAP\.md Queue 1 item"):
         tcli.main(argv + ["--device", "cpu", "--save_path", str(tmp_path / "out")])
     assert not (tmp_path / "out").exists()
-    assert len(REFUSED_FLAGS) == len(tcli.REFUSED) + len(tconfig.UNPORTED) + 2
 
 
 @pytest.mark.parametrize("override", [
@@ -501,9 +552,23 @@ def test_the_trainer_refuses_what_the_cli_refuses(override):
     (["--quant_train", "int8", "--device", "cpu"], "quant_train='int8'"),
     (["--adam_mu_dtype", "bfloat16", "--device", "cpu"], "adam_mu_dtype='bfloat16'"),
     (["--alpha", "0.5", "--device", "cpu"], "alpha=0.5")])
-def test_config_values_the_port_cannot_honour_raise_from_the_cli(argv, match):
-    with pytest.raises(NotImplementedError, match=match):
-        tcli.main(argv)
+def test_config_values_the_port_cannot_honour_raise_from_the_cli(argv, match, tmp_path):
+    """The values still refused raise, naming themselves. Those the port
+    has since ported (``remat``, ``scan_layers``, bf16 Adam moments, CCR's
+    ``alpha``) run the tiny recipe for an epoch instead, and its
+    ``config.json`` records ``match``'s field and value."""
+    field, _, value = match.partition("=")
+    if field not in ("remat", "scan_layers", "adam_mu_dtype", "alpha"):
+        with pytest.raises(NotImplementedError, match=match):
+            tcli.main(argv)
+        return
+    paths = tdata.write_fake_dataset(str(tmp_path / "d"), n=8, image_size=64,
+                                     corrupt_every=5)
+    out = tmp_path / "out"
+    tcli.main(_tiny_cli_flags(paths) + argv[:-2] + ["--save_path", str(out)])
+    cfg = tconfig.load_config_json(str(out / "config.json"))
+    assert repr(getattr(cfg, field)) == value
+    assert (out / "best_model" / tckpt.MODEL_FILE).exists()
 
 
 def test_cli_trains_saves_and_restores_bit_for_bit(tmp_path, caplog):

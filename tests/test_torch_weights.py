@@ -121,3 +121,43 @@ def test_dr_step_mismatch_is_caught():
     with no module: named in the error."""
     with pytest.raises(KeyError, match="dynamic_itr_l1_1"):
         from_jax_variables(tiny_test_config(DR_step=3), _variables(4))
+
+
+@functools.lru_cache(maxsize=None)
+def _scanned_tree():
+    """A JAX tree of ``scan_layers=True`` (each tower's blocks stacked under
+    ``layers_scanned/layer``), random values."""
+    cfg = jax_tiny_config(DR_step=3, scan_layers=True)
+    vc = cfg.vision_config()
+    b = synthetic_batch(2, cfg.max_seq, vc.image_size, vocab_size=cfg.text_config().vocab_size)
+    args = [jnp.asarray(b[k]) for k in
+            ("input_ids", "attention_mask", "token_type_ids", "labels", "pixel_values")]
+    shapes = jax.eval_shape(JaxClassifier(cfg).init, jax.random.key(0), *args)
+    rng = np.random.default_rng(5)
+    return _plain(jax.tree_util.tree_map(
+        lambda s: rng.standard_normal(s.shape).astype(np.float32), shapes))
+
+
+def test_scanned_tree_lands_layer_by_layer():
+    """Block i of a tower takes row i of every stacked leaf."""
+    v = copy.deepcopy(_scanned_tree())
+    m = from_jax_variables(tiny_test_config(DR_step=3, scan_layers=True), v)
+    text = v["params"]["model"]["encoder_text_layers"]["layers_scanned"]["layer"]
+    vision = v["params"]["model"]["encoder_vision_layers"]["layers_scanned"]["layer"]
+    for i in range(2):
+        k = text["attention_self"]["qkv"]["kernel"][i]
+        np.testing.assert_array_equal(
+            getattr(m.model.encoder_text_layers, f"layer_{i}").attention_self.qkv.weight
+            .detach().numpy(), k.reshape(k.shape[0], -1).T)
+        np.testing.assert_array_equal(
+            getattr(m.model.encoder_vision_layers, f"layer_{i}").mlp_fc2.weight.detach().numpy(),
+            vision["mlp_fc2"]["kernel"][i].T)
+
+
+@pytest.mark.parametrize("scanned_tree", [True, False], ids=["into_unscanned", "into_scanned"])
+def test_tree_layout_must_match_scan_layers(scanned_tree):
+    """A scanned tree into a model without ``scan_layers`` has leaves with no
+    module; an unscanned one into a model with it is refused."""
+    v = copy.deepcopy(_scanned_tree() if scanned_tree else _tree(3))
+    with pytest.raises(KeyError, match="layers_scanned"):
+        from_jax_variables(tiny_test_config(DR_step=3, scan_layers=not scanned_tree), v)
