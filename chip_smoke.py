@@ -169,10 +169,40 @@ operations at the type's peak).
    each of the 16 cross-modal alignments that compute one (GLAC and CRCMC,
    4 routing layers, 2 branches), which the cells discard, within 1e-3 of
    max(1, |loss|).
+17. SenticNet graph refinement, D2R-base at phase 6's recipe: 13 steps (3
+   warm-up, 10 timed) with and without ``use_sentic_graph`` from the same
+   weights and batch, the adjacency built by the port's
+   ``batched_affective_adjacency`` from fabricated texts of lexicon words
+   (:func:`sentic_texts`): step ms, samples/s, peak memory, 34 K1 and 34 K2
+   a step in both, the GCN's weight gets a gradient. Phase 5 and phase 7
+   with the graph (the GCN's weight and bias among the leaves). Then the
+   CLI at ``run.sh``'s recipe with ``--use_sentic_graph`` for one epoch on
+   phase 12's 512 posts, with the loader's wait a step.
+18. int8 quantized training: ``quant_dot`` card against CPU on the same
+   operands at a BERT FFN product and at an odd shape that takes the
+   padding to ``_int_mm``'s shapes (:data:`QDOT_SHAPES`), fp32 and bf16:
+   the forward bit for bit, the backwards in fp32 within
+   :data:`QDOT_BWD_TOL`; the FFN product's time beside a bf16 ``F.linear``
+   and ``_int_mm`` alone. Phase 5 with ``quant_train="int8"`` (within
+   :data:`QUANT_LOGITS_TOL`, equal labels). 13 bf16 steps each with
+   ``quant_train`` none, int8 and int8_all from the same weights and batch
+   (34 K1 and 34 K2 a step), and one traced step of each: device time of
+   ``_int_mm``, of the float products and of the rest, whose growth over
+   ``none`` is the quantize passes.
+19. The trainer extras through the CLI at ``run.sh``'s recipe, one epoch
+   on :data:`EXTRAS_DATA`: ``--dry_run`` prints the JAX CLI's keys (one
+   step: 34 K1, 34 K2); ``--auto_resume`` with and without
+   ``--async_checkpoint`` (the thread's best model equal bit for bit to the
+   resume slot written synchronously from the same state, the test pass
+   after its reload equal to a restore probe's; the two runs' weights
+   compared for the record); ``--prng_impl threefry2x32`` (the rbg run's
+   losses bit for bit); :data:`EXTRAS_RUNS`; then ``debug_nans`` on a batch
+   with NaN pixels raises ``FloatingPointError``.
 
 It prints one ``kernels`` JSON line (K1, K2 and K3; ``launches`` counts the
 wrappers' host calls in the serving and training runs of both
-configurations, the HTTP phase and phases 14-15, a graph capture
+configurations, the HTTP phase, phases 14-15 and the main-path runs of
+phases 17-19 (not their card-against-CPU checks), a graph capture
 counting once and a replay not at all; ``ms``, ``plain_ms`` and
 ``library_ms`` back to back from the host, ``device_ms`` and
 ``library_device_ms`` the card alone), the card line, and last
@@ -180,6 +210,7 @@ counting once and a replay not at all; ``ms``, ``plain_ms`` and
 ``chiprun_out/chip_smoke.json``.
 """
 
+import gc
 import json
 import math
 import os
@@ -277,6 +308,31 @@ SCALED_BATCH = 16
 SCALED_CLI_DATA = {"n": 64, "image_size": 256, "corrupt_every": 50}
 # the CCR weight of the alpha card-vs-CPU check
 CCR_ALPHA = 0.5
+# int8 quantized training (phase 18): fp32 logits card against CPU. The
+# integer products are exact on both, but a quantized activation's code
+# can flip where the float work before it rounds differently (one step of
+# the row's scale, amax / 127), so the bound is 1e-2 with equal labels
+QUANT_LOGITS_TOL = 1e-2
+# quant_dot card against CPU: a BERT FFN product (batch 64 x 64 tokens =
+# 4096 rows, 768 -> 3072) and an odd one that takes the padding to
+# _int_mm's shapes; the backwards in fp32 within 1e-5 of the largest value
+QDOT_SHAPES = (("bert_ffn", 4096, 768, 3072), ("odd", 5, 37, 3))
+QDOT_BWD_TOL = 1e-5
+# the trainer extras through the CLI (phase 19): run.sh's recipe for one
+# epoch on a small fabricated dataset (two train steps, one dev and one
+# test batch of 64 each)
+EXTRAS_DATA = {"n": 128, "image_size": 256, "corrupt_every": 50}
+# --prng_impl threefry2x32 against rbg through the CLI: two CLI runs on the
+# card need not repeat bit for bit (the best models of two rbg runs differed
+# by up to 1.86e-9 on an H100; ROADMAP.md Queue 3), so their losses are held
+# within 1e-6 of max(1, |loss|)
+PRNG_RUN_TOL = 1e-6
+# the CLI's configurations of phases 17-19 beside the recipe's defaults
+EXTRAS_RUNS = (("int8", ["--quant_train", "int8"]),
+               ("int8_all", ["--quant_train", "int8_all"]),
+               ("sentic_int8", ["--use_sentic_graph", "--quant_train", "int8"]),
+               ("sentic_int8_all", ["--use_sentic_graph", "--quant_train", "int8_all"]),
+               ("debug_nans", ["--debug_nans"]))
 # The two configurations driven at full width, with their attention sites a
 # forward: K1 at L, S <= 128 (K2 their backward in training), K3 at the
 # 257-token vision sites. D2R-base is the serving and bench recipe
@@ -304,6 +360,16 @@ def model_config(key, **overrides):
 
 def log(msg):
     print(msg, flush=True)
+
+
+def memory_gb():
+    """The card's memory after a phase: allocated and reserved by this
+    process now, and the peak allocated since the last reset (phases that
+    report their own peak reset it)."""
+    import torch
+    return {"allocated": torch.cuda.memory_allocated() / 1e9,
+            "reserved": torch.cuda.memory_reserved() / 1e9,
+            "peak_allocated": torch.cuda.max_memory_allocated() / 1e9}
 
 
 def card_line():
@@ -994,11 +1060,14 @@ def device_profile(fn, n, unit):
             f"top_kernels_ms_per_{unit}": {k[:60]: v / n / 1e3 for k, v in top}}
 
 
-def phase_card_vs_cpu(report, key="base", alpha=0.0):
+def phase_card_vs_cpu(report, key="base", alpha=0.0, sentic=False, quant="none"):
     """The model in fp32 (TF32 off), batch 2, on the CPU through the plain
     versions and on the card through the kernels: logits within 1e-3. At
     ``alpha != 0`` also the CCR loss of every cross-modal alignment, which
-    the cells discard: within 1e-3 of max(1, |loss|)."""
+    the cells discard: within 1e-3 of max(1, |loss|). ``sentic``: the model
+    with ``use_sentic_graph`` on :func:`sentic_adjacency`'s adjacency.
+    ``quant``: ``quant_train`` (int8 products through ``torch._int_mm`` on
+    both devices), logits within ``QUANT_LOGITS_TOL`` and equal labels."""
     import copy
     import numpy as np
     import torch
@@ -1006,10 +1075,13 @@ def phase_card_vs_cpu(report, key="base", alpha=0.0):
     from d2r_tpu_torch.models.xmodules import CrossModalAlignment
 
     spec = MODELS[key]
-    name = "card_vs_cpu" + spec["suffix"] + ("_alpha" if alpha else "")
+    name = ("card_vs_cpu" + spec["suffix"] + ("_alpha" if alpha else "")
+            + ("_sentic" if sentic else "") + ("_" + quant if quant != "none" else ""))
+    tol = QUANT_LOGITS_TOL if quant != "none" else 1e-3
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = model_config(key, compute_dtype="float32", alpha=alpha)
+    cfg = model_config(key, compute_dtype="float32", alpha=alpha, use_sentic_graph=sentic,
+                       quant_train=quant)
     cpu_model = build_model(cfg, device="cpu", seed=1)
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
     ccr = {"cpu": {}, "gpu": {}}
@@ -1020,28 +1092,35 @@ def phase_card_vs_cpu(report, key="base", alpha=0.0):
                                         d.__setitem__(n, out[1].item()))
     ids, mask, tt, pixels = (x[:2] for x in make_requests(cfg, seed=7)[1])
     args = [torch.from_numpy(x) for x in (ids, mask, tt, np.zeros(2, np.int64), pixels)]
+    extra = {"sentic_adj": torch.from_numpy(sentic_adjacency(2, cfg.max_seq))} if sentic else {}
     with torch.inference_mode():
-        _, cpu_logits, cpu_aux = cpu_model(*args)
+        _, cpu_logits, cpu_aux = cpu_model(*args, **extra)
         zero_counts()
-        _, gpu_logits, gpu_aux = gpu_model(*(a.cuda() for a in args))
+        _, gpu_logits, gpu_aux = gpu_model(*(a.cuda() for a in args),
+                                           **{k: v.cuda() for k, v in extra.items()})
         launched = read_counts()
     err = (gpu_logits.cpu() - cpu_logits).abs().max().item()
+    labels_equal = bool(torch.equal(gpu_logits.cpu().argmax(-1), cpu_logits.argmax(-1)))
     js_err = abs(gpu_aux["js_loss"].item() - cpu_aux["js_loss"].item())
     ccr_err = max((abs(ccr["gpu"][n] - v) / max(1.0, abs(v)) for n, v in ccr["cpu"].items()),
                   default=0.0)
     report[name] = {
-        "alpha": alpha, "logits_max_abs_err": err, "js_loss_abs_err": js_err,
+        "alpha": alpha, "sentic": sentic, "quant_train": quant, "tolerance": tol,
+        "labels_equal": labels_equal, "logits_max_abs_err": err, "js_loss_abs_err": js_err,
         "ccr_losses": len(ccr["cpu"]), "ccr_loss_max_err_over_max_1_abs": ccr_err,
         "ccr_loss_range": [min(ccr["cpu"].values(), default=0.0),
                            max(ccr["cpu"].values(), default=0.0)],
         "k1_launches": launched["k1"], "k3_launches": launched["k3"]}
-    log(f"[cpu-vs-card{spec['tag']}{' alpha ' + str(alpha) if alpha else ''}] fp32 "
-        f"{spec['label']} batch 2: logits max abs err {err:.3g}, js_loss err {js_err:.3g}, "
+    log(f"[cpu-vs-card{spec['tag']}{' alpha ' + str(alpha) if alpha else ''}"
+        f"{' sentic' if sentic else ''}{' ' + quant if quant != 'none' else ''}] fp32 "
+        f"{spec['label']} batch 2: logits max abs err {err:.3g} (tolerance {tol:g}), labels "
+        f"{'equal' if labels_equal else 'DIFFER'}, js_loss err {js_err:.3g}, "
         + (f"{len(ccr['cpu'])} CCR losses in {report[name]['ccr_loss_range']}, max err "
            f"{ccr_err:.3g} of max(1, |loss|), " if alpha else "")
         + f"K1 / K3 launches on the card {launched['k1']} / {launched['k3']}")
     assert (launched["k1"], launched["k3"]) == (spec["k1"], spec["k3"]), launched
-    assert torch.isfinite(cpu_logits).all() and err <= 1e-3, err
+    assert torch.isfinite(cpu_logits).all() and err <= tol, err
+    assert labels_equal or quant == "none", "int8 labels differ between the card and the CPU"
     # GLAC and CRCMC of each of the DR_step routing layers of both branches
     # compute one
     assert len(ccr["cpu"]) == (2 * cfg.DR_step * 2 if alpha else 0), ccr["cpu"]
@@ -1081,7 +1160,6 @@ def phase_train(report, key="base"):
     """Training at full width on the card (bf16 compute, fp32 parameters,
     4-group AdamW): warm-up, timed steps, the launch counts, what moved, one
     profiled step."""
-    import numpy as np
     import torch
     from d2r_tpu_torch.ops.kernels import fused_attention as fa
     from d2r_tpu_torch.train.state import create_train_state, make_train_step
@@ -1103,28 +1181,14 @@ def phase_train(report, key="base"):
     step = make_train_step()
 
     zero_counts()
-    losses, step_ms = [], []
     t0 = time.perf_counter()
-    for i in range(WARMUP_STEPS + TIMED_STEPS):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        state, metrics = step(state, batch, 1)
-        end.record()
-        losses.append(metrics["loss"])
-        if i >= WARMUP_STEPS:
-            torch.cuda.synchronize()
-            step_ms.append(start.elapsed_time(end))
-    torch.cuda.synchronize()
+    state, timed = timed_steps(state, batch)
     wall = time.perf_counter() - t0
     launches = read_counts()
-    steps = WARMUP_STEPS + TIMED_STEPS
-    losses = [float(x) for x in losses]
-    med = float(np.median(step_ms))
+    steps, losses, med = timed["steps"], timed["losses"], timed["step_ms_median"]
     out = {"config": spec["label"], "batch": batch_size, "steps": steps,
            "k1_launches": launches["k1"], "k2_launches": launches["k2"],
-           "k3_launches": launches["k3"],
-           "losses": losses, "step_ms": step_ms, "step_ms_median": med,
-           "samples_per_s": batch_size / (med / 1e3), "wall_s": wall,
+           "k3_launches": launches["k3"], **timed, "wall_s": wall,
            "g_copies": fa.fused_attention_small_bwd.g_copies,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     report["train" + spec["suffix"]] = out
@@ -1152,9 +1216,11 @@ def phase_train(report, key="base"):
     return launches
 
 
-def phase_train_card_vs_cpu(report, key="base"):
+def phase_train_card_vs_cpu(report, key="base", sentic=False):
     """One fp32 train step, batch 2, dropout off, on the CPU (plain path)
-    and on the card (the kernels)."""
+    and on the card (the kernels). ``sentic``: the model with
+    ``use_sentic_graph`` on :func:`sentic_adjacency`'s adjacency, the GCN's
+    weight among the compared leaves."""
     import copy
     import dataclasses
     import torch
@@ -1174,7 +1240,8 @@ def phase_train_card_vs_cpu(report, key="base"):
                              attention_probs_dropout_prob=0.0)
     name = f"{base.bert_name}-dropout-0"
     tconfig.register_text_preset(name, lambda: tc)
-    cfg = model_config(key, compute_dtype="float32", warmup_ratio=0.0, bert_name=name)
+    cfg = model_config(key, compute_dtype="float32", warmup_ratio=0.0, bert_name=name,
+                       use_sentic_graph=sentic)
     cpu_model = build_model(cfg, device="cpu", seed=1)
     # Two spots where the model itself turns fp32 rounding into gradient
     # noise, moved off for this check. BLOCK fusion's merge biases go to
@@ -1196,6 +1263,8 @@ def phase_train_card_vs_cpu(report, key="base"):
     plain = create_train_state(cfg, 100, device="cuda", model=copy.deepcopy(cpu_model))
     cpu = create_train_state(cfg, 100, device="cpu", model=cpu_model)
     batch = model_batch(cfg, 2, seed=7)
+    if sentic:
+        batch["sentic_adj"] = sentic_adjacency(2, cfg.max_seq)
     step = make_train_step()
     zero_counts()
     gpu, gm = step(gpu, batch, 0)
@@ -1223,6 +1292,8 @@ def phase_train_card_vs_cpu(report, key="base"):
               "model.itr_module.dynamic_itr_l0.glac.saf.bn.weight")
     if spec["k3"]:   # the image-branch IMRC cell: K3's path at D2R-large
         leaves += ("model.Reversed_itr_module.dynamic_itr_l0.imrc.sa_qkv.weight",)
+    if sentic:
+        leaves += ("model.sentic_gcn.weight.weight", "model.sentic_gcn.bias")
     gp, cp = dict(gpu.model.named_parameters()), dict(cpu.model.named_parameters())
     out = {"config": spec["label"], "loss_abs_err": loss_err, "launches": launched,
            "cpu_step_s": cpu_s, "leaves": {}}
@@ -1246,8 +1317,8 @@ def phase_train_card_vs_cpu(report, key="base"):
     out["running_stats_max_abs_err"] = max(
         (gb[n].cpu() - cb[n]).abs().max().item() for n in cb if "running" in n)
     ok = ok and out["running_stats_max_abs_err"] <= 1e-4
-    report["train_card_vs_cpu" + spec["suffix"]] = out
-    log(f"[train cpu-vs-card{spec['tag']}] fp32 {spec['label']} batch 2, dropout off: loss err "
+    report["train_card_vs_cpu" + spec["suffix"] + ("_sentic" if sentic else "")] = out
+    log(f"[train cpu-vs-card{spec['tag']}{' sentic' if sentic else ''}] fp32 {spec['label']} batch 2, dropout off: loss err "
         f"{loss_err:.3g}, launches K1/K2/K3 {launched}, running stats err "
         f"{out['running_stats_max_abs_err']:.3g}, CPU step {cpu_s:.1f} s")
     for name, r in out["leaves"].items():
@@ -2142,6 +2213,461 @@ def phase_train_scaled(report):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------- phases 17-19
+
+# the JAX CLI's --dry_run line (d2r_tpu/cli.py::_dry_run)
+DRY_RUN_KEYS = {"dry_run", "params", "flops_per_step", "bytes_accessed_per_step", "devices",
+                "mesh", "batch_size", "max_seq", "compute_dtype"}
+
+
+def sentic_texts(n, seed=0):
+    """``n`` fabricated posts of 5-60 words, about half of them words of
+    the SenticNet lexicon, the others filler words it lacks or has."""
+    import numpy as np
+    from d2r_tpu_torch.data.sentic import load_sentic_lexicon
+    words = sorted(load_sentic_lexicon())
+    filler = ["the", "a", "photo", "of", "my", "today", "zzq", "at", "we"]
+    rng = np.random.default_rng(seed)
+    return [" ".join(words[int(rng.integers(len(words)))] if rng.random() < 0.5
+                     else filler[int(rng.integers(len(filler)))]
+                     for _ in range(int(rng.integers(5, 61)))) for _ in range(n)]
+
+
+def sentic_adjacency(n, max_seq, seed=0):
+    """(n, max_seq, max_seq) fp32 adjacency of :func:`sentic_texts`, built by
+    the port's ``batched_affective_adjacency``."""
+    from d2r_tpu_torch.data.sentic import batched_affective_adjacency, load_sentic_lexicon
+    return batched_affective_adjacency(sentic_texts(n, seed), load_sentic_lexicon(), max_seq)
+
+
+def timed_steps(state, batch, warmup=WARMUP_STEPS, timed=TIMED_STEPS):
+    """``warmup`` + ``timed`` train steps on ``batch`` (device tensors);
+    step ms from CUDA events around each timed step."""
+    import numpy as np
+    import torch
+    from d2r_tpu_torch.train.state import make_train_step
+    step = make_train_step()
+    losses, ms = [], []
+    for i in range(warmup + timed):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, metrics = step(state, batch, 1)
+        end.record()
+        losses.append(metrics["loss"])
+        if i >= warmup:
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+    torch.cuda.synchronize()
+    batch_size = batch["input_ids"].shape[0]
+    med = float(np.median(ms))
+    return state, {"steps": warmup + timed, "losses": [float(x) for x in losses],
+                   "step_ms": ms, "step_ms_median": med,
+                   "samples_per_s": batch_size / (med / 1e3)}
+
+
+def step_runs(report_key, runs, batch, weights, after=None):
+    """For each (name, cfg, extra inputs) of ``runs``, one after the other:
+    a train state on the card from ``weights`` (a CPU state dict, each run
+    taking the keys its model has), :func:`timed_steps` on ``batch`` plus
+    the extras, peak memory above what was allocated before the run, the
+    launch counts of the run (34 K1 and 34 K2 a step), then ``after(name,
+    state, result)``. Returns ({name: result}, the launch counts summed)."""
+    import torch
+    from d2r_tpu_torch.models.unimo import D2RClassifier
+    out, total = {}, {"k1": 0, "k2": 0, "k3": 0}
+    for name, cfg, extra in runs:
+        keys = set(D2RClassifier(cfg).state_dict())
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        state = fresh_state(cfg, {k: v for k, v in weights.items() if k in keys})
+        b = {**batch, **{k: torch.from_numpy(v).cuda() for k, v in extra.items()}}
+        zero_counts()
+        state, r = timed_steps(state, b)
+        counts = read_counts()
+        r.update({"peak_mem_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+                  "launches": counts})
+        out[name] = r
+        log(f"[{report_key}] {name}: step {r['step_ms_median']:.2f} ms (CUDA events, median of "
+            f"{TIMED_STEPS}), {r['samples_per_s']:.1f} samples/s, peak {r['peak_mem_gb']:.2f} GB; "
+            f"K1 / K2 / K3 {counts['k1']} / {counts['k2']} / {counts['k3']} in {r['steps']} "
+            f"steps; losses {[round(x, 4) for x in r['losses']]}")
+        assert counts == {"k1": 34 * r["steps"], "k2": 34 * r["steps"], "k3": 0}, counts
+        assert all(math.isfinite(x) for x in r["losses"]), r["losses"]
+        total = {n: total[n] + counts[n] for n in total}
+        if after is not None:
+            after(name, state, r, b)
+        del state, b
+    torch.cuda.empty_cache()
+    return out, total
+
+
+def phase_sentic(report):
+    """SenticNet graph refinement at full width, D2R-base at bench.py's
+    recipe (batch 64, bf16): a train step with and without
+    ``use_sentic_graph`` on the same weights and batch (the adjacency from
+    the port's ``batched_affective_adjacency`` over texts with lexicon
+    words); fp32 logits and one fp32 train step card against CPU; one CLI
+    epoch of run.sh's recipe with ``--use_sentic_graph`` on phase 12's 512
+    fabricated posts, with the loader's wait a step (the adjacency is built
+    on the host, in Python loops, per item)."""
+    import shutil
+    import numpy as np
+    import torch
+    from d2r_tpu_torch.data.dataset import write_fake_dataset
+    from d2r_tpu_torch.models.unimo import build_model
+
+    cfg_s = model_config("base", batch_size=TRAIN_BATCH, compute_dtype="bfloat16",
+                         use_sentic_graph=True)
+    cfg_p = model_config("base", batch_size=TRAIN_BATCH, compute_dtype="bfloat16")
+    weights = build_model(cfg_s, device="cpu", seed=0).state_dict()
+    batch = {k: torch.from_numpy(v).cuda() for k, v in model_batch(cfg_s, TRAIN_BATCH, 0).items()}
+    t0 = time.perf_counter()
+    adj = sentic_adjacency(TRAIN_BATCH, cfg_s.max_seq)
+    adj_ms = (time.perf_counter() - t0) * 1e3
+    gcn = {}
+
+    def after(name, state, r, b):
+        if name == "sentic":
+            gcn["grad_max"] = state.model.model.sentic_gcn.weight.weight.grad.abs().max().item()
+
+    runs, total = step_runs("sentic", [("plain", cfg_p, {}), ("sentic", cfg_s, {"sentic_adj": adj})],
+                            batch, weights, after)
+    result = report["sentic"] = dict(runs)
+    result["adjacency_host_ms_batch"] = adj_ms
+    result["adjacency_nonzero_share"] = float((adj != 0).mean())
+    result["step_ratio_sentic_over_plain"] = (runs["sentic"]["step_ms_median"]
+                                              / runs["plain"]["step_ms_median"])
+    result["gcn_grad_max"] = gcn["grad_max"]
+    log(f"[sentic] adjacency of {TRAIN_BATCH} posts on the host: {adj_ms:.1f} ms, "
+        f"{result['adjacency_nonzero_share']:.3f} non-zero; step sentic / plain "
+        f"{result['step_ratio_sentic_over_plain']:.3f}; GCN weight grad max "
+        f"{result['gcn_grad_max']:.3g}")
+    assert result["gcn_grad_max"] > 0, "the GCN got no gradient"
+
+    phase_card_vs_cpu(report, "base", sentic=True)
+    phase_train_card_vs_cpu(report, "base", sentic=True)
+
+    root = os.path.join("build", "chip_smoke_sentic")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        paths = write_fake_dataset(os.path.join(root, "data"), **TRAINER_DATA)
+        flags = TRAINER_RECIPE + [
+            "--num_epochs", "1", "--train_json", paths["train"], "--dev_json", paths["dev"],
+            "--test_json", paths["test"], "--img_dir", paths["img_dir"],
+            "--steps_per_dispatch", str(TRAINER_DISPATCH), "--use_sentic_graph"]
+        records, counts, wall = cli_run(flags, root, "cli")
+        steps, eval_batches = cli_counts(records, TRAIN_BATCH, TRAINER_DATA["n"])
+        summary = next(r for r in records if r["kind"] == "summary")
+        test = next(r for r in records if r["kind"] == "test")
+        cli = result["cli"] = {
+            "steps": steps, "eval_batches": eval_batches, "wall_s": wall, "launches": counts,
+            "samples_per_sec": summary["samples_per_sec"],
+            "step_ms_median": float(np.median(summary["step_ms"][1:])),
+            "loader_wait_ms_median": float(np.median(summary["loader_wait_ms"])),
+            "loader_wait_ms": summary["loader_wait_ms"], "test_loss": test["loss"]}
+        plain_wait = report.get("train_cli", {}).get("loader_wait_ms_median")
+        log(f"[sentic] CLI, run.sh recipe + --use_sentic_graph, 1 epoch of "
+            f"{TRAINER_DATA['n']} posts: {steps} steps, {eval_batches} eval batches, K1 / K2 "
+            f"{counts['k1']} / {counts['k2']}; {cli['samples_per_sec']:.2f} samples/s, step "
+            f"median {cli['step_ms_median']:.2f} ms; loader wait a step median "
+            f"{cli['loader_wait_ms_median']:.2f} ms"
+            + (f" (phase 12 without the graph: {plain_wait:.2f})" if plain_wait else "")
+            + f"; test loss {test['loss']!r}")
+        assert counts == {"k1": 34 * (steps + eval_batches), "k2": 34 * steps, "k3": 0}, counts
+        assert math.isfinite(test["loss"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {n: total[n] + counts[n] for n in total}
+
+
+def op_profile(fn):
+    """Device time of one call of ``fn`` by kind, from torch.profiler: the
+    union of its kernels' spans (busy), K1 and K2 by kernel name, and by
+    aten op (self device time) ``torch._int_mm`` and the float products
+    (mm, addmm, bmm); ``other`` is the rest of busy."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans, k1, k2 = [], 0.0, 0.0
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA and e.time_range.elapsed_us() > 0
+                and not getattr(e, "is_user_annotation", False)):
+            spans.append((e.time_range.start, e.time_range.end))
+            k1 += e.time_range.elapsed_us() * ("fused_attention_fwd" in e.name)
+            k2 += e.time_range.elapsed_us() * ("fused_attention_bwd" in e.name)
+    if not spans:
+        return {"device_time": "not measured (no CUDA events in the trace)"}
+    spans.sort()
+    busy = busy_time(spans)
+    by_op = {}
+    for a in prof.key_averages():
+        t = getattr(a, "self_device_time_total", None)
+        if t is None:
+            t = getattr(a, "self_cuda_time_total", 0.0)
+        by_op[a.key] = by_op.get(a.key, 0.0) + t
+    int_mm = by_op.get("aten::_int_mm", 0.0)
+    gemm = sum(by_op.get(k, 0.0) for k in ("aten::mm", "aten::addmm", "aten::bmm"))
+    return {"busy_ms": busy / 1e3, "window_ms": (spans[-1][1] - spans[0][0]) / 1e3,
+            "idle_share": 1.0 - busy / (spans[-1][1] - spans[0][0]),
+            "k1_ms": k1 / 1e3, "k2_ms": k2 / 1e3, "int_mm_ms": int_mm / 1e3,
+            "float_gemm_ms": gemm / 1e3,
+            "other_ms": (busy - k1 - k2 - int_mm - gemm) / 1e3,
+            "top_ops_ms": {k: v / 1e3 for k, v in sorted(by_op.items(), key=lambda kv: -kv[1])[:10]}}
+
+
+def phase_int8(report):
+    """int8 quantized training at full width: ``quant_dot`` card against CPU
+    on the same operands (:data:`QDOT_SHAPES`; the forward bit for bit in
+    fp32 and bf16, the backwards in fp32 with TF32 off within
+    :data:`QDOT_BWD_TOL`), its time at the FFN shape beside a bf16 product
+    and ``_int_mm`` alone; fp32 int8 logits card against CPU; ten bf16 steps
+    of D2R-base at batch 64 with ``quant_train`` none, int8 and int8_all on
+    the same weights and batch, and one traced step of each: how much of it
+    is ``_int_mm``, the float products, and the rest (the quantize passes
+    are what the rest grows by)."""
+    import torch
+    import torch.nn.functional as F
+    from d2r_tpu_torch.models.unimo import build_model
+    from d2r_tpu_torch.ops import qdot
+    from d2r_tpu_torch.train.state import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    result = report["int8"] = {"quant_dot": []}
+    for name, m, k, n in QDOT_SHAPES:
+        g = torch.Generator().manual_seed(m + k + n)
+        x, w, ct = (torch.randn(s, generator=g) for s in ((m, k), (n, k), (m, n)))
+        for dtype in (torch.float32, torch.bfloat16):
+            for mode in ("int8", "int8_all"):
+                outs = []
+                for dev in ("cpu", "cuda"):
+                    xd = x.to(dev, dtype, copy=True).requires_grad_()
+                    wd = w.to(dev, dtype, copy=True).requires_grad_()
+                    y = qdot.quant_dot(xd, wd, mode)
+                    y.backward(ct.to(dtype).to(dev))
+                    outs.append([t.detach().float().cpu() for t in (y, xd.grad, wd.grad)])
+                (y0, *b0), (y1, *b1) = outs
+                row = {"shape": name, "m": m, "k": k, "n": n, "dtype": str(dtype)[6:],
+                       "mode": mode, "forward_bit_equal": bool(torch.equal(y1, y0)),
+                       "backward_bit_equal": all(torch.equal(a, b) for a, b in zip(b1, b0)),
+                       "backward_max_err_over_max": max(
+                           ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+                           for a, b in zip(b1, b0))}
+                result["quant_dot"].append(row)
+                log(f"[int8] quant_dot {name} ({m}x{k} . {k}x{n}) {row['dtype']} {mode}: forward "
+                    f"{'==' if row['forward_bit_equal'] else '!='} CPU; backward "
+                    f"{'==' if row['backward_bit_equal'] else '!='} CPU, max err / max "
+                    f"{row['backward_max_err_over_max']:.3g}")
+                assert row["forward_bit_equal"], row
+                if dtype == torch.float32:
+                    assert row["backward_max_err_over_max"] <= QDOT_BWD_TOL, row
+    _, m, k, n = QDOT_SHAPES[0]
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((m, k), generator=g, device="cuda").bfloat16()
+    w = torch.randn((n, k), generator=g, device="cuda").bfloat16()
+    qx, qw = qdot._quantize(x, -1)[0], qdot._quantize(w, 1)[0]
+    times = {"quant_dot_ms": cuda_time_ms(lambda: qdot.quant_dot(x, w)),
+             "bf16_linear_ms": cuda_time_ms(lambda: F.linear(x, w)),
+             "int_mm_ms": cuda_time_ms(lambda: qdot.int_mm(qx, qw)),
+             "quantize_x_ms": cuda_time_ms(lambda: qdot._quantize(x, -1))}
+    times.update({f"{k}_device": device_time_ms(fn) for k, fn in (
+        ("int_mm_ms", lambda: qdot.int_mm(qx, qw)), ("bf16_linear_ms", lambda: F.linear(x, w)))})
+    result["ffn_times"] = times
+    log(f"[int8] FFN product {m}x{k} . {k}x{n}, bf16 in: " + ", ".join(
+        f"{k} {v * 1e3:.2f} us" for k, v in times.items()))
+
+    phase_card_vs_cpu(report, "base", quant="int8")
+
+    cfg = {mode: model_config("base", batch_size=TRAIN_BATCH, compute_dtype="bfloat16",
+                              quant_train=mode) for mode in qdot.MODES}
+    weights = build_model(cfg["none"], device="cpu", seed=0).state_dict()
+    batch = {k: torch.from_numpy(v).cuda() for k, v in model_batch(cfg["none"], TRAIN_BATCH, 0).items()}
+    step = make_train_step()
+
+    def after(mode, state, r, b):
+        r["profile"] = op_profile(lambda: step(state, b, 1))
+        log(f"[int8] {mode} traced step: " + json.dumps(
+            {k: v for k, v in r["profile"].items() if k != "top_ops_ms"}))
+
+    runs, total = step_runs("int8", [(mode, cfg[mode], {}) for mode in qdot.MODES], batch,
+                            weights, after)
+    none_other = runs["none"]["profile"].get("other_ms")
+    for mode in ("int8", "int8_all"):
+        p = runs[mode]["profile"]
+        if none_other is not None and "other_ms" in p:
+            p["quantize_passes_ms_estimate"] = p["other_ms"] - none_other
+        runs[mode]["step_ratio_over_none"] = (runs[mode]["step_ms_median"]
+                                              / runs["none"]["step_ms_median"])
+    result["steps"] = runs
+    log("[int8] step / none: " + ", ".join(
+        f"{m} {runs[m]['step_ratio_over_none']:.3f} (quantize passes ~"
+        f"{runs[m]['profile'].get('quantize_passes_ms_estimate', float('nan')):.2f} ms of device "
+        f"time, _int_mm {runs[m]['profile'].get('int_mm_ms', float('nan')):.2f} ms)"
+        for m in ("int8", "int8_all")))
+    return total
+
+
+def phase_extras(report):
+    """The trainer extras through the CLI at run.sh's recipe, a few steps
+    each on :data:`EXTRAS_DATA`: ``--dry_run`` prints the JAX CLI's key set;
+    a synchronous ``--auto_resume`` run, the same with ``--async_checkpoint``
+    (its best model and resume files load back equal bit for bit) and with
+    ``--prng_impl threefry2x32`` (its best model equal to the rbg run's);
+    then :data:`EXTRAS_RUNS` (int8, int8_all, each with
+    ``--use_sentic_graph`` too, ``--debug_nans``), finite losses and 34 K1 +
+    34 K2 a step each; and ``debug_nans`` on a batch with NaN pixels
+    raising ``FloatingPointError``."""
+    import contextlib
+    import io
+    import shutil
+    import numpy as np
+    import torch
+    from d2r_tpu_torch import cli
+    from d2r_tpu_torch.data.dataset import write_fake_dataset
+    from d2r_tpu_torch.train.state import create_train_state, make_train_step
+
+    root = os.path.join("build", "chip_smoke_extras")
+    shutil.rmtree(root, ignore_errors=True)
+    result = report["extras"] = {"runs": {}}
+    total = {"k1": 0, "k2": 0, "k3": 0}
+
+    def add(counts):
+        for n in total:
+            total[n] += counts[n]
+
+    def diff(a, b):
+        """The largest |a - b| over the tensors of two loaded checkpoints
+        (0.0: equal bit for bit); inf where their structure differs."""
+        if isinstance(a, torch.Tensor):
+            if not isinstance(b, torch.Tensor) or a.dtype != b.dtype or a.shape != b.shape:
+                return math.inf
+            return 0.0 if torch.equal(a, b) else (a.double() - b.double()).abs().max().item()
+        if isinstance(a, dict):
+            if not isinstance(b, dict) or a.keys() != b.keys():
+                return math.inf
+            return max((diff(a[k], b[k]) for k in a), default=0.0)
+        if isinstance(a, (list, tuple)):
+            if not isinstance(b, (list, tuple)) or len(a) != len(b):
+                return math.inf
+            return max((diff(x, y) for x, y in zip(a, b)), default=0.0)
+        return 0.0 if a == b else math.inf
+
+    def load(*parts):
+        return torch.load(os.path.join(root, *parts), map_location="cpu", weights_only=True)
+
+    try:
+        buf = io.StringIO()
+        zero_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            line = cli.main(TRAINER_RECIPE + ["--dry_run", "--save_path", os.path.join(root, "dry")])
+        counts = read_counts()
+        add(counts)
+        printed = json.loads(buf.getvalue().strip().splitlines()[-1])
+        result["dry_run"] = {"line": line, "launches": counts, "wall_s": time.perf_counter() - t0}
+        log(f"[extras] --dry_run: {json.dumps(printed)}; K1 / K2 {counts['k1']} / {counts['k2']}")
+        assert printed == line and set(line) == DRY_RUN_KEYS, line
+        assert counts == {"k1": 34, "k2": 34, "k3": 0}, counts
+        assert not os.path.exists(os.path.join(root, "dry"))
+
+        paths = write_fake_dataset(os.path.join(root, "data"), **EXTRAS_DATA)
+        flags = TRAINER_RECIPE + [
+            "--num_epochs", "1", "--train_json", paths["train"], "--dev_json", paths["dev"],
+            "--test_json", paths["test"], "--img_dir", paths["img_dir"],
+            "--steps_per_dispatch", "1"]
+
+        def run(name, extra):
+            records, counts, wall = cli_run(flags, root, name, extra)
+            steps, eval_batches = cli_counts(records, TRAIN_BATCH, EXTRAS_DATA["n"])
+            summary = next(r for r in records if r["kind"] == "summary")
+            test = next(r for r in records if r["kind"] == "test")
+            losses = [r["loss"] for r in records if r["kind"] == "train_window"]
+            r = result["runs"][name] = {
+                "flags": extra, "steps": steps, "eval_batches": eval_batches, "wall_s": wall,
+                "launches": counts, "train_losses": losses, "test_loss": test["loss"],
+                "step_ms": summary["step_ms"], "checkpoint_save_ms": summary["checkpoint_save_ms"]}
+            log(f"[extras] CLI {' '.join(extra) or '(the recipe)'}: {steps} steps, "
+                f"{eval_batches} eval batches in {wall:.1f} s; K1 / K2 {counts['k1']} / "
+                f"{counts['k2']}; losses {[round(x, 4) for x in losses]}, test loss "
+                f"{test['loss']!r}; best-model save {summary['checkpoint_save_ms']} ms")
+            assert counts == {"k1": 34 * (steps + eval_batches), "k2": 34 * steps, "k3": 0}, counts
+            assert all(math.isfinite(x) for x in losses + [test["loss"]]), losses
+            add(counts)
+            return r
+
+        # --async_checkpoint: the best model, written by the save thread at the
+        # end of the epoch, equals the resume slot written synchronously right
+        # after from the same state; the test pass after its reload equals a
+        # restore probe of the file. Two runs are compared too, for the record:
+        # training on the card need not repeat bit for bit (cuBLAS and atomic
+        # reductions), so the runs' master weights may differ by an ulp
+        sync = run("sync", ["--auto_resume"])
+        asyn = run("async", ["--auto_resume", "--async_checkpoint"])
+        asyn["best_vs_resume_slot_max_abs_diff"] = diff(
+            load("async", "best_model", "model.pth"), load("async", "resume", "slot_1", "model.pth"))
+        records, counts, _ = cli_run(flags, root, "async_probe", [
+            "--only_test", "--load_path", os.path.join(root, "async", "best_model")])
+        probe = next(r for r in records if r["kind"] == "test")
+        asyn["restore_probe_test_loss"] = probe["loss"]
+        asyn["vs_sync_run_max_abs_diff"] = {
+            f: diff(load("async", *f.split("/")), load("sync", *f.split("/")))
+            for f in ("best_model/model.pth", "resume/slot_1/model.pth",
+                      "resume/slot_1/train_state.pth")}
+        log(f"[extras] --async_checkpoint: the thread's best model against the synchronous "
+            f"resume slot of the same state: max abs diff "
+            f"{asyn['best_vs_resume_slot_max_abs_diff']!r}; test loss {asyn['test_loss']!r}, "
+            f"restore probe {probe['loss']!r}; against the synchronous run (another run): "
+            f"{asyn['vs_sync_run_max_abs_diff']}, test loss {sync['test_loss']!r}")
+        assert asyn["best_vs_resume_slot_max_abs_diff"] == 0.0
+        assert probe["loss"] == asyn["test_loss"], (probe["loss"], asyn["test_loss"])
+        shutil.rmtree(os.path.join(root, "async"))
+        # --prng_impl threefry2x32: the rbg run's losses within PRNG_RUN_TOL
+        # (two runs need not repeat bit for bit, above); other dropout bits
+        # would move the first step's loss by far more. The names' bit
+        # equality within one process is the CPU tests'.
+        three = run("threefry2x32", ["--prng_impl", "threefry2x32"])
+        three["best_model_vs_rbg_run_max_abs_diff"] = diff(
+            load("threefry2x32", "best_model", "model.pth"), load("sync", "best_model", "model.pth"))
+        pairs = list(zip(three["train_losses"] + [three["test_loss"]],
+                         sync["train_losses"] + [sync["test_loss"]]))
+        three["loss_max_rel_diff_vs_rbg_run"] = max(
+            (abs(a - b) / max(1.0, abs(b)) for a, b in pairs), default=math.inf)
+        log(f"[extras] --prng_impl threefry2x32: losses {three['train_losses']} and test loss "
+            f"{three['test_loss']!r} against the rbg run's {sync['train_losses']} and "
+            f"{sync['test_loss']!r} (max rel diff {three['loss_max_rel_diff_vs_rbg_run']!r}, "
+            f"bound {PRNG_RUN_TOL}); best model max abs diff "
+            f"{three['best_model_vs_rbg_run_max_abs_diff']!r}")
+        assert (len(three["train_losses"]) == len(sync["train_losses"])
+                and three["loss_max_rel_diff_vs_rbg_run"] <= PRNG_RUN_TOL), \
+            "threefry2x32 trained otherwise than rbg"
+        for name in ("sync", "threefry2x32", "async_probe"):
+            shutil.rmtree(os.path.join(root, name), ignore_errors=True)
+        for name, extra in EXTRAS_RUNS:
+            run(name, extra)
+            shutil.rmtree(os.path.join(root, name))
+
+        cfg = model_config("base", batch_size=TRAIN_BATCH, compute_dtype="bfloat16",
+                           debug_nans=True)
+        state = create_train_state(cfg, total_steps=1000, device="cuda", seed=0)
+        bad = model_batch(cfg, TRAIN_BATCH, 3)
+        bad["pixel_values"][1, :, :8, :8] = np.nan
+        try:
+            make_train_step(True)(state, bad, 1)
+        except FloatingPointError as e:
+            result["debug_nans_error"] = str(e)
+        log(f"[extras] debug_nans on a batch with NaN pixels: "
+            f"{result.get('debug_nans_error', 'NO ERROR')}")
+        assert "debug_nans: step 0" in result.get("debug_nans_error", ""), result
+        del state
+        torch.cuda.empty_cache()
+        return total
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2164,29 +2690,42 @@ def main():
     phases.append(("serve_http", phase_serve_http))
     phases += [("pretrained", phase_pretrained), ("train_scaled", phase_train_scaled),
                ("card_vs_cpu_alpha", lambda r: phase_card_vs_cpu(r, "base", alpha=CCR_ALPHA))]
-    failed = []
+    phases += [("train_sentic", phase_sentic), ("train_int8", phase_int8),
+               ("train_extras", phase_extras)]
+    failed = {}
     for name, fn in phases:
         t0 = time.perf_counter()
         try:
             got = fn(report)
         except Exception as e:  # noqa: BLE001 - report every phase, then fail
-            failed.append(name)
-            log(f"[{name}] FAILED: {type(e).__name__}: {e}")
+            failed[name] = f"{type(e).__name__}: {e}"[:2000]
+            log(f"[{name}] FAILED: {failed[name]}")
             traceback.print_exc()
             if name == "build":
                 break
             continue
+        finally:
+            # what a phase leaves on the card goes before the next starts
+            gc.collect()
+            torch.cuda.empty_cache()
+            report.setdefault("memory_gb", {})[name] = memory_gb()
         if (name.startswith(("main_path", "train", "serve", "pretrained"))
                 and "card_vs_cpu" not in name):
             paths[name] = got
         report.setdefault("phase_s", {})[name] = time.perf_counter() - t0
-        log(f"[{name}] ok in {time.perf_counter() - t0:.1f} s")
+        log(f"[{name}] ok in {time.perf_counter() - t0:.1f} s; card memory (GB) "
+            f"{json.dumps(report['memory_gb'][name])}")
 
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
     if failed:
-        log(f"chip_smoke: failed phases {failed}")
+        # last on both streams, where the end of either shows it
+        for stream in (sys.stdout, sys.stderr):
+            print(f"chip_smoke: failed phases {list(failed)}", file=stream)
+            for name, why in failed.items():
+                print(f"chip_smoke: [{name}] {why}", file=stream)
+            stream.flush()
         return 1
 
     # times at the most frequent site of each path (K1: serving, B=32, rate 0;

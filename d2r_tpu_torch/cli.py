@@ -9,15 +9,21 @@ epoch, saves the best dev weighted-F1 model under ``save_path/best_model``
 with ``config.json`` beside it, and tests it; ``--only_test --load_path
 <best_model>`` tests a saved model.
 
-Every flag the port cannot honour yet raises ``NotImplementedError`` naming
-the flag and the ROADMAP.md item that ports it: those without a config field
-here (:data:`REFUSED`), the others in ``D2RConfig.check_supported``, which the
-trainer and the model also call. None is accepted and then ignored.
+``--dry_run`` builds the model and train state on the device, runs one
+real train step on ``synthetic_batch`` and prints one JSON line with the
+JAX package's keys (:func:`_dry_run`).
+
+Every flag the port cannot honour yet (the parallel ones) raises
+``NotImplementedError`` naming the flag and the ROADMAP.md item that ports
+it: those without a config field here (:data:`REFUSED`), the others in
+``D2RConfig.check_supported``, which the trainer and the model also call.
+None is accepted and then ignored.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import os
 from typing import Dict
@@ -34,7 +40,6 @@ _PARALLEL = "Queue 1 item 9 (parallel)"
 # item that ports it): the flags with no config field; those with one are
 # refused by D2RConfig.check_supported (config.UNPORTED)
 REFUSED = (
-    ("--dry_run", lambda a: a.dry_run, "Queue 1 item 11 (trainer extras)"),
     ("--coordinator_address", lambda a: a.coordinator_address is not None, _PARALLEL),
     ("--num_processes", lambda a: a.num_processes is not None, _PARALLEL),
     ("--process_id", lambda a: a.process_id is not None, _PARALLEL),
@@ -131,7 +136,10 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--pretrained_dir", default=None, type=str,
                    help="dir with bert.pt and clip_vit.pt, the towers' HF state "
                         "dicts (d2r_tpu_torch/utils/weights.py)")
-    p.add_argument("--debug_nans", action="store_true", help="(refused)")
+    p.add_argument("--debug_nans", action="store_true",
+                   help="raise FloatingPointError at the first step whose loss "
+                        "or any gradient is not finite, naming the step and "
+                        "the parameter")
     p.add_argument("--profile_dir", default=None, type=str,
                    help="write a torch.profiler trace of the second dispatch "
                         "to this directory (trace.json)")
@@ -150,7 +158,10 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="append per-window/eval/summary metrics as JSON "
                         "lines to this file")
     p.add_argument("--dry_run", action="store_true",
-                   help="validate the config without data (refused)")
+                   help="validate the config without data: build the model "
+                        "and train state, run ONE real train step on a "
+                        "synthetic batch, print a JSON line with the "
+                        "parameter count and the step's FLOPs, then exit")
     p.add_argument("--freeze_towers", action="store_true",
                    help="linear-probe mode: freeze the pretrained text and "
                         "vision towers; train only the routing fabric, "
@@ -159,9 +170,10 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="write TensorBoard event files (train loss and "
                         "dev/test metrics)")
     p.add_argument("--use_sentic_graph", action="store_true",
-                   help="SenticNet affective-graph refinement (refused)")
+                   help="enable SenticNet affective-graph GCN refinement")
     p.add_argument("--sentic_lexicon", default=None, type=str,
-                   help="path to senticnet_word.txt (refused)")
+                   help="path to senticnet_word.txt (default: the port's "
+                        "copy, d2r_tpu_torch/data/assets/)")
     p.add_argument("--steps_per_dispatch", default=16, type=int,
                    help="train steps a dispatch: their batches are stacked "
                         "and their losses fetched together")
@@ -185,7 +197,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--fabric_shard", action="store_true",
                    help="fabric work-sharing under tensor parallelism (refused)")
     p.add_argument("--async_checkpoint", action="store_true",
-                   help="overlapped best-model saves (refused)")
+                   help="overlap best-model checkpoint writes with the next "
+                        "epoch's compute (awaited before the test reload)")
     p.add_argument("--cache_items", action="store_true",
                    help="memoise finished dataset items in RAM so epochs "
                         ">=2 skip all host-side tokenise/decode work "
@@ -198,10 +211,14 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--prng_impl", default="rbg",
                    choices=["rbg", "threefry2x32"],
                    help="the JAX package's dropout bit generator; the port "
-                        "draws Philox4x32-10 bits (threefry2x32 is refused)")
+                        "draws Philox4x32-10 bits under either name (one card "
+                        "has no sharding for threefry's bits to be stable across)")
     p.add_argument("--quant_train", default="none",
                    choices=["none", "int8", "int8_all"],
-                   help="int8 quantized training (refused)")
+                   help="run the projection products as int8 x int8 -> int32 "
+                        "(dynamic symmetric scales, straight-through backward; "
+                        "int8_all also quantizes the two backward products). "
+                        "Not the reference's numerics")
     return p
 
 
@@ -291,6 +308,65 @@ def config_from_args(args) -> D2RConfig:
     )
 
 
+def _count_int_mm(a_shape, b_shape, *args, out_shape=None, **kwargs) -> int:
+    """torch.utils.flop_counter's formula for ``torch._int_mm`` (it has none):
+    2 m k n, at the padded shape the product runs at."""
+    return 2 * a_shape[0] * a_shape[1] * b_shape[1]
+
+
+def _dry_run(cfg: D2RConfig, device: torch.device) -> Dict:
+    """``--dry_run``: the model and train state on ``device``, ONE real train
+    step on ``synthetic_batch`` (plus the JAX package's random adjacency
+    when ``use_sentic_graph`` is on, so the GCN runs), and one JSON line with
+    the JAX package's keys. The port has no compiler cost model:
+    ``flops_per_step`` is the FLOPs of the step's products (matrix products,
+    convolutions, the int8 products at their padded shapes) that
+    ``torch.utils.flop_counter`` counts over the step, plus those of the
+    attention kernels' launches (K1, K2, K3), which it cannot see; on the
+    CPU the attention's plain version is counted by the counter itself.
+    Elementwise work is not counted. ``bytes_accessed_per_step`` is null."""
+    from torch.utils.flop_counter import FlopCounterMode, flop_registry, register_flop_formula
+
+    from d2r_tpu_torch.data.dataset import synthetic_batch
+    from d2r_tpu_torch.ops.kernels.flash_attention import flash_attention
+    from d2r_tpu_torch.ops.kernels.fused_attention import (
+        fused_attention_small,
+        fused_attention_small_bwd,
+    )
+    from d2r_tpu_torch.train.state import create_train_state, make_train_step
+
+    if torch.ops.aten._int_mm not in flop_registry:
+        register_flop_formula(torch.ops.aten._int_mm)(_count_int_mm)
+    vc = cfg.vision_config()
+    batch = synthetic_batch(cfg.batch_size, cfg.max_seq, vc.image_size,
+                            vocab_size=cfg.text_config().vocab_size, seed=0)
+    if cfg.use_sentic_graph:
+        batch["sentic_adj"] = np.random.RandomState(1).uniform(
+            0.0, 2.0, size=(cfg.batch_size, cfg.max_seq, cfg.max_seq)).astype(np.float32)
+    state = create_train_state(cfg, total_steps=max(cfg.num_epochs, 1), device=device,
+                               seed=cfg.seed)
+    kernels = (fused_attention_small, fused_attention_small_bwd, flash_attention)
+    for k in kernels:
+        k.flops = 0
+    with FlopCounterMode(display=False) as counter:
+        state, metrics = make_train_step(cfg.debug_nans)(state, batch, cfg.seed + 1)
+    loss = float(metrics["loss"])
+    line = {
+        "dry_run": True,
+        "params": sum(p.numel() for p in state.model.parameters()),
+        "flops_per_step": counter.get_total_flops() + sum(k.flops for k in kernels),
+        "bytes_accessed_per_step": None,
+        "devices": 1,
+        "mesh": {"data": 1},
+        "batch_size": cfg.batch_size,
+        "max_seq": cfg.max_seq,
+        "compute_dtype": cfg.compute_dtype,
+    }
+    print(json.dumps(line), flush=True)
+    logger.info("dry run OK: one step on %s, loss %.5f", device, loss)
+    return line
+
+
 def main(argv=None) -> None:
     logging.basicConfig(
         format="%(asctime)s - %(levelname)s - %(name)s -   %(message)s",
@@ -307,22 +383,29 @@ def main(argv=None) -> None:
     np.random.seed(cfg.seed)
     torch.manual_seed(cfg.seed)
 
+    if args.dry_run:
+        return _dry_run(cfg, device)
+
     if cfg.save_path is not None:
         os.makedirs(cfg.save_path, exist_ok=True)
 
     paths = dataset_paths(args)
     from d2r_tpu_torch.data.dataset import DataLoader, MSDDataset, MSDProcessor
+    from d2r_tpu_torch.data.sentic import load_sentic_lexicon
     from d2r_tpu_torch.train import checkpoint as ckpt
     from d2r_tpu_torch.train.trainer import Trainer
 
     processor = MSDProcessor({k: paths[k] for k in ("train", "dev", "test")},
                              cfg.bert_name, vocab_size=cfg.text_config().vocab_size)
     vc = cfg.vision_config()
+    # the port's own lexicon unless --sentic_lexicon names another
+    lexicon = load_sentic_lexicon(cfg.sentic_lexicon_path) if cfg.use_sentic_graph else None
     mk = lambda mode: MSDDataset(
         processor, paths["img"], max_seq=cfg.max_seq, mode=mode,
         image_size=vc.image_size, num_vision_tokens=vc.num_tokens,
         sample_ratio=cfg.sample_ratio if mode == "train" else 1.0,
-        pixel_transfer=cfg.pixel_transfer, cache_items=cfg.cache_items)
+        pixel_transfer=cfg.pixel_transfer, cache_items=cfg.cache_items,
+        sentic_lexicon=lexicon)
     train_loader = DataLoader(mk("train"), cfg.batch_size, shuffle=True,
                               num_workers=args.num_workers, seed=cfg.seed)
     dev_loader = DataLoader(mk("dev"), cfg.batch_size, shuffle=False,
@@ -340,16 +423,19 @@ def main(argv=None) -> None:
         trainer.init_state()
         load_pretrained_params(args.pretrained_dir, trainer.state.model)
         logger.info("Loaded pretrained towers from %s", args.pretrained_dir)
-    if cfg.only_test:
-        if cfg.load_path:
-            ckpt.check_checkpoint_geometry(cfg.load_path, cfg)
-        if trainer.state is None:
-            trainer.init_state()
-        if cfg.load_path:
-            ckpt.restore_checkpoint(cfg.load_path, trainer.state)
-        trainer.test(0)
-    elif cfg.do_train:
-        trainer.train()
+    try:
+        if cfg.only_test:
+            if cfg.load_path:
+                ckpt.check_checkpoint_geometry(cfg.load_path, cfg)
+            if trainer.state is None:
+                trainer.init_state()
+            if cfg.load_path:
+                ckpt.restore_checkpoint(cfg.load_path, trainer.state)
+            trainer.test(0)
+        elif cfg.do_train:
+            trainer.train()
+    finally:
+        ckpt.wait_for_async_saves()     # --async_checkpoint: durable before exit
 
 
 if __name__ == "__main__":

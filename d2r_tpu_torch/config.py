@@ -21,6 +21,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from d2r_tpu_torch.ops.qdot import check_mode
+
 
 @dataclasses.dataclass(frozen=True)
 class TextEncoderConfig:
@@ -169,17 +171,16 @@ OPTIMIZER_IMPLS = ("grouped", "fused", "fused_leaf", "multi_transform")
 ADAM_MU_DTYPES = ("float32", "bfloat16")
 
 
+# The JAX package's dropout bit generators (``--prng_impl``). The port draws
+# Philox4x32-10 bits under either name: one card has no sharding for
+# threefry's sharding-stable bits to be stable across.
+PRNG_IMPLS = ("rbg", "threefry2x32")
+
 _PARALLEL = "Queue 1 item 9 (parallel)"
-_EXTRAS = "Queue 1 item 11 (trainer extras)"
 # (field, the CLI flag that sets it, test that it is in use, the ROADMAP.md
 # item that ports it): run-level settings of the JAX package the port has no
 # counterpart for; the model and the trainer both refuse them
 UNPORTED = (
-    ("async_checkpoint", "--async_checkpoint", lambda c: c.async_checkpoint, _EXTRAS),
-    ("debug_nans", "--debug_nans", lambda c: c.debug_nans, _EXTRAS),
-    ("prng_impl", "--prng_impl", lambda c: c.prng_impl != "rbg", _EXTRAS),
-    ("sentic_lexicon_path", "--sentic_lexicon", lambda c: c.sentic_lexicon_path is not None,
-     "Queue 1 item 10 (data/sentic.py)"),
     ("mesh_shape", "--mesh_data/--mesh_stage/--mesh_model",
      lambda c: tuple(c.mesh_shape) not in ((-1,), (1,)), _PARALLEL),
     ("pipeline_microbatches", "--pipeline_microbatches",
@@ -315,16 +316,15 @@ class D2RConfig:
     def check_supported(self) -> None:
         """Raise on settings the port cannot honour yet (it never ignores
         one silently): those of :data:`UNPORTED`, named with their flag and
-        the ROADMAP.md item that ports them, and the values below."""
+        the ROADMAP.md item that ports it, and the values below. An unknown
+        ``quant_train`` mode raises the JAX package's ``ValueError``."""
+        check_mode(self.quant_train)
         bad = [f"{field}={getattr(self, field)!r} ({flag}, ROADMAP.md {item})"
                for field, flag, used, item in UNPORTED if used(self)]
-        if self.quant_train != "none":
-            bad.append(f"quant_train={self.quant_train!r} (ROADMAP.md Queue 1 item 10, "
-                       f"ops/qdot.py)")
         if self.pipeline_stages > 1:
             bad.append(f"pipeline_stages={self.pipeline_stages} (ROADMAP.md {_PARALLEL})")
-        if self.use_sentic_graph:
-            bad.append("use_sentic_graph=True (ROADMAP.md Queue 1 item 10, models/graph.py)")
+        if self.prng_impl not in PRNG_IMPLS:
+            bad.append(f"prng_impl={self.prng_impl!r}")
         if self.adam_mu_dtype not in ADAM_MU_DTYPES:
             bad.append(f"adam_mu_dtype={self.adam_mu_dtype!r}")
         if self.optimizer_impl not in OPTIMIZER_IMPLS:

@@ -11,8 +11,9 @@ pads by wrapping around to the start of the epoch, with a ``valid`` mask, so
 every batch has one shape; metrics count only valid rows. Decoding runs in a
 thread pool with batch-ahead prefetch.
 
-Not here: the SenticNet adjacency (``use_sentic_graph`` is refused by the
-port's config) and the multi-host ``process_shard`` (the port has no
+Given a SenticNet lexicon (``data/sentic.py``), each item also carries
+``sentic_adj``, its (max_seq, max_seq) fp32 affective adjacency, which the
+loader stacks. Not here: the multi-host ``process_shard`` (the port has no
 multi-process trainer).
 """
 
@@ -27,6 +28,7 @@ from typing import Dict, Iterator, List, Optional
 import numpy as np
 
 from d2r_tpu_torch.data.image import load_image, placeholder_pixels
+from d2r_tpu_torch.data.sentic import batched_affective_adjacency
 from d2r_tpu_torch.data.tokenizer import load_tokenizer
 
 
@@ -93,6 +95,7 @@ class MSDDataset:
         sample_ratio: float = 1.0,
         pixel_transfer: str = "float32",
         cache_items: bool = False,
+        sentic_lexicon: Optional[Dict[str, float]] = None,
     ):
         self.processor = processor
         self.tokenizer = processor.tokenizer
@@ -100,6 +103,7 @@ class MSDDataset:
         self.max_seq = max_seq
         self.image_size = image_size
         self.num_vision_tokens = num_vision_tokens
+        self.sentic_lexicon = sentic_lexicon  # word -> polarity, or None
         # 'uint8' ships RAW resized pixels (4x fewer host->device bytes);
         # CLIPVisionEmbeddings normalises on device (models/vit.py).
         assert pixel_transfer in ("float32", "uint8"), pixel_transfer
@@ -111,8 +115,8 @@ class MSDDataset:
         # the reference's fallback image for undecodable files
         self.fallback = os.path.join(img_path, "inf.png") if img_path else None
         # --cache_items: memoise finished items. Every transform here is
-        # deterministic per index (tokenise, decode+resize), so epochs >= 2
-        # skip all host work. Opt-in because pixels dominate the footprint
+        # deterministic per index (tokenise, decode+resize, sentic graph), so
+        # epochs >= 2 skip all host work. Opt-in because pixels dominate the footprint
         # (~image_size^2*3 bytes/item raw-uint8, 4x that for float32
         # transfer); _cache_footprint() logs the projection after the first
         # item. Thread-safe under the loader's thread pool: worst case two
@@ -178,6 +182,9 @@ class MSDDataset:
             "pixel_values": (pixel_values if raw_u8
                              else pixel_values.astype(np.float32)),
         }
+        if self.sentic_lexicon is not None:
+            item["sentic_adj"] = batched_affective_adjacency(
+                [text], self.sentic_lexicon, self.max_seq)[0]
         return item
 
 

@@ -23,6 +23,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from d2r_tpu_torch.ops.qdot import quant_dot
+
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     """CLIP's activation: x * sigmoid(1.702 x)."""
@@ -50,40 +52,51 @@ def _param(*shape) -> nn.Parameter:
 class TorchLinear(nn.Module):
     """Dense layer with torch.nn.Linear's init: weight and bias uniform in
     +-1/sqrt(in); ``bias_init_value`` fixes the bias instead (the Router's
-    1.5)."""
+    1.5); ``use_bias=False`` has none. ``quant`` is the quantized-training
+    mode (``ops/qdot.py``), set by the model from ``cfg.quant_train``: with
+    ``"none"`` the product is ``F.linear``'s."""
 
     def __init__(self, in_features: int, out_features: int,
                  dtype: torch.dtype = torch.float32,
-                 bias_init_value: Optional[float] = None):
+                 bias_init_value: Optional[float] = None, use_bias: bool = True):
         super().__init__()
         self.dtype = dtype
         self.bias_init_value = bias_init_value
+        self.quant = "none"
         self.weight = _param(out_features, in_features)
-        self.bias = _param(out_features)
+        self.bias = _param(out_features) if use_bias else None
 
     def init_params(self, gen: torch.Generator) -> None:
         bound = 1.0 / math.sqrt(self.weight.shape[1])
         self.weight.data.uniform_(-bound, bound, generator=gen)
+        if self.bias is None:
+            return
         if self.bias_init_value is None:
             self.bias.data.uniform_(-bound, bound, generator=gen)
         else:
             self.bias.data.fill_(self.bias_init_value)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
-                        self.bias.to(self.dtype))
+        bias = None if self.bias is None else self.bias.to(self.dtype)
+        if self.quant == "none":
+            return F.linear(x.to(self.dtype), self.weight.to(self.dtype), bias)
+        y = quant_dot(x.to(self.dtype), self.weight.to(self.dtype), self.quant).to(self.dtype)
+        return y if bias is None else y + bias
 
 
 class QKVDense(nn.Module):
     """Fused q/k/v projection: one (in -> 3*hidden) product. q, k and v come
     back as views of the (..., 3, hidden) result, with a row stride of
-    3*hidden, which the attention kernel reads as they are."""
+    3*hidden, which the attention kernel reads as they are. Quantized
+    (``quant``), the whole (3*hidden, in) weight takes one scale per output
+    row, as the JAX package's reshape to (in, 3*hidden) gives it."""
 
     def __init__(self, in_features: int, hidden: int,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
         self.hidden = hidden
+        self.quant = "none"
         self.weight = _param(3 * hidden, in_features)
         self.bias = _param(3 * hidden)
 
@@ -93,8 +106,12 @@ class QKVDense(nn.Module):
         self.bias.data.uniform_(-bound, bound, generator=gen)
 
     def forward(self, x: torch.Tensor):
-        y = F.linear(x.to(self.dtype), self.weight.to(self.dtype),
-                     self.bias.to(self.dtype))
+        if self.quant == "none":
+            y = F.linear(x.to(self.dtype), self.weight.to(self.dtype),
+                         self.bias.to(self.dtype))
+        else:
+            y = (quant_dot(x.to(self.dtype), self.weight.to(self.dtype), self.quant)
+                 .to(self.dtype) + self.bias.to(self.dtype))
         y = y.view(*y.shape[:-1], 3, self.hidden)
         return y[..., 0, :], y[..., 1, :], y[..., 2, :]
 

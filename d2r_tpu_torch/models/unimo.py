@@ -11,6 +11,14 @@ SAF BatchNorms use and update batch statistics over the ``valid`` rows.
 
 Both routing branches consume the RAW tower outputs, not the self-attended
 ones; the self-attended ones only feed the CLS Gram matrices of the JS loss.
+
+With ``use_sentic_graph`` the text tower's output is refined by the
+SenticNet GCN, ``text_out + relu(gcn(text_out, sentic_adj))``, before
+anything reads it; as in the JAX package the step runs only when an
+adjacency is passed, so a forward without one (the serving entry points
+pass none) skips it. ``cfg.quant_train`` sets the quantized-training mode
+of every ``TorchLinear`` and ``QKVDense`` of the model, the head included
+(``ops/qdot.py``).
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ from torch import nn
 
 from d2r_tpu_torch.config import D2RConfig, resolve_device
 from d2r_tpu_torch.models.bert import BertEmbeddings, BertEncoder, BertLayer
+from d2r_tpu_torch.models.graph import GraphConvolution
 from d2r_tpu_torch.models.interaction import InteractionModule
 from d2r_tpu_torch.models.layers import (
     BertPooler,
@@ -34,6 +43,7 @@ from d2r_tpu_torch.models.vit import CLIPEncoderLayer, CLIPVisionEmbeddings, CLI
 from d2r_tpu_torch.models.xmodules import BlockFusion
 from d2r_tpu_torch.ops.attention import padding_key_bias
 from d2r_tpu_torch.ops.losses import cross_entropy_loss, path_consistency_loss
+from d2r_tpu_torch.ops.qdot import set_quant_mode
 
 
 class D2RModel(nn.Module):
@@ -51,6 +61,8 @@ class D2RModel(nn.Module):
         ffn = cfg.remat_ffn_act
         self.encoder_vision_layers = CLIPVisionEncoder(vc, dt, cfg.remat, ffn)
         self.encoder_text_layers = BertEncoder(tc, dt, cfg.remat, ffn)
+        self.sentic_gcn = (GraphConvolution(tc.hidden_size, tc.hidden_size, dt)
+                           if cfg.use_sentic_graph else None)
         self.self_text = BertLayer(tc, dt, ffn)
         self.text_cls_pool = BertPooler(tc.hidden_size, dt)
         self.self_vision = CLIPEncoderLayer(vc, dt, ffn)
@@ -61,10 +73,12 @@ class D2RModel(nn.Module):
         self.text_pool = BertPooler(tc.hidden_size, dt)
         self.vision_pool = BertPooler(tc.hidden_size, dt)
         self.block_fusion = BlockFusion(tc.hidden_size, tc.hidden_size, dtype=dt)
+        set_quant_mode(self, cfg.quant_train)
 
     def forward(self, input_ids, attention_mask, token_type_ids, pixel_values,
                 valid: Optional[torch.Tensor] = None,
-                rng: Optional[DropoutRNG] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                rng: Optional[DropoutRNG] = None,
+                sentic_adj: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         c = self.cfg
         vision_emb = self.vision_pre_layernorm(self.vision_embeddings(pixel_values))
         key_bias = padding_key_bias(attention_mask)
@@ -73,6 +87,8 @@ class D2RModel(nn.Module):
 
         vision_out = self.encoder_vision_layers(vision_emb, rng)
         text_out = self.encoder_text_layers(text_emb, key_bias, rng)
+        if self.sentic_gcn is not None and sentic_adj is not None:
+            text_out = text_out + torch.relu(self.sentic_gcn(text_out, sentic_adj))
 
         text_cls = self.text_cls_pool(self.self_text(text_out, key_bias, rng))
         vision_cls = self.vision_cls_pool(self.self_vision(vision_out, rng))
@@ -94,7 +110,8 @@ class D2RClassifier(nn.Module):
     """D2RModel plus the task head and CE loss. Returns
     ``(loss, logits, {"ce_loss", "js_loss"})``. ``valid`` (B,) masks
     wrap-padded rows out of the losses and the BatchNorm statistics; ``rng``
-    feeds dropout in train mode."""
+    feeds dropout in train mode; ``sentic_adj`` (B, L, L) feeds the SenticNet
+    GCN of a ``use_sentic_graph`` model."""
 
     def __init__(self, cfg: D2RConfig):
         super().__init__()
@@ -102,13 +119,15 @@ class D2RClassifier(nn.Module):
         self.model = D2RModel(cfg)
         tc = cfg.text_config()
         self.fc = TorchLinear(tc.hidden_size, cfg.num_classes, dtype=cfg.dtype)
+        set_quant_mode(self.fc, cfg.quant_train)
 
     def forward(self, input_ids, attention_mask, token_type_ids, labels,
                 pixel_values, valid: Optional[torch.Tensor] = None,
-                rng: Optional[DropoutRNG] = None
+                rng: Optional[DropoutRNG] = None,
+                sentic_adj: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
         pooled, js_loss = self.model(input_ids, attention_mask, token_type_ids,
-                                     pixel_values, valid, rng)
+                                     pixel_values, valid, rng, sentic_adj)
         logits = self.fc(pooled)
         ce = cross_entropy_loss(logits, labels, valid)
         return ce + js_loss, logits, {"ce_loss": ce, "js_loss": js_loss}

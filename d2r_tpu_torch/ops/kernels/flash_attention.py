@@ -119,6 +119,7 @@ def _launch(q, k, v, bias, scale) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed: cudaError {err}")
     flash_attention.launches += 1
+    flash_attention.flops += 4 * b * h * l * s * d
     return out
 
 
@@ -164,8 +165,10 @@ def flash_attention(
 
 # host calls that launched the K3 kernel since the count was last set to 0:
 # a call under CUDA graph capture counts once (it records the kernel), and a
-# replay of the graph counts not at all
+# replay of the graph counts not at all; ``flops``: the two products' FLOPs
+# of those launches, which torch.utils.flop_counter cannot see
 flash_attention.launches = 0
+flash_attention.flops = 0
 
 
 def supports_flash(q: torch.Tensor) -> bool:

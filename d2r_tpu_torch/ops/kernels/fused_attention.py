@@ -255,6 +255,7 @@ def _launch_fwd(q, k, v, bias, scale, rate, seed) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"fused_attention_fwd launch failed: cudaError {err}")
     fused_attention_small.launches += 1
+    fused_attention_small.flops += 4 * b * h * l * s * d
     return out
 
 
@@ -310,12 +311,17 @@ def fused_attention_small_bwd(
     if err != 0:
         raise RuntimeError(f"fused_attention_bwd launch failed: cudaError {err}")
     fused_attention_small_bwd.launches += 1
+    fused_attention_small_bwd.flops += 8 * b * h * l * s * d
     return dq, dk, dv, dbias
 
 
 # launches of the K2 kernel since the count was last set to 0, and copies of
-# a g whose head or element stride the kernel cannot read
+# a g whose head or element stride the kernel cannot read; ``flops``: the
+# backward's four products (dv, dp, dq, dk; the recompute of p left out, as
+# autograd of the plain version has none) over those launches, which
+# torch.utils.flop_counter cannot see (``cli --dry_run`` adds them)
 fused_attention_small_bwd.launches = 0
+fused_attention_small_bwd.flops = 0
 fused_attention_small_bwd.g_copies = 0
 
 
@@ -363,8 +369,10 @@ def fused_attention_small(
 
 # host calls that launched the K1 kernel since the count was last set to 0:
 # a call under CUDA graph capture counts once (it records the kernel), and a
-# replay of the graph counts not at all
+# replay of the graph counts not at all; ``flops``: the two products' FLOPs
+# of those launches, which torch.utils.flop_counter cannot see
 fused_attention_small.launches = 0
+fused_attention_small.flops = 0
 
 
 def supports_fused_small(q: torch.Tensor, k: torch.Tensor) -> bool:

@@ -13,13 +13,21 @@ trees reach the port only through ``weights.from_jax_variables``.
 
 Files are written under a temporary name and renamed into place, so a kill
 mid-write never leaves a half-written file under the final name.
+
+``--async_checkpoint`` (``save_checkpoint(async_save=True)``): the state is
+copied to host memory at once, so training may go on updating the
+parameters, and one process-wide save thread writes the files.
+:func:`wait_for_async_saves` blocks until every save handed to it is on
+disk and raises the first write's error, if one failed; call it before
+reading a path that may have a save in flight and before the process exits.
 """
 
 from __future__ import annotations
 
+import concurrent.futures as cf
 import json
 import os
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 
@@ -42,20 +50,61 @@ def _save(obj, path: str) -> None:
     os.replace(tmp, path)
 
 
-def save_checkpoint(path: str, state, include_opt_state: bool = False) -> None:
+def _to_host(obj):
+    """``obj`` with every tensor replaced by a copy in host memory."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: _to_host(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_host(v) for v in obj)
+    return obj
+
+
+def _write_checkpoint(path: str, model: Dict, train_state: Optional[Dict]) -> None:
+    os.makedirs(path, exist_ok=True)
+    train_state_file = os.path.join(path, TRAIN_STATE_FILE)
+    if train_state is not None:
+        _save(train_state, train_state_file)
+    elif os.path.exists(train_state_file):
+        os.remove(train_state_file)   # an older save's, which no longer matches
+    _save(model, os.path.join(path, MODEL_FILE))
+
+
+# --async_checkpoint: one save thread for the process and the saves handed
+# to it, awaited (and their errors raised) by wait_for_async_saves
+_SAVER: Optional[cf.ThreadPoolExecutor] = None
+_PENDING: List[cf.Future] = []
+
+
+def wait_for_async_saves() -> None:
+    """Block until every asynchronous save is on disk; a save that failed
+    raises its error here."""
+    while _PENDING:
+        _PENDING.pop(0).result()
+
+
+def save_checkpoint(path: str, state, include_opt_state: bool = False,
+                    async_save: bool = False) -> None:
     """Save ``state``'s model (parameters and BatchNorm running statistics)
     under the directory ``path``; with ``include_opt_state`` also the
-    optimizer, the schedule and the step. The model file is written last."""
+    optimizer, the schedule and the step. The model file is written last.
+    With ``async_save`` the state is copied to host memory now and written
+    by the save thread, after any save still in flight."""
+    global _SAVER
     path = _abs(path)
-    os.makedirs(path, exist_ok=True)
-    train_state = os.path.join(path, TRAIN_STATE_FILE)
+    train_state = None
     if include_opt_state:
-        _save({"optimizer": state.optimizer.state_dict(),
-               "scheduler": state.scheduler.state_dict(),
-               "step": state.step}, train_state)
-    elif os.path.exists(train_state):
-        os.remove(train_state)   # an older save's, which no longer matches
-    _save(state.model.state_dict(), os.path.join(path, MODEL_FILE))
+        train_state = {"optimizer": state.optimizer.state_dict(),
+                       "scheduler": state.scheduler.state_dict(),
+                       "step": state.step}
+    if not async_save:
+        _write_checkpoint(path, state.model.state_dict(), train_state)
+        return
+    snapshot = (_to_host(state.model.state_dict()), _to_host(train_state))
+    if _SAVER is None:
+        _SAVER = cf.ThreadPoolExecutor(max_workers=1, thread_name_prefix="d2r-save")
+    _PENDING.append(_SAVER.submit(_write_checkpoint, path, *snapshot))
 
 
 def checkpoint_bytes(path: str) -> int:

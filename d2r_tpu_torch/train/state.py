@@ -15,6 +15,12 @@ step's key. Its CPU generator hands every attention call its seed as a host
 int (no device sync); its device generator draws the hidden dropout masks.
 A step is not capturable by a CUDA graph yet: the seeds are host ints baked
 into each launch.
+
+``debug_nans`` (``--debug_nans``, the port's counterpart of
+``jax_debug_nans``): before the optimizer steps, every step checks its loss
+and every gradient and raises ``FloatingPointError`` naming the step and
+the first parameter whose gradient is not finite, so no update is applied
+from it. The check reads one flag back from the device a step.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from d2r_tpu_torch.train.optimizer import make_optimizer
 
 BATCH_KEYS = ("input_ids", "attention_mask", "token_type_ids", "labels",
               "pixel_values")
+OPTIONAL_KEYS = ("valid", "sentic_adj")
 _M64 = (1 << 64) - 1
 
 
@@ -58,8 +65,9 @@ def fold_in(seed: int, data: int) -> int:
 
 def _model_inputs(batch: Mapping, device) -> Dict[str, torch.Tensor]:
     """The model's keyword inputs from a batch of numpy arrays or tensors,
-    on ``device``; ``valid`` (B,) is passed on when present."""
-    keys = BATCH_KEYS + (("valid",) if "valid" in batch else ())
+    on ``device``; ``valid`` (B,) and ``sentic_adj`` (B, L, L) are passed on
+    when present."""
+    keys = BATCH_KEYS + tuple(k for k in OPTIONAL_KEYS if k in batch)
     return {k: torch.as_tensor(batch[k]).to(device) for k in keys}
 
 
@@ -88,13 +96,26 @@ def _forward_backward(model: nn.Module, batch: Mapping, seed: int):
     return loss.detach(), aux
 
 
+def _check_finite(state: TrainState, loss: torch.Tensor) -> None:
+    """``FloatingPointError`` if ``loss`` or any gradient is not finite."""
+    named = [(n, p.grad) for n, p in state.model.named_parameters() if p.grad is not None]
+    flags = torch.stack([torch.isfinite(loss).all()]
+                        + [torch.isfinite(g).all() for _, g in named]).cpu()
+    if bool(flags.all()):
+        return
+    where = ("the loss" if not flags[0] else
+             "the gradient of " + next(n for (n, _), ok in zip(named, flags[1:]) if not ok))
+    raise FloatingPointError(f"debug_nans: step {state.step}: {where} is not finite "
+                             f"(loss {float(loss)})")
+
+
 def _apply(state: TrainState) -> None:
     state.optimizer.step()
     state.scheduler.step()
     state.step += 1
 
 
-def make_train_step() -> Callable:
+def make_train_step(debug_nans: bool = False) -> Callable:
     """``train_step(state, batch, dropout_seed) -> (state, metrics)``: one
     optimizer step on ``batch``; metrics are the loss, ce_loss and js_loss
     as device scalars (reading them syncs). The step's gradients stay in the
@@ -104,6 +125,8 @@ def make_train_step() -> Callable:
         state.model.zero_grad(set_to_none=True)
         loss, aux = _forward_backward(state.model, batch,
                                       fold_in(dropout_seed, state.step))
+        if debug_nans:
+            _check_finite(state, loss)
         _apply(state)
         return state, {"loss": loss, **{k: v.detach() for k, v in aux.items()}}
 
@@ -114,11 +137,11 @@ def _microbatch(stacked: Mapping, i: int) -> Dict:
     return {k: v[i] for k, v in stacked.items()}
 
 
-def make_multi_step(num_steps: int) -> Callable:
+def make_multi_step(num_steps: int, debug_nans: bool = False) -> Callable:
     """``multi_step(state, stacked, dropout_seed)``: ``num_steps`` train
     steps over batches stacked on a leading axis, returning
     ``{"loss": last loss, "losses": (num_steps,)}``."""
-    single = make_train_step()
+    single = make_train_step(debug_nans)
 
     def multi_step(state: TrainState, stacked: Mapping, dropout_seed: int):
         losses = []
@@ -131,7 +154,7 @@ def make_multi_step(num_steps: int) -> Callable:
     return multi_step
 
 
-def make_accum_step(accum_steps: int) -> Callable:
+def make_accum_step(accum_steps: int, debug_nans: bool = False) -> Callable:
     """``accum_step(state, stacked, dropout_seed)``: ONE optimizer step from
     the gradients averaged over ``accum_steps`` microbatches stacked on a
     leading axis. The microbatches run in order, so train-mode BatchNorm sees
@@ -151,6 +174,8 @@ def make_accum_step(accum_steps: int) -> Callable:
             for p in model.parameters():
                 if p.grad is not None:
                     p.grad.div_(accum_steps)
+        if debug_nans:
+            _check_finite(state, total)
         _apply(state)
         return state, {"loss": total / accum_steps}
 

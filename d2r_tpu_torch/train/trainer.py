@@ -24,7 +24,16 @@ Besides the JAX package's metrics, the trainer times what it waits on, in
 ``timings`` and the ``summary`` record: each dispatch's time a step (CUDA
 events on the card, the host clock on the CPU), the host's wait for each
 batch from the loader, each dev evaluation, each best-model save and its
-bytes.
+bytes (with ``async_checkpoint``: the save's host copy, and the bytes of the
+best model once its writes are awaited before the test reload).
+
+``async_checkpoint`` writes the best model from the save thread of
+``train/checkpoint.py``; the trainer awaits it before the test reload, at
+each resume point and when training ends. ``debug_nans`` checks every
+step's loss and gradients (``train/state.py``). ``prng_impl`` is accepted
+under both of the JAX package's names: the port draws Philox bits either
+way, and on one card threefry's promise of sharding-stable bits holds
+trivially.
 """
 
 from __future__ import annotations
@@ -130,7 +139,7 @@ class Trainer:
             self.train_num_steps = steps_per_epoch * cfg.num_epochs
         else:
             self.train_num_steps = 1
-        self._train_step = make_train_step()
+        self._train_step = make_train_step(cfg.debug_nans)
         self._multi_steps = {}  # K -> K-step function
         self._accum_steps = {}  # K -> K-microbatch accumulation step
         self._eval_step = make_eval_step()
@@ -244,7 +253,7 @@ class Trainer:
                 # one OPTIMIZER step from k microbatches; a short final group
                 # gets its own k
                 if k not in self._accum_steps:
-                    self._accum_steps[k] = make_accum_step(k)
+                    self._accum_steps[k] = make_accum_step(k, cfg.debug_nans)
                 self.state, metrics = self._accum_steps[k](self.state, stacked, dropout_seed)
                 window_losses.append(metrics["loss"])
                 self.step += 1
@@ -254,7 +263,7 @@ class Trainer:
                 self.step += 1
             else:
                 if k not in self._multi_steps:
-                    self._multi_steps[k] = make_multi_step(k)
+                    self._multi_steps[k] = make_multi_step(k, cfg.debug_nans)
                 self.state, metrics = self._multi_steps[k](self.state, stacked, dropout_seed)
                 window_losses.append(metrics["losses"])
                 self.step += k
@@ -324,7 +333,11 @@ class Trainer:
         # the best checkpoint's test pass
         result = {}
         if cfg.save_path is not None and self.best_dev_epoch is not None:
-            ckpt.restore_checkpoint(os.path.join(cfg.save_path, "best_model"), self.state)
+            best = os.path.join(cfg.save_path, "best_model")
+            ckpt.wait_for_async_saves()     # the best save may still be in flight
+            if cfg.async_checkpoint:
+                self.timings["checkpoint_bytes"].append(ckpt.checkpoint_bytes(best))
+            ckpt.restore_checkpoint(best, self.state)
             if self.test_data is not None:
                 result = self.test(cfg.num_epochs)
         elif self.test_data is not None:
@@ -375,6 +388,9 @@ class Trainer:
         """Checkpoint the FULL train state at an epoch boundary. The
         config.json that guards it is written before the meta publishes."""
         cfg = self.cfg
+        # an epoch boundary is a durability point: the resume meta must not
+        # name an epoch whose best-model save could still be lost
+        ckpt.wait_for_async_saves()
         save_config_json(cfg, os.path.join(cfg.save_path, "config.json"))
         ckpt.save_resume_checkpoint(cfg.save_path, self.state, {
             "epoch": epoch,
@@ -470,9 +486,11 @@ class Trainer:
             if self.cfg.save_path is not None:
                 best = os.path.join(self.cfg.save_path, "best_model")
                 t0 = time.perf_counter()
-                ckpt.save_checkpoint(best, self.state, include_opt_state=self.cfg.save_opt_state)
+                ckpt.save_checkpoint(best, self.state, include_opt_state=self.cfg.save_opt_state,
+                                     async_save=self.cfg.async_checkpoint)
                 self.timings["checkpoint_save_ms"].append((time.perf_counter() - t0) * 1e3)
-                self.timings["checkpoint_bytes"].append(ckpt.checkpoint_bytes(best))
+                if not self.cfg.async_checkpoint:
+                    self.timings["checkpoint_bytes"].append(ckpt.checkpoint_bytes(best))
                 # the geometry guard that --load_path and serving read
                 save_config_json(self.cfg, os.path.join(self.cfg.save_path, "config.json"))
                 self.logger.info("Save best model at %s", self.cfg.save_path)

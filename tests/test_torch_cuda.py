@@ -467,3 +467,57 @@ def test_cuda_dispatch_raises_for_heads_wider_than_k3(cuda):
     with pytest.raises(NotImplementedError, match="no kernel of the port"):
         tattn.dot_product_attention(x, x, x)
     assert tfl.flash_attention.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["int8", "int8_all"])
+@pytest.mark.parametrize("shape", [(4096, 768, 3072), (5, 37, 3)], ids=["ffn", "odd"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_quant_dot_matches_cpu(cuda, mode, shape, dtype):
+    """``quant_dot`` through ``torch._int_mm`` on the card against the CPU on
+    the same operands, at a BERT FFN shape and at an odd one that takes the
+    padding: the forward bit for bit (the integer product is exact), and the
+    backward: ``int8_all``'s bit for bit, ``int8``'s float product within
+    1e-5 of its largest value in fp32 (TF32 off)."""
+    from d2r_tpu_torch.ops import qdot
+    m, k, n = shape
+    g = torch.Generator().manual_seed(m + k + n)
+    x, w, ct = (torch.randn(s, generator=g).to(dtype) for s in ((m, k), (n, k), (m, n)))
+    out = []
+    for dev in ("cpu", cuda):
+        xd, wd = (t.to(dev, copy=True).requires_grad_() for t in (x, w))
+        y = qdot.quant_dot(xd, wd, mode)
+        y.backward(ct.to(dev))
+        out.append([t.detach().cpu().float() for t in (y, xd.grad, wd.grad)])
+    (y0, dx0, dw0), (y1, dx1, dw1) = out
+    assert torch.equal(y1, y0)
+    for a, b in ((dx1, dx0), (dw1, dw0)):
+        if mode == "int8_all":
+            assert torch.equal(a, b)
+        elif dtype == torch.float32:
+            assert (a - b).abs().max() <= 1e-5 * b.abs().max()
+
+
+@pytest.mark.cuda
+def test_cuda_sentic_logits_match_cpu(cuda):
+    """The tiny sentic model's fp32 logits with an adjacency, card against
+    CPU, within 1e-3 as chip_smoke's phase 5 holds them."""
+    from d2r_tpu_torch.config import tiny_test_config
+    from d2r_tpu_torch.data.dataset import synthetic_batch
+    from d2r_tpu_torch.data.sentic import batched_affective_adjacency, load_sentic_lexicon
+    from d2r_tpu_torch.models.unimo import build_model
+    cfg = tiny_test_config(use_sentic_graph=True)
+    b = synthetic_batch(4, cfg.max_seq, cfg.vision_config().image_size,
+                        vocab_size=cfg.text_config().vocab_size)
+    b["sentic_adj"] = batched_affective_adjacency(
+        ["happy day", "sad and terrible storm", "love it", "zzz"], load_sentic_lexicon(),
+        cfg.max_seq)
+    logits = []
+    for dev in ("cpu", cuda):
+        model = build_model(cfg, device=dev, seed=0)
+        with torch.no_grad():
+            out = model(**{k: torch.as_tensor(v).to(dev) for k, v in b.items()
+                           if k in ("input_ids", "attention_mask", "token_type_ids", "labels",
+                                    "pixel_values", "sentic_adj")})
+        logits.append(out[1].float().cpu())
+    assert (logits[1] - logits[0]).abs().max() <= 1e-3

@@ -197,23 +197,25 @@ def test_config_reads_jax_config_json(tmp_path):
     {"quant_train": "int8"}, {"pipeline_stages": 2}, {"use_sentic_graph": True},
     {"alpha": 0.5}, {"remat": True}])
 def test_config_values_the_port_cannot_honour_raise(override):
-    """The values still unported raise, naming their ROADMAP item; CCR's
-    ``alpha`` and ``remat``, ported since, build a model whose train-mode
-    forward and backward run."""
+    """The values still unported raise, naming their ROADMAP item; those
+    ported since (CCR's ``alpha``, ``remat``, int8 ``quant_train`` and
+    ``use_sentic_graph``, here with an adjacency) build a model whose
+    train-mode forward and backward run."""
     from d2r_tpu.data.dataset import synthetic_batch
     from d2r_tpu_torch.config import tiny_test_config
     from d2r_tpu_torch.models.layers import DropoutRNG
     from d2r_tpu_torch.models.unimo import build_model
     cfg = tiny_test_config(**override)
-    if not ({"alpha", "remat"} & set(override)):
+    if not ({"alpha", "remat", "quant_train", "use_sentic_graph"} & set(override)):
         with pytest.raises(NotImplementedError, match=r"ROADMAP\.md Queue 1 item"):
             build_model(cfg, device="cpu")
         return
     model = build_model(cfg, device="cpu").train()
     b = synthetic_batch(2, cfg.max_seq, cfg.vision_config().image_size,
                         vocab_size=cfg.text_config().vocab_size)
+    adj = torch.rand(2, cfg.max_seq, cfg.max_seq, generator=torch.Generator().manual_seed(0))
     loss, _, _ = model(*(torch.as_tensor(b[k]) for k in (
         "input_ids", "attention_mask", "token_type_ids", "labels", "pixel_values")),
-        rng=DropoutRNG(0, "cpu"))
+        rng=DropoutRNG(0, "cpu"), sentic_adj=adj)
     loss.backward()
     assert torch.isfinite(loss)

@@ -322,8 +322,12 @@ def test_resolve_serve_config_reads_a_jax_config_json(tmp_path, capsys):
         server.resolve_serve_config(load, lr=1.0)
     with pytest.raises(FileNotFoundError):
         server.resolve_serve_config(load, config_json=str(tmp_path / "absent.json"))
+    # a sentic model serves, as in the JAX package, without the GCN (no
+    # adjacency reaches a served forward); a parallel setting is refused
     jax_save_config_json(jax_tiny_config(use_sentic_graph=True), str(tmp_path / "config.json"))
-    with pytest.raises(NotImplementedError, match="use_sentic_graph"):
+    assert server.resolve_serve_config(load).use_sentic_graph
+    jax_save_config_json(jax_tiny_config(seq_shard=True), str(tmp_path / "config.json"))
+    with pytest.raises(NotImplementedError, match="seq_shard"):
         server.resolve_serve_config(load)
     assert server.resolve_serve_config(str(tmp_path / "elsewhere" / "m")) == D2RConfig(
         **server._SERVE_DEFAULTS)

@@ -466,7 +466,32 @@ REFUSED_FLAGS = [["--dry_run"], ["--async_checkpoint"], ["--debug_nans"],
 
 
 # flags the CLI once refused and now honours: their case runs the CLI
-ACCEPTED_FLAGS = ("--pretrained_dir",)
+ACCEPTED_FLAGS = ("--pretrained_dir", "--dry_run", "--async_checkpoint", "--debug_nans",
+                  "--prng_impl", "--sentic_lexicon")
+
+
+def _cli_runs_with(argv, tmp_path):
+    """The tiny recipe for an epoch with ``argv``'s flag (``--sentic_lexicon``
+    with ``--use_sentic_graph`` and a lexicon file of its own), and the
+    saved ``config.json`` records it; ``--dry_run`` prints its line and
+    writes nothing."""
+    paths = tdata.write_fake_dataset(str(tmp_path / "d"), n=8, image_size=64,
+                                     corrupt_every=5)
+    out = tmp_path / "out"
+    if argv[0] == "--dry_run":
+        line = tcli.main(_tiny_cli_flags(paths) + argv + ["--save_path", str(out)])
+        assert line["dry_run"] is True and line["params"] > 0
+        assert not out.exists()
+        return
+    if argv[0] == "--sentic_lexicon":
+        lexicon = tmp_path / "lexicon.txt"
+        lexicon.write_text("happy\t0.9\nsad\t-0.7\n", encoding="utf-8")
+        argv = ["--sentic_lexicon", str(lexicon), "--use_sentic_graph"]
+    tcli.main(_tiny_cli_flags(paths) + argv + ["--save_path", str(out)])
+    cfg = tconfig.load_config_json(str(out / "config.json"))
+    field = argv[0][2:].replace("sentic_lexicon", "sentic_lexicon_path")
+    assert getattr(cfg, field) == (True if len(argv) == 1 else argv[1])
+    assert (out / "best_model" / tckpt.MODEL_FILE).exists()
 
 
 def _tiny_cli_flags(paths, epochs=1):
@@ -520,7 +545,11 @@ def test_refused_flags_raise_naming_themselves(argv, tmp_path):
                                   + len(ACCEPTED_FLAGS))
     if argv[0] in ACCEPTED_FLAGS:
         assert all(flag != argv[0] for flag, _, _ in tcli.REFUSED)
-        _cli_fine_tunes_frozen_pretrained_towers(tmp_path)
+        assert all(flag != argv[0] for _, flag, _, _ in tconfig.UNPORTED)
+        if argv[0] == "--pretrained_dir":
+            _cli_fine_tunes_frozen_pretrained_towers(tmp_path)
+        else:
+            _cli_runs_with(argv, tmp_path)
         return
     with pytest.raises(NotImplementedError,
                        match=re.escape(argv[0]) + r"[ /,][^;]*ROADMAP\.md Queue 1 item"):
@@ -535,10 +564,14 @@ def test_refused_flags_raise_naming_themselves(argv, tmp_path):
     dict(fabric_shard=True)], ids=lambda o: "-".join(f"{k}={v}" for k, v in o.items()))
 def test_the_trainer_refuses_what_the_cli_refuses(override):
     """The library entry point refuses the same config values as the CLI,
-    a model passed in or not."""
+    a model passed in or not; those ported since (the trainer extras and the
+    lexicon path) it accepts, as the CLI does."""
     field = list(override)[0]
     cfg = tconfig.tiny_test_config(save_path=None, **override)
     for model in (None, D2RClassifier(tconfig.tiny_test_config())):
+        if field in ("async_checkpoint", "debug_nans", "prng_impl", "sentic_lexicon_path"):
+            Trainer(train_data=[_tiny_batch(cfg)], cfg=cfg, model=model, device="cpu")
+            continue
         with pytest.raises(NotImplementedError, match=field + r"=.*ROADMAP\.md Queue 1 item"):
             Trainer(train_data=[_tiny_batch(cfg)], cfg=cfg, model=model, device="cpu")
     tconfig.tiny_test_config(mesh_shape=(1,)).check_supported()    # one device: honoured
@@ -555,10 +588,12 @@ def test_the_trainer_refuses_what_the_cli_refuses(override):
 def test_config_values_the_port_cannot_honour_raise_from_the_cli(argv, match, tmp_path):
     """The values still refused raise, naming themselves. Those the port
     has since ported (``remat``, ``scan_layers``, bf16 Adam moments, CCR's
-    ``alpha``) run the tiny recipe for an epoch instead, and its
-    ``config.json`` records ``match``'s field and value."""
+    ``alpha``, ``use_sentic_graph``, int8 ``quant_train``) run the tiny
+    recipe for an epoch instead, and its ``config.json`` records
+    ``match``'s field and value."""
     field, _, value = match.partition("=")
-    if field not in ("remat", "scan_layers", "adam_mu_dtype", "alpha"):
+    if field not in ("remat", "scan_layers", "adam_mu_dtype", "alpha", "use_sentic_graph",
+                     "quant_train"):
         with pytest.raises(NotImplementedError, match=match):
             tcli.main(argv)
         return
