@@ -13,11 +13,20 @@ with ``config.json`` beside it, and tests it; ``--only_test --load_path
 real train step on ``synthetic_batch`` and prints one JSON line with the
 JAX package's keys (:func:`_dry_run`).
 
-Every flag the port cannot honour yet (the parallel ones) raises
+Across processes, one per card: ``--coordinator_address HOST:PORT
+--num_processes N --process_id RANK`` in each process (or ``--num_processes
+-1`` under a launcher that sets ``RANK``/``WORLD_SIZE``/``MASTER_ADDR``/
+``MASTER_PORT``, such as torchrun), with ``--mesh_data`` x ``--mesh_model``
+equal to N (-1 absorbs the rest). NCCL on the card, gloo with ``--device
+cpu``. The process group is joined before any device use and ended at exit;
+every data row loads its slice of each batch.
+
+Every flag the port cannot honour yet (pipeline stages, the tensor-parallel
+layout hints, int8 training under a model axis) raises
 ``NotImplementedError`` naming the flag and the ROADMAP.md item that ports
-it: those without a config field here (:data:`REFUSED`), the others in
-``D2RConfig.check_supported``, which the trainer and the model also call.
-None is accepted and then ignored.
+it: those without a config field here (:data:`REFUSED`, none now), the
+others in ``D2RConfig.check_supported``, which the trainer and the model
+also call. None is accepted and then ignored.
 """
 
 from __future__ import annotations
@@ -32,18 +41,16 @@ import numpy as np
 import torch
 
 from d2r_tpu_torch.config import D2RConfig, resolve_device
+from d2r_tpu_torch.parallel import distributed
+from d2r_tpu_torch.parallel.mesh import mesh_for
 
 logger = logging.getLogger(__name__)
 
-_PARALLEL = "Queue 1 item 9 (parallel)"
 # (flag, test of the parsed args that the flag is in use, the ROADMAP.md
-# item that ports it): the flags with no config field; those with one are
-# refused by D2RConfig.check_supported (config.UNPORTED)
-REFUSED = (
-    ("--coordinator_address", lambda a: a.coordinator_address is not None, _PARALLEL),
-    ("--num_processes", lambda a: a.num_processes is not None, _PARALLEL),
-    ("--process_id", lambda a: a.process_id is not None, _PARALLEL),
-)
+# item that ports it): the flags with no config field that the port cannot
+# honour; those with one are refused by D2RConfig.check_supported
+# (config.UNPORTED)
+REFUSED = ()
 
 
 def refuse_unsupported(args) -> None:
@@ -116,20 +123,23 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--remat", action="store_true",
                    help="rematerialise each tower layer in the backward")
     p.add_argument("--mesh_data", default=-1, type=int,
-                   help="data-parallel axis size (-1 = all devices; the port "
-                        "trains on one, and refuses any size but -1 and 1)")
+                   help="data-parallel axis size (-1 = the processes the "
+                        "model axis leaves)")
     p.add_argument("--mesh_model", default=1, type=int,
-                   help="tensor-parallel axis size (refused)")
+                   help="tensor-parallel axis size: the tower matmuls, word "
+                        "embeddings and cross-modal projections split over it")
     p.add_argument("--mesh_stage", default=1, type=int,
                    help="pipeline-parallel axis size (refused)")
     p.add_argument("--pipeline_microbatches", default=0, type=int,
                    help="microbatches per batch for --mesh_stage (refused)")
     p.add_argument("--mesh_topology", action="store_true",
-                   help="order mesh axes along the interconnect (refused)")
-    # multi-process training (refused: the port trains on one device)
+                   help="order mesh axes along the interconnect (the port keeps "
+                        "process order, as the JAX package does off a TPU)")
+    # multi-process training: one process per card
     p.add_argument("--coordinator_address", default=None, type=str,
                    help="host:port of process 0")
-    p.add_argument("--num_processes", default=None, type=int, help="world size")
+    p.add_argument("--num_processes", default=None, type=int,
+                   help="world size (-1: from a launcher's environment)")
     p.add_argument("--process_id", default=None, type=int,
                    help="this process's rank in [0, num_processes)")
     p.add_argument("--num_workers", default=16, type=int)
@@ -211,8 +221,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--prng_impl", default="rbg",
                    choices=["rbg", "threefry2x32"],
                    help="the JAX package's dropout bit generator; the port "
-                        "draws Philox4x32-10 bits under either name (one card "
-                        "has no sharding for threefry's bits to be stable across)")
+                        "draws Philox4x32-10 bits under either name (one process "
+                        "has no sharding for threefry's bits to be stable across; "
+                        "threefry2x32 is refused across processes)")
     p.add_argument("--quant_train", default="none",
                    choices=["none", "int8", "int8_all"],
                    help="run the projection products as int8 x int8 -> int32 "
@@ -314,7 +325,7 @@ def _count_int_mm(a_shape, b_shape, *args, out_shape=None, **kwargs) -> int:
     return 2 * a_shape[0] * a_shape[1] * b_shape[1]
 
 
-def _dry_run(cfg: D2RConfig, device: torch.device) -> Dict:
+def _dry_run(cfg: D2RConfig, device: torch.device, mesh) -> Dict:
     """``--dry_run``: the model and train state on ``device``, ONE real train
     step on ``synthetic_batch`` (plus the JAX package's random adjacency
     when ``use_sentic_graph`` is on, so the GCN runs), and one JSON line with
@@ -343,8 +354,12 @@ def _dry_run(cfg: D2RConfig, device: torch.device) -> Dict:
     if cfg.use_sentic_graph:
         batch["sentic_adj"] = np.random.RandomState(1).uniform(
             0.0, 2.0, size=(cfg.batch_size, cfg.max_seq, cfg.max_seq)).astype(np.float32)
+    if mesh.data_shard is not None:     # this data rank's rows of the batch
+        i, n = mesh.data_shard
+        rows = distributed.local_batch_size(cfg.batch_size, n)
+        batch = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
     state = create_train_state(cfg, total_steps=max(cfg.num_epochs, 1), device=device,
-                               seed=cfg.seed)
+                               seed=cfg.seed, mesh=mesh)
     kernels = (fused_attention_small, fused_attention_small_bwd, flash_attention)
     for k in kernels:
         k.flops = 0
@@ -356,8 +371,8 @@ def _dry_run(cfg: D2RConfig, device: torch.device) -> Dict:
         "params": sum(p.numel() for p in state.model.parameters()),
         "flops_per_step": counter.get_total_flops() + sum(k.flops for k in kernels),
         "bytes_accessed_per_step": None,
-        "devices": 1,
-        "mesh": {"data": 1},
+        "devices": mesh.world,
+        "mesh": mesh.shape,
         "batch_size": cfg.batch_size,
         "max_seq": cfg.max_seq,
         "compute_dtype": cfg.compute_dtype,
@@ -375,7 +390,20 @@ def main(argv=None) -> None:
     refuse_unsupported(args)
     cfg = config_from_args(args)
     cfg.check_supported()
-    device = resolve_device(args.device)
+    resolve_device(args.device)
+    # join the processes before any device use; no-op in one process
+    owned = distributed.initialize(args.coordinator_address, args.num_processes,
+                                   args.process_id, device=args.device)
+    try:
+        return _main(args, cfg, distributed.local_device(args.device))
+    finally:
+        if owned:
+            distributed.shutdown()
+
+
+def _main(args, cfg: D2RConfig, device: torch.device):
+    mesh = mesh_for(cfg, device)
+    cfg.check_supported(mesh.world)
     logger.info(args)
 
     # the reference seeds numpy and torch; the port's init, shuffle and
@@ -384,7 +412,7 @@ def main(argv=None) -> None:
     torch.manual_seed(cfg.seed)
 
     if args.dry_run:
-        return _dry_run(cfg, device)
+        return _dry_run(cfg, device, mesh)
 
     if cfg.save_path is not None:
         os.makedirs(cfg.save_path, exist_ok=True)
@@ -406,29 +434,34 @@ def main(argv=None) -> None:
         sample_ratio=cfg.sample_ratio if mode == "train" else 1.0,
         pixel_transfer=cfg.pixel_transfer, cache_items=cfg.cache_items,
         sentic_lexicon=lexicon)
+    # each data row of the mesh loads its slice of every global batch
+    shard = mesh.data_shard
     train_loader = DataLoader(mk("train"), cfg.batch_size, shuffle=True,
-                              num_workers=args.num_workers, seed=cfg.seed)
+                              num_workers=args.num_workers, seed=cfg.seed,
+                              process_shard=shard)
     dev_loader = DataLoader(mk("dev"), cfg.batch_size, shuffle=False,
-                            num_workers=max(args.num_workers // 2, 1))
+                            num_workers=max(args.num_workers // 2, 1), process_shard=shard)
     test_loader = DataLoader(mk("test"), cfg.batch_size, shuffle=False,
-                             num_workers=max(args.num_workers // 2, 1))
+                             num_workers=max(args.num_workers // 2, 1), process_shard=shard)
 
-    trainer = Trainer(train_data=train_loader, dev_data=dev_loader,
-                      test_data=test_loader, cfg=cfg, logger=logger,
-                      cleanup_output=args.cleanup_output, device=device)
+    model = None
     if args.pretrained_dir:
-        # into the live parameters, after the optimizer exists and before
-        # the first step (d2r_tpu/cli.py:412-419)
+        # into the whole model, before the trainer cuts it for the mesh and
+        # before the first step (d2r_tpu/cli.py:412-419 loads after the
+        # optimizer exists; its state is empty until the first step)
+        from d2r_tpu_torch.models.unimo import build_model
         from d2r_tpu_torch.utils.weights import load_pretrained_params
-        trainer.init_state()
-        load_pretrained_params(args.pretrained_dir, trainer.state.model)
+        model = build_model(cfg, device="cpu", seed=cfg.seed)
+        load_pretrained_params(args.pretrained_dir, model)
         logger.info("Loaded pretrained towers from %s", args.pretrained_dir)
+    trainer = Trainer(train_data=train_loader, dev_data=dev_loader,
+                      test_data=test_loader, model=model, cfg=cfg, logger=logger,
+                      cleanup_output=args.cleanup_output, device=device, mesh=mesh)
     try:
         if cfg.only_test:
             if cfg.load_path:
                 ckpt.check_checkpoint_geometry(cfg.load_path, cfg)
-            if trainer.state is None:
-                trainer.init_state()
+            trainer.init_state()
             if cfg.load_path:
                 ckpt.restore_checkpoint(cfg.load_path, trainer.state)
             trainer.test(0)

@@ -3,8 +3,10 @@
 A copy of ``d2r_tpu/config.py``'s dataclasses, presets and JSON loader, so
 that a ``config.json`` written by the JAX package loads here unchanged. Every
 field of the JAX config is kept, including those that mean nothing on this
-path (``device``, ``use_pallas``, the mesh and pipeline knobs): a
-checkpoint's config must load whole. ``scan_layers`` sets only the layout of
+path (``device``, ``use_pallas``, the pipeline knobs): a checkpoint's
+config must load whole. The mesh fields name the processes a run trains on
+(``parallel/mesh.py``); a model is never split from them alone, so a
+checkpoint trained on a mesh serves in one process. ``scan_layers`` sets only the layout of
 the JAX weight trees the port reads and writes (``weights.py``).
 :meth:`D2RConfig.check_supported` raises on the values the port cannot
 honour yet.
@@ -172,22 +174,23 @@ ADAM_MU_DTYPES = ("float32", "bfloat16")
 
 
 # The JAX package's dropout bit generators (``--prng_impl``). The port draws
-# Philox4x32-10 bits under either name: one card has no sharding for
-# threefry's sharding-stable bits to be stable across.
+# Philox4x32-10 bits under either name: one process has no sharding for
+# threefry's sharding-stable bits to be stable across. Across processes the
+# masks fold in the mesh coordinates, so threefry2x32 is refused there.
 PRNG_IMPLS = ("rbg", "threefry2x32")
 
-_PARALLEL = "Queue 1 item 9 (parallel)"
+# the part of the JAX package's parallelism still to port: pipeline stages,
+# the two tensor-parallel layout hints, quantized training under a model
+# axis and serving over a mesh
+_PARALLEL_NEXT = "Queue 1 item 9b (parallel, next slice)"
 # (field, the CLI flag that sets it, test that it is in use, the ROADMAP.md
 # item that ports it): run-level settings of the JAX package the port has no
 # counterpart for; the model and the trainer both refuse them
 UNPORTED = (
-    ("mesh_shape", "--mesh_data/--mesh_stage/--mesh_model",
-     lambda c: tuple(c.mesh_shape) not in ((-1,), (1,)), _PARALLEL),
     ("pipeline_microbatches", "--pipeline_microbatches",
-     lambda c: c.pipeline_microbatches != 0, _PARALLEL),
-    ("mesh_topology", "--mesh_topology", lambda c: c.mesh_topology, _PARALLEL),
-    ("seq_shard", "--seq_shard", lambda c: c.seq_shard, _PARALLEL),
-    ("fabric_shard", "--fabric_shard", lambda c: c.fabric_shard, _PARALLEL),
+     lambda c: c.pipeline_microbatches != 0, _PARALLEL_NEXT),
+    ("seq_shard", "--seq_shard", lambda c: c.seq_shard, _PARALLEL_NEXT),
+    ("fabric_shard", "--fabric_shard", lambda c: c.fabric_shard, _PARALLEL_NEXT),
 )
 
 
@@ -306,6 +309,10 @@ class D2RConfig:
                 f"{sorted(_VISION_PRESETS)}")
         return factory()
 
+    def model_axis_size(self) -> int:
+        """The size of the ``model`` axis of ``mesh_shape`` (1 without one)."""
+        return dict(zip(self.mesh_axis_names, self.mesh_shape)).get("model", 1)
+
     @property
     def dtype(self) -> torch.dtype:
         dt = getattr(torch, self.compute_dtype, None)
@@ -313,18 +320,26 @@ class D2RConfig:
             raise ValueError(f"unknown compute_dtype {self.compute_dtype!r}")
         return dt
 
-    def check_supported(self) -> None:
+    def check_supported(self, world: int = 1) -> None:
         """Raise on settings the port cannot honour yet (it never ignores
         one silently): those of :data:`UNPORTED`, named with their flag and
         the ROADMAP.md item that ports it, and the values below. An unknown
-        ``quant_train`` mode raises the JAX package's ``ValueError``."""
+        ``quant_train`` mode raises the JAX package's ``ValueError``.
+        ``world`` is the number of processes that train together."""
         check_mode(self.quant_train)
         bad = [f"{field}={getattr(self, field)!r} ({flag}, ROADMAP.md {item})"
                for field, flag, used, item in UNPORTED if used(self)]
         if self.pipeline_stages > 1:
-            bad.append(f"pipeline_stages={self.pipeline_stages} (ROADMAP.md {_PARALLEL})")
+            bad.append(f"pipeline_stages={self.pipeline_stages} (--mesh_stage, "
+                       f"ROADMAP.md {_PARALLEL_NEXT})")
+        if self.quant_train != "none" and self.model_axis_size() > 1:
+            bad.append(f"quant_train={self.quant_train!r} with --mesh_model "
+                       f"{self.model_axis_size()} (ROADMAP.md {_PARALLEL_NEXT})")
         if self.prng_impl not in PRNG_IMPLS:
             bad.append(f"prng_impl={self.prng_impl!r}")
+        elif self.prng_impl == "threefry2x32" and world > 1:
+            bad.append(f"prng_impl='threefry2x32' across {world} processes (its bits "
+                       f"would depend on the mesh; ROADMAP.md {_PARALLEL_NEXT})")
         if self.adam_mu_dtype not in ADAM_MU_DTYPES:
             bad.append(f"adam_mu_dtype={self.adam_mu_dtype!r}")
         if self.optimizer_impl not in OPTIMIZER_IMPLS:

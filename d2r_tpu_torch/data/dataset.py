@@ -13,8 +13,8 @@ thread pool with batch-ahead prefetch.
 
 Given a SenticNet lexicon (``data/sentic.py``), each item also carries
 ``sentic_adj``, its (max_seq, max_seq) fp32 affective adjacency, which the
-loader stacks. Not here: the multi-host ``process_shard`` (the port has no
-multi-process trainer).
+loader stacks. Across processes, ``DataLoader(process_shard=(i, n))`` yields
+data rank i's contiguous slice of each global batch (``parallel/``).
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ import concurrent.futures as cf
 import json
 import os
 import threading
-from typing import Dict, Iterator, List, Optional
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -202,7 +202,24 @@ class DataLoader:
         shuffle: bool = False,
         num_workers: int = 8,
         seed: int = 2023,
+        process_shard: Optional[Tuple[int, int]] = None,
     ):
+        """``process_shard=(rank, count)``, the JAX package's multi-process
+        contract: ``batch_size`` stays the GLOBAL batch; every process
+        computes the same deterministic global order and this loader yields
+        only rank's contiguous batch_size/count slice of each batch (and of
+        its ``valid`` mask), disjoint across ranks and concatenating to the
+        one-process batch. Under a (data, model) mesh ``rank`` is the data
+        index and ``count`` the data axis (``Mesh.data_shard``)."""
+        if process_shard is not None:
+            rank, count = process_shard
+            if not 0 <= rank < count:
+                raise ValueError(f"process_shard rank {rank} outside world size {count}")
+            if batch_size % count != 0:
+                raise ValueError(
+                    f"global batch size {batch_size} must be divisible by the process "
+                    f"count {count} (static per-process shapes)")
+        self.process_shard = process_shard
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -239,6 +256,11 @@ class DataLoader:
             else:
                 valid = np.ones(self.batch_size, bool)
             batches.append((idx, valid))
+        if self.process_shard is not None:
+            rank, count = self.process_shard
+            local = self.batch_size // count
+            batches = [(idx[rank * local:(rank + 1) * local],
+                        valid[rank * local:(rank + 1) * local]) for idx, valid in batches]
         return batches
 
     PREFETCH_BATCHES = 2

@@ -91,12 +91,14 @@ class BertSelfAttention(nn.Module):
     def __init__(self, cfg: TextEncoderConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg = cfg
+        self.head_dim = cfg.head_dim
         self.qkv = QKVDense(cfg.hidden_size, cfg.hidden_size, dtype)
 
     def forward(self, x: torch.Tensor, key_bias, rng=None) -> torch.Tensor:
-        h = self.cfg.num_attention_heads
+        h = self.qkv.hidden // self.head_dim     # this rank's heads under a model axis
         q, k, v = self.qkv(x)
-        rate, seed = attention_dropout(self, self.cfg.attention_probs_dropout_prob, rng)
+        rate, seed = attention_dropout(self, self.cfg.attention_probs_dropout_prob, rng,
+                                       self.qkv)
         ctx = dot_product_attention(split_heads(q, h), split_heads(k, h),
                                     split_heads(v, h), key_bias=key_bias,
                                     scale=self.cfg.head_dim ** -0.5,

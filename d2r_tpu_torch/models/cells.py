@@ -19,6 +19,7 @@ from d2r_tpu_torch.models.router import Router
 from d2r_tpu_torch.models.xmodules import AttentionFiltration, CrossModalAlignment
 from d2r_tpu_torch.ops.attention import dot_product_attention, merge_heads, split_heads
 from d2r_tpu_torch.ops.norms import l2norm
+from d2r_tpu_torch.parallel.distributed import gather_features
 
 CellOut = Tuple[torch.Tensor, torch.Tensor]
 
@@ -53,12 +54,14 @@ class RectifiedIdentityCell(nn.Module):
 class IntraModelReasoningCell(nn.Module):
     """Residual multi-head self-attention (no output projection, no
     LayerNorm) then a residual ReLU FFN. Its attention is one of the model's
-    kernel sites: H = num_head_IMRC, D = embed_size / H."""
+    kernel sites: H = num_head_IMRC, D = embed_size / H. Under a model axis
+    ``sa_qkv`` holds whole heads, and the context is gathered over the model
+    group for the replicated FFN."""
 
     def __init__(self, cfg: D2RConfig, num_out_path: int, dtype=torch.float32):
         super().__init__()
         d = cfg.embed_size
-        self.num_heads = cfg.num_head_IMRC
+        self.head_dim = d // cfg.num_head_IMRC
         self.router = _router(cfg, num_out_path, dtype)
         self.sa_qkv = QKVDense(d, d, dtype)
         self.ffn_fc1 = TorchLinear(d, cfg.hid_IMRC, dtype=dtype)
@@ -66,12 +69,11 @@ class IntraModelReasoningCell(nn.Module):
 
     def forward(self, x: torch.Tensor) -> CellOut:
         path_prob = self.router(x)
-        h = self.num_heads
+        h = self.sa_qkv.hidden // self.head_dim
         q, k, v = self.sa_qkv(x)
         ctx = dot_product_attention(split_heads(q, h), split_heads(k, h),
-                                    split_heads(v, h),
-                                    scale=(x.shape[-1] // h) ** -0.5)
-        self_att = x + merge_heads(ctx)
+                                    split_heads(v, h), scale=self.head_dim ** -0.5)
+        self_att = x + gather_features(merge_heads(ctx), self.sa_qkv._model_group())
         f = self.ffn_fc2(torch.relu(self.ffn_fc1(self_att)))
         return self_att + f, path_prob
 

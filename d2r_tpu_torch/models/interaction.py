@@ -10,7 +10,8 @@ sum of the six cell outputs. The reference's quirks are kept:
   cells; it divides by sum(skip gates) + sum(raw gates);
 * the path signature joins the NORMALISED layer-0 and middle gates with the
   RAW final-layer gates: 6^2 * (DR_step - 1) + 6 values a sample;
-* sim_paths = paths @ paths^T is a Gram matrix over the whole batch.
+* sim_paths = paths @ paths^T is a Gram matrix over the whole batch: under
+  a data axis the path signatures of every data rank are gathered first.
 """
 
 from __future__ import annotations
@@ -29,6 +30,8 @@ from d2r_tpu_torch.models.cells import (
     IntraModelReasoningCell,
     RectifiedIdentityCell,
 )
+from d2r_tpu_torch.models.layers import _Parallel
+from d2r_tpu_torch.parallel.distributed import gather_rows
 
 NUM_CELLS = 6
 
@@ -85,11 +88,12 @@ class DynamicRoutingLayer(nn.Module):
         return (mixed + skip).to(embs.dtype), norm
 
 
-class InteractionModule(nn.Module):
+class InteractionModule(_Parallel, nn.Module):
     """Routing pipeline of one branch. ``reversed_mode=False``: text is
     primary and image the context; ``True``: the other way round. ``valid``
     (B,) reaches every GLAC cell's train-mode BatchNorm. Returns the fused
-    stream (B, L, D) and the (B, B) path-similarity Gram."""
+    stream (B, L, D) and the (B, B) path-similarity Gram (global B under a
+    data axis)."""
 
     def __init__(self, cfg: D2RConfig, reversed_mode: bool = False, dtype=torch.float32):
         super().__init__()
@@ -113,5 +117,5 @@ class InteractionModule(nn.Module):
             pieces.append(p.reshape(batch, -1))
         final_streams, paths_l2 = self.dynamic_itr_l2(streams, None, context, valid)
         pieces.append(paths_l2.reshape(batch, -1))
-        paths = torch.cat(pieces, dim=-1).float()
+        paths = gather_rows(torch.cat(pieces, dim=-1).float(), self._data_group())
         return final_streams[0], torch.matmul(paths, paths.T)

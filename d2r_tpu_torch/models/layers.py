@@ -10,6 +10,15 @@ the caller passes down. Weights are stored torch-style
 (``weight`` is (out, in)); ``d2r_tpu_torch/weights.py`` translates the Flax
 layouts. Parameters are created empty: :func:`init_weights` fills them from
 an explicit ``torch.Generator``, in the JAX package's init families.
+
+Across processes (``parallel/mesh.py``): ``shard_model`` gives each module
+with a ``mesh`` attribute the process mesh, and sets ``tp`` on the modules
+whose weights the model axis splits: a "column" ``TorchLinear`` or
+``QKVDense`` sums its input's gradient over the model group, a "row"
+``TorchLinear`` sums its partial output over it and adds the bias after, a
+"vocab" ``Embed`` looks up its own rows and sums. ``TorchBatchNorm`` takes
+its train-mode statistics over the data group. Without a mesh (``mesh`` is
+None) every module computes as one process does.
 """
 
 from __future__ import annotations
@@ -24,6 +33,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from d2r_tpu_torch.ops.qdot import quant_dot
+from d2r_tpu_torch.parallel.distributed import all_reduce_sum, copy_to, reduce_from
+
+_M64 = (1 << 64) - 1
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -49,12 +61,42 @@ def _param(*shape) -> nn.Parameter:
     return nn.Parameter(torch.empty(*shape))
 
 
-class TorchLinear(nn.Module):
+def _splitmix64(x: int) -> int:
+    x = (x + 0x9E3779B97F4A7C15) & _M64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _M64
+    return x ^ (x >> 31)
+
+
+def fold_in(seed: int, data: int) -> int:
+    """A 64-bit seed derived from ``(seed, data)``, the part
+    ``jax.random.fold_in`` plays for keys."""
+    return _splitmix64((_splitmix64(int(seed) & _M64) + int(data)) & _M64)
+
+
+class _Parallel:
+    """The process mesh (``parallel/mesh.py``) and, where the model axis
+    splits the module's tensors, how (``tp``) and along which Flax axis
+    (``shards``: tensor name -> axis). Set by ``shard_model``."""
+
+    mesh = None
+    tp: Optional[str] = None
+    shards: dict = {}
+
+    def _model_group(self):
+        return self.mesh.model_group if self.tp else None
+
+    def _data_group(self):
+        return None if self.mesh is None else self.mesh.data_group
+
+
+class TorchLinear(_Parallel, nn.Module):
     """Dense layer with torch.nn.Linear's init: weight and bias uniform in
     +-1/sqrt(in); ``bias_init_value`` fixes the bias instead (the Router's
     1.5); ``use_bias=False`` has none. ``quant`` is the quantized-training
     mode (``ops/qdot.py``), set by the model from ``cfg.quant_train``: with
-    ``"none"`` the product is ``F.linear``'s."""
+    ``"none"`` the product is ``F.linear``'s. ``tp`` "column" (output
+    features split) or "row" (input features split) under a model axis."""
 
     def __init__(self, in_features: int, out_features: int,
                  dtype: torch.dtype = torch.float32,
@@ -76,20 +118,33 @@ class TorchLinear(nn.Module):
         else:
             self.bias.data.fill_(self.bias_init_value)
 
+    def _product(self, x: torch.Tensor) -> torch.Tensor:
+        return quant_dot(x.to(self.dtype), self.weight.to(self.dtype), self.quant,
+                         self._data_group()).to(self.dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(self.dtype)
+        if self.tp == "column":
+            x = copy_to(x, self._model_group())
+        elif self.tp == "row":     # the partial products summed, then the bias once
+            y = (F.linear(x.to(self.dtype), self.weight.to(self.dtype)) if self.quant == "none"
+                 else self._product(x))
+            y = reduce_from(y, self._model_group())
+            return y if bias is None else y + bias
         if self.quant == "none":
             return F.linear(x.to(self.dtype), self.weight.to(self.dtype), bias)
-        y = quant_dot(x.to(self.dtype), self.weight.to(self.dtype), self.quant).to(self.dtype)
+        y = self._product(x)
         return y if bias is None else y + bias
 
 
-class QKVDense(nn.Module):
+class QKVDense(_Parallel, nn.Module):
     """Fused q/k/v projection: one (in -> 3*hidden) product. q, k and v come
     back as views of the (..., 3, hidden) result, with a row stride of
     3*hidden, which the attention kernel reads as they are. Quantized
     (``quant``), the whole (3*hidden, in) weight takes one scale per output
-    row, as the JAX package's reshape to (in, 3*hidden) gives it."""
+    row, as the JAX package's reshape to (in, 3*hidden) gives it. Under a
+    model axis (``tp`` "column") each rank holds ``hidden`` = hidden/tp rows
+    of each of q, k and v: whole heads, the JAX layout's split."""
 
     def __init__(self, in_features: int, hidden: int,
                  dtype: torch.dtype = torch.float32):
@@ -106,12 +161,13 @@ class QKVDense(nn.Module):
         self.bias.data.uniform_(-bound, bound, generator=gen)
 
     def forward(self, x: torch.Tensor):
+        x = copy_to(x, self._model_group())
         if self.quant == "none":
             y = F.linear(x.to(self.dtype), self.weight.to(self.dtype),
                          self.bias.to(self.dtype))
         else:
-            y = (quant_dot(x.to(self.dtype), self.weight.to(self.dtype), self.quant)
-                 .to(self.dtype) + self.bias.to(self.dtype))
+            y = (quant_dot(x.to(self.dtype), self.weight.to(self.dtype), self.quant,
+                           self._data_group()).to(self.dtype) + self.bias.to(self.dtype))
         y = y.view(*y.shape[:-1], 3, self.hidden)
         return y[..., 0, :], y[..., 1, :], y[..., 2, :]
 
@@ -149,8 +205,10 @@ class LayerNorm(nn.Module):
         return y.to(self.dtype)
 
 
-class Embed(nn.Module):
-    """Lookup table returning the compute type."""
+class Embed(_Parallel, nn.Module):
+    """Lookup table returning the compute type. ``tp`` "vocab": this rank
+    holds rows ``[i*n, (i+1)*n)`` of the table at model index i; other ids
+    look up zeros, and the ranks' lookups are summed."""
 
     def __init__(self, num_embeddings: int, features: int,
                  dtype: torch.dtype = torch.float32):
@@ -163,7 +221,14 @@ class Embed(nn.Module):
                                  generator=gen)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return F.embedding(ids.long(), self.weight).to(self.dtype)
+        if self.tp != "vocab":
+            return F.embedding(ids.long(), self.weight).to(self.dtype)
+        n = self.weight.shape[0]
+        local = ids.long() - self.mesh.model_index * n
+        inside = (local >= 0) & (local < n)
+        rows = F.embedding(torch.where(inside, local, torch.zeros_like(local)), self.weight)
+        rows = torch.where(inside[..., None], rows, torch.zeros_like(rows))
+        return reduce_from(rows, self._model_group()).to(self.dtype)
 
 
 class DropoutRNG:
@@ -240,25 +305,35 @@ class Dropout(nn.Module):
         return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
 
 
-def attention_dropout(module: nn.Module, rate: float,
-                      rng: Optional[DropoutRNG]) -> Tuple[float, Optional[int]]:
+def attention_dropout(module: nn.Module, rate: float, rng: Optional[DropoutRNG],
+                      qkv: Optional[QKVDense] = None) -> Tuple[float, Optional[int]]:
     """(rate, seed) for ``dot_product_attention``: a fresh seed from ``rng``
-    in train mode at a non-zero rate, else no dropout."""
+    in train mode at a non-zero rate, else no dropout. Where the model axis
+    splits ``qkv`` by heads, the seed folds in the model index: the masks
+    are keyed on the LOCAL head, which would otherwise repeat across the
+    model ranks."""
     if not module.training or rate == 0.0:
         return 0.0, None
     if rng is None:
         raise ValueError("train-mode attention dropout needs a DropoutRNG")
-    return rate, rng.next_seed()
+    seed = rng.next_seed()
+    if qkv is not None and qkv.tp:
+        seed = fold_in(seed, qkv.mesh.model_index)
+    return rate, seed
 
 
-class TorchBatchNorm(nn.Module):
+class TorchBatchNorm(_Parallel, nn.Module):
     """torch.nn.BatchNorm1d over the last axis, statistics in fp32.
 
     Eval mode normalises with the running statistics. Train mode normalises
     with the biased batch statistics over every leading axis and updates the
     running ones in place with momentum 0.1 and the UNBIASED variance.
     ``row_valid`` (B,) restricts the batch statistics to the valid rows
-    (a wrap-padded final batch), as ``d2r_tpu/models/layers.py:140-206``."""
+    (a wrap-padded final batch), as ``d2r_tpu/models/layers.py:140-206``.
+    Under a data axis the statistics are the global batch's, two-pass as on
+    one process: the weighted sum and count summed over the data group give
+    the mean, then the squared deviations are summed (autograd through both
+    sums), so the running statistics come out equal on every rank."""
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  dtype: torch.dtype = torch.float32, momentum: float = 0.1):
@@ -277,28 +352,35 @@ class TorchBatchNorm(nn.Module):
         self.running_mean.zero_()
         self.running_var.fill_(1.0)
 
+    @torch.no_grad()
+    def _update_running(self, mean, var, unbiased_n) -> None:
+        m = self.momentum
+        self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+        self.running_var.copy_((1 - m) * self.running_var + m * (var * unbiased_n))
+
     def forward(self, x: torch.Tensor,
                 row_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
         x32 = x.float()
+        group = self._data_group()
         if not self.training:
             mean, var = self.running_mean, self.running_var
         else:
             axes = tuple(range(x.ndim - 1))
-            if row_valid is not None:
-                w = row_valid.to(torch.float32).reshape((x.shape[0],) + (1,) * (x.ndim - 1))
-                count = torch.sum(w) * math.prod(x.shape[1:-1])
-                mean = torch.sum(x32 * w, dim=axes) / count
-                var = torch.sum(w * torch.square(x32 - mean), dim=axes) / count
+            if row_valid is not None or group is not None:
+                w = (torch.ones(x.shape[0], device=x.device) if row_valid is None
+                     else row_valid.to(torch.float32))
+                w = w.reshape((x.shape[0],) + (1,) * (x.ndim - 1))
+                count = all_reduce_sum(torch.sum(w) * math.prod(x.shape[1:-1]), group)
+                mean = all_reduce_sum(torch.sum(x32 * w, dim=axes), group) / count
+                var = all_reduce_sum(torch.sum(w * torch.square(x32 - mean), dim=axes),
+                                     group) / count
                 unbiased_n = count / torch.clamp(count - 1.0, min=1.0)
             else:
                 mean = torch.mean(x32, dim=axes)
                 var = torch.mean(torch.square(x32 - mean), dim=axes)
                 n = math.prod(x.shape[:-1])
                 unbiased_n = n / max(n - 1, 1)
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
-                self.running_var.copy_((1 - m) * self.running_var + m * (var * unbiased_n))
+            self._update_running(mean, var, unbiased_n)
         y = (x32 - mean) * torch.rsqrt(var + self.eps)
         y = y * self.weight + self.bias
         return y.to(self.dtype)

@@ -19,6 +19,14 @@ adjacency is passed, so a forward without one (the serving entry points
 pass none) skips it. ``cfg.quant_train`` sets the quantized-training mode
 of every ``TorchLinear`` and ``QKVDense`` of the model, the head included
 (``ops/qdot.py``).
+
+Under a data axis (``parallel/mesh.py``) a forward takes this rank's rows
+of the global batch and returns its rows' logits, while the losses are the
+global batch's: the CLS rows and the ``valid`` mask are gathered over the
+data group for the JS loss's Gram matrices (the path signatures in
+``InteractionModule``), and the cross-entropy's sum and count are summed
+over it. The model is built whole; ``parallel.mesh.shard_model`` cuts it
+for a mesh, never the config alone.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ from d2r_tpu_torch.models.layers import (
     DropoutRNG,
     LayerNorm,
     TorchLinear,
+    _Parallel,
     init_weights,
 )
 from d2r_tpu_torch.models.vit import CLIPEncoderLayer, CLIPVisionEmbeddings, CLIPVisionEncoder
@@ -44,9 +53,10 @@ from d2r_tpu_torch.models.xmodules import BlockFusion
 from d2r_tpu_torch.ops.attention import padding_key_bias
 from d2r_tpu_torch.ops.losses import cross_entropy_loss, path_consistency_loss
 from d2r_tpu_torch.ops.qdot import set_quant_mode
+from d2r_tpu_torch.parallel.distributed import gather_rows
 
 
-class D2RModel(nn.Module):
+class D2RModel(_Parallel, nn.Module):
     def __init__(self, cfg: D2RConfig):
         super().__init__()
         cfg.check_supported()
@@ -96,7 +106,11 @@ class D2RModel(nn.Module):
         text_stream, sim_paths = self.itr_module(text_out, vision_out, valid)
         vision_stream, rev_sim_paths = self.Reversed_itr_module(text_out, vision_out, valid)
 
-        text_cls, vision_cls = text_cls.float(), vision_cls.float()
+        group = self._data_group()
+        text_cls = gather_rows(text_cls.float(), group)
+        vision_cls = gather_rows(vision_cls.float(), group)
+        if group is not None and valid is not None:
+            valid = gather_rows(valid.to(torch.float32), group)
         js_loss = path_consistency_loss(
             sim_paths, text_cls @ text_cls.T, rev_sim_paths, vision_cls @ vision_cls.T,
             c.weight_js_1, c.weight_js_2, valid=valid)
@@ -106,7 +120,7 @@ class D2RModel(nn.Module):
         return fused, js_loss
 
 
-class D2RClassifier(nn.Module):
+class D2RClassifier(_Parallel, nn.Module):
     """D2RModel plus the task head and CE loss. Returns
     ``(loss, logits, {"ce_loss", "js_loss"})``. ``valid`` (B,) masks
     wrap-padded rows out of the losses and the BatchNorm statistics; ``rng``
@@ -129,7 +143,7 @@ class D2RClassifier(nn.Module):
         pooled, js_loss = self.model(input_ids, attention_mask, token_type_ids,
                                      pixel_values, valid, rng, sentic_adj)
         logits = self.fc(pooled)
-        ce = cross_entropy_loss(logits, labels, valid)
+        ce = cross_entropy_loss(logits, labels, valid, self._data_group())
         return ce + js_loss, logits, {"ce_loss": ce, "js_loss": js_loss}
 
 

@@ -86,13 +86,14 @@ class CLIPAttention(nn.Module):
     def __init__(self, cfg: VisionEncoderConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg = cfg
+        self.head_dim = cfg.head_dim
         self.qkv = QKVDense(cfg.hidden_size, cfg.hidden_size, dtype)
         self.out_proj = TorchLinear(cfg.hidden_size, cfg.hidden_size, dtype=dtype)
 
     def forward(self, x: torch.Tensor, rng=None) -> torch.Tensor:
-        h = self.cfg.num_attention_heads
+        h = self.qkv.hidden // self.head_dim     # this rank's heads under a model axis
         q, k, v = self.qkv(x)
-        rate, seed = attention_dropout(self, self.cfg.attention_dropout, rng)
+        rate, seed = attention_dropout(self, self.cfg.attention_dropout, rng, self.qkv)
         ctx = dot_product_attention(split_heads(q, h), split_heads(k, h),
                                     split_heads(v, h), scale=self.cfg.head_dim ** -0.5,
                                     dropout_rate=rate, dropout_seed=seed)

@@ -14,6 +14,7 @@ from torch import nn
 from d2r_tpu_torch.models.layers import TorchBatchNorm, TorchLinear
 from d2r_tpu_torch.ops.losses import ccr_contrastive_loss
 from d2r_tpu_torch.ops.norms import l1norm, l2norm, torch_style_normalize
+from d2r_tpu_torch.parallel.distributed import gather_features
 
 
 class CrossModalAlignment(nn.Module):
@@ -25,7 +26,9 @@ class CrossModalAlignment(nn.Module):
     by ``fc_1``/``fc_2`` and held by :func:`ccr_contrastive_loss` against
     the text, all normalised; those two projections exist only then, as in
     the JAX module. At ``alpha == 0`` the loss is exactly 0 and nothing of
-    it is computed."""
+    it is computed. Under a model axis the query/key/value projections hold
+    slices of their output features, gathered over the model group before
+    the scores, which contract over them."""
 
     def __init__(self, hidden_size: int, temperature: float = 100.0,
                  dtype: torch.dtype = torch.float32, alpha: float = 0.0,
@@ -46,9 +49,10 @@ class CrossModalAlignment(nn.Module):
 
     def forward(self, text_emb: torch.Tensor, image_emb: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        q = self.query(text_emb)                                 # (B, L, D)
-        k = self.key(image_emb)                                  # (B, S, D)
-        v = self.value(image_emb)                                # (B, S, D)
+        full = lambda proj, x: gather_features(proj(x), proj._model_group())
+        q = full(self.query, text_emb)                           # (B, L, D)
+        k = full(self.key, image_emb)                            # (B, S, D)
+        v = full(self.value, image_emb)                          # (B, S, D)
         scores = torch.matmul(q, k.transpose(1, 2)).float() / math.sqrt(self.hidden_size)
         attn = torch.softmax(self.temperature * scores, dim=-1)
         rep = torch.matmul(attn.to(q.dtype), v)

@@ -8,6 +8,8 @@ from typing import Optional
 
 import torch
 
+from d2r_tpu_torch.parallel.distributed import all_reduce_sum
+
 
 def kl_div_batchmean(log_input: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """``torch.nn.KLDivLoss(reduction='batchmean')`` with 0*log(0) = 0."""
@@ -60,14 +62,17 @@ def path_consistency_loss(sim_paths, sim_text, reversed_sim_paths, sim_vision,
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
-                       valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Mean softmax cross-entropy with integer labels; ``valid`` masks rows."""
+                       valid: Optional[torch.Tensor] = None, group=None) -> torch.Tensor:
+    """Mean softmax cross-entropy with integer labels; ``valid`` masks rows.
+    With a data ``group`` the mean is the global batch's: the sum and the
+    count of every data rank's rows."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, labels.long()[:, None])[:, 0]
-    if valid is None:
+    if valid is None and group is None:
         return torch.mean(nll)
-    v = valid.to(torch.float32)
-    return torch.sum(nll * v) / torch.clamp(torch.sum(v), min=1.0)
+    v = torch.ones_like(nll) if valid is None else valid.to(torch.float32)
+    count = all_reduce_sum(torch.sum(v), group)
+    return all_reduce_sum(torch.sum(nll * v), group) / torch.clamp(count, min=1.0)
 
 
 def ccr_contrastive_loss(img_rep: torch.Tensor, txt_rep: torch.Tensor, alpha: float,

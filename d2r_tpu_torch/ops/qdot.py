@@ -31,6 +31,11 @@ The mode is not a module global here: ``D2RModel`` sets it on each of its
 ``TorchLinear`` and ``QKVDense`` modules at construction
 (:func:`set_quant_mode`), so models of different modes may run side by
 side in one process.
+
+Under a data axis (``parallel/mesh.py``) the ``int8_all`` backward's dW
+scales, one a column over ALL batch rows, take the max over the data group,
+so every rank quantizes with the global batch's scales, as one process
+would; the rest holds row by row and needs nothing.
 """
 
 from __future__ import annotations
@@ -39,6 +44,8 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+
+from d2r_tpu_torch.parallel.distributed import all_reduce_max
 
 MODES = ("none", "int8", "int8_all")
 
@@ -61,10 +68,11 @@ def set_quant_mode(module: torch.nn.Module, mode: str) -> torch.nn.Module:
     return module
 
 
-def _quantize(x: torch.Tensor, dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def _quantize(x: torch.Tensor, dim: int, group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric int8 codes of ``x`` over ``dim`` and their fp32 scale (kept
-    as a size-1 dim). An all-zero slice gets scale 1/127 and codes 0."""
-    amax = x.abs().amax(dim=dim, keepdim=True).float()
+    as a size-1 dim), the amax taken over ``group`` too. An all-zero slice
+    gets scale 1/127 and codes 0."""
+    amax = all_reduce_max(x.abs().amax(dim=dim, keepdim=True).float(), group)
     # a tensor divisor: CUDA divides by a host scalar as a product with its
     # reciprocal, which can be one ulp off the quotient that JAX and the CPU
     # compute, and would move the codes
@@ -107,9 +115,9 @@ class QuantDot(torch.autograd.Function):
     straight-through backward of ``mode``. The output has ``x``'s type."""
 
     @staticmethod
-    def forward(ctx, x, w, mode):
+    def forward(ctx, x, w, mode, group):
         ctx.save_for_backward(x, w)
-        ctx.mode = mode
+        ctx.mode, ctx.group = mode, group
         return _int8_matmul(x, w).to(x.dtype)
 
     @staticmethod
@@ -121,17 +129,19 @@ class QuantDot(torch.autograd.Function):
             # dx[..., k] = sum_n g[..., n] w[n, k]: contract N, per-k scales of w
             dx = _int8_matmul(g, w.t())
             # dW[n, k] = sum_m g[m, n] x[m, k]: contract the rows
-            qx, sx = _quantize(x2d, 0)              # sx (1, K)
-            qg, sg = _quantize(g2d, 0)              # sg (1, N)
+            qx, sx = _quantize(x2d, 0, ctx.group)   # sx (1, K)
+            qg, sg = _quantize(g2d, 0, ctx.group)   # sg (1, N)
             dw = int_mm(qg.t(), qx.t()).float() * sx * sg.t()
         else:
             # the unquantized product's backward on the saved operands
             dx = torch.matmul(g, w)
             dw = torch.matmul(g2d.t().float(), x2d.float())
-        return dx.to(x.dtype), dw.to(w.dtype), None
+        return dx.to(x.dtype), dw.to(w.dtype), None, None
 
 
-def quant_dot(x: torch.Tensor, w: torch.Tensor, mode: str = "int8") -> torch.Tensor:
+def quant_dot(x: torch.Tensor, w: torch.Tensor, mode: str = "int8",
+              group=None) -> torch.Tensor:
     """Quantized ``x @ w.T`` with the backward of ``mode`` (``int8`` or
-    ``int8_all``); ``w`` is (N, K)."""
-    return QuantDot.apply(x, w, mode)
+    ``int8_all``); ``w`` is (N, K). ``group``: the data group whose rows
+    share the ``int8_all`` dW scales."""
+    return QuantDot.apply(x, w, mode, group)

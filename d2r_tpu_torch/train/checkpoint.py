@@ -20,6 +20,16 @@ parameters, and one process-wide save thread writes the files.
 :func:`wait_for_async_saves` blocks until every save handed to it is on
 disk and raises the first write's error, if one failed; call it before
 reading a path that may have a save in flight and before the process exits.
+
+Across processes (a train state with a ``mesh``): a checkpoint does not
+depend on the mesh. Every rank gathers the whole tensors (the split
+parameters and their Adam moments, over the model group), rank 0 alone
+writes them, and the ranks meet at a barrier before anyone reads; with
+``async_save`` the gather is synchronous on every rank and only rank 0's
+thread writes (``wait_for_async_saves(mesh)`` awaits it, then meets). A
+restore reads the whole tensors on every rank and keeps its slices. So a
+(2, 2) run's ``model.pth`` loads into one process, and one process's into
+any mesh.
 """
 
 from __future__ import annotations
@@ -33,6 +43,12 @@ import torch
 
 from d2r_tpu_torch.config import load_config_json, resolve_device
 from d2r_tpu_torch.models.unimo import D2RClassifier
+from d2r_tpu_torch.parallel.mesh import (
+    full_optimizer_state,
+    full_state_dict,
+    local_optimizer_state,
+    local_state_dict,
+)
 
 MODEL_FILE = "model.pth"
 TRAIN_STATE_FILE = "train_state.pth"
@@ -77,11 +93,14 @@ _SAVER: Optional[cf.ThreadPoolExecutor] = None
 _PENDING: List[cf.Future] = []
 
 
-def wait_for_async_saves() -> None:
+def wait_for_async_saves(mesh=None) -> None:
     """Block until every asynchronous save is on disk; a save that failed
-    raises its error here."""
+    raises its error here. With a ``mesh`` the ranks then meet, so none
+    reads what rank 0 is still writing."""
     while _PENDING:
         _PENDING.pop(0).result()
+    if mesh is not None:
+        mesh.barrier()
 
 
 def save_checkpoint(path: str, state, include_opt_state: bool = False,
@@ -93,15 +112,23 @@ def save_checkpoint(path: str, state, include_opt_state: bool = False,
     by the save thread, after any save still in flight."""
     global _SAVER
     path = _abs(path)
+    mesh = getattr(state, "mesh", None)   # a TrainState's; any object with .model
     train_state = None
     if include_opt_state:
-        train_state = {"optimizer": state.optimizer.state_dict(),
+        train_state = {"optimizer": full_optimizer_state(state.model, state.optimizer, mesh),
                        "scheduler": state.scheduler.state_dict(),
                        "step": state.step}
-    if not async_save:
-        _write_checkpoint(path, state.model.state_dict(), train_state)
+    model = full_state_dict(state.model, mesh)
+    if mesh is not None and mesh.rank != 0:
+        if not async_save:
+            mesh.barrier()
         return
-    snapshot = (_to_host(state.model.state_dict()), _to_host(train_state))
+    if not async_save:
+        _write_checkpoint(path, model, train_state)
+        if mesh is not None:
+            mesh.barrier()
+        return
+    snapshot = (_to_host(model), _to_host(train_state))
     if _SAVER is None:
         _SAVER = cf.ThreadPoolExecutor(max_workers=1, thread_name_prefix="d2r-save")
     _PENDING.append(_SAVER.submit(_write_checkpoint, path, *snapshot))
@@ -135,12 +162,14 @@ def restore_checkpoint(path: str, state):
     and step when the checkpoint has them. A checkpoint of another geometry,
     or optimizer state of another parameter grouping, raises."""
     device = next(state.model.parameters()).device
+    mesh = getattr(state, "mesh", None)   # a TrainState's; any object with .model
     weights = torch.load(_model_file(path), map_location=device, weights_only=True)
-    state.model.load_state_dict(weights)
+    state.model.load_state_dict(local_state_dict(state.model, mesh, weights))
     train_state = os.path.join(_abs(path), TRAIN_STATE_FILE)
     if os.path.exists(train_state):
         saved = torch.load(train_state, map_location=device, weights_only=True)
-        state.optimizer.load_state_dict(saved["optimizer"])
+        state.optimizer.load_state_dict(
+            local_optimizer_state(state.model, state.optimizer, mesh, saved["optimizer"]))
         state.scheduler.load_state_dict(saved["scheduler"])
         state.step = int(saved["step"])
     return state
@@ -210,10 +239,14 @@ def save_resume_checkpoint(save_path: str, state, meta: Dict[str, Any]) -> None:
     slot = f"slot_{int(meta['epoch']) % 2}"
     save_checkpoint(os.path.join(_abs(save_path), RESUME_SUBDIR, slot), state,
                     include_opt_state=True)
-    tmp = _resume_meta_path(save_path) + ".tmp"
-    with open(tmp, "w", encoding="utf-8") as f:
-        json.dump(dict(meta, slot=slot), f)
-    os.replace(tmp, _resume_meta_path(save_path))
+    mesh = getattr(state, "mesh", None)
+    if mesh is None or mesh.rank == 0:
+        tmp = _resume_meta_path(save_path) + ".tmp"
+        with open(tmp, "w", encoding="utf-8") as f:
+            json.dump(dict(meta, slot=slot), f)
+        os.replace(tmp, _resume_meta_path(save_path))
+    if mesh is not None:
+        mesh.barrier()
 
 
 def load_resume_meta(save_path: str) -> Optional[Dict[str, Any]]:

@@ -32,8 +32,19 @@ best model once its writes are awaited before the test reload).
 each resume point and when training ends. ``debug_nans`` checks every
 step's loss and gradients (``train/state.py``). ``prng_impl`` is accepted
 under both of the JAX package's names: the port draws Philox bits either
-way, and on one card threefry's promise of sharding-stable bits holds
-trivially.
+way, and in one process threefry's promise of sharding-stable bits holds
+trivially. Across processes the masks depend on the mesh, so threefry2x32
+is refused there.
+
+Across processes (``mesh``, or the config's ``mesh_shape`` over the process
+group, ``parallel/``): every rank runs this loop on its data row's slice of
+each batch (the loaders' ``process_shard``). The trainer warms up the
+collectives first. The losses are the global batch's on every rank; eval
+gathers the labels and predictions over the data group, so the metrics,
+the best-model decision and early stopping are the same everywhere. Rank 0
+alone logs at INFO, writes metrics, predictions, ``config.json`` and the
+checkpoints (which every rank gathers first); the ranks meet before anyone
+reads a checkpoint. Samples/s counts the global batch's rows.
 """
 
 from __future__ import annotations
@@ -49,6 +60,8 @@ import numpy as np
 import torch
 
 from d2r_tpu_torch.config import D2RConfig, resolve_device, save_config_json
+from d2r_tpu_torch.parallel import distributed
+from d2r_tpu_torch.parallel.mesh import Mesh, mesh_for
 from d2r_tpu_torch.train import checkpoint as ckpt
 from d2r_tpu_torch.train.metrics import get_four_metrics
 from d2r_tpu_torch.train.state import (
@@ -90,10 +103,12 @@ class _DispatchTimer:
 
 
 class Trainer:
-    """The JAX package's ``Trainer`` on one device: ``device`` is "cuda"
-    (the kernels) unless the caller asks for "cpu" (the plain path). A
-    ``model`` given is trained as it is; otherwise one is built from ``cfg``
-    with random weights from ``cfg.seed``."""
+    """The JAX package's ``Trainer``: ``device`` is "cuda" (the kernels)
+    unless the caller asks for "cpu" (the plain path). A ``model`` given is
+    trained as it is (cut to this rank's slices under a model axis);
+    otherwise one is built from ``cfg`` with random weights from
+    ``cfg.seed``. ``mesh`` defaults to ``cfg``'s over the process group (one
+    process: a mesh of one; a mesh larger than the world raises)."""
 
     def __init__(
         self,
@@ -105,17 +120,27 @@ class Trainer:
         logger: Optional[logging.Logger] = None,
         cleanup_output: bool = False,
         device="cuda",
+        mesh: Optional[Mesh] = None,
     ):
         self.train_data = train_data
         self.dev_data = dev_data
         self.test_data = test_data
-        cfg.check_supported()  # a model given was built without this cfg's check
         self.model = model
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else mesh_for(cfg, self.device)
+        # a model given was built without this cfg's check
+        cfg.check_supported(self.mesh.world)
+        self.chief = self.mesh.rank == 0
         self.logger = logger or logging.getLogger(__name__)
+        if not self.chief:
+            # every rank runs the loop; only rank 0 speaks (warnings and
+            # errors still surface everywhere)
+            self.logger = logging.getLogger("d2r_tpu_torch.trainer.nonzero_rank")
+            self.logger.setLevel(logging.WARNING)
+        distributed.warmup_collectives(self.mesh)
         self.writer = None
-        if cfg.tensorboard_dir:
+        if cfg.tensorboard_dir and self.chief:
             try:
                 from torch.utils.tensorboard import SummaryWriter
                 self.writer = SummaryWriter(cfg.tensorboard_dir)
@@ -154,7 +179,7 @@ class Trainer:
         schedule over ``train_num_steps``."""
         self.state = create_train_state(self.cfg, total_steps=self.train_num_steps,
                                         device=self.device, seed=self.cfg.seed,
-                                        model=self.model)
+                                        model=self.model, mesh=self.mesh)
         self.model = self.state.model
         return self.state
 
@@ -219,7 +244,7 @@ class Trainer:
         profile_state = {"count": 0, "prof": None, "wrote": False}
 
         def maybe_trace_dispatch(after: bool):
-            if not cfg.profile_dir:
+            if not cfg.profile_dir or not self.chief:
                 return
             if not after and profile_state["count"] == 1:
                 acts = [torch.profiler.ProfilerActivity.CPU]
@@ -245,7 +270,7 @@ class Trainer:
             maybe_trace_dispatch(after=False)
             k = len(buf)
             for b in buf:
-                seen += int(np.sum(np.asarray(b.get("valid", cfg.batch_size))))
+                seen += int(np.sum(np.asarray(b.get("valid", np.ones(len(b["labels"]), bool)))))
             started = timer.start()
             if self.grad_accum > 1 or k > 1:
                 stacked = {key: np.stack([b[key] for b in buf]) for key in buf[0]}
@@ -313,6 +338,9 @@ class Trainer:
                 break
 
         elapsed = time.time() - t_start
+        # the data ranks' rows (each data row's model ranks load the same)
+        seen = sum(distributed.allgather_1d([seen], self.mesh.data_group,
+                                            self.mesh.collective_device))
         self.timings["step_ms"] = timer.step_ms()
         self.logger.info("training throughput: %.2f samples/sec", seen / max(elapsed, 1e-9))
         self._emit_metrics({
@@ -334,8 +362,9 @@ class Trainer:
         result = {}
         if cfg.save_path is not None and self.best_dev_epoch is not None:
             best = os.path.join(cfg.save_path, "best_model")
-            ckpt.wait_for_async_saves()     # the best save may still be in flight
-            if cfg.async_checkpoint:
+            # the best save may still be in flight
+            ckpt.wait_for_async_saves(self.state.mesh)
+            if cfg.async_checkpoint and self.chief:
                 self.timings["checkpoint_bytes"].append(ckpt.checkpoint_bytes(best))
             ckpt.restore_checkpoint(best, self.state)
             if self.test_data is not None:
@@ -345,7 +374,9 @@ class Trainer:
 
         if self.cleanup_output and cfg.save_path is not None:
             # the reference deletes its output directory after test
-            shutil.rmtree(cfg.save_path, ignore_errors=True)
+            self.mesh.barrier()
+            if self.chief:
+                shutil.rmtree(cfg.save_path, ignore_errors=True)
         return result
 
     # ------------------------------------------------------------------
@@ -390,8 +421,9 @@ class Trainer:
         cfg = self.cfg
         # an epoch boundary is a durability point: the resume meta must not
         # name an epoch whose best-model save could still be lost
-        ckpt.wait_for_async_saves()
-        save_config_json(cfg, os.path.join(cfg.save_path, "config.json"))
+        ckpt.wait_for_async_saves(self.state.mesh)
+        if self.chief:
+            save_config_json(cfg, os.path.join(cfg.save_path, "config.json"))
         ckpt.save_resume_checkpoint(cfg.save_path, self.state, {
             "epoch": epoch,
             "trainer_step": self.step,
@@ -410,7 +442,7 @@ class Trainer:
     def _emit_metrics(self, record: Dict) -> None:
         """--metrics_jsonl: append one JSON line."""
         path = self.cfg.metrics_jsonl
-        if not path:
+        if not path or not self.chief:
             return
         d = os.path.dirname(path)
         if d:
@@ -435,6 +467,7 @@ class Trainer:
             rows.append((np.asarray(batch["labels"]), valid))
         total_loss = 0.0
         true_labels, pred_labels = [], []
+        # the global batches' losses on every rank; the rows of this data rank
         if losses:
             total_loss = float(np.asarray(torch.stack(losses).cpu(), dtype=np.float64).sum())
             preds_all = torch.cat(logits).float().cpu().numpy().argmax(-1)
@@ -444,6 +477,9 @@ class Trainer:
                 off += len(labels)
                 true_labels.extend(labels[valid].tolist())
                 pred_labels.extend(preds[valid].tolist())
+        gather = lambda v: distributed.allgather_1d(v, self.mesh.data_group,
+                                                    self.mesh.collective_device)
+        true_labels, pred_labels = gather(true_labels), gather(pred_labels)
         m = get_four_metrics(true_labels, pred_labels, average="weighted",
                              num_classes=self.cfg.num_classes)
         m["loss"] = total_loss
@@ -452,7 +488,7 @@ class Trainer:
 
     def _write_predictions(self, true_labels, pred_labels) -> None:
         """--write_path: the test predictions as JSON."""
-        if not self.cfg.write_path:
+        if not self.cfg.write_path or not self.chief:
             return
         os.makedirs(os.path.dirname(self.cfg.write_path) or ".", exist_ok=True)
         with open(self.cfg.write_path, "w", encoding="utf-8") as f:
@@ -489,10 +525,11 @@ class Trainer:
                 ckpt.save_checkpoint(best, self.state, include_opt_state=self.cfg.save_opt_state,
                                      async_save=self.cfg.async_checkpoint)
                 self.timings["checkpoint_save_ms"].append((time.perf_counter() - t0) * 1e3)
-                if not self.cfg.async_checkpoint:
-                    self.timings["checkpoint_bytes"].append(ckpt.checkpoint_bytes(best))
-                # the geometry guard that --load_path and serving read
-                save_config_json(self.cfg, os.path.join(self.cfg.save_path, "config.json"))
+                if self.chief:
+                    if not self.cfg.async_checkpoint:
+                        self.timings["checkpoint_bytes"].append(ckpt.checkpoint_bytes(best))
+                    # the geometry guard that --load_path and serving read
+                    save_config_json(self.cfg, os.path.join(self.cfg.save_path, "config.json"))
                 self.logger.info("Save best model at %s", self.cfg.save_path)
         return result
 

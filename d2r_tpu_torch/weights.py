@@ -122,26 +122,29 @@ def _scanned(model: nn.Module) -> bool:
     return bool(getattr(cfg, "scan_layers", False))
 
 
-def _translate(module: nn.Module, leaf: str, a: np.ndarray):
+def _translate(module: nn.Module, leaf: str, a):
     """(port tensor name, array in the port's layout), or None if the module
-    has no such leaf."""
+    has no such leaf. ``a`` is a numpy array or a tensor."""
     if isinstance(module, TorchLinear):
-        table = {"kernel": ("weight", a.T), "bias": ("bias", a)}
+        table = {"kernel": ("weight", lambda a: a.T), "bias": ("bias", None)}
     elif isinstance(module, QKVDense):
-        table = {"kernel": ("weight", a.reshape(a.shape[0], -1).T),
-                 "bias": ("bias", a.reshape(-1))}
+        table = {"kernel": ("weight", lambda a: a.reshape(a.shape[0], -1).T),
+                 "bias": ("bias", lambda a: a.reshape(-1))}
     elif isinstance(module, Embed):
-        table = {"embedding": ("weight", a)}
+        table = {"embedding": ("weight", None)}
     elif isinstance(module, LayerNorm):
-        table = {"scale": ("weight", a), "bias": ("bias", a)}
+        table = {"scale": ("weight", None), "bias": ("bias", None)}
     elif isinstance(module, PatchConv):
-        table = {"kernel": ("weight", a.transpose(3, 2, 0, 1))}
+        table = {"kernel": ("weight", lambda a: a.transpose(3, 2, 0, 1))}
     elif isinstance(module, TorchBatchNorm):
-        table = {"scale": ("weight", a), "bias": ("bias", a),
-                 "mean": ("running_mean", a), "var": ("running_var", a)}
+        table = {"scale": ("weight", None), "bias": ("bias", None),
+                 "mean": ("running_mean", None), "var": ("running_var", None)}
     else:
-        table = {name: (name, a) for name, _ in module.named_parameters(recurse=False)}
-    return table.get(leaf)
+        table = {name: (name, None) for name, _ in module.named_parameters(recurse=False)}
+    if leaf not in table:
+        return None
+    name, fn = table[leaf]
+    return name, (a if fn is None else fn(a))
 
 
 def load_jax_variables(model: nn.Module, variables: Mapping) -> nn.Module:
@@ -200,9 +203,8 @@ def _to_flax(module: nn.Module, name: str, t: np.ndarray):
     if isinstance(module, TorchLinear):
         table = {"weight": ("kernel", lambda a: a.T), "bias": ("bias", None)}
     elif isinstance(module, QKVDense):
-        h = module.hidden
-        table = {"weight": ("kernel", lambda a: a.T.reshape(a.shape[1], 3, h)),
-                 "bias": ("bias", lambda a: a.reshape(3, h))}
+        table = {"weight": ("kernel", lambda a: a.T.reshape(a.shape[1], 3, -1)),
+                 "bias": ("bias", lambda a: a.reshape(3, -1))}
     elif isinstance(module, Embed):
         table = {"weight": ("embedding", None)}
     elif isinstance(module, LayerNorm):

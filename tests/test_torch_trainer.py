@@ -461,13 +461,22 @@ REFUSED_FLAGS = [["--dry_run"], ["--async_checkpoint"], ["--debug_nans"],
                  ["--prng_impl", "threefry2x32"], ["--pretrained_dir", "x"],
                  ["--sentic_lexicon", "x"], ["--mesh_data", "2"], ["--mesh_model", "2"],
                  ["--mesh_stage", "2"], ["--pipeline_microbatches", "2"], ["--mesh_topology"],
-                 ["--coordinator_address", "h:1"], ["--num_processes", "2"],
+                 ["--coordinator_address", "h:1"], ["--num_processes", "1"],
                  ["--process_id", "0"], ["--seq_shard"], ["--fabric_shard"]]
 
 
 # flags the CLI once refused and now honours: their case runs the CLI
 ACCEPTED_FLAGS = ("--pretrained_dir", "--dry_run", "--async_checkpoint", "--debug_nans",
-                  "--prng_impl", "--sentic_lexicon")
+                  "--prng_impl", "--sentic_lexicon", "--mesh_data", "--mesh_model",
+                  "--mesh_topology", "--coordinator_address", "--num_processes",
+                  "--process_id")
+# the multi-process flags, honoured since: in one process a mesh larger than
+# the world raises naming it, and a coordinator flag alone raises naming the
+# others it needs, before anything is written
+PARALLEL_ERRORS = {"--mesh_data": "the world has 1 process",
+                   "--mesh_model": "the world has 1 process",
+                   "--coordinator_address": "--num_processes N and --process_id",
+                   "--process_id": "--process_id needs --coordinator_address"}
 
 
 def _cli_runs_with(argv, tmp_path):
@@ -491,6 +500,23 @@ def _cli_runs_with(argv, tmp_path):
     cfg = tconfig.load_config_json(str(out / "config.json"))
     field = argv[0][2:].replace("sentic_lexicon", "sentic_lexicon_path")
     assert getattr(cfg, field) == (True if len(argv) == 1 else argv[1])
+    assert (out / "best_model" / tckpt.MODEL_FILE).exists()
+
+
+def _cli_runs_a_world_of_one(tmp_path):
+    """``--num_processes 1 --process_id 0`` with a coordinator: one gloo
+    process trains the tiny recipe for an epoch, and its process group is
+    ended when the CLI returns."""
+    import torch.distributed as dist
+
+    from d2r_tpu_torch.parallel.launch import free_port
+    paths = tdata.write_fake_dataset(str(tmp_path / "d"), n=8, image_size=64,
+                                     corrupt_every=5)
+    out = tmp_path / "out"
+    tcli.main(_tiny_cli_flags(paths) + [
+        "--num_processes", "1", "--process_id", "0",
+        "--coordinator_address", f"127.0.0.1:{free_port()}", "--save_path", str(out)])
+    assert not dist.is_initialized()
     assert (out / "best_model" / tckpt.MODEL_FILE).exists()
 
 
@@ -539,15 +565,23 @@ def _cli_fine_tunes_frozen_pretrained_towers(tmp_path):
 def test_refused_flags_raise_naming_themselves(argv, tmp_path):
     """The CLI's own refusals (flags without a config field) and the
     config's (``config.UNPORTED``) both name the flag and its ROADMAP item;
-    the mesh flags share one entry, hence the two below. A flag of
-    :data:`ACCEPTED_FLAGS` is no longer refused: its case runs it."""
-    assert len(REFUSED_FLAGS) == (len(tcli.REFUSED) + len(tconfig.UNPORTED) + 2
+    ``--mesh_stage`` is refused through ``pipeline_stages``, hence the one
+    below. A flag of :data:`ACCEPTED_FLAGS` is no longer refused: its case
+    runs it, or for the multi-process flags in one process checks the error
+    that names what is missing (:data:`PARALLEL_ERRORS`)."""
+    assert len(REFUSED_FLAGS) == (len(tcli.REFUSED) + len(tconfig.UNPORTED) + 1
                                   + len(ACCEPTED_FLAGS))
     if argv[0] in ACCEPTED_FLAGS:
         assert all(flag != argv[0] for flag, _, _ in tcli.REFUSED)
         assert all(flag != argv[0] for _, flag, _, _ in tconfig.UNPORTED)
         if argv[0] == "--pretrained_dir":
             _cli_fine_tunes_frozen_pretrained_towers(tmp_path)
+        elif argv[0] == "--num_processes":
+            _cli_runs_a_world_of_one(tmp_path)
+        elif argv[0] in PARALLEL_ERRORS:
+            with pytest.raises(ValueError, match=re.escape(PARALLEL_ERRORS[argv[0]])):
+                tcli.main(argv + ["--device", "cpu", "--save_path", str(tmp_path / "out")])
+            assert not (tmp_path / "out").exists()
         else:
             _cli_runs_with(argv, tmp_path)
         return
@@ -564,13 +598,21 @@ def test_refused_flags_raise_naming_themselves(argv, tmp_path):
     dict(fabric_shard=True)], ids=lambda o: "-".join(f"{k}={v}" for k, v in o.items()))
 def test_the_trainer_refuses_what_the_cli_refuses(override):
     """The library entry point refuses the same config values as the CLI,
-    a model passed in or not; those ported since (the trainer extras and the
-    lexicon path) it accepts, as the CLI does."""
+    a model passed in or not; those ported since (the trainer extras, the
+    lexicon path and ``mesh_topology``) it accepts, as the CLI does. A mesh
+    larger than one process's world raises, naming the world."""
     field = list(override)[0]
+    if field == "mesh_shape":   # the CLI's axis names for the shape
+        override = dict(override, mesh_axis_names=("data", "model")[:len(override[field])])
     cfg = tconfig.tiny_test_config(save_path=None, **override)
     for model in (None, D2RClassifier(tconfig.tiny_test_config())):
-        if field in ("async_checkpoint", "debug_nans", "prng_impl", "sentic_lexicon_path"):
+        if field in ("async_checkpoint", "debug_nans", "prng_impl", "sentic_lexicon_path",
+                     "mesh_topology"):
             Trainer(train_data=[_tiny_batch(cfg)], cfg=cfg, model=model, device="cpu")
+            continue
+        if field == "mesh_shape":
+            with pytest.raises(ValueError, match="the world has 1 process"):
+                Trainer(train_data=[_tiny_batch(cfg)], cfg=cfg, model=model, device="cpu")
             continue
         with pytest.raises(NotImplementedError, match=field + r"=.*ROADMAP\.md Queue 1 item"):
             Trainer(train_data=[_tiny_batch(cfg)], cfg=cfg, model=model, device="cpu")

@@ -250,14 +250,31 @@ def test_prng_impl_names_give_the_same_bits(accum):
 
 
 def test_only_the_parallel_settings_are_refused():
+    """What stays refused is the next parallel slice's: pipeline stages,
+    the two layout hints, int8 training under a model axis and threefry's
+    bits across processes; a (data, model) mesh and its flags are
+    accepted."""
     assert {f for f, *_ in tconfig.UNPORTED} == {
-        "mesh_shape", "pipeline_microbatches", "mesh_topology", "seq_shard", "fabric_shard"}
-    assert {flag for flag, *_ in tcli.REFUSED} == {
-        "--coordinator_address", "--num_processes", "--process_id"}
-    assert all("Queue 1 item 9" in item for *_, item in tconfig.UNPORTED + tcli.REFUSED)
+        "pipeline_microbatches", "seq_shard", "fabric_shard"}
+    assert {flag for flag, *_ in tcli.REFUSED} == set()
+    assert all("Queue 1 item 9b" in item for *_, item in tconfig.UNPORTED + tcli.REFUSED)
+    mesh = dict(mesh_shape=(2, 2), mesh_axis_names=("data", "model"))
+    tconfig.tiny_test_config(mesh_topology=True, quant_train="int8_all", mesh_shape=(4,)
+                             ).check_supported()
+    tconfig.tiny_test_config(**mesh).check_supported()
+    for bad, match in ((dict(quant_train="int8", **mesh), "quant_train='int8' with --mesh_model 2"),
+                       (dict(pipeline_stages=2), "pipeline_stages=2 .--mesh_stage")):
+        with pytest.raises(NotImplementedError, match=match + ".*Queue 1 item 9b"):
+            tconfig.tiny_test_config(**bad).check_supported()
     tconfig.tiny_test_config(use_sentic_graph=True, sentic_lexicon_path="x", quant_train="int8_all",
                              async_checkpoint=True, debug_nans=True,
                              prng_impl="threefry2x32").check_supported()
     with pytest.raises(NotImplementedError, match="prng_impl='unsafe_rbg'"):
         tconfig.tiny_test_config(prng_impl="unsafe_rbg").check_supported()
+    # threefry's sharding-stable bits: one process only, whatever the mesh
+    tconfig.tiny_test_config(prng_impl="threefry2x32", **mesh).check_supported()
+    with pytest.raises(NotImplementedError,
+                       match="prng_impl='threefry2x32' across 2 processes.*Queue 1 item 9b"):
+        tconfig.tiny_test_config(prng_impl="threefry2x32").check_supported(world=2)
+    tconfig.tiny_test_config(prng_impl="rbg").check_supported(world=2)
     assert jconfig.D2RConfig().prng_impl in tconfig.PRNG_IMPLS
