@@ -59,13 +59,23 @@ Phases; any failure exits non-zero without the final ``ok`` line:
 6. Training at full width, ``bench.py``'s recipe: the same D2R-base, batch
    64, bf16 compute, fp32 parameters, AdamW at the reference's four groups
    (``d2r_tpu_torch.train.state``), on a batch made with numpy the way
-   ``synthetic_batch`` makes it (PAD ids included): 3 warm-up steps and 10
-   timed ones (CUDA events, median). Counts set to 0 before, read after: K1
-   and K2 must each launch 34 times a step. The loss is finite, every
+   ``synthetic_batch`` makes it (PAD ids included), through the captured
+   step: 3 warm-up steps (the state's 2 eager ones and the capture's) and
+   10 timed replays (CUDA events, median). Counts set to 0 before, read
+   after: K1 and K2 are called 34 times a warm-up step and at the capture,
+   never in a replay; one AdamW call likewise. The loss is finite, every
    parameter and every BatchNorm running buffer has moved, and the PAD
    embedding row got an exactly zero gradient (AdamW's decoupled weight
-   decay still shrinks it, as in the reference). Then a torch.profiler
-   trace of one step.
+   decay still shrinks it, as in the reference). Then torch.profiler
+   traces of 3 replayed steps (34 K1, 34 K2 and 1 AdamW kernel a step; no
+   ``_foreach`` pass but the gradients' zeroing), 3 replays whose host code
+   runs under ``torch.cuda.set_sync_debug_mode("error")``, 3 eager steps
+   of the same state (timed) and one traced; then ``replay_checks``: from
+   the same initial weights, 5 steps (2 eager, 3 replayed) against 5
+   eager ones, dropout off and on: losses within 1e-4 and parameters
+   within 1e-3 of each leaf's max |value|, and with dropout on K1's keep
+   masks at two sites, read back from the state's seed buffer after each
+   replayed step, equal to the eager derivation's and new each step.
 7. One train step of D2R-base in fp32 (TF32 off), batch 2, dropout off
    through a registered dropout-0 preset, two ill-conditioned spots of the
    random weights moved off (see the phase), on the CPU (plain path) and on the card (K1/K2):
@@ -75,7 +85,7 @@ Phases; any failure exits non-zero without the final ``ok`` line:
    BatchNorm running statistics agree too. Beside it, the same step on the
    card with every attention site through the plain versions: the kernels'
    own share of the difference.
-8-11. Phases 4-7 again for D2R-large, the scaled recipe
+8-11. Phases 4-7 (and phase 6's capture checks) again for D2R-large, the scaled recipe
    (``tools/perf_sweep.py`` "scaled_large": RoBERTa-large + CLIP ViT-L/14,
    ``embed_size=hid_IMRC=1024``, 16 IMRC heads, 24+1 layers a tower at
    widths 1024/4096/16 heads, ``DR_step=4``, ``max_seq=64``; here without
@@ -86,8 +96,8 @@ Phases; any failure exits non-zero without the final ``ok`` line:
    29 on K3 (24 + 1 CLIP-L layers, 4 image-branch IMRC cells, L=S=257):
    serving must call each wrapper 2 x 29 times a bucket at warmup and the
    traces show 29 of each a replayed forward; training at
-   batch 16 launches K1, K2 and K3 29 times a step, and the PAD row is row
-   1. The fp32 train step card against CPU adds the image-branch IMRC
+   batch 16 calls K1, K2 and K3 29 times a warm-up step and at the
+   capture, and the PAD row is row 1. The fp32 train step card against CPU adds the image-branch IMRC
    ``sa_qkv`` (K3's path, as the CLIP-L ``qkv`` is) to the leaves.
 
 12. The training entry point as a user runs it: ``d2r_tpu_torch.cli.main``
@@ -96,12 +106,14 @@ Phases; any failure exits non-zero without the final ``ok`` line:
    corrupt_every=50)`` through the port's tokenizer, decoders, loader,
    trainer and checkpoints. The items that decode to the fallback frame
    must be exactly the corrupt files. Counts set to 0 before, read after:
-   34 K1 and 34 K2 launches a train step and 34 K1 an eval batch; finite
-   losses; the best model and ``config.json`` saved. The trainer's own
+   34 K1 and 34 K2 host calls a warm-up step and at the capture (the
+   trainer runs the captured step), 34 K1 an eval batch; finite losses;
+   the best model and ``config.json`` saved. The trainer's own
    samples/s and the shares of its epoch loop, step time (CUDA events a
    step: median, quartiles and extremes), host wait on the loader, eval and
-   checkpoint-save times and bytes, and K1's and K2's card time a step from
-   the run's ``--profile_dir`` trace. Then the restore probe:
+   checkpoint-save times and bytes, and K1's, K2's and AdamW's card time
+   and kernel counts in a replayed step from the run's ``--profile_dir``
+   trace (the first dispatch after the capture). Then the restore probe:
    ``--only_test --load_path <best_model>`` gives the trained run's test
    loss bit for bit.
 
@@ -162,9 +174,11 @@ operations at the type's peak).
    One step with ``remat`` against one without from the same weights and
    batch, dropout off and then on with one seed, and the same for
    ``remat_ffn_act`` at D2R-base (batch 64): losses and updated parameters
-   within 1e-6 of each leaf's max |value|, the difference reported. Then
-   the CLI for one epoch of 64 posts with all of the recipe's flags and
-   ``--pretrained_dir``; eval batches launch 29 K1 and 29 K3.
+   within 1e-6 of each leaf's max |value|, the difference reported. The
+   recipe's captured step against its eager step (phase 6's
+   ``replay_checks``). Then the CLI for one epoch of 64 posts with all of
+   the recipe's flags and ``--pretrained_dir``; eval batches launch 29 K1
+   and 29 K3.
 16. Phase 5 at ``alpha=0.5`` (CCR): logits within 1e-3, and the CCR loss of
    each of the 16 cross-modal alignments that compute one (GLAC and CRCMC,
    4 routing layers, 2 branches), which the cells discard, within 1e-3 of
@@ -224,13 +238,23 @@ operations at the type's peak).
    axis leaves whole bit-equal across the model ranks and every tensor
    bit-equal across the data ranks (``parallel.mesh.replica_mismatches``).
 22. The CLI with ``--coordinator_address 127.0.0.1:<free> --num_processes 1
-   --process_id 0``: a process group of one under NCCL, one epoch at
-   run.sh's recipe on :data:`EXTRAS_DATA` (34 K1 + 34 K2 a train step, 34
-   K1 an eval batch) and its restore probe (the test loss bit for bit); the
+   --process_id 0``: a process group of one under NCCL, two epochs at
+   run.sh's recipe on :data:`EXTRAS_DATA` (four steps, captured as in one
+   process; 34 K1 an eval batch) and its restore probe (the test loss bit for bit); the
    group ended at the CLI's exit. With two cards or more, also two NCCL
    processes (dp = 2); with one, that is logged as not run.
 
-It prints one ``kernels`` JSON line (K1, K2 and K3; ``launches`` counts the
+Between phases 3 and 4, ``step_kernels``: the AdamW kernel against its
+16-pass plain twin, bit for bit, fp32 and bf16 first moments, 3 steps
+through a fractional warmup, on odd sizes (1, 3, 1023, 2^25 + 7) and on
+D2R-base's 400,186,367-element parameter list, timed there beside
+``torch.optim.AdamW(fused=True)`` and the bytes bound; the hidden-dropout
+kernel against its plain version at a BERT hidden state (64, 64, 768),
+bf16 and fp32, and an odd shape, forward and backward bit for bit, timed
+beside ``F.dropout``.
+
+It prints one ``kernels`` JSON line (K1, K2, K3, the AdamW kernel and the
+hidden-dropout kernel; ``launches`` counts the
 wrappers' host calls in the serving and training runs of both
 configurations, the HTTP phase, phases 14-15, the main-path runs of
 phases 17-19 (not their card-against-CPU checks) and the bf16 steps of
@@ -377,6 +401,8 @@ EXTRAS_RUNS = (("int8", ["--quant_train", "int8"]),
 # scaling. D2R-base, global batch 64.
 PARALLEL_MESHES = {"train_dp": [(2,)], "train_tp": [(2, 2)]}
 PARALLEL_BF16_STEPS = 3
+# phase 22's epochs on EXTRAS_DATA: 4 steps, so that the step is captured
+MP_EPOCHS = 2
 # the fp32 mesh run against the one-process run: the JAX package's
 # tolerances (tests/test_dp_semantics.py, tests/test_tp_semantics.py)
 MESH_FWD_RTOL, MESH_LOGITS_ATOL = 2e-5, 2e-5
@@ -493,6 +519,13 @@ def phase_build(report):
                 log(f"[build] {name}: {line.strip()}")
 
 
+def device_seed(seed, site=0):
+    """A K1/K2 dropout seed as a training forward hands it to them: the
+    64-bit ``seed`` in a device buffer, and a site ordinal."""
+    from d2r_tpu_torch.ops.kernels import fused_attention as fa
+    return fa.DropoutSeed(fa.seed_tensor(seed, "cuda"), site)
+
+
 def k1_inputs(b, l, h, d, with_bias, dtype, seed):
     """q, k, v as strided views of one (B, L, 3, H*D) tensor, plus a padding
     bias made the way padding_key_bias makes it."""
@@ -578,7 +611,7 @@ def k1_edge_checks(failures):
         for i, (site, b, l, s, h, d, with_bias, pad) in enumerate(K1_EDGES):
             q, k, v, bias = k3_inputs(b, l, s, h, d, with_bias, dtype, seed=700 + i, row_pad=pad)
             for rate in ((0.0, 0.1) if site == "l7_s128" else (0.0,)):
-                seed = 2 ** 33 + i if rate else None
+                seed = device_seed(2 ** 33 + i, site=i) if rate else None
                 out = fa.fused_attention_small(q, k, v, bias, d ** -0.5, rate, seed)
                 torch.cuda.synchronize()
                 ref = fa.fused_attention_small_plain(q, k, v, bias, d ** -0.5, rate, seed)
@@ -604,7 +637,7 @@ def k1_dropout_checks(failures):
         dtype = getattr(torch, dtype_name)
         for (site, l, h, d, with_bias), rate in ((K1_SITES[0], 0.1), (K1_SITES[1], 0.5)):
             q, k, v, bias = k1_inputs(b, l, h, d, with_bias, dtype, seed=200)
-            scale, seed = d ** -0.5, 2 ** 40 + 17
+            scale, seed = d ** -0.5, device_seed(2 ** 40 + 17, site=5)
             run = lambda: fa.fused_attention_small(q, k, v, bias, scale, rate, seed)
             out = run()
             torch.cuda.synchronize()
@@ -711,7 +744,7 @@ def k2_checks(failures):
             q, k, v, bias = k1_inputs(b, l, h, d, with_bias, dtype, seed=300 + i)
             g = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(i),
                             device="cuda").to(dtype)
-            scale, seed = d ** -0.5, (12345 if rate else None)
+            scale, seed = d ** -0.5, (device_seed(12345, site=2) if rate else None)
             need_dbias = with_bias
             errs, shares, ok = k2_compare(q, k, v, bias, g, scale, rate, seed, need_dbias)
             if not ok:
@@ -751,7 +784,7 @@ def k2_checks(failures):
             g = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(900 + i),
                             device="cuda").to(dtype)
             for rate in (0.0, 0.1):
-                seed = 2 ** 35 + i if rate else None
+                seed = device_seed(2 ** 35 + i, site=i) if rate else None
                 errs, shares, ok = k2_compare(q, k, v, bias, g, d ** -0.5, rate, seed, with_bias)
                 if not ok:
                     failures.append(f"K2 edge {site} {dtype_name} rate {rate}: errs {errs}, "
@@ -772,7 +805,7 @@ def dropout_identity(failures):
     from d2r_tpu_torch.ops.kernels import fused_attention as fa
     q, k, _, bias = k1_inputs(8, 64, 12, 64, True, torch.float32, seed=400)
     v = torch.ones_like(q).requires_grad_()
-    out = fa.fused_attention_small(q, k, v, bias, 0.125, 0.5, 1234)
+    out = fa.fused_attention_small(q, k, v, bias, 0.125, 0.5, device_seed(1234))
     out.sum().backward()
     a, b = v.grad.sum().item(), out.sum().item()
     log(f"[K1/K2 dropout identity] sum(dv) {a:.6f}, sum(out) {b:.6f}")
@@ -900,6 +933,184 @@ def phase_k3(report):
         raise AssertionError("; ".join(failures))
 
 
+# the AdamW kernel's odd-size table: one element, three, 1023 and 2^25 + 7
+# (a tensor of many blocks with a ragged last one)
+ADAMW_SIZES = (1, 3, 1023, (1 << 25) + 7)
+# bytes the AdamW kernel moves a parameter: read p, g, mu, nu, write p, mu,
+# nu (fp32 mu; bf16 mu: 4 bytes less)
+ADAMW_BYTES = {"float32": 28, "bfloat16": 24}
+# about 20 fp32 operations an element (the moments, the bias-corrected
+# quotient, the decay and the step)
+ADAMW_OPS = 20
+# the hidden dropout: a BERT-base hidden state at training batch 64
+DROPOUT_SHAPE = (TRAIN_BATCH, 64, 768)
+
+
+def phase_step_kernels(report):
+    """The two kernels the captured train step added, against their plain
+    twins on the card. The AdamW kernel (``ops/kernels/adamw.py``), three
+    steps through a fractional warmup (1.5 of 4 steps) with the count and
+    the schedule on the card, bit for bit against the 16-pass twin, fp32 and
+    bf16 first moments: on two lr groups of :data:`ADAMW_SIZES`, then on
+    D2R-base's own parameter list (its 4 groups, 400,186,367 elements,
+    random values). Times on D2R-base's list (fp32 moments; bf16 too):
+    the kernel (with the count's increment), the twin, and
+    ``torch.optim.AdamW(fused=True)`` on the same tensors (another
+    operation order: the decay before the Adam update), against the bytes
+    bound. The hidden-dropout kernel (``ops/kernels/dropout.py``) at
+    :data:`DROPOUT_SHAPE` in bf16 and fp32 and at an odd shape, forward and
+    backward, bit for bit against its plain version; its time against the
+    bound and ``F.dropout``'s (another mask). None of these launches
+    counts."""
+    import torch
+    import torch.nn.functional as F
+    from torch import nn
+    from d2r_tpu_torch.models.unimo import D2RClassifier
+    from d2r_tpu_torch.ops.kernels import adamw
+    from d2r_tpu_torch.ops.kernels import dropout as tdrop
+    from d2r_tpu_torch.train.optimizer import (
+        BETAS,
+        EPS,
+        GROUPS,
+        WEIGHT_DECAY,
+        param_group_label,
+    )
+    from d2r_tpu_torch.weights import flax_path
+
+    saved = read_counts()
+    result = report["step_kernels"] = {"adamw": [], "dropout": []}
+    hp, sch = adamw.hyper(BETAS, EPS, WEIGHT_DECAY), adamw.schedule(1.5, 4)
+
+    def make(spec, mu_dtype, seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        rnd = lambda shape: torch.randn(shape, generator=g, device="cuda")
+        return [([rnd(sh) for sh in shapes], [rnd(sh) for sh in shapes],
+                 [(rnd(sh) * 0.1).to(mu_dtype) for sh in shapes],
+                 [rnd(sh).square_() * 0.01 for sh in shapes], lr) for shapes, lr in spec]
+
+    def copy(groups):
+        return [tuple([t.clone() for t in x] if isinstance(x, list) else x for x in grp)
+                for grp in groups]
+
+    model = D2RClassifier(model_config("base"))      # the parameter shapes only
+    by_group = {g: [] for g in GROUPS}
+    for name, p in model.named_parameters():
+        by_group[param_group_label(flax_path(model, name))].append(tuple(p.shape))
+    del model
+    base_spec = [(shapes, 5e-2 if g == "fc" else 3e-5) for g, shapes in by_group.items() if shapes]
+    odd_spec = [([(n,) for n in ADAMW_SIZES[::2]], 1e-3), ([(n,) for n in ADAMW_SIZES[1::2]], 5e-2)]
+    n_base = sum(math.prod(sh) for shapes, _ in base_spec for sh in shapes)
+    adamw_row = None
+    for table, spec in (("odd_sizes", odd_spec), ("d2r_base", base_spec)):
+        for mu_name in ("float32", "bfloat16"):
+            mu_dtype = getattr(torch, mu_name)
+            kernel_groups = make(spec, mu_dtype, seed=1)
+            twin_groups = copy(kernel_groups)
+            ck, ct = torch.zeros((), device="cuda"), torch.zeros((), device="cuda")
+            tab = None
+            for _ in range(3):
+                tab = adamw.adamw_update(kernel_groups, ck, hp, sch, tab)
+                adamw.adamw_plain(twin_groups, ct, hp, sch)
+            torch.cuda.synchronize()
+            err, differing, elements = 0.0, 0, 0
+            for a, b in zip(kernel_groups, twin_groups):
+                for xs, ys in zip(a[:4], b[:4]):
+                    for x, y in zip(xs, ys):
+                        d = (x.float() - y.float()).abs()
+                        err = max(err, d.max().item())
+                        differing += int((x != y).sum())
+                        elements += x.numel()
+            row = {"table": table, "mu": mu_name, "tensors": sum(len(g[0]) for g in kernel_groups),
+                   "parameters": sum(x.numel() for g in kernel_groups for x in g[0]),
+                   "blocks": tab.n_blocks, "steps": 3, "count": [float(ck), float(ct)],
+                   "max_abs_err": err, "elements_differing": differing,
+                   "elements_compared": elements}
+            if table == "d2r_base":
+                row["kernel_ms"] = cuda_time_ms(
+                    lambda: adamw.adamw_update(kernel_groups, ck, hp, sch, tab), iters=20, warmup=3)
+                row["device_ms"] = device_time_ms(
+                    lambda: adamw.adamw_update(kernel_groups, ck, hp, sch, tab), iters=20, warmup=3)
+                row["plain_ms"] = cuda_time_ms(
+                    lambda: adamw.adamw_plain(twin_groups, ct, hp, sch), iters=5, warmup=1)
+                row["bound_ms"] = max(n_base * ADAMW_BYTES[mu_name] / HBM_BYTES_PER_S,
+                                      n_base * ADAMW_OPS / PEAK_OPS["float32"]) * 1e3
+                row["bound_by"] = ("bytes" if n_base * ADAMW_BYTES[mu_name] / HBM_BYTES_PER_S
+                                   >= n_base * ADAMW_OPS / PEAK_OPS["float32"] else "operations")
+                row["library_ms"] = row["library_device_ms"] = None
+                if mu_name == "float32":
+                    params = [nn.Parameter(p) for grp in twin_groups for p in grp[0]]
+                    for p, g in zip(params, (g for grp in twin_groups for g in grp[1])):
+                        p.grad = g
+                    lib = torch.optim.AdamW(params, lr=3e-5, betas=BETAS, eps=EPS,
+                                            weight_decay=WEIGHT_DECAY, fused=True)
+                    row["library_ms"] = cuda_time_ms(lib.step, iters=20, warmup=3)
+                    row["library_device_ms"] = device_time_ms(lib.step, iters=20, warmup=3)
+                    del lib, params
+                    adamw_row = row
+            result["adamw"].append(row)
+            log(f"[step kernels] AdamW {table} ({row['parameters']} elements, {row['blocks']} "
+                f"blocks), mu {mu_name}, 3 steps: kernel against twin max abs err {err}, "
+                f"{differing} of {elements} elements differing; count {row['count']}"
+                + (f"; kernel {row['kernel_ms'] * 1e3:.1f} us back to back, "
+                   f"{row['device_ms'] * 1e3:.1f} us alone, twin {row['plain_ms'] * 1e3:.1f} "
+                   f"us, bound {row['bound_ms'] * 1e3:.1f} us ({row['bound_by']}), "
+                   f"torch.optim.AdamW(fused=True) {row['library_ms']}" if "kernel_ms" in row
+                   else ""))
+            assert err == 0.0 and differing == 0, row
+            assert row["count"] == [3.0, 3.0], row
+            del kernel_groups, twin_groups, tab
+            torch.cuda.empty_cache()
+
+    dropout_row = None
+    g = torch.Generator(device="cuda").manual_seed(3)
+    for shape in (DROPOUT_SHAPE, (3, 5, 7)):
+        for dtype_name in ("bfloat16", "float32"):
+            dtype = getattr(torch, dtype_name)
+            x = torch.randn(shape, generator=g, device="cuda").to(dtype).requires_grad_()
+            seed = device_seed(2 ** 63 + 99, site=7)
+            y = tdrop.hidden_dropout(x, 0.1, seed)
+            gy = torch.randn(shape, generator=g, device="cuda").to(dtype)
+            y.backward(gy)
+            ref = tdrop.hidden_dropout_plain(x.detach(), 0.1, seed)
+            ref_g = tdrop.hidden_dropout_plain(gy, 0.1, seed)
+            torch.cuda.synchronize()
+            err = max((y.detach().float() - ref.float()).abs().max().item(),
+                      (x.grad.float() - ref_g.float()).abs().max().item())
+            row = {"shape": list(shape), "dtype": dtype_name, "max_abs_err": err,
+                   "keep_share": (ref != 0).float().mean().item(),
+                   "equal": bool(torch.equal(y.detach(), ref) and torch.equal(x.grad, ref_g))}
+            if shape == DROPOUT_SHAPE and dtype_name == "bfloat16":
+                xd = x.detach()
+                n, size = xd.numel(), xd.element_size()
+                row["kernel_ms"] = cuda_time_ms(lambda: tdrop.hidden_dropout(xd, 0.1, seed))
+                row["device_ms"] = device_time_ms(lambda: tdrop.hidden_dropout(xd, 0.1, seed))
+                row["plain_ms"] = cuda_time_ms(lambda: tdrop.hidden_dropout_plain(xd, 0.1, seed),
+                                               iters=5, warmup=1)
+                row["library_ms"] = cuda_time_ms(lambda: F.dropout(xd, 0.1, training=True))
+                row["library_device_ms"] = device_time_ms(
+                    lambda: F.dropout(xd, 0.1, training=True))
+                # one Philox call (about 100 integer operations) a group of
+                # four elements, counted at the CUDA cores' fp32 rate
+                t_bytes, t_ops = 2 * n * size / HBM_BYTES_PER_S, 25 * n / PEAK_OPS["float32"]
+                row["bound_ms"] = max(t_bytes, t_ops) * 1e3
+                row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+                dropout_row = row
+            result["dropout"].append(row)
+            log(f"[step kernels] hidden dropout {shape} {dtype_name}: forward and backward "
+                f"against the plain version max abs err {err}, equal {row['equal']}, keep "
+                f"share {row['keep_share']:.4f}" + (
+                    f"; kernel {row['kernel_ms'] * 1e3:.1f} us back to back, "
+                    f"{row['device_ms'] * 1e3:.1f} us alone, plain {row['plain_ms'] * 1e3:.1f} "
+                    f"us, F.dropout {row['library_ms'] * 1e3:.1f} us, bound "
+                    f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']})"
+                    if "kernel_ms" in row else ""))
+            assert row["equal"], row
+    result["kernels_line"] = {"adamw": adamw_row, "dropout": dropout_row}
+    for name, fn in counters().items():   # the comparisons do not count
+        fn.launches = saved[name]
+    return result
+
+
 def special_ids(tc):
     """(first-token id, PAD id) of the text tower's vocabulary: RoBERTa's
     ``<s>`` = 0 and ``<pad>`` = 1; for BERT the ``[CLS]`` = 2 and PAD 0 that
@@ -925,11 +1136,16 @@ def make_requests(cfg, seed=0):
 
 
 def counters():
-    """The launch counters of the kernels whose launches a forward makes."""
+    """The launch counters of the kernels a forward or a train step
+    launches: the attention kernels K1-K3, the hidden-dropout kernel and
+    the AdamW kernel."""
+    from d2r_tpu_torch.ops.kernels import adamw
+    from d2r_tpu_torch.ops.kernels import dropout
     from d2r_tpu_torch.ops.kernels import flash_attention as fl
     from d2r_tpu_torch.ops.kernels import fused_attention as fa
     return {"k1": fa.fused_attention_small, "k2": fa.fused_attention_small_bwd,
-            "k3": fl.flash_attention}
+            "k3": fl.flash_attention, "dropout": dropout.hidden_dropout,
+            "adamw": adamw.adamw_update}
 
 
 def zero_counts():
@@ -939,6 +1155,43 @@ def zero_counts():
 
 def read_counts():
     return {name: fn.launches for name, fn in counters().items()}
+
+
+def no_counts():
+    return {name: 0 for name in counters()}
+
+
+ATTENTION = ("k1", "k2", "k3")
+
+
+def attention(counts):
+    """The attention kernels' part of a launch-count dict."""
+    return {k: counts[k] for k in ATTENTION}
+
+
+def host_calls(steps):
+    """Host calls a wrapper makes in ``steps`` train steps of one kind on
+    one batch signature, in one process on the card: one a warm-up step
+    (``train.state.WARMUP_STEPS`` eager steps), one for the capture, none
+    for a replay."""
+    from d2r_tpu_torch.train.state import WARMUP_STEPS
+    return min(steps, WARMUP_STEPS) + (1 if steps > WARMUP_STEPS else 0)
+
+
+def check_step_counts(counts, steps, k1=34, k3=0, k1_recompute=0, k3_recompute=0,
+                      eval_batches=0, eval_k1=None, eval_k3=None):
+    """The launch counts of ``steps`` captured train steps (plus
+    ``eval_batches`` eager eval forwards): K1 and K3 a forward site (and a
+    remat recompute), K2 a K1 site, one AdamW a step, the hidden dropout
+    launched whenever a step ran."""
+    calls = host_calls(steps)
+    eval_k1 = k1 if eval_k1 is None else eval_k1
+    eval_k3 = k3 if eval_k3 is None else eval_k3
+    want = {"k1": (k1 + k1_recompute) * calls + eval_k1 * eval_batches, "k2": k1 * calls,
+            "k3": (k3 + k3_recompute) * calls + eval_k3 * eval_batches}
+    assert attention(counts) == want, (counts, want)
+    assert counts["adamw"] == calls, (counts, calls)
+    assert counts["dropout"] > 0 or steps == 0, counts
 
 
 def phase_main_path(report, key="base"):
@@ -1049,7 +1302,7 @@ def phase_main_path(report, key="base"):
         for mode, fn in (("eager", lambda: pred._forward(*g.inputs)), ("replay", g.graph.replay)):
             for attempt in range(TRACE_ATTEMPTS):
                 result[f"profile_{mode}_b{b}"] = prof = device_profile(fn, 3, "forward")
-                log(f"[profile{spec['tag']}] {mode} bucket {b:2d}: " + json.dumps(prof))
+                log(f"[profile{spec['tag']}] {mode} bucket {b:2d}: " + json.dumps(brief(prof)))
                 wrong = [n for n in ("k1", "k3") if prof.get(f"{n}_kernels_per_forward") != spec[n]]
                 lost = not float(prof.get("kernels_per_forward", 0)).is_integer()
                 if not (wrong and lost):
@@ -1114,7 +1367,14 @@ def device_profile(fn, n, unit):
             f"k1_kernels_per_{unit}": count("fused_attention_fwd"),
             f"k2_kernels_per_{unit}": count("fused_attention_bwd"),
             f"k3_kernels_per_{unit}": count("flash_attention_fwd"),
-            f"top_kernels_ms_per_{unit}": {k[:60]: v / n / 1e3 for k, v in top}}
+            # full names: two kernels may share a long prefix
+            f"top_kernels_ms_per_{unit}": {k: v / n / 1e3 for k, v in top},
+            f"kernel_calls_per_{unit}": {k: c / n for k, c in calls.items()}}
+
+
+def brief(prof):
+    """A profile without its per-kernel call table, for the log."""
+    return {k: v for k, v in prof.items() if not k.startswith("kernel_calls_per_")}
 
 
 def phase_card_vs_cpu(report, key="base", alpha=0.0, sentic=False, quant="none"):
@@ -1215,11 +1475,17 @@ def model_batch(cfg, batch_size, seed):
 
 def phase_train(report, key="base"):
     """Training at full width on the card (bf16 compute, fp32 parameters,
-    4-group AdamW): warm-up, timed steps, the launch counts, what moved, one
-    profiled step."""
+    4-group AdamW), the captured step: warm-up steps, the capture, timed
+    replays, the launch counts, what moved, profiled replays (kernels a
+    step by name: K1, K2, K3, the AdamW kernel, no ``_foreach`` pass but
+    the gradients' zeroing), replays whose host code runs under
+    ``set_sync_debug_mode("error")``; then eager steps of the same state
+    (timed and profiled) and :func:`replay_checks` from the same initial
+    weights."""
+    import numpy as np
     import torch
     from d2r_tpu_torch.ops.kernels import fused_attention as fa
-    from d2r_tpu_torch.train.state import create_train_state, make_train_step
+    from d2r_tpu_torch.train import state as st
 
     spec = MODELS[key]
     tag, batch_size = f"[train{spec['tag']}]", spec["train_batch"]
@@ -1227,15 +1493,16 @@ def phase_train(report, key="base"):
     pad = cfg.text_config().pad_token_id
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    state = create_train_state(cfg, total_steps=1000, device="cuda", seed=0)
+    state = st.create_train_state(cfg, total_steps=1000, device="cuda", seed=0)
     model = state.model
+    weights = {k: v.detach().cpu() for k, v in model.state_dict().items()}
     batch = {k: torch.from_numpy(v).cuda() for k, v in model_batch(cfg, batch_size, 0).items()}
     initial = {n: p.detach().clone() for n, p in model.named_parameters()}
     initial.update({n: b.detach().clone() for n, b in model.named_buffers() if "running" in n})
     log(f"{tag} {spec['label']}, batch {batch_size}, bf16 compute, fp32 parameters: state "
         f"built in {time.perf_counter() - t0:.1f} s; "
         f"{int((batch['input_ids'] == pad).sum())} PAD ids (id {pad}) in the batch")
-    step = make_train_step()
+    step = st.make_train_step()
 
     zero_counts()
     t0 = time.perf_counter()
@@ -1245,17 +1512,15 @@ def phase_train(report, key="base"):
     steps, losses, med = timed["steps"], timed["losses"], timed["step_ms_median"]
     out = {"config": spec["label"], "batch": batch_size, "steps": steps,
            "k1_launches": launches["k1"], "k2_launches": launches["k2"],
-           "k3_launches": launches["k3"], **timed, "wall_s": wall,
+           "k3_launches": launches["k3"], "launches": launches, **timed, "wall_s": wall,
            "g_copies": fa.fused_attention_small_bwd.g_copies,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     report["train" + spec["suffix"]] = out
-    log(f"{tag} {steps} steps: K1 {launches['k1']}, K2 {launches['k2']} and K3 "
-        f"{launches['k3']} launches; losses {[round(x, 4) for x in losses]}")
-    log(f"{tag} step {med:.2f} ms (CUDA events, median of {TIMED_STEPS}), "
-        f"{out['samples_per_s']:.1f} samples/s, peak memory {out['peak_mem_gb']:.1f} GB")
-    for name, per_step in (("k1", spec["k1"]), ("k2", spec["k1"]), ("k3", spec["k3"])):
-        assert launches[name] == per_step * steps, (
-            f"{name.upper()} launched {launches[name]}, expected {per_step} x {steps}")
+    log(f"{tag} {steps} steps ({st.WARMUP_STEPS} eager, the capture, then replays): host "
+        f"calls {launches}; losses {[round(x, 4) for x in losses]}")
+    log(f"{tag} replayed step {med:.2f} ms (CUDA events, median of {TIMED_STEPS}), "
+        f"{out['samples_per_s']:.1f} samples/s, peak memory {out['peak_mem_gb']:.2f} GB")
+    check_step_counts(launches, steps, k1=spec["k1"], k3=spec["k3"])
     assert all(math.isfinite(x) for x in losses), losses
 
     still = [n for n, p in list(model.named_parameters()) + list(model.named_buffers())
@@ -1267,10 +1532,193 @@ def phase_train(report, key="base"):
         f"max |g| {out['pad_row_grad_max']}")
     assert not still, f"did not move: {still}"
     assert out["pad_row_grad_max"] == 0.0
+    del initial
 
-    out["profile"] = prof = device_profile(lambda: step(state, batch, 1), 1, "step")
-    log(f"[profile{spec['tag']}] train step: " + json.dumps(prof))
+    # the replays as the card sees them (traced again while a count is off
+    # in a trace that lost kernel events, as phase 4 does), and their host
+    # code with no sync
+    want = {"k1": spec["k1"], "k2": spec["k1"], "k3": spec["k3"], "adamw": 1}
+    for attempt in range(TRACE_ATTEMPTS):
+        out["profile"] = prof = device_profile(lambda: step(state, batch, 1), 3, "step")
+        names = prof.get("kernel_calls_per_step", {})
+        prof["adamw_kernels_per_step"] = sum(v for k, v in names.items() if "adamw_kernel" in k)
+        log(f"[profile{spec['tag']}] replayed train step: " + json.dumps(brief(prof)))
+        wrong = [n for n in want if prof.get(f"{n}_kernels_per_step") != want[n]]
+        lost = not float(prof.get("kernels_per_step", 0)).is_integer()
+        if not (wrong and lost):
+            break
+        log(f"[profile{spec['tag']}] the trace lost kernel events ({prof['kernels_per_step']} "
+            f"kernels a step on average over three replays of one graph); profiling again")
+    prof["trace_attempts"] = attempt + 1
+    out["optimizer_kernels"] = {k: v for k, v in names.items() if "adamw" in k}
+    out["foreach_kernels"] = {k: v for k, v in names.items() if "multi_tensor_apply" in k}
+    # the earlier optimizer's sixteen passes: scalar, list, tensor-scalar
+    # and unary (sqrt) functors; the step's own zeroing is ZeroFunctor's
+    foreach = {k: v for k, v in out["foreach_kernels"].items()
+               if any(f in k for f in ("BinaryOp", "UnaryOp", "PointwiseOp"))}
+    log(f"{tag} optimizer kernels a replayed step: {out['optimizer_kernels']}; _foreach "
+        f"kernels: {out['foreach_kernels']}")
+    for name in want:
+        assert prof.get(f"{name}_kernels_per_step") == want[name], (name, brief(prof))
+    assert not foreach, foreach
+    sync_free = 3
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(sync_free):
+            step(state, batch, 1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    out["replays_under_sync_debug_error"] = sync_free
+
+    # eager steps of the same state: the step the capture replaced
+    eager_ms = []
+    for _ in range(3):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        st._eager_step(state, batch, 1, False)
+        end.record()
+        state.step += 1
+        torch.cuda.synchronize()
+        eager_ms.append(start.elapsed_time(end))
+
+    def eager():
+        st._eager_step(state, batch, 1, False)
+        state.step += 1
+
+    out["eager_step_ms"] = eager_ms
+    out["eager_step_ms_median"] = float(np.median(eager_ms))
+    out["eager_profile"] = eprof = device_profile(eager, 1, "step")
+    log(f"{tag} eager step {out['eager_step_ms_median']:.2f} ms (CUDA events, median of 3), "
+        f"device busy {eprof.get('device_busy_ms_per_step', float('nan')):.2f} ms, idle share "
+        f"{eprof.get('device_idle_share', float('nan')):.3f}; replayed step {med:.2f} ms, "
+        f"device busy {prof.get('device_busy_ms_per_step', float('nan')):.2f} ms, idle share "
+        f"{prof.get('device_idle_share', float('nan')):.3f}")
+    del state, model, step
+    torch.cuda.empty_cache()
+    out["replay_checks"] = replay_checks(f"{tag} replay", cfg, weights, batch)
     return launches
+
+
+def replay_checks(tag, cfg, weights, batch, seed=1):
+    """The captured step against the eager one from the same ``weights``
+    (a state dict) on ``batch``, with dropout off (a registered dropout-0
+    text preset) and on: ``WARMUP_STEPS`` eager steps, the capture's step
+    and two more replays in one state, the same number of eager steps in
+    another. The losses must agree within 1e-4 of max(1, |loss|) and the
+    updated parameters within 1e-3 of each leaf's max |value| (phase 7's
+    train-step tolerances; replays and eager steps run the same kernels,
+    save for the order of atomic sums); the largest difference and the count
+    of differing elements are reported. With dropout on, after each
+    replayed step K1 is launched at two of the step's dropout sites (one
+    early, one late; D >= S) on q = k = 0 and v = I, from the state's seed
+    buffer: its keep mask must equal the plain mask of the key the eager
+    derivation gives (``fold_in(seed, step)``, ``site_key``) and differ from
+    the previous step's. Those probe launches do not count."""
+    import dataclasses
+    import torch
+    from d2r_tpu_torch import config as tconfig
+    from d2r_tpu_torch.models.layers import fold_in
+    from d2r_tpu_torch.ops import attention as tattn
+    from d2r_tpu_torch.ops.kernels import fused_attention as fa
+    from d2r_tpu_torch.train import state as st
+
+    steps = st.WARMUP_STEPS + 3
+    tc = cfg.text_config()
+    nodrop = f"{cfg.bert_name}-dropout-0"
+    tconfig.register_text_preset(nodrop, lambda tc=tc: dataclasses.replace(
+        tc, hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0))
+    result = {}
+    for dropout, bert_name in (("off", nodrop), ("on", cfg.bert_name)):
+        c = dataclasses.replace(cfg, bert_name=bert_name)
+        state = fresh_state(c, weights)
+        step = st.make_train_step()
+        sites, masks, losses = [], [], []
+        kernel = tattn.fused_attention_small
+
+        def recording(q, k, v, bias, scale, rate=0.0, seed=None):
+            if rate > 0 and q.shape[-1] >= k.shape[1]:
+                sites.append((seed.site, tuple(q.shape), k.shape[1], rate))
+            return kernel(q, k, v, bias, scale, rate, seed)
+
+        for i in range(steps):
+            if i == 0:
+                tattn.fused_attention_small = recording
+            try:
+                state, m = step(state, batch, seed)
+            finally:
+                tattn.fused_attention_small = kernel
+            losses.append(m["loss"])
+            if dropout == "on" and i >= st.WARMUP_STEPS:
+                # the first and the last site of the forward (a remat
+                # recompute calls a site again)
+                by_site = {x[0]: x for x in sites}
+                probe = [by_site[min(by_site)], by_site[max(by_site)]]
+                masks.append(probe_masks(state, probe, fold_in(seed, i)))
+        captured = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+        del state, step
+        torch.cuda.empty_cache()
+        ref = fresh_state(c, weights)
+        ref_losses = []
+        for _ in range(steps):
+            ref_losses.append(st._eager_step(ref, batch, seed, False)["loss"])
+            ref.step += 1
+        torch.cuda.synchronize()
+        loss_diff = max(abs(float(a) - float(b)) for a, b in zip(losses, ref_losses))
+        rel, differing, total = 0.0, 0, 0
+        for n, p in ref.model.named_parameters():
+            d = (captured[n] - p).abs()
+            rel = max(rel, (d.max() / p.abs().max().clamp_min(1e-30)).item())
+            differing += int((d > 0).sum())
+            total += p.numel()
+        del ref, captured
+        torch.cuda.empty_cache()
+        r = result[f"dropout_{dropout}"] = {
+            "losses_replayed": [float(x) for x in losses],
+            "losses_eager": [float(x) for x in ref_losses], "loss_max_abs_diff": loss_diff,
+            "param_max_rel_diff": rel, "param_elements_differing": differing,
+            "param_elements": total}
+        log(f"{tag} dropout {dropout}: {steps} steps ({st.WARMUP_STEPS} eager, then 3 "
+            f"replayed) against {steps} eager: losses max abs diff {loss_diff:.3g}; updated "
+            f"parameters max diff {rel:.3g} of the leaf's max |value|, {differing} of "
+            f"{total} elements differing")
+        assert loss_diff <= 1e-4 * max(1.0, max(abs(float(x)) for x in ref_losses)), r
+        assert rel <= 1e-3, r
+        if dropout == "on":
+            r["probe_sites"] = [[x[0], list(x[1]), x[2], x[3]] for x in probe]
+            r["masks"] = masks
+            log(f"{tag} K1 masks at sites {[x[0] for x in probe]} after each replayed step: "
+                + json.dumps(masks))
+            assert all(m["equal_to_eager"] for step_masks in masks for m in step_masks), masks
+            for a, b in zip(masks, masks[1:]):
+                assert all(x["keep_hash"] != y["keep_hash"] for x, y in zip(a, b)), masks
+    return result
+
+
+def probe_masks(state, sites, step_seed):
+    """K1's keep mask at each of ``sites`` ((site, q shape, S, rate)) from
+    the state's seed buffer, read back through q = k = 0 (p = 1/S) and
+    v = I: whether it equals the plain mask of ``site_key(step_seed,
+    site)``, its keep share and a hash of it. The launches do not count."""
+    import torch
+    from d2r_tpu_torch.ops.kernels import fused_attention as fa
+    out = []
+    before = fa.fused_attention_small.launches
+    for site, (b, l, h, d), s, rate in sites:
+        dt = state.model.cfg.dtype
+        q = torch.zeros((b, l, h, d), dtype=dt, device="cuda")
+        k = torch.zeros((b, s, h, d), dtype=dt, device="cuda")
+        v = torch.eye(s, d, dtype=dt, device="cuda")[None, :, None, :].expand(b, s, h, d)
+        got = fa.fused_attention_small(q, k, v.contiguous(), None, 1.0, rate,
+                                       fa.DropoutSeed(state.seed, site))
+        keep = (got[..., :s].float() > 0).permute(0, 2, 1, 3)
+        want = fa.dropout_keep_mask(fa.site_key(step_seed, site), b, h, l, s, rate, "cuda")
+        out.append({"site": site, "equal_to_eager": bool(torch.equal(keep, want)),
+                    "keep_share": keep.float().mean().item(),
+                    "keep_hash": int((keep.flatten().long() * torch.arange(
+                        keep.numel(), device="cuda")).sum().item())})
+    fa.fused_attention_small.launches = before
+    return out
 
 
 def condition_fabric(model):
@@ -1398,15 +1846,21 @@ def phase_train_card_vs_cpu(report, key="base", sentic=False):
 
 
 def trace_kernel_ms(path):
-    """ms of K1 and K2 in a torch.profiler chrome trace, and the device busy
-    ms (the union of its kernels' spans)."""
+    """ms and kernel counts of K1, K2 and the AdamW kernel in a
+    torch.profiler chrome trace, and the device busy ms (the union of its
+    kernels' spans)."""
     with open(path) as f:
         events = [e for e in json.load(f)["traceEvents"]
                   if e.get("cat") == "kernel" and e.get("dur", 0) > 0]
-    k1 = sum(e["dur"] for e in events if "fused_attention_fwd" in e["name"]) / 1e3
-    k2 = sum(e["dur"] for e in events if "fused_attention_bwd" in e["name"]) / 1e3
+    of = lambda key: [e for e in events if key in e["name"]]
     spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events)
-    return {"k1_ms": k1, "k2_ms": k2, "busy_ms": busy_time(spans) / 1e3,
+    return {"k1_ms": sum(e["dur"] for e in of("fused_attention_fwd")) / 1e3,
+            "k2_ms": sum(e["dur"] for e in of("fused_attention_bwd")) / 1e3,
+            "adamw_ms": sum(e["dur"] for e in of("adamw_kernel")) / 1e3,
+            "k1_kernels": len(of("fused_attention_fwd")),
+            "k2_kernels": len(of("fused_attention_bwd")),
+            "adamw_kernels": len(of("adamw_kernel")),
+            "busy_ms": busy_time(spans) / 1e3,
             "window_ms": (spans[-1][1] - spans[0][0]) / 1e3, "kernels": len(events)}
 
 
@@ -1415,11 +1869,12 @@ def phase_train_cli(report):
     on a fabricated dataset (``TRAINER_DATA``, corrupt images included),
     D2R-base at ``run.sh``'s recipe for ``TRAINER_EPOCHS`` epochs; then the
     restore probe, ``--only_test --load_path <best_model>``, whose test loss
-    must equal the trained run's bit for bit. Launch counts: 34 K1 and 34 K2
-    a train step, 34 K1 an eval batch. ``--steps_per_dispatch`` is
-    ``TRAINER_DISPATCH``; the step statistics leave out the dispatch that
-    warms up (the first) and the one ``--profile_dir`` traces (the
-    second)."""
+    must equal the trained run's bit for bit. The trainer runs the captured
+    step: host calls 34 K1 and 34 K2 a warm-up step and the capture, none a
+    replay, 34 K1 an eval batch; the traced dispatch (the first replay)
+    holds K1, K2 and AdamW kernels, counted.
+    ``--steps_per_dispatch`` is ``TRAINER_DISPATCH``; the step statistics
+    leave out the warm-up dispatches, the capture's and the traced one."""
     import logging
     import shutil
     import numpy as np
@@ -1483,7 +1938,8 @@ def phase_train_cli(report):
         eval_batches = batches * (len(dev) + 1)
         best = os.path.join(out, "train", "best_model")
         prof = trace_kernel_ms(os.path.join(out, "profile", "trace.json"))
-        timed = summary["step_ms"][2:]   # neither the first nor the traced dispatch
+        # neither the warm-up dispatches, the capture's nor the traced one
+        timed = summary["step_ms"][host_calls(steps) + 1:]
         quartiles = [float(x) for x in np.percentile(timed, [0, 25, 50, 75, 100])]
         # the epoch loop's time by part: the dispatches' CUDA-event spans,
         # the dev evaluations, the best-model saves, and the host's other
@@ -1516,8 +1972,8 @@ def phase_train_cli(report):
             f"{loop_s:.2f} s epoch loop: " + ", ".join(
                 f"{k} {v:.2f} s ({v / loop_s:.1%})" for k, v in parts.items()))
         log(f"[train_cli] step ms (CUDA events, {TRAINER_DISPATCH} step(s) a dispatch; "
-            f"{len(timed)} of {len(summary['step_ms'])} dispatches, the warm-up and the "
-            f"traced one left out): median {quartiles[2]:.2f}, min / q1 / q3 / max "
+            f"{len(timed)} of {len(summary['step_ms'])} dispatches, the warm-up, capture and "
+            f"traced ones left out): median {quartiles[2]:.2f}, min / q1 / q3 / max "
             f"{quartiles[0]:.2f} / {quartiles[1]:.2f} / {quartiles[3]:.2f} / "
             f"{quartiles[4]:.2f}; all {[round(x, 2) for x in summary['step_ms']]}")
         bare = report.get("train", {}).get("step_ms_median")
@@ -1530,15 +1986,19 @@ def phase_train_cli(report):
         log(f"[train_cli] dev eval ms {[round(x, 1) for x in summary['eval_ms']]}; checkpoint "
             f"save ms {[round(x, 1) for x in summary['checkpoint_save_ms']]}, bytes "
             f"{summary['checkpoint_bytes']}")
-        log(f"[train_cli] traced dispatch ({TRAINER_DISPATCH} step(s)): K1 "
-            f"{prof['k1_ms'] / TRAINER_DISPATCH:.3f} ms and K2 "
-            f"{prof['k2_ms'] / TRAINER_DISPATCH:.3f} ms a step, device busy "
+        log(f"[train_cli] traced dispatch ({TRAINER_DISPATCH} replayed step(s)): "
+            f"{prof['k1_kernels']} K1, {prof['k2_kernels']} K2, {prof['adamw_kernels']} AdamW "
+            f"kernels; K1 {prof['k1_ms'] / TRAINER_DISPATCH:.3f} ms, K2 "
+            f"{prof['k2_ms'] / TRAINER_DISPATCH:.3f} ms and AdamW "
+            f"{prof['adamw_ms'] / TRAINER_DISPATCH:.3f} ms a step, device busy "
             f"{prof['busy_ms'] / TRAINER_DISPATCH:.2f} ms a step in a "
             f"{prof['window_ms'] / TRAINER_DISPATCH:.2f} ms window")
         log(f"[train_cli] losses by window {[round(x, 4) for x in result['train_losses']]}; "
             f"dev F1 {[round(r['f_score'], 4) for r in dev]}; test loss {test['loss']!r}")
-        assert launches["k2"] == 34 * steps, launches
-        assert launches["k1"] == 34 * (steps + eval_batches), launches
+        check_step_counts(launches, steps, eval_batches=eval_batches)
+        # one trace of one dispatch, which cannot be taken again: the kernels
+        # are there (a trace may lose a few events; phase 6 counts exactly)
+        assert min(prof["k1_kernels"], prof["k2_kernels"], prof["adamw_kernels"]) > 0, prof
         assert all(math.isfinite(x) for x in result["train_losses"] + [test["loss"]])
         assert any(m.startswith("Save best model") for m in messages), "no best model saved"
         assert os.path.exists(os.path.join(out, "train", "config.json"))
@@ -1553,7 +2013,7 @@ def phase_train_cli(report):
         result["restore_probe"] = {"test_loss": probe["loss"], "launches": probe_launches}
         log(f"[train_cli] restore probe: test loss {probe['loss']!r} (trained run "
             f"{test['loss']!r}), K1 {probe_launches['k1']}, K2 {probe_launches['k2']}")
-        assert probe_launches == {"k1": 34 * batches, "k2": 0, "k3": 0}, probe_launches
+        assert probe_launches == {**no_counts(), "k1": 34 * batches}, probe_launches
         assert probe["loss"] == test["loss"] and probe["f_score"] == test["f_score"]
         return {n: launches[n] + probe_launches[n] for n in launches}
     finally:
@@ -1873,7 +2333,7 @@ def phase_serve_http(report):
         want = 2 * MODELS["base"]["k1"] * len(BUCKETS) * 3
         log(f"[serve_http] K1 host calls {launches['k1']} (3 builds of {len(BUCKETS)} "
             f"buckets, eager + capture), K3 {launches['k3']}")
-        assert launches == {"k1": want, "k2": 0, "k3": 0}, launches
+        assert launches == {**no_counts(), "k1": want}, launches
         return launches
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -2025,7 +2485,7 @@ def phase_pretrained(report):
             "--num_epochs", "1", "--train_json", paths["train"], "--dev_json", paths["dev"],
             "--test_json", paths["test"], "--img_dir", paths["img_dir"],
             "--steps_per_dispatch", str(TRAINER_DISPATCH), "--pretrained_dir", pre]
-        launches = {"k1": 0, "k2": 0, "k3": 0}
+        launches = no_counts()
         for name, extra in (("fine_tune", []), ("frozen", ["--freeze_towers"])):
             records, counts, wall = cli_run(flags, root, name, extra)
             summary = next(r for r in records if r["kind"] == "summary")
@@ -2037,7 +2497,7 @@ def phase_pretrained(report):
             result[name] = {
                 "samples_per_sec": summary["samples_per_sec"], "steps": steps,
                 "eval_batches": eval_batches, "wall_s": wall, "launches": counts,
-                "step_ms_median": float(np.median(summary["step_ms"][1:])),
+                "step_ms_median": float(np.median(summary["step_ms"][host_calls(steps):])),
                 "test_loss": test["loss"], "test_f_score": test["f_score"],
                 "tower_tensors_differing_from_files": len(differ)}
             log(f"[pretrained] CLI {name} ({' '.join(extra) or 'towers trained'}), one epoch: "
@@ -2046,7 +2506,7 @@ def phase_pretrained(report):
                 f"{result[name]['step_ms_median']:.2f} ms; K1 {counts['k1']}, K2 "
                 f"{counts['k2']}; test loss {test['loss']!r}; best model's tower tensors "
                 f"differing from the files: {len(differ)} of {compared}")
-            assert counts == {"k1": 34 * (steps + eval_batches), "k2": 34 * steps, "k3": 0}, counts
+            check_step_counts(counts, steps, eval_batches=eval_batches)
             assert math.isfinite(test["loss"])
             launches = {k: launches[k] + counts[k] for k in launches}
             del best
@@ -2122,10 +2582,13 @@ def phase_train_scaled(report):
     the three knobs; ``remat`` against no remat and, at D2R-base,
     ``remat_ffn_act`` against none, one step each from the same weights and
     batch, dropout off then on with one seed: losses and updated parameters
-    within 1e-6 of each leaf's max |value|; then the CLI for one epoch of 64
-    posts with all of the recipe's flags and ``--pretrained_dir``.
+    within 1e-6 of each leaf's max |value|; the recipe's captured step
+    against its eager step (:func:`replay_checks`); then the CLI for one
+    epoch of 64 posts with all of the recipe's flags and
+    ``--pretrained_dir``.
 
-    Launches a step: without remat K1, K2 and K3 29 times each (phase 10).
+    Host calls a step (a warm-up step's and the capture's; a replay makes
+    none): without remat K1, K2 and K3 29 times each (phase 10).
     ``remat`` runs each of the 24 RoBERTa-large and 24 CLIP-L tower layers'
     forward again in the backward: 29 + 24 = 53 K1 and 53 K3 host calls a
     step, K2 29 (the backward is not repeated). ``remat_ffn_act``
@@ -2149,7 +2612,7 @@ def phase_train_scaled(report):
     remat_k3 = large["k3"] + model_config("large").vision_config().num_hidden_layers
     per_step = {"recipe": {"k1": remat_k1, "k2": large["k1"], "k3": remat_k3},
                 "without_knobs": {"k1": large["k1"], "k2": large["k1"], "k3": large["k3"]}}
-    launches = {"k1": 0, "k2": 0, "k3": 0}
+    launches = no_counts()
     try:
         cfg = scaled_config()
         t0 = time.perf_counter()
@@ -2206,7 +2669,10 @@ def phase_train_scaled(report):
             log(f"[train_scaled] {name}: step {med:.2f} ms (CUDA events, median of "
                 f"{TIMED_STEPS}), {r['samples_per_s']:.1f} samples/s, peak memory "
                 f"{r['peak_mem_gb']:.2f} GB; Adam mu {r['adam_mu_dtypes']}; launches {counts}")
-            assert counts == {k: v * steps for k, v in per_step[name].items()}, counts
+            per = per_step[name]
+            check_step_counts(counts, steps, k1=per["k2"], k3=large["k3"],
+                              k1_recompute=per["k1"] - per["k2"],
+                              k3_recompute=per["k3"] - large["k3"])
             assert all(math.isfinite(x) for x in r["losses"]), r["losses"]
             launches = {k: launches[k] + counts[k] for k in launches}
         torch.cuda.empty_cache()
@@ -2215,6 +2681,9 @@ def phase_train_scaled(report):
         result["peak_mem_ratio"] = r["peak_mem_gb"] / p["peak_mem_gb"]
         log(f"[train_scaled] recipe / without the knobs: step ms {result['step_ms_ratio']:.3f}, "
             f"peak memory {result['peak_mem_ratio']:.3f}")
+        # the recipe's captured step (remat, scanned layers, bf16 moments)
+        # against its eager step
+        result["replay_checks"] = replay_checks("[train_scaled] replay", cfg, weights, batch)
 
         # remat against none (large) and remat_ffn_act against none (base):
         # the same weights, batch and dropout seed, dropout off then on
@@ -2242,7 +2711,7 @@ def phase_train_scaled(report):
                 log(f"[train_scaled] {knob} against none, {MODELS[key]['label']}, dropout "
                     f"{dropout}: loss {loss_a!r} / {loss_b!r}, updated parameters' max diff "
                     f"{rel:.3g} of the leaf's max |value|; launches with {knob} {counts}")
-                assert counts == expect, (counts, expect)
+                assert attention(counts) == expect, (counts, expect)
                 assert c["loss_abs_diff"] <= 1e-6 * max(1.0, abs(loss_a)) and rel <= 1e-6, c
         result["equality"] = checks
 
@@ -2269,9 +2738,9 @@ def phase_train_scaled(report):
             f"{SCALED_CLI_DATA['n']} posts, one epoch: {steps} steps, {eval_batches} eval "
             f"batches, {wall:.1f} s; launches {counts}; test loss {test['loss']!r}")
         assert result["cli"]["config"] == SCALED_KNOBS, result["cli"]["config"]
-        assert counts == {"k1": remat_k1 * steps + large["k1"] * eval_batches,
-                          "k2": large["k1"] * steps,
-                          "k3": remat_k3 * steps + large["k3"] * eval_batches}, counts
+        check_step_counts(counts, steps, k1=large["k1"], k3=large["k3"],
+                          k1_recompute=remat_k1 - large["k1"],
+                          k3_recompute=remat_k3 - large["k3"], eval_batches=eval_batches)
         assert math.isfinite(test["loss"])
         launches = {k: launches[k] + counts[k] for k in launches}
         report["train_scaled"] = result
@@ -2341,7 +2810,7 @@ def step_runs(report_key, runs, batch, weights, after=None):
     state, result)``. Returns ({name: result}, the launch counts summed)."""
     import torch
     from d2r_tpu_torch.models.unimo import D2RClassifier
-    out, total = {}, {"k1": 0, "k2": 0, "k3": 0}
+    out, total = {}, no_counts()
     for name, cfg, extra in runs:
         keys = set(D2RClassifier(cfg).state_dict())
         torch.cuda.empty_cache()
@@ -2359,7 +2828,7 @@ def step_runs(report_key, runs, batch, weights, after=None):
             f"{TIMED_STEPS}), {r['samples_per_s']:.1f} samples/s, peak {r['peak_mem_gb']:.2f} GB; "
             f"K1 / K2 / K3 {counts['k1']} / {counts['k2']} / {counts['k3']} in {r['steps']} "
             f"steps; losses {[round(x, 4) for x in r['losses']]}")
-        assert counts == {"k1": 34 * r["steps"], "k2": 34 * r["steps"], "k3": 0}, counts
+        check_step_counts(counts, r["steps"])
         assert all(math.isfinite(x) for x in r["losses"]), r["losses"]
         total = {n: total[n] + counts[n] for n in total}
         if after is not None:
@@ -2441,7 +2910,7 @@ def phase_sentic(report):
             f"{cli['loader_wait_ms_median']:.2f} ms"
             + (f" (phase 12 without the graph: {plain_wait:.2f})" if plain_wait else "")
             + f"; test loss {test['loss']!r}")
-        assert counts == {"k1": 34 * (steps + eval_batches), "k2": 34 * steps, "k3": 0}, counts
+        check_step_counts(counts, steps, eval_batches=eval_batches)
         assert math.isfinite(test["loss"])
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -2499,7 +2968,7 @@ def phase_int8(report):
     import torch.nn.functional as F
     from d2r_tpu_torch.models.unimo import build_model
     from d2r_tpu_torch.ops import qdot
-    from d2r_tpu_torch.train.state import make_train_step
+    from d2r_tpu_torch.train import state as st
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2552,10 +3021,15 @@ def phase_int8(report):
                               quant_train=mode) for mode in qdot.MODES}
     weights = build_model(cfg["none"], device="cpu", seed=0).state_dict()
     batch = {k: torch.from_numpy(v).cuda() for k, v in model_batch(cfg["none"], TRAIN_BATCH, 0).items()}
-    step = make_train_step()
 
     def after(mode, state, r, b):
-        r["profile"] = op_profile(lambda: step(state, b, 1))
+        # an eager step: a replay's kernels carry no aten op to attribute
+        # them to
+        def eager():
+            st._eager_step(state, b, 1, False)
+            state.step += 1
+
+        r["profile"] = op_profile(eager)
         log(f"[int8] {mode} traced step: " + json.dumps(
             {k: v for k, v in r["profile"].items() if k != "top_ops_ms"}))
 
@@ -2599,7 +3073,7 @@ def phase_extras(report):
     root = os.path.join("build", "chip_smoke_extras")
     shutil.rmtree(root, ignore_errors=True)
     result = report["extras"] = {"runs": {}}
-    total = {"k1": 0, "k2": 0, "k3": 0}
+    total = no_counts()
 
     def add(counts):
         for n in total:
@@ -2637,7 +3111,7 @@ def phase_extras(report):
         result["dry_run"] = {"line": line, "launches": counts, "wall_s": time.perf_counter() - t0}
         log(f"[extras] --dry_run: {json.dumps(printed)}; K1 / K2 {counts['k1']} / {counts['k2']}")
         assert printed == line and set(line) == DRY_RUN_KEYS, line
-        assert counts == {"k1": 34, "k2": 34, "k3": 0}, counts
+        check_step_counts(counts, 1)
         assert not os.path.exists(os.path.join(root, "dry"))
 
         paths = write_fake_dataset(os.path.join(root, "data"), **EXTRAS_DATA)
@@ -2660,7 +3134,7 @@ def phase_extras(report):
                 f"{eval_batches} eval batches in {wall:.1f} s; K1 / K2 {counts['k1']} / "
                 f"{counts['k2']}; losses {[round(x, 4) for x in losses]}, test loss "
                 f"{test['loss']!r}; best-model save {summary['checkpoint_save_ms']} ms")
-            assert counts == {"k1": 34 * (steps + eval_batches), "k2": 34 * steps, "k3": 0}, counts
+            check_step_counts(counts, steps, eval_batches=eval_batches)
             assert all(math.isfinite(x) for x in losses + [test["loss"]]), losses
             add(counts)
             return r
@@ -2868,6 +3342,7 @@ def mesh_bf16_steps(mesh, steps, weights):
     import torch
     from d2r_tpu_torch.models.unimo import D2RClassifier
     from d2r_tpu_torch.ops import attention
+    from d2r_tpu_torch.ops.kernels.fused_attention import dropout_key
     from d2r_tpu_torch.parallel.mesh import replica_mismatches
     from d2r_tpu_torch.train.state import create_train_state, make_train_step
     cfg = model_config("base", batch_size=TRAIN_BATCH, compute_dtype="bfloat16")
@@ -2881,7 +3356,8 @@ def mesh_bf16_steps(mesh, steps, weights):
     kernel = attention.fused_attention_small
 
     def recording(q, k, v, bias, scale, rate=0.0, seed=None):
-        calls.append((seed, rate, tuple(q.shape[1:])))
+        # the site's Philox key, read from the seed buffer (a sync a call)
+        calls.append((None if seed is None else dropout_key(seed), rate, tuple(q.shape[1:])))
         return kernel(q, k, v, bias, scale, rate, seed)
 
     attention.fused_attention_small = recording
@@ -2949,8 +3425,9 @@ def check_mesh(shape, ranks):
         assert e["step_loss_rel"] <= MESH_STEP_RTOL, e
         assert e.get("params_beyond_tol", 0) == 0 and e.get("grads_beyond_tol", 0) == 0, e
         b = r["bf16"]
-        assert b["launches"] == {"k1": 34 * PARALLEL_BF16_STEPS, "k2": 34 * PARALLEL_BF16_STEPS,
-                                 "k3": 0}, b["launches"]
+        assert attention(b["launches"]) == {"k1": 34 * PARALLEL_BF16_STEPS,
+                                            "k2": 34 * PARALLEL_BF16_STEPS, "k3": 0}, b["launches"]
+        assert b["launches"]["adamw"] == PARALLEL_BF16_STEPS, b["launches"]
         assert all(math.isfinite(x) for x in b["losses"]), b["losses"]
         heads = {(l, d): h for _, _, (l, h, d) in b["calls"]}
         assert heads == {(64, 64): 12 // tp, (50, 64): 12 // tp, (64, 48): 16 // tp,
@@ -2979,7 +3456,7 @@ def mesh_phase(report, name):
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
     result = report[name] = {}
-    total = {"k1": 0, "k2": 0, "k3": 0}
+    total = no_counts()
     try:
         t0 = time.perf_counter()
         ref = mesh_fp32_run(mesh_base_model())
@@ -3048,8 +3525,10 @@ def phase_train_tp(report):
 def phase_train_cli_mp(report):
     """Phase 22: the CLI as one NCCL process, ``--coordinator_address
     127.0.0.1:<free> --num_processes 1 --process_id 0``, at run.sh's recipe
-    for one epoch on :data:`EXTRAS_DATA`: 34 K1 + 34 K2 a train step and 34
-    K1 an eval batch, the process group up under NCCL and ended at exit;
+    for :data:`MP_EPOCHS` epochs on :data:`EXTRAS_DATA`: a world of one
+    captures its step (34 K1 + 34 K2 host calls a warm-up step and the
+    capture), 34 K1 an eval batch, the process group up under NCCL and
+    ended at exit;
     then its restore probe in a process group of its own, whose test loss
     equals the run's bit for bit. With two cards or more, also two NCCL
     processes (dp = 2); with one, that is logged as not run."""
@@ -3073,9 +3552,10 @@ def phase_train_cli_mp(report):
 
     distributed.initialize = recording
     try:
+        # two epochs, four steps: the warm-up steps, the capture and a replay
         paths = write_fake_dataset(os.path.join(root, "data"), **EXTRAS_DATA)
         flags = TRAINER_RECIPE + [
-            "--num_epochs", "1", "--train_json", paths["train"], "--dev_json", paths["dev"],
+            "--num_epochs", str(MP_EPOCHS), "--train_json", paths["train"], "--dev_json", paths["dev"],
             "--test_json", paths["test"], "--img_dir", paths["img_dir"],
             "--steps_per_dispatch", "1"]
         world = lambda: ["--coordinator_address", f"127.0.0.1:{free_port()}",
@@ -3086,7 +3566,7 @@ def phase_train_cli_mp(report):
         assert backends == [("nccl", 1)], backends
         steps, evals = cli_counts(records, TRAIN_BATCH, EXTRAS_DATA["n"])
         test = next(r for r in records if r["kind"] == "test")
-        assert counts == {"k1": 34 * (steps + evals), "k2": 34 * steps, "k3": 0}, counts
+        check_step_counts(counts, steps, eval_batches=evals)
         assert math.isfinite(test["loss"]), test
         best = os.path.join(out, "nccl_world_1", "best_model")
         probe, probe_counts, probe_s = cli_run(flags + world(), out, "probe",
@@ -3134,7 +3614,8 @@ def main():
     report = {"card": card_line()}
     log(f"[card] {report['card']}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     paths = {}   # launch counts of each path's run, by phase
-    phases = [("build", phase_build), ("kernels", phase_kernels), ("k3", phase_k3)]
+    phases = [("build", phase_build), ("kernels", phase_kernels), ("k3", phase_k3),
+              ("step_kernels", phase_step_kernels)]
     for key in MODELS:
         suffix = MODELS[key]["suffix"]
         phases += [("main_path" + suffix, lambda r, k=key: phase_main_path(r, k)),
@@ -3196,7 +3677,8 @@ def main():
     k3 = next(r for r in report["k3_sites"] if r["site"] == "clip_l" and r["dtype"] == "bfloat16")
     k1_err = max(r["max_abs_err"] for r in
                  report["k1_sites"] + report["k1_edges"] + report["k1_dropout"])
-    launches = {n: sum(c[n] for c in paths.values()) for n in ("k1", "k2", "k3")}
+    launches = {n: sum(c.get(n, 0) for c in paths.values()) for n in counters()}
+    step_kernels = report["step_kernels"]["kernels_line"]
     row = lambda r: {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                        "device_ms", "library_device_ms")}
     print(json.dumps({"kernels": [
@@ -3213,7 +3695,19 @@ def main():
          "source": "d2r_tpu_torch/csrc/flash_attention_fwd.cu",
          "replaces": "d2r_tpu/ops/kernels/flash_attention.py:37",
          "launches": launches["k3"],
-         "max_abs_err": max(r["max_abs_err"] for r in report["k3_sites"]), **row(k3)}]}))
+         "max_abs_err": max(r["max_abs_err"] for r in report["k3_sites"]), **row(k3)},
+        {"name": "adamw", "route": "cuda", "source": "d2r_tpu_torch/csrc/adamw.cu",
+         "replaces": "none: d2r_tpu/train/optimizer.py:112,181 (fused_adamw, fused_leaf_adamw;"
+                     " XLA fusions, no pl.pallas_call)",
+         "launches": launches["adamw"],
+         "max_abs_err": max(r["max_abs_err"] for r in report["step_kernels"]["adamw"]),
+         **row({**step_kernels["adamw"], "ms": step_kernels["adamw"]["kernel_ms"]})},
+        {"name": "hidden_dropout", "route": "cuda", "source": "d2r_tpu_torch/csrc/dropout.cu",
+         "replaces": "none: d2r_tpu/models/bert.py:99,144,173 (nn.Dropout, jax.random;"
+                     " no pl.pallas_call)",
+         "launches": launches["dropout"],
+         "max_abs_err": max(r["max_abs_err"] for r in report["step_kernels"]["dropout"]),
+         **row({**step_kernels["dropout"], "ms": step_kernels["dropout"]["kernel_ms"]})}]}))
     print(report["card"])
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -183,14 +183,19 @@ PRNG_IMPLS = ("rbg", "threefry2x32")
 # the two tensor-parallel layout hints, quantized training under a model
 # axis and serving over a mesh
 _PARALLEL_NEXT = "Queue 1 item 9b (parallel, next slice)"
-# (field, the CLI flag that sets it, test that it is in use, the ROADMAP.md
-# item that ports it): run-level settings of the JAX package the port has no
-# counterpart for; the model and the trainer both refuse them
+# (field, the CLI flag that sets it, test that it is in use given the size
+# of the model axis the run has, the ROADMAP.md item that ports it): the
+# JAX package's layout settings the port has no counterpart for where they
+# act. Where JAX reads them as no-ops (no model axis larger than 1, one
+# pipeline stage: d2r_tpu/parallel/mesh.py:200-205,228-236 and
+# d2r_tpu/models/bert.py:225-239) they are accepted; the model and the
+# trainer both refuse the rest
 UNPORTED = (
     ("pipeline_microbatches", "--pipeline_microbatches",
-     lambda c: c.pipeline_microbatches != 0, _PARALLEL_NEXT),
-    ("seq_shard", "--seq_shard", lambda c: c.seq_shard, _PARALLEL_NEXT),
-    ("fabric_shard", "--fabric_shard", lambda c: c.fabric_shard, _PARALLEL_NEXT),
+     lambda c, tp: c.pipeline_microbatches != 0 and c.pipeline_stages > 1, _PARALLEL_NEXT),
+    ("seq_shard", "--seq_shard", lambda c, tp: c.seq_shard and tp > 1, _PARALLEL_NEXT),
+    ("fabric_shard", "--fabric_shard", lambda c, tp: c.fabric_shard and tp > 1,
+     _PARALLEL_NEXT),
 )
 
 
@@ -320,15 +325,19 @@ class D2RConfig:
             raise ValueError(f"unknown compute_dtype {self.compute_dtype!r}")
         return dt
 
-    def check_supported(self, world: int = 1) -> None:
+    def check_supported(self, world: int = 1, model_axis: Optional[int] = None) -> None:
         """Raise on settings the port cannot honour yet (it never ignores
         one silently): those of :data:`UNPORTED`, named with their flag and
         the ROADMAP.md item that ports it, and the values below. An unknown
         ``quant_train`` mode raises the JAX package's ``ValueError``.
-        ``world`` is the number of processes that train together."""
+        ``world`` is the number of processes that train together;
+        ``model_axis`` the size of the model axis the caller runs under
+        (default: ``mesh_shape``'s; 1 for a model built whole in one
+        process, as serving and ``build_model`` build it)."""
         check_mode(self.quant_train)
+        tp = self.model_axis_size() if model_axis is None else model_axis
         bad = [f"{field}={getattr(self, field)!r} ({flag}, ROADMAP.md {item})"
-               for field, flag, used, item in UNPORTED if used(self)]
+               for field, flag, used, item in UNPORTED if used(self, tp)]
         if self.pipeline_stages > 1:
             bad.append(f"pipeline_stages={self.pipeline_stages} (--mesh_stage, "
                        f"ROADMAP.md {_PARALLEL_NEXT})")

@@ -1,13 +1,23 @@
-// Dropout bits of the fused-attention kernels (K1, K2): Philox4x32-10.
+// Dropout bits of the port's kernels (K1, K2 and the hidden-dropout
+// kernel): Philox4x32-10.
+//
+// Seeds live in device memory. A launch gets a pointer to the step's 64-bit
+// seed and a host site index; the kernel derives the site's Philox key as
+// site_key(seed, site) = splitmix64(seed + site), so one buffer written
+// before a step (or a CUDA-graph replay) reseeds every site of it, and no
+// seed is baked into a launch. The same function is
+// d2r_tpu_torch/ops/kernels/fused_attention.py::site_key.
 //
 // Element (b, h, i, j) of the (B, H, L, S) probability tile takes word
 // j % 4 of Philox4x32-10 at counter (j / 4, i, h, b) under the key
-// (seed mod 2^32, seed >> 32). The mask therefore depends on no grid or
+// (key mod 2^32, key >> 32). The mask therefore depends on no grid or
 // tile size: K1 and K2 regenerate the same bits without storing them, and
 // d2r_tpu_torch/ops/kernels/fused_attention.py::dropout_keep_mask computes
 // them in plain tensor ops. An element is kept iff its bits are >= the
 // threshold min(int(rate * 2^32), 2^32 - 1), the rule of
-// d2r_tpu/ops/kernels/fused_attention.py::_keep_mask.
+// d2r_tpu/ops/kernels/fused_attention.py::_keep_mask. Element e of a
+// flat tensor (hidden dropout, dropout.cu) takes word e % 4 at counter
+// ((e / 4) mod 2^32, (e / 4) >> 32, 0, 0).
 //
 // Rounds and key schedule as Random123's philox4x32_R and cuRAND's
 // curand_Philox4x32_10; the tests hold the plain version to Random123's
@@ -19,14 +29,27 @@
 
 namespace d2r {
 
-// The four words of the call that covers keys 4 (j / 4) .. 4 (j / 4) + 3
-// of row i: word w belongs to key 4 (j / 4) + w.
-__device__ __forceinline__ uint4 dropout_words(unsigned long long seed, uint32_t b,
-                                               uint32_t h, uint32_t i, uint32_t j) {
+// splitmix64 (Steele et al., OOPSLA'14), the finaliser of Java's
+// SplittableRandom.
+__device__ __forceinline__ unsigned long long splitmix64(unsigned long long x) {
+  x += 0x9E3779B97F4A7C15ull;
+  x = (x ^ (x >> 30)) * 0xBF58476D1CE4E5B9ull;
+  x = (x ^ (x >> 27)) * 0x94D049BB133111EBull;
+  return x ^ (x >> 31);
+}
+
+// The Philox key of dropout site `site` of the step whose seed is *seed.
+__device__ __forceinline__ unsigned long long site_key(const unsigned long long* seed,
+                                                       uint32_t site) {
+  return splitmix64(*seed + site);
+}
+
+// Philox4x32-10 of counter (c0, c1, c2, c3) under the 64-bit key.
+__device__ __forceinline__ uint4 philox4x32_10(uint32_t c0, uint32_t c1, uint32_t c2,
+                                               uint32_t c3, unsigned long long key) {
   constexpr uint32_t kM0 = 0xD2511F53u, kM1 = 0xCD9E8D57u;
   constexpr uint32_t kW0 = 0x9E3779B9u, kW1 = 0xBB67AE85u;
-  uint32_t c0 = j >> 2, c1 = i, c2 = h, c3 = b;
-  uint32_t k0 = (uint32_t)seed, k1 = (uint32_t)(seed >> 32);
+  uint32_t k0 = (uint32_t)key, k1 = (uint32_t)(key >> 32);
 #pragma unroll
   for (int r = 0; r < 10; ++r) {
     if (r) {
@@ -42,6 +65,13 @@ __device__ __forceinline__ uint4 dropout_words(unsigned long long seed, uint32_t
     c3 = lo0;
   }
   return make_uint4(c0, c1, c2, c3);
+}
+
+// The four words of the call that covers keys 4 (j / 4) .. 4 (j / 4) + 3
+// of row i: word w belongs to key 4 (j / 4) + w.
+__device__ __forceinline__ uint4 dropout_words(unsigned long long seed, uint32_t b,
+                                               uint32_t h, uint32_t i, uint32_t j) {
+  return philox4x32_10(j >> 2, i, h, b, seed);
 }
 
 // The bits of element (b, h, i, j).

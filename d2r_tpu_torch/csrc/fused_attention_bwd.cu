@@ -162,7 +162,10 @@ fused_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            long long k_rs, long long v_bs, long long v_rs,
                            long long g_bs, long long g_rs, float scale,
                            unsigned int threshold, float inv_keep,
-                           unsigned long long seed, int dropout) {
+                           const unsigned long long* __restrict__ seed_ptr,
+                           unsigned int site, int dropout) {
+  // the site's Philox key, from the step's seed in device memory
+  const unsigned long long seed = dropout ? d2r::site_key(seed_ptr, site) : 0ull;
   extern __shared__ float smem[];
   const int ld = D + 1;
   const int n = L > S ? L : S;
@@ -343,7 +346,8 @@ int launch(const void* q, const void* k, const void* v, const float* bias, const
            void* dq, void* dk, void* dv, float* dbias, int B, int L, int S, int H, int D,
            long long q_bs, long long q_rs, long long k_bs, long long k_rs, long long v_bs,
            long long v_rs, long long g_bs, long long g_rs, float scale,
-           unsigned int threshold, float inv_keep, unsigned long long seed, int dropout,
+           unsigned int threshold, float inv_keep,
+           const unsigned long long* seed, unsigned int site, int dropout,
            cudaStream_t stream) {
   const size_t n = L > S ? L : S;
   const size_t smem =
@@ -359,7 +363,7 @@ int launch(const void* q, const void* k, const void* v, const float* bias, const
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias,
       static_cast<const T*>(g), static_cast<T*>(dq), static_cast<T*>(dk),
       static_cast<T*>(dv), dbias, L, S, H, D, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, g_bs,
-      g_rs, scale, threshold, inv_keep, seed, dropout);
+      g_rs, scale, threshold, inv_keep, seed, site, dropout);
   return (int)cudaGetLastError();
 }
 
@@ -382,7 +386,10 @@ fused_attention_bwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restri
                                 long long q_bs, long long q_rs, long long k_bs, long long k_rs,
                                 long long v_bs, long long v_rs, long long g_bs, long long g_rs,
                                 float scale, unsigned int threshold, float inv_keep,
-                                unsigned long long seed, int dropout, int vec) {
+                                const unsigned long long* __restrict__ seed_ptr,
+                                unsigned int site, int dropout, int vec) {
+  // the site's Philox key, from the step's seed in device memory
+  const unsigned long long seed = dropout ? d2r::site_key(seed_ptr, site) : 0ull;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int nthreads = blockDim.x;
   const int l16 = (L + 15) & ~15;
@@ -574,7 +581,8 @@ int launch_bf16(const void* q, const void* k, const void* v, const float* bias, 
                 void* dq, void* dk, void* dv, float* dbias, int B, int L, int S, int H, int D,
                 long long q_bs, long long q_rs, long long k_bs, long long k_rs, long long v_bs,
                 long long v_rs, long long g_bs, long long g_rs, float scale,
-                unsigned int threshold, float inv_keep, unsigned long long seed, int dropout,
+                unsigned int threshold, float inv_keep,
+                const unsigned long long* seed, unsigned int site, int dropout,
                 cudaStream_t stream) {
   const size_t l16 = (L + 15) & ~15, s16 = (S + 15) & ~15;
   const size_t ld = ((D + 15) & ~15) + 8, lds = s16 + 8;
@@ -594,7 +602,7 @@ int launch_bf16(const void* q, const void* k, const void* v, const float* bias, 
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       bias, static_cast<const bf16*>(g), static_cast<bf16*>(dq), static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), dbias, L, S, H, D, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, g_bs, g_rs,
-      scale, threshold, inv_keep, seed, dropout, vec);
+      scale, threshold, inv_keep, seed, site, dropout, vec);
   return (int)cudaGetLastError();
 }
 
@@ -603,15 +611,16 @@ int launch_bf16_d(const void* q, const void* k, const void* v, const float* bias
                   void* dq, void* dk, void* dv, float* dbias, int B, int L, int S, int H, int D,
                   long long q_bs, long long q_rs, long long k_bs, long long k_rs,
                   long long v_bs, long long v_rs, long long g_bs, long long g_rs, float scale,
-                  unsigned int threshold, float inv_keep, unsigned long long seed, int dropout,
+                  unsigned int threshold, float inv_keep,
+                  const unsigned long long* seed, unsigned int site, int dropout,
                   cudaStream_t stream) {
   if (D <= 64)
     return launch_bf16<SMAX, 64>(q, k, v, bias, g, dq, dk, dv, dbias, B, L, S, H, D, q_bs,
                                  q_rs, k_bs, k_rs, v_bs, v_rs, g_bs, g_rs, scale, threshold,
-                                 inv_keep, seed, dropout, stream);
+                                 inv_keep, seed, site, dropout, stream);
   return launch_bf16<SMAX, 128>(q, k, v, bias, g, dq, dk, dv, dbias, B, L, S, H, D, q_bs, q_rs,
                                 k_bs, k_rs, v_bs, v_rs, g_bs, g_rs, scale, threshold, inv_keep,
-                                seed, dropout, stream);
+                                seed, site, dropout, stream);
 }
 
 }  // namespace
@@ -619,7 +628,7 @@ int launch_bf16_d(const void* q, const void* k, const void* v, const float* bias
 // dtype: 0 = float32, 1 = bfloat16. bias may be null (no key bias); dbias
 // may be null (not wanted), else a zeroed (B, S) fp32 buffer it adds into.
 // dropout = 0: no dropout; else keep iff the element's Philox bits >=
-// threshold, kept values times inv_keep (as K1 with the same seed).
+// threshold, kept values times inv_keep (as K1 with the same seed and site).
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int d2r_fused_attention_bwd(int dtype, const void* q, const void* k,
                                        const void* v, const void* bias, const void* g,
@@ -629,7 +638,8 @@ extern "C" int d2r_fused_attention_bwd(int dtype, const void* q, const void* k,
                                        long long v_bs, long long v_rs, long long g_bs,
                                        long long g_rs, float scale,
                                        unsigned int threshold, float inv_keep,
-                                       unsigned long long seed, int dropout,
+                                       const unsigned long long* seed,
+                                       unsigned int site, int dropout,
                                        void* stream) {
   if (B < 1 || L < 1 || S < 1 || H < 1 || D < 1 || L > kMaxSeq || S > kMaxSeq ||
       D > kMaxDim || B > 65535 || H > 65535)
@@ -639,15 +649,15 @@ extern "C" int d2r_fused_attention_bwd(int dtype, const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<float>(q, k, v, bi, g, dq, dk, dv, db, B, L, S, H, D, q_bs, q_rs, k_bs,
-                         k_rs, v_bs, v_rs, g_bs, g_rs, scale, threshold, inv_keep, seed,
+                         k_rs, v_bs, v_rs, g_bs, g_rs, scale, threshold, inv_keep, seed, site,
                          dropout, st);
   if (dtype == 1) {
     if (S <= 64)
       return launch_bf16_d<64>(q, k, v, bi, g, dq, dk, dv, db, B, L, S, H, D, q_bs, q_rs,
                                k_bs, k_rs, v_bs, v_rs, g_bs, g_rs, scale, threshold, inv_keep,
-                               seed, dropout, st);
+                               seed, site, dropout, st);
     return launch_bf16_d<128>(q, k, v, bi, g, dq, dk, dv, db, B, L, S, H, D, q_bs, q_rs, k_bs,
-                              k_rs, v_bs, v_rs, g_bs, g_rs, scale, threshold, inv_keep, seed,
+                              k_rs, v_bs, v_rs, g_bs, g_rs, scale, threshold, inv_keep, seed, site,
                               dropout, st);
   }
   return (int)cudaErrorInvalidValue;

@@ -102,7 +102,10 @@ fused_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            long long q_bs, long long q_rs, long long k_bs,
                            long long k_rs, long long v_bs, long long v_rs,
                            float scale, unsigned int threshold, float inv_keep,
-                           unsigned long long seed, int dropout) {
+                           const unsigned long long* __restrict__ seed_ptr,
+                           unsigned int site, int dropout) {
+  // the site's Philox key, from the step's seed in device memory
+  const unsigned long long seed = dropout ? d2r::site_key(seed_ptr, site) : 0ull;
   extern __shared__ float smem[];
   const int ld = D + 1;
   float* ks = smem;               // [S][ld]
@@ -214,7 +217,7 @@ int launch(const void* q, const void* k, const void* v, const float* bias,
            void* out, int B, int L, int S, int H, int D, long long q_bs,
            long long q_rs, long long k_bs, long long k_rs, long long v_bs,
            long long v_rs, float scale, unsigned int threshold, float inv_keep,
-           unsigned long long seed, int dropout, cudaStream_t stream) {
+           const unsigned long long* seed, unsigned int site, int dropout, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (2 * (size_t)S * (D + 1) + (size_t)kWarps * D + (size_t)kWarps * S);
   if (smem > 48 * 1024) {
@@ -227,7 +230,7 @@ int launch(const void* q, const void* k, const void* v, const float* bias,
   fused_attention_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       bias, static_cast<T*>(out), L, S, H, D, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs,
-      scale, threshold, inv_keep, seed, dropout);
+      scale, threshold, inv_keep, seed, site, dropout);
   return (int)cudaGetLastError();
 }
 
@@ -248,7 +251,10 @@ fused_attention_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restri
                                 long long q_bs, long long q_rs, long long k_bs,
                                 long long k_rs, long long v_bs, long long v_rs, float scale,
                                 unsigned int threshold, float inv_keep,
-                                unsigned long long seed, int dropout, int vec) {
+                                const unsigned long long* __restrict__ seed_ptr,
+                                unsigned int site, int dropout, int vec) {
+  // the site's Philox key, from the step's seed in device memory
+  const unsigned long long seed = dropout ? d2r::site_key(seed_ptr, site) : 0ull;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int nthreads = blockDim.x;
   const int rows_q = nthreads / 2;  // 16 a warp
@@ -333,7 +339,8 @@ template <int SMAX, int DMAX>
 int launch_bf16(const void* q, const void* k, const void* v, const float* bias, void* out,
                 int B, int L, int S, int H, int D, long long q_bs, long long q_rs,
                 long long k_bs, long long k_rs, long long v_bs, long long v_rs, float scale,
-                unsigned int threshold, float inv_keep, unsigned long long seed, int dropout,
+                unsigned int threshold, float inv_keep,
+                const unsigned long long* seed, unsigned int site, int dropout,
                 cudaStream_t stream) {
   const int warps = (L + 15) / 16;
   const size_t ld = ((D + 15) & ~15) + 8;
@@ -350,7 +357,7 @@ int launch_bf16(const void* q, const void* k, const void* v, const float* bias, 
   fused_attention_fwd_bf16_kernel<SMAX, DMAX><<<grid, 32 * warps, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       bias, static_cast<bf16*>(out), L, S, H, D, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, scale,
-      threshold, inv_keep, seed, dropout, vec);
+      threshold, inv_keep, seed, site, dropout, vec);
   return (int)cudaGetLastError();
 }
 
@@ -358,20 +365,26 @@ template <int SMAX>
 int launch_bf16_d(int D, const void* q, const void* k, const void* v, const float* bias,
                   void* out, int B, int L, int S, int H, long long q_bs, long long q_rs,
                   long long k_bs, long long k_rs, long long v_bs, long long v_rs, float scale,
-                  unsigned int threshold, float inv_keep, unsigned long long seed, int dropout,
+                  unsigned int threshold, float inv_keep,
+                  const unsigned long long* seed, unsigned int site, int dropout,
                   cudaStream_t stream) {
   if (D <= 64)
     return launch_bf16<SMAX, 64>(q, k, v, bias, out, B, L, S, H, D, q_bs, q_rs, k_bs, k_rs,
-                                 v_bs, v_rs, scale, threshold, inv_keep, seed, dropout, stream);
+                                 v_bs, v_rs, scale, threshold, inv_keep,
+                                 seed, site, dropout, stream);
   return launch_bf16<SMAX, 128>(q, k, v, bias, out, B, L, S, H, D, q_bs, q_rs, k_bs, k_rs,
-                                v_bs, v_rs, scale, threshold, inv_keep, seed, dropout, stream);
+                                v_bs, v_rs, scale, threshold, inv_keep,
+                                seed, site, dropout, stream);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. bias may be null (no key bias).
-// dropout = 0: no dropout (threshold, inv_keep and seed unused); else keep
-// iff the element's Philox bits >= threshold, kept p times inv_keep.
+// dropout = 0: no dropout (threshold, inv_keep, seed and site unused); else
+// keep iff the element's Philox bits >= threshold, kept p times inv_keep,
+// under the key site_key(seed, site) (dropout_philox.cuh): seed points at
+// the step's 64-bit seed in device memory, so a CUDA graph that captured
+// the launch draws the masks of whatever step the buffer holds.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int d2r_fused_attention_fwd(int dtype, const void* q, const void* k,
                                        const void* v, const void* bias, void* out,
@@ -380,7 +393,8 @@ extern "C" int d2r_fused_attention_fwd(int dtype, const void* q, const void* k,
                                        long long k_bs, long long k_rs,
                                        long long v_bs, long long v_rs, float scale,
                                        unsigned int threshold, float inv_keep,
-                                       unsigned long long seed, int dropout,
+                                       const unsigned long long* seed,
+                                       unsigned int site, int dropout,
                                        void* stream) {
   if (B < 1 || L < 1 || S < 1 || H < 1 || D < 1 || L > kMaxSeq || S > kMaxSeq ||
       D > kMaxDim || B > 65535 || H > 65535)
@@ -389,13 +403,13 @@ extern "C" int d2r_fused_attention_fwd(int dtype, const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<float>(q, k, v, b, out, B, L, S, H, D, q_bs, q_rs, k_bs, k_rs,
-                         v_bs, v_rs, scale, threshold, inv_keep, seed, dropout, st);
+                         v_bs, v_rs, scale, threshold, inv_keep, seed, site, dropout, st);
   if (dtype == 1) {
     if (S <= 64)
       return launch_bf16_d<64>(D, q, k, v, b, out, B, L, S, H, q_bs, q_rs, k_bs, k_rs, v_bs,
-                               v_rs, scale, threshold, inv_keep, seed, dropout, st);
+                               v_rs, scale, threshold, inv_keep, seed, site, dropout, st);
     return launch_bf16_d<128>(D, q, k, v, b, out, B, L, S, H, q_bs, q_rs, k_bs, k_rs, v_bs,
-                              v_rs, scale, threshold, inv_keep, seed, dropout, st);
+                              v_rs, scale, threshold, inv_keep, seed, site, dropout, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -25,13 +25,15 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from d2r_tpu_torch.ops.kernels.dropout import hidden_dropout
+from d2r_tpu_torch.ops.kernels.fused_attention import DropoutSeed, seed_tensor, splitmix64
 from d2r_tpu_torch.ops.qdot import quant_dot
 from d2r_tpu_torch.parallel.distributed import all_reduce_sum, copy_to, reduce_from
 
@@ -61,17 +63,10 @@ def _param(*shape) -> nn.Parameter:
     return nn.Parameter(torch.empty(*shape))
 
 
-def _splitmix64(x: int) -> int:
-    x = (x + 0x9E3779B97F4A7C15) & _M64
-    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _M64
-    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _M64
-    return x ^ (x >> 31)
-
-
 def fold_in(seed: int, data: int) -> int:
     """A 64-bit seed derived from ``(seed, data)``, the part
     ``jax.random.fold_in`` plays for keys."""
-    return _splitmix64((_splitmix64(int(seed) & _M64) + int(data)) & _M64)
+    return splitmix64((splitmix64(int(seed) & _M64) + int(data)) & _M64)
 
 
 class _Parallel:
@@ -233,37 +228,47 @@ class Embed(_Parallel, nn.Module):
 
 class DropoutRNG:
     """The randomness of one training forward, passed down explicitly (the
-    global RNG is never read). ``host`` is a CPU generator: its draws are
-    the attention kernels' dropout seeds, host ints that cost no device
-    sync. ``device`` is a generator on the model's device, seeded from the
-    first draw, for the hidden dropout masks."""
+    global RNG is never read): ``seed``, a one-element int64 tensor on the
+    model's device holding the step's 64-bit seed, and the ordinal of the
+    next dropout site. Every site, an attention call (K1 and K2) or a
+    hidden dropout (``ops/kernels/dropout.py``), takes the next ordinal and
+    its kernel derives the site's Philox key from the two on the card
+    (``ops/kernels/fused_attention.py::site_key``), as the JAX package's
+    kernels read their seed from device memory. Writing the buffer reseeds
+    a whole step: an eager one, or a CUDA graph's replay."""
 
-    def __init__(self, seed: int, device):
-        self.host = torch.Generator().manual_seed(int(seed))
-        self.device = torch.Generator(device=device).manual_seed(self.next_seed())
+    def __init__(self, seed: Union[int, torch.Tensor], device=None):
+        self.seed = seed if isinstance(seed, torch.Tensor) else seed_tensor(seed, device)
+        self.site = 0
 
-    def next_seed(self) -> int:
-        """A fresh 63-bit seed from the host generator."""
-        return int(torch.randint(0, 2 ** 63 - 1, (1,), generator=self.host))
+    def next_seed(self, model_index: Optional[int] = None) -> DropoutSeed:
+        """The next site's seed. ``model_index``: the site's tensors are
+        this model rank's heads, so its ordinal folds the rank in (bits
+        16 and up); the masks are keyed on the LOCAL head, which would
+        otherwise repeat across the model ranks."""
+        site = self.site
+        self.site += 1
+        if site >= 1 << 16:
+            raise ValueError("a forward of more than 65536 dropout sites")
+        return DropoutSeed(self.seed, site if model_index is None
+                           else site | (model_index + 1) << 16)
 
 
 def _replay_draws(rng: DropoutRNG):
-    """``checkpoint``'s ``context_fn`` for a layer drawing from ``rng``: a
-    snapshot of both generators now, as the layer's forward starts, and a
-    context for the recompute that sets them back to it and afterwards
-    returns them to where the backward found them."""
-    at_forward = (rng.host.get_state(), rng.device.get_state())
+    """``checkpoint``'s ``context_fn`` for a layer drawing from ``rng``: the
+    site counter now, as the layer's forward starts, and a context for the
+    recompute that sets it back and afterwards returns it to where the
+    backward found it."""
+    at_forward = rng.site
 
     @contextlib.contextmanager
     def replay():
-        now = (rng.host.get_state(), rng.device.get_state())
-        rng.host.set_state(at_forward[0])
-        rng.device.set_state(at_forward[1])
+        now = rng.site
+        rng.site = at_forward
         try:
             yield
         finally:
-            rng.host.set_state(now[0])
-            rng.device.set_state(now[1])
+            rng.site = now
 
     return contextlib.nullcontext(), replay()
 
@@ -275,12 +280,10 @@ def remat(fn: Callable, *args, rng: Optional[DropoutRNG] = None):
     ``jax.checkpoint`` do in the JAX package. Without autograd it is a plain
     call.
 
-    The recompute must draw what the forward drew: the attention kernels'
-    dropout seeds from ``rng.host`` and the hidden-dropout masks from
-    ``rng.device``. ``checkpoint``'s ``preserve_rng_state`` restores only the
-    default generators, never an explicit one (and the layers draw from no
-    other), so :func:`_replay_draws` replays ``rng`` instead: the step
-    leaves both generators where it leaves them without remat."""
+    The recompute must draw what the forward drew. Every mask is a
+    function of the step's seed buffer and the site's ordinal, so
+    :func:`_replay_draws` only winds ``rng``'s site counter back for the
+    recompute: the step leaves it where it leaves it without remat."""
     if not torch.is_grad_enabled():
         return fn(*args)
     replay = {} if rng is None else {"context_fn": lambda: _replay_draws(rng)}
@@ -289,8 +292,10 @@ def remat(fn: Callable, *args, rng: Optional[DropoutRNG] = None):
 
 class Dropout(nn.Module):
     """Inverted dropout, as Flax's ``nn.Dropout``: in train mode an element
-    is kept with probability 1 - rate and scaled by 1/(1-rate), with the
-    mask drawn from ``rng.device``; the identity in eval mode or at rate 0."""
+    is kept with probability 1 - rate and scaled by 1/(1-rate), its bit from
+    the next site of ``rng`` (``ops/kernels/dropout.py``: a kernel on the
+    card that regenerates the mask in the backward); the identity in eval
+    mode or at rate 0."""
 
     def __init__(self, rate: float):
         super().__init__()
@@ -301,25 +306,21 @@ class Dropout(nn.Module):
             return x
         if rng is None:
             raise ValueError("train-mode dropout needs a DropoutRNG")
-        keep = torch.rand(x.shape, generator=rng.device, device=x.device) >= self.rate
-        return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
+        return hidden_dropout(x, self.rate, rng.next_seed())
 
 
 def attention_dropout(module: nn.Module, rate: float, rng: Optional[DropoutRNG],
-                      qkv: Optional[QKVDense] = None) -> Tuple[float, Optional[int]]:
-    """(rate, seed) for ``dot_product_attention``: a fresh seed from ``rng``
+                      qkv: Optional[QKVDense] = None) -> Tuple[float, Optional[DropoutSeed]]:
+    """(rate, seed) for ``dot_product_attention``: the next site of ``rng``
     in train mode at a non-zero rate, else no dropout. Where the model axis
-    splits ``qkv`` by heads, the seed folds in the model index: the masks
-    are keyed on the LOCAL head, which would otherwise repeat across the
-    model ranks."""
+    splits ``qkv`` by heads, the site folds in the model index
+    (:meth:`DropoutRNG.next_seed`)."""
     if not module.training or rate == 0.0:
         return 0.0, None
     if rng is None:
         raise ValueError("train-mode attention dropout needs a DropoutRNG")
-    seed = rng.next_seed()
-    if qkv is not None and qkv.tp:
-        seed = fold_in(seed, qkv.mesh.model_index)
-    return rate, seed
+    model_index = qkv.mesh.model_index if qkv is not None and qkv.tp else None
+    return rate, rng.next_seed(model_index)
 
 
 class TorchBatchNorm(_Parallel, nn.Module):

@@ -59,7 +59,9 @@ from d2r_tpu_torch.parallel.distributed import gather_rows
 class D2RModel(_Parallel, nn.Module):
     def __init__(self, cfg: D2RConfig):
         super().__init__()
-        cfg.check_supported()
+        # built whole, in one process: ``shard_model`` checks the layout
+        # settings against the model axis it cuts for
+        cfg.check_supported(model_axis=1)
         self.cfg = cfg
         dt = cfg.dtype
         tc, vc = cfg.text_config(), cfg.vision_config()

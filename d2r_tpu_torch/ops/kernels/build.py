@@ -27,7 +27,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # every kernel source of the port, by the name its library is built under
 SOURCES = {"fused_attention_fwd": "fused_attention_fwd.cu",
            "fused_attention_bwd": "fused_attention_bwd.cu",
-           "flash_attention_fwd": "flash_attention_fwd.cu"}
+           "flash_attention_fwd": "flash_attention_fwd.cu",
+           "dropout": "dropout.cu",
+           "adamw": "adamw.cu"}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -23,13 +23,22 @@ read q, k and v through their batch and row strides, so the strided views
 that the fused QKV projection yields need no copies. See the sources'
 headers for the grids and the shared-memory layouts.
 
-Dropout bits come from Philox4x32-10 keyed on a 64-bit seed, with the
+Dropout bits come from Philox4x32-10 keyed on a 64-bit key, with the
 counter made from (b, h, query row, key column): the mask depends on no grid
 or tile size, the forward and the backward regenerate it without storing
 it, and :func:`dropout_keep_mask` computes the same bits with int64 tensor
 ops, so the card's kernels can be held against the plain versions element
 by element. An element is kept iff its 32 bits are >= ``min(int(rate *
 2**32), 2**32 - 1)``, the rule of ``_keep_mask`` in the JAX package.
+
+The key, as in the JAX package, comes from device memory: a training
+forward passes a :class:`DropoutSeed`, a one-element tensor holding the
+step's 64-bit seed plus the site's ordinal, and the kernel derives the key
+:func:`site_key` (one splitmix64 of seed + site) on the card, as the JAX
+kernel reads ``seed_ref``. Writing the buffer before a step reseeds every
+site, so a CUDA graph that captured the step draws new masks at each
+replay. An int ``dropout_seed`` is a key by value, for the plain versions
+on the CPU only: on the card it raises.
 
 :func:`fused_attention_small` and :func:`fused_attention_small_bwd` launch
 the kernels for CUDA tensors and raise for what they cannot take; only a
@@ -39,7 +48,7 @@ tensor on the CPU goes to the plain versions.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -83,11 +92,62 @@ def philox4x32_10(counter, key: Tuple[int, int]):
     return c0, c1, c2, c3
 
 
-def _check_dropout(rate: float, seed: Optional[int]) -> None:
+_M64 = (1 << 64) - 1
+
+
+def splitmix64(x: int) -> int:
+    """splitmix64's finaliser (Steele et al., OOPSLA'14) on a uint64."""
+    x = (x + 0x9E3779B97F4A7C15) & _M64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _M64
+    return x ^ (x >> 31)
+
+
+def site_key(seed: int, site: int) -> int:
+    """The Philox key of dropout site ``site`` of the step seeded ``seed``:
+    ``splitmix64(seed + site)``, as ``csrc/dropout_philox.cuh::site_key``
+    derives it on the card."""
+    return splitmix64((int(seed) + int(site)) & _M64)
+
+
+class DropoutSeed(NamedTuple):
+    """A dropout site's seed read from device memory: ``seed`` a one-element
+    int64 tensor holding the step's 64-bit seed (two's complement), on the
+    tensors' device; ``site`` the site's ordinal in the step (uint32)."""
+
+    seed: torch.Tensor
+    site: int
+
+
+def seed_tensor(seed: int, device=None) -> torch.Tensor:
+    """A one-element int64 tensor holding the uint64 ``seed``."""
+    seed = int(seed) & _M64
+    return torch.tensor([seed - (1 << 64) if seed >> 63 else seed], dtype=torch.int64,
+                        device=device)
+
+
+def dropout_key(seed: Union[int, DropoutSeed]) -> int:
+    """The Philox key of ``seed``: an int is one; a :class:`DropoutSeed`
+    gives :func:`site_key` of its buffer's value (reading a CUDA buffer
+    waits for the card)."""
+    if isinstance(seed, DropoutSeed):
+        return site_key(int(seed.seed.reshape(-1)[0]) & _M64, seed.site)
+    return int(seed)
+
+
+def _check_dropout(rate: float, seed) -> None:
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
-    if rate > 0.0 and (seed is None or not 0 <= int(seed) < 2 ** 64):
-        raise ValueError(f"dropout needs an integer seed in [0, 2**64), got {seed!r}")
+    if rate == 0.0:
+        return
+    if isinstance(seed, DropoutSeed):
+        if (seed.seed.dtype != torch.int64 or seed.seed.numel() != 1
+                or not 0 <= int(seed.site) < 2 ** 32):
+            raise ValueError(f"a DropoutSeed holds one int64 and a uint32 site, got "
+                             f"{seed.seed.dtype} x {seed.seed.numel()}, site {seed.site}")
+    elif seed is None or isinstance(seed, torch.Tensor) or not 0 <= int(seed) < 2 ** 64:
+        raise ValueError(f"dropout needs an integer key in [0, 2**64) or a DropoutSeed, "
+                         f"got {seed!r}")
 
 
 def keep_threshold(rate: float) -> int:
@@ -95,14 +155,16 @@ def keep_threshold(rate: float) -> int:
     return min(int(rate * 2 ** 32), 2 ** 32 - 1)
 
 
-def dropout_keep_mask(seed: int, b: int, h: int, l: int, s: int, rate: float,
-                      device=None) -> torch.Tensor:
+def dropout_keep_mask(seed: Union[int, DropoutSeed], b: int, h: int, l: int, s: int,
+                      rate: float, device=None) -> torch.Tensor:
     """The kernels' (B, H, L, S) boolean keep mask, in plain tensor ops.
 
     Element (b, h, i, j) takes word ``j % 4`` of Philox4x32-10 at counter
-    ``(j // 4, i, h, b)`` under key ``(seed mod 2**32, seed >> 32)``."""
+    ``(j // 4, i, h, b)`` under key ``(key mod 2**32, key >> 32)``, the key
+    being ``seed`` itself or, for a :class:`DropoutSeed`, its
+    :func:`site_key`."""
     _check_dropout(rate, seed)
-    seed = int(seed)
+    seed = dropout_key(seed)
     groups = -(-s // 4)
     ar = lambda n: torch.arange(n, dtype=torch.int64, device=device)
     c0 = ar(groups)[None, None, None, :]
@@ -129,7 +191,7 @@ def fused_attention_small_plain(
     key_bias: Optional[torch.Tensor],      # (B, S) additive, or None
     scale: float,
     dropout_rate: float = 0.0,
-    dropout_seed: Optional[int] = None,
+    dropout_seed: Union[int, DropoutSeed, None] = None,
 ) -> torch.Tensor:
     """K1's function in plain PyTorch (also the einsum path of
     ``dot_product_attention``), differentiable by autograd. Dropout, when
@@ -156,7 +218,7 @@ def fused_attention_small_bwd_plain(
     g: torch.Tensor,                       # (B, L, H, D), d loss / d out
     scale: float,
     dropout_rate: float = 0.0,
-    dropout_seed: Optional[int] = None,
+    dropout_seed: Union[int, DropoutSeed, None] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """K2's function in plain PyTorch, with the JAX kernel's rounding
     points (``fused_attention.py:124-165``): pd is rounded to g's type and
@@ -219,24 +281,30 @@ def _kernel(name: str):
     """The C entry point of kernel ``name``, built and loaded at first use."""
     if name not in _fns:
         p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        u32, u64 = ctypes.c_uint32, ctypes.c_uint64
+        u32 = ctypes.c_uint32
         if name == "fused_attention_fwd":
             fn = build.load(name).d2r_fused_attention_fwd
             fn.argtypes = [i, p, p, p, p, p, i, i, i, i, i,
-                           ll, ll, ll, ll, ll, ll, f, u32, f, u64, i, p]
+                           ll, ll, ll, ll, ll, ll, f, u32, f, p, u32, i, p]
         else:
             fn = build.load(name).d2r_fused_attention_bwd
             fn.argtypes = [i, p, p, p, p, p, p, p, p, p, i, i, i, i, i,
-                           ll, ll, ll, ll, ll, ll, ll, ll, f, u32, f, u64, i, p]
+                           ll, ll, ll, ll, ll, ll, ll, ll, f, u32, f, p, u32, i, p]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return _fns[name]
 
 
-def _dropout_args(rate: float, seed: Optional[int]):
-    if rate > 0.0:
-        return keep_threshold(rate), _inv_keep(rate), int(seed), 1
-    return 0, 1.0, 0, 0
+def dropout_launch_args(rate: float, seed, device: torch.device):
+    """``(threshold, inv_keep, seed pointer, site, dropout)`` of a kernel
+    launch on ``device``: the seed must be a :class:`DropoutSeed` whose
+    buffer lies there (the kernel reads it when the launch runs)."""
+    if rate == 0.0:
+        return 0, 1.0, None, 0, 0
+    if not isinstance(seed, DropoutSeed) or seed.seed.device != device:
+        raise ValueError(f"on {device} a dropout seed is a DropoutSeed whose buffer is on "
+                         f"that device (the kernels read it there), got {seed!r}")
+    return keep_threshold(rate), _inv_keep(rate), seed.seed.data_ptr(), int(seed.site), 1
 
 
 def _launch_fwd(q, k, v, bias, scale, rate, seed) -> torch.Tensor:
@@ -250,8 +318,8 @@ def _launch_fwd(q, k, v, bias, scale, rate, seed) -> torch.Tensor:
         err = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  None if bias is None else bias.data_ptr(), out.data_ptr(),
                  b, l, s, h, d, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-                 v.stride(0), v.stride(1), float(scale), *_dropout_args(rate, seed),
-                 stream)
+                 v.stride(0), v.stride(1), float(scale),
+                 *dropout_launch_args(rate, seed, q.device), stream)
     if err != 0:
         raise RuntimeError(f"fused_attention_fwd launch failed: cudaError {err}")
     fused_attention_small.launches += 1
@@ -267,7 +335,7 @@ def fused_attention_small_bwd(
     g: torch.Tensor,
     scale: float,
     dropout_rate: float = 0.0,
-    dropout_seed: Optional[int] = None,
+    dropout_seed: Union[int, DropoutSeed, None] = None,
     need_dbias: bool = True,
 ):
     """K2: (dq, dk, dv, dbias) of the fused attention. The CUDA kernel on a
@@ -307,7 +375,7 @@ def fused_attention_small_bwd(
                  None if dbias is None else dbias.data_ptr(),
                  b, l, s, h, d, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
                  v.stride(0), v.stride(1), g.stride(0), g.stride(1), float(scale),
-                 *_dropout_args(dropout_rate, dropout_seed), stream)
+                 *dropout_launch_args(dropout_rate, dropout_seed, q.device), stream)
     if err != 0:
         raise RuntimeError(f"fused_attention_bwd launch failed: cudaError {err}")
     fused_attention_small_bwd.launches += 1
@@ -355,7 +423,7 @@ def fused_attention_small(
     key_bias: Optional[torch.Tensor],
     scale: float,
     dropout_rate: float = 0.0,
-    dropout_seed: Optional[int] = None,
+    dropout_seed: Union[int, DropoutSeed, None] = None,
 ) -> torch.Tensor:
     """Differentiable fused attention over (B, L, H, D): K1 forward and K2
     backward on a CUDA tensor, the plain versions on a CPU tensor. Returns

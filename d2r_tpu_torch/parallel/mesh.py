@@ -26,8 +26,9 @@ parameter and reduces its gradients.
 Differences from the JAX package, by design: the product of the mesh must
 equal the world (JAX would quietly take the first ``n`` devices); and
 ``--mesh_topology`` keeps process order, which is what JAX itself does off a
-TPU. Pipeline stages, ``seq_shard`` and ``fabric_shard`` are not here (the
-config refuses them).
+TPU. Pipeline stages, and ``seq_shard`` and ``fabric_shard`` under a model
+axis larger than 1, are not here (the config refuses them; with no such
+axis JAX reads the two hints as no-ops, and so does the port).
 """
 
 from __future__ import annotations
@@ -261,7 +262,11 @@ def shard_model(model: nn.Module, mesh: Mesh) -> nn.Module:
     "row", ``QKVDense.tp`` "column" with ``hidden`` the local width,
     ``Embed.tp`` "vocab"). Call it on the whole model, built from the seed
     or loaded as one process would, before the optimizer exists. Each split
-    module records its tensors' split Flax axes in ``shards``."""
+    module records its tensors' split Flax axes in ``shards``. Raises on
+    the layout settings the port refuses under this model axis
+    (``D2RConfig.check_supported``)."""
+    if getattr(model, "cfg", None) is not None:
+        model.cfg.check_supported(mesh.world, model_axis=mesh.tp)
     for m in model.modules():
         if hasattr(m, "mesh"):
             m.mesh = mesh

@@ -635,7 +635,7 @@ def resolve_serve_config(load_path: str, config_json: Optional[str] = None,
     if unknown:  # a raise, not an assert: must survive `python -O`
         raise ValueError(f"unexpected serve overrides: {sorted(unknown)}")
     cfg = dataclasses.replace(base, **fields)
-    cfg.check_supported()
+    cfg.check_supported(model_axis=1)   # one process serves
     return cfg
 
 
@@ -699,7 +699,7 @@ def build_service(args):
     if args.dp * args.tp > 1:
         raise NotImplementedError(
             f"multi-chip serving (--dp {args.dp}, --tp {args.tp}) is not ported "
-            "yet (ROADMAP.md Queue 1 item 9)")
+            "yet (ROADMAP.md Queue 1 item 9b)")
     device = resolve_device(args.device)
     cfg = resolve_serve_config(
         args.load_path, config_json=args.config_json,

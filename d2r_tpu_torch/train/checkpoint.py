@@ -2,8 +2,8 @@
 
 The port's format is the reference's: ``torch.save(model.state_dict())``,
 here as ``model.pth`` in a checkpoint directory (``save_path/best_model/``),
-plus ``train_state.pth`` (optimizer, scheduler and step) when the optimizer
-state is kept, and the run's ``config.json`` beside the directory. The
+plus ``train_state.pth`` (optimizer, the schedule's position and step) when
+the optimizer state is kept, and the run's ``config.json`` beside the directory. The
 policy is the JAX package's: the best dev weighted-F1 model, reloaded for
 test; ``--save_opt_state`` keeps the optimizer state too; ``--auto_resume``
 writes the full train state at every epoch boundary.
@@ -115,8 +115,11 @@ def save_checkpoint(path: str, state, include_opt_state: bool = False,
     mesh = getattr(state, "mesh", None)   # a TrainState's; any object with .model
     train_state = None
     if include_opt_state:
+        # the schedule lives on the device (the optimizer's count); its
+        # position is kept under the key the LambdaLR of earlier versions
+        # wrote
         train_state = {"optimizer": full_optimizer_state(state.model, state.optimizer, mesh),
-                       "scheduler": state.scheduler.state_dict(),
+                       "scheduler": {"last_epoch": state.step},
                        "step": state.step}
     model = full_state_dict(state.model, mesh)
     if mesh is not None and mesh.rank != 0:
@@ -170,7 +173,7 @@ def restore_checkpoint(path: str, state):
         saved = torch.load(train_state, map_location=device, weights_only=True)
         state.optimizer.load_state_dict(
             local_optimizer_state(state.model, state.optimizer, mesh, saved["optimizer"]))
-        state.scheduler.load_state_dict(saved["scheduler"])
+        state.optimizer.set_count(int(saved["scheduler"]["last_epoch"]))
         state.step = int(saved["step"])
     return state
 

@@ -1,20 +1,54 @@
 """Train state and step functions (counterpart of ``d2r_tpu/train/state.py``).
 
 A step is what the reference's loop does per batch (forward, backward, AdamW
-step, LR step) plus the BatchNorm running statistics, which train-mode
-forwards update in place. PyTorch runs eagerly, so a step is a Python
-function over a mutable :class:`TrainState`; every function returns the
-state it was given, as the JAX ones return their new state. On the card the
+step with its schedule) plus the BatchNorm running statistics, which
+train-mode forwards update in place. Every function returns the state it
+was given, as the JAX ones return their new state. On the card the
 attention sites run K1 forward and K2 backward
-(``ops/kernels/fused_attention.py``); parameters stay fp32 and each module
-casts them to the compute type at use.
+(``ops/kernels/fused_attention.py``), the hidden dropouts the dropout
+kernel (``ops/kernels/dropout.py``) and the optimizer the AdamW kernel
+(``ops/kernels/adamw.py``); parameters stay fp32 and each module casts them
+to the compute type at use.
 
-Dropout: each step makes one :class:`~d2r_tpu_torch.models.layers.DropoutRNG`
-seeded from ``(dropout_seed, step)`` as ``jax.random.fold_in`` derives the
-step's key. Its CPU generator hands every attention call its seed as a host
-int (no device sync); its device generator draws the hidden dropout masks.
-A step is not capturable by a CUDA graph yet: the seeds are host ints baked
-into each launch.
+One program a step, as in JAX. The JAX package jits forward, backward,
+optimizer and BatchNorm statistics into one program (its
+``make_train_step``, ``make_multi_step`` and ``make_accum_step``). Here, on
+the card in one process, a step is a CUDA graph replay:
+
+* the first :data:`WARMUP_STEPS` steps of each batch signature (its keys,
+  shapes and types: ``sentic_adj`` present or not) and step kind run
+  eagerly on a side stream, as real steps of the run (they build the
+  kernels, the optimizer's state and its device table, and every
+  gradient's storage);
+* then the step is captured: the zeroing of the gradients, forward,
+  backward and the AdamW kernel with its count and schedule; with
+  accumulation, a forward/backward graph for the first microbatch (with
+  the zeroing), one for the others and an apply graph (the divide by the
+  microbatch count, then AdamW); with ``debug_nans``, the forward/backward
+  graph, the host check, then the apply graph, so a bad step still raises
+  before any update;
+* each later step writes its batch and its dropout seed through pinned
+  host buffers into the graph's static inputs (non-blocking copies on the
+  current stream), replays, and copies the loss and aux out of the static
+  outputs on the device. No step is lost or repeated by the capture, and
+  no host value is read back in the step.
+
+The eager step stays, by this rule and no other: on the CPU, and with a
+mesh of more than one process (the gloo collectives the mesh runs cannot be
+captured). A one-process NCCL world has no mesh here and captures.
+
+Gradients stay allocated: a step zeroes them in place rather than setting
+them to None, so their addresses, and the AdamW kernel's table of them,
+hold from one step to the next. The step's gradients stay in ``.grad``
+until the next step.
+
+Dropout: a step's seed is ``fold_in(dropout_seed, step)`` (and the
+microbatch, with accumulation), as ``jax.random.fold_in`` derives the
+step's key, written into the state's one-element seed buffer on the device;
+every dropout site of the forward takes the next ordinal of a
+:class:`~d2r_tpu_torch.models.layers.DropoutRNG` over that buffer and its
+kernel derives the site's key on the card. A replay therefore draws the
+masks of the seed the buffer holds.
 
 ``debug_nans`` (``--debug_nans``, the port's counterpart of
 ``jax_debug_nans``): before the optimizer steps, every step checks its loss
@@ -43,8 +77,9 @@ the same ones for their replicated activations.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Mapping, Optional
+from typing import Callable, Dict, List, Mapping, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
@@ -52,31 +87,40 @@ from torch import nn
 from d2r_tpu_torch.config import D2RConfig, resolve_device
 from d2r_tpu_torch.models.layers import DropoutRNG, fold_in
 from d2r_tpu_torch.models.unimo import build_model
+from d2r_tpu_torch.ops.kernels.fused_attention import seed_tensor
 from d2r_tpu_torch.parallel.mesh import Mesh, shard_model
-from d2r_tpu_torch.train.optimizer import make_optimizer
+from d2r_tpu_torch.train.optimizer import AdamW, make_optimizer
 
 BATCH_KEYS = ("input_ids", "attention_mask", "token_type_ids", "labels",
               "pixel_values")
 OPTIONAL_KEYS = ("valid", "sentic_adj")
 # elements a bucket of the gradient all-reduce
 REDUCE_BUCKET = 1 << 24
+# eager steps of each batch signature and step kind before its capture
+WARMUP_STEPS = 2
 
 
 @dataclasses.dataclass
 class TrainState:
     model: nn.Module
-    optimizer: torch.optim.Optimizer
-    scheduler: torch.optim.lr_scheduler.LRScheduler
+    optimizer: AdamW
     step: int = 0
     mesh: Optional[Mesh] = None
+    # the step's dropout seed (one int64) on the model's device
+    seed: Optional[torch.Tensor] = None
+    # the captured steps (:class:`_Captured`), made at the first card step
+    captured: Optional["_Captured"] = dataclasses.field(default=None, repr=False)
+
+
+def _input_keys(batch: Mapping):
+    return BATCH_KEYS + tuple(k for k in OPTIONAL_KEYS if k in batch)
 
 
 def _model_inputs(batch: Mapping, device) -> Dict[str, torch.Tensor]:
     """The model's keyword inputs from a batch of numpy arrays or tensors,
     on ``device``; ``valid`` (B,) and ``sentic_adj`` (B, L, L) are passed on
     when present."""
-    keys = BATCH_KEYS + tuple(k for k in OPTIONAL_KEYS if k in batch)
-    return {k: torch.as_tensor(batch[k]).to(device) for k in keys}
+    return {k: torch.as_tensor(batch[k]).to(device) for k in _input_keys(batch)}
 
 
 def _device(model: nn.Module) -> torch.device:
@@ -88,10 +132,11 @@ def create_train_state(cfg: D2RConfig, total_steps: int = 1000, device="cuda",
                        mesh: Optional[Mesh] = None) -> TrainState:
     """A train state on ``device``: ``model`` (moved there) or a fresh
     ``D2RClassifier`` with random weights from ``seed``, in train mode, with
-    the 4-group AdamW of ``train/optimizer.py``. With a ``mesh`` of more
-    than one process the whole model (the one given, or the seed's, built
-    on the CPU) is cut to this rank's slices first. Raises if ``device`` is
-    CUDA and no GPU is present."""
+    the 4-group AdamW of ``train/optimizer.py`` scheduled over
+    ``total_steps``. With a ``mesh`` of more than one process the whole
+    model (the one given, or the seed's, built on the CPU) is cut to this
+    rank's slices first. Raises if ``device`` is CUDA and no GPU is
+    present."""
     dev = resolve_device(device)
     if mesh is not None and mesh.world > 1:
         model = build_model(cfg, device="cpu", seed=seed) if model is None else model
@@ -99,20 +144,47 @@ def create_train_state(cfg: D2RConfig, total_steps: int = 1000, device="cuda",
     else:
         mesh = None
         model = build_model(cfg, device=dev, seed=seed) if model is None else model.to(dev)
-    optimizer, scheduler = make_optimizer(cfg, total_steps, model.train())
-    return TrainState(model, optimizer, scheduler, mesh=mesh)
+    optimizer = make_optimizer(cfg, total_steps, model.train())
+    return TrainState(model, optimizer, mesh=mesh,
+                      seed=torch.zeros(1, dtype=torch.int64, device=dev))
+
+
+def _step_seed(state: TrainState, dropout_seed: int, microbatch: Optional[int] = None) -> int:
+    """The dropout seed of this step (and microbatch), with the rank's data
+    index folded in under a data axis."""
+    seed = fold_in(dropout_seed, state.step)
+    if microbatch is not None:
+        seed = fold_in(seed, microbatch)
+    if state.mesh is not None and state.mesh.dp > 1:
+        seed = fold_in(seed, state.mesh.data_index)
+    return seed
+
+
+def _zero_grads(model: nn.Module) -> None:
+    """Zero every gradient in place (their storage, and addresses, stay)."""
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    if grads:
+        torch._foreach_zero_(grads)
+
+
+def _fb(model: nn.Module, inputs: Mapping[str, torch.Tensor], seed: torch.Tensor):
+    """One train-mode forward and backward drawing dropout from the seed
+    buffer ``seed``; gradients add into ``.grad``. Returns the detached loss
+    and aux."""
+    model.train()
+    loss, _, aux = model(**inputs, rng=DropoutRNG(seed))
+    loss.backward()
+    return loss.detach(), {k: v.detach() for k, v in aux.items()}
 
 
 def _forward_backward(model: nn.Module, batch: Mapping, seed: int,
                       mesh: Optional[Mesh] = None):
-    """One train-mode forward and backward; gradients add into ``.grad``."""
-    model.train()
+    """:func:`_fb` on a host batch with the int ``seed`` (the data index
+    folded in under a data axis): the eager forward and backward."""
     if mesh is not None and mesh.dp > 1:
         seed = fold_in(seed, mesh.data_index)
-    rng = DropoutRNG(seed, _device(model))
-    loss, logits, aux = model(**_model_inputs(batch, _device(model)), rng=rng)
-    loss.backward()
-    return loss.detach(), aux
+    dev = _device(model)
+    return _fb(model, _model_inputs(batch, dev), seed_tensor(seed, dev))
 
 
 def _check_finite(state: TrainState, loss: torch.Tensor) -> None:
@@ -168,27 +240,275 @@ def _reduce_gradients(state: TrainState) -> None:
         _mean_over([p.grad for p in grads], mesh.data_group, mesh.dp)
 
 
-def _apply(state: TrainState) -> None:
+@torch.no_grad()
+def _divide_grads(model: nn.Module, k: int) -> None:
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    if grads:
+        torch._foreach_div_(grads, k)
+
+
+# ---- the eager steps ------------------------------------------------------
+
+def _write_seed(state: TrainState, seed: int) -> None:
+    """Write ``seed`` into the state's seed buffer (eager steps; the
+    captured ones stage it with their batch)."""
+    if state.seed.device.type == "cuda":
+        _captured(state).write({}, {}, seed)
+    else:
+        state.seed.copy_(seed_tensor(seed))
+
+
+def _eager_step(state: TrainState, batch: Mapping, dropout_seed: int, debug_nans: bool):
+    _zero_grads(state.model)
+    _write_seed(state, _step_seed(state, dropout_seed))
+    loss, aux = _fb(state.model, _model_inputs(batch, state.seed.device), state.seed)
+    _reduce_gradients(state)
+    if debug_nans:
+        _check_finite(state, loss)
     state.optimizer.step()
-    state.scheduler.step()
+    return {"loss": loss, **aux}
+
+
+def _eager_accum(state: TrainState, micro: List[Mapping], dropout_seed: int,
+                 debug_nans: bool):
+    model = state.model
+    _zero_grads(model)
+    total = None
+    for i, batch in enumerate(micro):
+        _write_seed(state, _step_seed(state, dropout_seed, i))
+        loss, _ = _fb(model, _model_inputs(batch, state.seed.device), state.seed)
+        total = loss.float() if total is None else total + loss.float()
+    _reduce_gradients(state)
+    _divide_grads(model, len(micro))
+    if debug_nans:
+        _check_finite(state, total)
+    state.optimizer.step()
+    return {"loss": total / len(micro)}
+
+
+# ---- the captured steps ---------------------------------------------------
+
+class _Program:
+    """The captured graphs of one batch signature and step kind: static
+    device inputs, pinned host staging buffers (two, each reused once the
+    copies that read it have run), the graphs by name and their static
+    outputs."""
+
+    def __init__(self, inputs: Dict[str, torch.Tensor]):
+        self.inputs = inputs
+        self.graphs: Dict[str, torch.cuda.CUDAGraph] = {}
+        self.out: Dict[str, torch.Tensor] = {}
+
+
+class _Captured:
+    """A train state's captured steps on the card: the side stream of the
+    warm-up steps and captures, the graphs' shared memory pool, the pinned
+    buffers of the seed writes, and the programs by (kind, signature)."""
+
+    def __init__(self, state: TrainState):
+        self.device = state.seed.device
+        self.seed = state.seed
+        self.stream = torch.cuda.Stream(self.device)
+        self.pool = torch.cuda.graph_pool_handle()
+        self.programs: Dict[tuple, _Program] = {}
+        self.eager: Dict[tuple, int] = {}
+        self._slots: Dict[tuple, List] = {}
+        self._events: Dict[tuple, List] = {}
+        self._turn: Dict[tuple, int] = {}
+
+    def write(self, arrays: Mapping, dsts: Mapping[str, torch.Tensor], seed: int) -> None:
+        """Queue copies of ``arrays`` (numpy or tensors) into ``dsts`` and of
+        ``seed`` into the seed buffer, on the current stream, through pinned
+        buffers: no host sync, save a wait for the copies of two writes ago
+        to have run before their buffers are reused."""
+        key = tuple((k, tuple(d.shape), d.dtype) for k, d in dsts.items())
+        if key not in self._slots:
+            self._slots[key] = [None, None]
+            self._events[key] = [None, None]
+            self._turn[key] = 0
+        i = self._turn[key]
+        self._turn[key] = 1 - i
+        if self._events[key][i] is not None:
+            self._events[key][i].synchronize()
+        if self._slots[key][i] is None:
+            self._slots[key][i] = {
+                **{k: torch.empty(d.shape, dtype=d.dtype).pin_memory() for k, d in dsts.items()},
+                "__seed__": torch.empty(1, dtype=torch.int64).pin_memory()}
+        slot = self._slots[key][i]
+        slot["__seed__"].copy_(seed_tensor(seed))
+        self.seed.copy_(slot["__seed__"], non_blocking=True)
+        for k, dst in dsts.items():
+            x = arrays[k]
+            if isinstance(x, torch.Tensor) and x.device.type == "cuda":
+                dst.copy_(x)
+                continue
+            host = x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+            slot[k].numpy()[...] = host
+            dst.copy_(slot[k], non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        self._events[key][i] = event
+
+    def warm(self, key: tuple) -> bool:
+        """Whether the step ``key`` still runs eagerly; counts the run."""
+        n = self.eager.get(key, 0)
+        if n < WARMUP_STEPS:
+            self.eager[key] = n + 1
+            return True
+        return False
+
+    def eagerly(self, fn: Callable, *args):
+        """``fn(*args)`` on the side stream, ordered after and before the
+        current stream's work."""
+        current = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(current)
+        with torch.cuda.stream(self.stream):
+            out = fn(*args)
+        current.wait_stream(self.stream)
+        return out
+
+    def capture(self, name: str, program: _Program, body: Callable) -> None:
+        """Capture ``body()`` into ``program.graphs[name]``; the outputs it
+        returns join ``program.out``. A capture that fails raises."""
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
+                              capture_error_mode="thread_local"):
+            out = body()
+        torch.cuda.current_stream(self.device).wait_stream(self.stream)
+        program.graphs[name] = graph
+        program.out.update(out or {})
+
+
+def _signature(batch: Mapping) -> tuple:
+    return tuple((k, tuple(np.shape(batch[k])), str(getattr(batch[k], "dtype", "")))
+                 for k in _input_keys(batch))
+
+
+def _captured(state: TrainState) -> _Captured:
+    if state.captured is None:
+        state.captured = _Captured(state)
+    return state.captured
+
+
+def captures(state: TrainState) -> bool:
+    """The rule for the step's form: captured on the card in one process;
+    eager on the CPU and across processes (gloo collectives cannot be
+    captured)."""
+    return state.mesh is None and state.seed.device.type == "cuda"
+
+
+def _static_inputs(batch: Mapping, device) -> Dict[str, torch.Tensor]:
+    return {k: torch.empty(np.shape(batch[k]), device=device,
+                           dtype=torch.as_tensor(batch[k][:0]).dtype)
+            for k in _input_keys(batch)}
+
+
+def _program(state: TrainState, key: tuple, batch: Mapping, build: Callable) -> _Program:
+    cap = _captured(state)
+    if key not in cap.programs:
+        program = _Program(_static_inputs(batch, cap.device))
+        build(cap, program)
+        # the graphs write these: they live while the program does
+        program.keep = [p.grad for p in state.model.parameters()]
+        cap.programs[key] = program
+    return cap.programs[key]
+
+
+def _outputs(program: _Program, names) -> Dict[str, torch.Tensor]:
+    """Copies, on the device, of the static outputs a replay overwrites."""
+    return {k: program.out[k].clone() for k in names}
+
+
+def _captured_step(state: TrainState, batch: Mapping, dropout_seed: int, debug_nans: bool):
+    model, opt = state.model, state.optimizer
+    key = ("step", debug_nans, _signature(batch))
+
+    def build(cap: _Captured, p: _Program) -> None:
+        def fb():
+            _zero_grads(model)
+            loss, aux = _fb(model, p.inputs, cap.seed)
+            return {"loss": loss, **aux}
+
+        def step():
+            out = fb()
+            opt.step()
+            return out
+
+        if debug_nans:
+            cap.capture("fb", p, fb)
+            cap.capture("apply", p, opt.step)
+        else:
+            cap.capture("step", p, step)
+
+    p = _program(state, key, batch, build)
+    _captured(state).write(batch, p.inputs, _step_seed(state, dropout_seed))
+    if debug_nans:
+        p.graphs["fb"].replay()
+        _check_finite(state, p.out["loss"])
+        p.graphs["apply"].replay()
+    else:
+        p.graphs["step"].replay()
+    return _outputs(p, p.out)
+
+
+def _captured_accum(state: TrainState, micro: List[Mapping], dropout_seed: int,
+                    debug_nans: bool):
+    model, opt, k = state.model, state.optimizer, len(micro)
+    key = ("accum", k, debug_nans, _signature(micro[0]))
+
+    def build(cap: _Captured, p: _Program) -> None:
+        def first():
+            _zero_grads(model)
+            loss, _ = _fb(model, p.inputs, cap.seed)
+            return {"total": loss.float()}
+
+        def more():
+            loss, _ = _fb(model, p.inputs, cap.seed)
+            p.out["total"].add_(loss.float())
+
+        def apply():
+            _divide_grads(model, k)
+            opt.step()
+            return {"loss": p.out["total"] / k}
+
+        cap.capture("first", p, first)
+        if k > 1:
+            cap.capture("more", p, more)
+        cap.capture("apply", p, apply)
+
+    p = _program(state, key, micro[0], build)
+    cap = _captured(state)
+    for i, batch in enumerate(micro):
+        cap.write(batch, p.inputs, _step_seed(state, dropout_seed, i))
+        p.graphs["first" if i == 0 else "more"].replay()
+    if debug_nans:
+        _check_finite(state, p.out["total"])
+    p.graphs["apply"].replay()
+    return _outputs(p, ["loss"])
+
+
+def _run(state: TrainState, kind: tuple, eager: Callable, captured: Callable, *args):
+    """One step of ``kind``: eager by the rule of :func:`captures`, or while
+    the kind's warm-up steps last (on the side stream), else captured."""
+    if not captures(state):
+        out = eager(state, *args)
+    else:
+        cap = _captured(state)
+        out = (cap.eagerly(eager, state, *args) if cap.warm(kind) else captured(state, *args))
     state.step += 1
+    return out
 
 
 def make_train_step(debug_nans: bool = False) -> Callable:
     """``train_step(state, batch, dropout_seed) -> (state, metrics)``: one
     optimizer step on ``batch``; metrics are the loss, ce_loss and js_loss
-    as device scalars (reading them syncs). The step's gradients stay in the
-    parameters' ``.grad`` until the next step."""
+    as device scalars (reading them syncs). On the card in one process, a
+    CUDA graph replay after the warm-up steps."""
 
     def train_step(state: TrainState, batch: Mapping, dropout_seed: int):
-        state.model.zero_grad(set_to_none=True)
-        loss, aux = _forward_backward(state.model, batch,
-                                      fold_in(dropout_seed, state.step), state.mesh)
-        _reduce_gradients(state)
-        if debug_nans:
-            _check_finite(state, loss)
-        _apply(state)
-        return state, {"loss": loss, **{k: v.detach() for k, v in aux.items()}}
+        metrics = _run(state, ("step", debug_nans, _signature(batch)), _eager_step,
+                       _captured_step, batch, dropout_seed, debug_nans)
+        return state, metrics
 
     return train_step
 
@@ -200,7 +520,8 @@ def _microbatch(stacked: Mapping, i: int) -> Dict:
 def make_multi_step(num_steps: int, debug_nans: bool = False) -> Callable:
     """``multi_step(state, stacked, dropout_seed)``: ``num_steps`` train
     steps over batches stacked on a leading axis, returning
-    ``{"loss": last loss, "losses": (num_steps,)}``."""
+    ``{"loss": last loss, "losses": (num_steps,)}``. On the card, the
+    single step's graph replayed ``num_steps`` times."""
     single = make_train_step(debug_nans)
 
     def multi_step(state: TrainState, stacked: Mapping, dropout_seed: int):
@@ -219,26 +540,15 @@ def make_accum_step(accum_steps: int, debug_nans: bool = False) -> Callable:
     the gradients averaged over ``accum_steps`` microbatches stacked on a
     leading axis. The microbatches run in order, so train-mode BatchNorm sees
     each as that many sequential steps would; microbatch i's dropout seed
-    folds in ``(step, i)``. Returns ``{"loss": mean microbatch loss}``."""
+    folds in ``(step, i)``. Returns ``{"loss": mean microbatch loss}``. On
+    the card, a forward/backward graph replayed a microbatch, then the
+    apply graph."""
 
     def accum_step(state: TrainState, stacked: Mapping, dropout_seed: int):
-        model = state.model
-        model.zero_grad(set_to_none=True)
-        step_seed = fold_in(dropout_seed, state.step)
-        total = None
-        for i in range(accum_steps):
-            loss, _ = _forward_backward(model, _microbatch(stacked, i),
-                                        fold_in(step_seed, i), state.mesh)
-            total = loss.float() if total is None else total + loss.float()
-        _reduce_gradients(state)
-        with torch.no_grad():
-            for p in model.parameters():
-                if p.grad is not None:
-                    p.grad.div_(accum_steps)
-        if debug_nans:
-            _check_finite(state, total)
-        _apply(state)
-        return state, {"loss": total / accum_steps}
+        micro = [_microbatch(stacked, i) for i in range(accum_steps)]
+        metrics = _run(state, ("accum", accum_steps, debug_nans, _signature(micro[0])),
+                       _eager_accum, _captured_accum, micro, dropout_seed, debug_nans)
+        return state, metrics
 
     return accum_step
 
@@ -246,7 +556,7 @@ def make_accum_step(accum_steps: int, debug_nans: bool = False) -> Callable:
 def make_eval_step() -> Callable:
     """``eval_step(state, batch) -> metrics``: an eval-mode forward (no
     dropout, BatchNorm on its running statistics) returning the loss, the
-    logits, ce_loss and js_loss."""
+    logits, ce_loss and js_loss. Eager on every device."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Mapping) -> Dict[str, torch.Tensor]:
@@ -255,4 +565,3 @@ def make_eval_step() -> Callable:
         return {"loss": loss, "logits": logits, **aux}
 
     return eval_step
-

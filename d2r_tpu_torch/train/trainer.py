@@ -13,12 +13,19 @@ trace of the second dispatch); ``tensorboard_dir``.
 
 Auto-resume is exact: the data order is pinned to the epoch number
 (``DataLoader.set_epoch``), the dropout seed of a step is
-``fold_in(seed + 1, step)`` and the checkpoint holds the optimizer and
-schedule, so an interrupted run that resumes gives the uninterrupted run's
-bits.
+``fold_in(seed + 1, step)`` and the checkpoint holds the optimizer with its
+count, which is the schedule's position, so an interrupted run that
+resumes gives the uninterrupted run's bits.
 
 The port builds its model from the config alone, so unlike the JAX trainer
 it takes no shape-init batch from the loader before training.
+
+On the card in one process every train step is a CUDA graph replay after
+the warm-up steps (``train/state.py``), as the JAX trainer always runs its
+jitted steps: a dispatch of K steps replays the step's graph K times, an
+accumulated step its microbatch graphs and its apply graph. There is no
+switch; the eager step runs on the CPU and across processes only. Eval
+stays eager.
 
 Besides the JAX package's metrics, the trainer times what it waits on, in
 ``timings`` and the ``summary`` record: each dispatch's time a step (CUDA
@@ -65,6 +72,8 @@ from d2r_tpu_torch.parallel.mesh import Mesh, mesh_for
 from d2r_tpu_torch.train import checkpoint as ckpt
 from d2r_tpu_torch.train.metrics import get_four_metrics
 from d2r_tpu_torch.train.state import (
+    WARMUP_STEPS,
+    captures,
     create_train_state,
     make_accum_step,
     make_eval_step,
@@ -240,13 +249,18 @@ class Trainer:
             last_log_step = self.step
 
         # --profile_dir: a torch.profiler trace of the SECOND dispatch (the
-        # first one builds the kernels and warms the allocator)
-        profile_state = {"count": 0, "prof": None, "wrote": False}
+        # first one builds the kernels and warms the allocator); with the
+        # captured step, of the first dispatch after the warm-up steps and
+        # the capture, so that it shows replays
+        profile_state = {"count": 0, "steps": 0, "from": self.step, "prof": None,
+                         "wrote": False}
 
         def maybe_trace_dispatch(after: bool):
             if not cfg.profile_dir or not self.chief:
                 return
-            if not after and profile_state["count"] == 1:
+            warm = WARMUP_STEPS + 1 if captures(self.state) else 0
+            if (not after and not profile_state["wrote"] and profile_state["count"] >= 1
+                    and profile_state["steps"] >= warm):
                 acts = [torch.profiler.ProfilerActivity.CPU]
                 if self.device.type == "cuda":
                     acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -254,6 +268,7 @@ class Trainer:
                 profile_state["prof"].start()
             elif after:
                 profile_state["count"] += 1
+                profile_state["steps"] = self.step - profile_state["from"]
                 prof = profile_state["prof"]
                 if prof is not None:
                     if self.device.type == "cuda":
@@ -354,8 +369,9 @@ class Trainer:
         if cfg.profile_dir and not profile_state["wrote"]:
             self.logger.warning(
                 "--profile_dir %s: no trace captured; training ran only %d "
-                "dispatch(es) and the profiler skips the first. Lower "
-                "steps_per_dispatch or add data so at least two dispatches run.",
+                "dispatch(es) and the profiler skips the first (and, with the "
+                "captured step, those of its warm-up steps and its capture). Lower "
+                "steps_per_dispatch or add data so that more dispatches run.",
                 cfg.profile_dir, profile_state["count"])
 
         # the best checkpoint's test pass

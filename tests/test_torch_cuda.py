@@ -30,6 +30,12 @@ from d2r_tpu_torch.ops.kernels import flash_attention as tfl
 from d2r_tpu_torch.ops.kernels import fused_attention as tfa
 
 
+def _seed(device, seed, site=3):
+    """A kernel's dropout seed on ``device``: ``seed`` in a device buffer and
+    a site ordinal (None stays None)."""
+    return None if seed is None else tfa.DropoutSeed(tfa.seed_tensor(seed, device), site)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -230,6 +236,7 @@ def test_cuda_dropout_forward_matches_plain(cuda, dtype, tol):
     for i, (b, l, h, d, with_bias) in enumerate(GEOMETRIES):
         q, k, v, bias, _ = _qkv(cuda, dtype, b, l, h, d, with_bias, seed=i)
         for rate, seed in ((0.1, 7), (0.5, 2 ** 40 + 3)):
+            seed = _seed(cuda, seed)
             out = tfa.fused_attention_small(q, k, v, bias, d ** -0.5, rate, seed)
             torch.cuda.synchronize()
             ref = tfa.fused_attention_small_plain(q, k, v, bias, d ** -0.5, rate, seed)
@@ -279,7 +286,7 @@ def test_cuda_backward_matches_plain(cuda, dtype):
     for i, (b, l, h, d, with_bias) in enumerate(GEOMETRIES):
         q, k, v, bias, g = _qkv(cuda, dtype, b, l, h, d, with_bias, seed=10 + i)
         for rate, seed in ((0.0, None), (0.1, 11)):
-            _check_k2(q, k, v, bias, g, rate, seed, (b, l, h, d))
+            _check_k2(q, k, v, bias, g, rate, _seed(cuda, seed), (b, l, h, d))
 
 
 @pytest.mark.cuda
@@ -288,7 +295,7 @@ def test_cuda_dropout_v_ones_identity(cuda):
     seeded, mean-preserving, and K2 regenerates K1's mask (sum dv = sum out)."""
     q, k, _, bias, _ = _qkv(cuda, torch.float32, 8, 16, 2, 8, True, seed=3)
     v = torch.ones(8, 16, 2, 8, device=cuda, requires_grad=True)
-    run = lambda s: tfa.fused_attention_small(q, k, v, bias, 8 ** -0.5, 0.5, s)
+    run = lambda s: tfa.fused_attention_small(q, k, v, bias, 8 ** -0.5, 0.5, _seed(cuda, s))
     o1, o2, o3 = run(1234), run(1234), run(999)
     assert torch.equal(o1, o2) and not torch.equal(o1, o3)
     assert abs(o1.mean().item() - 1.0) < 0.1
@@ -406,6 +413,7 @@ def test_cuda_k1_tile_edges(cuda, dtype, tol):
              (3, 50, 50, 4, 37, True, 0), (2, 64, 64, 3, 64, True, 4))):
         q, k, v, bias = _views(cuda, dtype, b, l, s, h, d, with_bias, seed=20 + i, pad=pad)
         for rate, seed in ((0.0, None),) + (((0.1, 5),) if l == 7 else ()):
+            seed = _seed(cuda, seed)
             before = tfa.fused_attention_small.launches
             out = tfa.fused_attention_small(q, k, v, bias, d ** -0.5, rate, seed)
             torch.cuda.synchronize()
@@ -433,7 +441,7 @@ def test_cuda_k2_tile_edges(cuda, dtype):
         g = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(50 + i),
                         device=cuda).to(dtype)
         for rate, seed in ((0.0, None), (0.1, 9)):
-            _check_k2(q, k, v, bias, g, rate, seed, (b, l, s, h, d, pad))
+            _check_k2(q, k, v, bias, g, rate, _seed(cuda, seed), (b, l, s, h, d, pad))
 
 
 @pytest.mark.cuda
@@ -521,3 +529,207 @@ def test_cuda_sentic_logits_match_cpu(cuda):
                                     "pixel_values", "sentic_adj")})
         logits.append(out[1].float().cpu())
     assert (logits[1] - logits[0]).abs().max() <= 1e-3
+
+
+# ---- the train step as one program ---------------------------------------
+
+def _adamw_groups(device, sizes, mu_dtype, seed):
+    """Two lr groups of fp32 tensors of ``sizes`` (p, g, mu, nu, base lr),
+    random values from ``seed``, mu in ``mu_dtype``."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    rnd = lambda n: torch.randn(n, generator=g)
+    groups = []
+    for part, lr in ((sizes[::2], 1e-3), (sizes[1::2], 5e-2)):
+        ps = [rnd(n).to(device) for n in part]
+        groups.append((ps, [rnd(n).to(device) for n in part],
+                       [(rnd(n) * 0.1).to(device, mu_dtype) for n in part],
+                       [(rnd(n) ** 2 * 0.01).to(device) for n in part], lr))
+    return groups
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mu_dtype", [torch.float32, torch.bfloat16])
+def test_cuda_adamw_kernel_equals_its_twin(cuda, mu_dtype):
+    """The AdamW kernel against its plain twin on the same tensors, bit for
+    bit: odd sizes (one element, three, 1023, one chunk plus one, 2^25 + 7)
+    in two lr groups, three steps through a fractional warmup (1.5 of 4
+    steps), with the count and the schedule on the card."""
+    from d2r_tpu_torch.ops.kernels import adamw
+    sizes = (1, 3, 1023, adamw.CHUNK + 1, (1 << 25) + 7)
+    hp, sch = adamw.hyper((0.9, 0.999), 1e-8, 1e-2), adamw.schedule(1.5, 4)
+    kernel_groups = _adamw_groups(cuda, sizes, mu_dtype, seed=0)
+    twin_groups = [tuple([t.clone() for t in x] if isinstance(x, list) else x for x in grp)
+                   for grp in kernel_groups]
+    count_k = torch.zeros((), device=cuda)
+    count_t = torch.zeros((), device=cuda)
+    before, table = adamw.adamw_update.launches, None
+    for _ in range(3):
+        table = adamw.adamw_update(kernel_groups, count_k, hp, sch, table)
+        adamw.adamw_plain(twin_groups, count_t, hp, sch)
+    torch.cuda.synchronize()
+    assert adamw.adamw_update.launches == before + 3
+    assert float(count_k) == float(count_t) == 3.0
+    for got, want in zip(kernel_groups, twin_groups):
+        for a, b in zip(got[:4], want[:4]):
+            for x, y in zip(a, b):
+                assert x.dtype == y.dtype and torch.equal(x, y), (x.numel(), x.dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_hidden_dropout_equals_plain(cuda, dtype):
+    """The hidden-dropout kernel against its plain version, bit for bit,
+    forward and backward (the same mask regenerated), at a BERT hidden
+    state's shape and an odd size; two sites differ."""
+    from d2r_tpu_torch.ops.kernels import dropout as tdrop
+    for shape in ((8, 64, 768), (3, 5, 7)):
+        x = torch.randn(shape, device=cuda).to(dtype).requires_grad_()
+        seed = _seed(cuda, 2 ** 63 + 11, site=4)
+        y = tdrop.hidden_dropout(x, 0.1, seed)
+        y.backward(torch.ones_like(y))
+        ref = tdrop.hidden_dropout_plain(x.detach(), 0.1, seed)
+        assert torch.equal(y.detach(), ref)
+        assert torch.equal(x.grad, tdrop.hidden_dropout_plain(torch.ones_like(x), 0.1, seed))
+        other = tdrop.hidden_dropout(x.detach(), 0.1, seed._replace(site=5))
+        assert not torch.equal(other, y.detach())
+
+
+def _step_config(dropout: bool, **kw):
+    import dataclasses
+
+    from d2r_tpu_torch import config as tconfig
+    tc = tconfig.tiny_test_config().text_config()
+    if not dropout:
+        tc = dataclasses.replace(tc, hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    name = "tiny-bert" if dropout else "tiny-bert-dropout-0"
+    tconfig.register_text_preset(name, lambda: tc)
+    return tconfig.tiny_test_config(DR_step=4, bert_name=name, lr=1e-3, warmup_ratio=0.3,
+                                    **kw)
+
+
+def _batches(n, size=4, seed=0):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        ids = rng.integers(5, 128, size=(size, 16)).astype(np.int32)
+        mask = (np.arange(16)[None] < rng.integers(4, 17, size=(size, 1))).astype(np.int32)
+        out.append(dict(input_ids=ids * mask, attention_mask=mask,
+                        token_type_ids=np.zeros_like(ids),
+                        labels=rng.integers(0, 3, size=size).astype(np.int32),
+                        pixel_values=rng.standard_normal((size, 3, 32, 32)).astype(np.float32)))
+    return out
+
+
+def _eager_run(state, batches, seed):
+    """The eager step on the card, the captured step's yardstick."""
+    from d2r_tpu_torch.train import state as st
+    losses = []
+    for b in batches:
+        losses.append(st._eager_step(state, b, seed, False)["loss"])
+        state.step += 1
+    return losses
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout", [False, True], ids=["dropout_off", "dropout_on"])
+def test_cuda_replayed_steps_equal_eager_steps(cuda, dropout):
+    """Six train steps of a tiny model through ``make_train_step`` (two
+    eager warm-up steps, then the capture and four replays) against six
+    eager steps from the same weights, with dropout off and on: the losses
+    and every parameter agree within 1e-5 of each leaf's max |value|
+    (atomics in the embeddings' and K2's dbias backward reorder sums); the
+    replayed steps launch no kernel wrapper from the host, and run under
+    ``set_sync_debug_mode("error")``."""
+    import copy
+
+    from d2r_tpu_torch.models.unimo import build_model
+    from d2r_tpu_torch.ops.kernels import adamw
+    from d2r_tpu_torch.train import state as st
+    cfg = _step_config(dropout)
+    model = build_model(cfg, device="cpu", seed=0)
+    batches = _batches(6)
+    ref = st.create_train_state(cfg, 10, device=cuda, model=copy.deepcopy(model))
+    ref_losses = _eager_run(ref, batches, 5)
+    got = st.create_train_state(cfg, 10, device=cuda, model=copy.deepcopy(model))
+    step = st.make_train_step()
+    losses = []
+    for i, b in enumerate(batches):
+        if i == st.WARMUP_STEPS + 1:     # captured: replays from here on
+            before = (tfa.fused_attention_small.launches, adamw.adamw_update.launches)
+            torch.cuda.set_sync_debug_mode("error")
+        got, m = step(got, b, 5)
+        losses.append(m["loss"])
+    torch.cuda.set_sync_debug_mode(0)
+    assert (tfa.fused_attention_small.launches, adamw.adamw_update.launches) == before
+    assert got.step == ref.step == 6
+    assert set(got.captured.programs) and all(
+        "step" in p.graphs for p in got.captured.programs.values())
+    for a, b in zip(losses, ref_losses):
+        assert abs(float(a) - float(b)) <= 1e-5 * max(1.0, abs(float(b))), (losses, ref_losses)
+    for (n, p), q in zip(got.model.named_parameters(), ref.model.parameters()):
+        assert (p - q).abs().max().item() <= 1e-5 * q.abs().max().clamp_min(1e-30).item(), n
+    assert float(got.optimizer.count) == float(ref.optimizer.count) == 6
+
+
+@pytest.mark.cuda
+def test_cuda_captured_multi_and_accum_steps_equal_eager(cuda):
+    """``make_multi_step`` replays the single step's graph, every step's
+    loss its own (not the last one's); ``make_accum_step`` replays a
+    microbatch graph a microbatch and the apply graph; both against the
+    eager steps from the same weights, dropout on."""
+    import copy
+
+    import numpy as np
+
+    from d2r_tpu_torch.models.unimo import build_model
+    from d2r_tpu_torch.train import state as st
+    cfg = _step_config(True)
+    model = build_model(cfg, device="cpu", seed=1)
+    batches = _batches(8, seed=1)
+    stacked = lambda bs: {k: np.stack([b[k] for b in bs]) for k in bs[0]}
+    got = st.create_train_state(cfg, 10, device=cuda, model=copy.deepcopy(model))
+    ref = st.create_train_state(cfg, 10, device=cuda, model=copy.deepcopy(model))
+    _, m = st.make_multi_step(4)(got, stacked(batches[:4]), 7)
+    _, m2 = st.make_multi_step(4)(got, stacked(batches[4:]), 7)
+    ref_losses = _eager_run(ref, batches, 7)
+    got_losses = m["losses"].tolist() + m2["losses"].tolist()
+    np.testing.assert_allclose(got_losses, [float(x) for x in ref_losses], rtol=1e-5, atol=1e-6)
+    assert len(set(got_losses)) == 8
+
+    acc = st.create_train_state(cfg, 10, device=cuda, model=copy.deepcopy(model))
+    acc_ref = st.create_train_state(cfg, 10, device=cuda, model=copy.deepcopy(model))
+    accum = st.make_accum_step(2)
+    for i in range(4):
+        micro = batches[2 * i:2 * i + 2]
+        _, m = accum(acc, stacked(micro), 7)
+        want = st._eager_accum(acc_ref, micro, 7, False)["loss"]
+        acc_ref.step += 1
+        assert abs(float(m["loss"]) - float(want)) <= 1e-5 * max(1.0, abs(float(want)))
+    assert any(k[0] == "accum" for k in acc.captured.programs)
+    for p, q in zip(acc.model.parameters(), acc_ref.model.parameters()):
+        assert (p - q).abs().max().item() <= 1e-5 * q.abs().max().clamp_min(1e-30).item()
+
+
+@pytest.mark.cuda
+def test_cuda_captured_debug_nans_raises_before_the_update(cuda):
+    """With ``debug_nans`` the captured step is a forward/backward graph,
+    the host check and an apply graph: a NaN batch after the capture raises
+    and leaves the parameters and the count as they were."""
+    import numpy as np
+
+    from d2r_tpu_torch.models.unimo import build_model
+    from d2r_tpu_torch.train import state as st
+    cfg = _step_config(False)
+    state = st.create_train_state(cfg, 10, device=cuda, model=build_model(cfg, "cpu", seed=2))
+    step = st.make_train_step(debug_nans=True)
+    batches = _batches(4, seed=2)
+    for b in batches[:3]:
+        step(state, b, 1)
+    bad = dict(batches[3], pixel_values=np.full_like(batches[3]["pixel_values"], np.nan))
+    before = [p.detach().clone() for p in state.model.parameters()]
+    with pytest.raises(FloatingPointError, match="debug_nans: step 3"):
+        step(state, bad, 1)
+    assert state.step == 3 and float(state.optimizer.count) == 3
+    assert all(torch.equal(p, q) for p, q in zip(state.model.parameters(), before))
+    assert {"fb", "apply"} <= set(next(iter(state.captured.programs.values())).graphs)

@@ -63,7 +63,8 @@ def test_no_library_attention_or_compile_in_the_port():
                     f"{path}:{node.lineno} uses {node.attr}")
 
 
-@pytest.mark.parametrize("wrapper", ["fused_attention.py", "flash_attention.py"])
+@pytest.mark.parametrize("wrapper", ["fused_attention.py", "flash_attention.py", "dropout.py",
+                                     "adamw.py"])
 def test_cuda_wrapper_has_no_fallback_except(wrapper):
     tree = ast.parse((PKG / "ops" / "kernels" / wrapper).read_text())
     assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
@@ -115,7 +116,7 @@ def test_serving_entry_points_default_to_cuda_and_refuse_a_missing_gpu(entry):
 @pytest.mark.parametrize("flag", ["--dp", "--tp"])
 def test_multi_chip_serving_flags_are_refused(flag):
     from d2r_tpu_torch import server
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 9b"):
         server.main(SERVING_ENTRY_POINTS["server"] + ["--device", "cpu", flag, "2"])
 
 
@@ -156,10 +157,21 @@ def test_native_bridges_build_under_build_not_native():
 
 
 def test_wrapper_refuses_devices_without_a_kernel():
-    from d2r_tpu_torch.ops.kernels.fused_attention import fused_attention_small
+    from d2r_tpu_torch.ops.kernels import adamw, dropout
+    from d2r_tpu_torch.ops.kernels.fused_attention import (
+        DropoutSeed,
+        fused_attention_small,
+        seed_tensor,
+    )
     q = torch.empty(1, 4, 2, 8, device="meta")
     with pytest.raises(ValueError, match="no kernel for device"):
         fused_attention_small(q, q, q, None, 0.5)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        dropout.hidden_dropout(q, 0.1, DropoutSeed(seed_tensor(1, "meta"), 0))
+    count = torch.zeros((), device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        adamw.adamw_update([([q], [q], [q], [q], 1e-3)], count,
+                           adamw.hyper((0.9, 0.999), 1e-8, 1e-2), adamw.schedule(0, 1))
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

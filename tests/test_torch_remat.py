@@ -2,9 +2,9 @@
 
 - Bit for bit against the step without it: ``remat``, ``remat_ffn_act`` and
   both, with dropout off and on (``tiny-bert``'s 0.1 rates, the same seed):
-  the gradients after one forward and backward, both generators of the
-  ``DropoutRNG`` where they end without remat, and the losses and
-  parameters of two train steps.
+  the gradients after one forward and backward, the ``DropoutRNG``'s site
+  counter where it ends without remat (its masks are functions of the seed
+  buffer and the site), and the losses and parameters of two train steps.
 - Against the JAX package: one train step of the scaled recipe's model
   knobs (``remat``, ``remat_ffn_act``, ``scan_layers``; dropout off), from
   ``test_torch_train.py``'s tree in the scanned layout (its values, so that
@@ -59,14 +59,14 @@ def _model(**cfg):
 
 
 def _backward(model, batch, seed=3):
-    """Gradients and both generators' states after one train-mode forward
-    and backward with an explicit DropoutRNG."""
+    """Gradients and the site counter and seed buffer of the DropoutRNG
+    after one train-mode forward and backward with it."""
     model.train().zero_grad(set_to_none=True)
     rng = DropoutRNG(seed, "cpu")
     loss, _, _ = model(**{k: torch.as_tensor(batch[k]) for k in INPUTS}, rng=rng)
     loss.backward()
     grads = {n: p.grad.clone() for n, p in model.named_parameters()}
-    return float(loss.detach()), grads, (rng.host.get_state(), rng.device.get_state())
+    return float(loss.detach()), grads, (torch.tensor(rng.site), rng.seed)
 
 
 @pytest.mark.parametrize("dropout", sorted(DROPOUT))

@@ -323,11 +323,17 @@ def test_resolve_serve_config_reads_a_jax_config_json(tmp_path, capsys):
     with pytest.raises(FileNotFoundError):
         server.resolve_serve_config(load, config_json=str(tmp_path / "absent.json"))
     # a sentic model serves, as in the JAX package, without the GCN (no
-    # adjacency reaches a served forward); a parallel setting is refused
+    # adjacency reaches a served forward); the layout hints of a run with a
+    # model axis serve (one process has none), pipeline stages are refused
     jax_save_config_json(jax_tiny_config(use_sentic_graph=True), str(tmp_path / "config.json"))
     assert server.resolve_serve_config(load).use_sentic_graph
-    jax_save_config_json(jax_tiny_config(seq_shard=True), str(tmp_path / "config.json"))
-    with pytest.raises(NotImplementedError, match="seq_shard"):
+    jax_save_config_json(jax_tiny_config(seq_shard=True, fabric_shard=True, mesh_shape=(2, 2),
+                                         mesh_axis_names=("data", "model")),
+                         str(tmp_path / "config.json"))
+    assert server.resolve_serve_config(load).seq_shard
+    jax_save_config_json(jax_tiny_config(pipeline_stages=2, pipeline_microbatches=2),
+                         str(tmp_path / "config.json"))
+    with pytest.raises(NotImplementedError, match="pipeline_stages=2.*Queue 1 item 9b"):
         server.resolve_serve_config(load)
     assert server.resolve_serve_config(str(tmp_path / "elsewhere" / "m")) == D2RConfig(
         **server._SERVE_DEFAULTS)

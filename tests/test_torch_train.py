@@ -41,6 +41,7 @@ from d2r_tpu.train.state import TrainState as JaxTrainState
 from d2r_tpu.train.state import make_train_step as jax_make_train_step
 from d2r_tpu_torch import config as tconfig
 from d2r_tpu_torch.models import layers as tlayers
+from d2r_tpu_torch.ops.kernels import adamw as tadamw
 from d2r_tpu_torch.train import checkpoint as tckpt
 from d2r_tpu_torch.train import optimizer as toptim
 from d2r_tpu_torch.train.state import (
@@ -160,10 +161,11 @@ def _jax_first_moment_grads(opt_state):
 
 
 @functools.lru_cache(maxsize=None)
-def train_runs():
-    """JAX and port: 3 train steps from one tree. Returns per-package dicts
-    of step losses, step-1 grads and step-1 batch stats."""
-    jcfg, tcfg = _configs(DR_step=3)
+def train_runs(**flags):
+    """JAX and port: 3 train steps from one tree, with the configs' ``flags``.
+    Returns per-package dicts of step losses, step-1 grads and step-1 batch
+    stats, and the port's eval logits after the steps."""
+    jcfg, tcfg = _configs(DR_step=3, **flags)
     batch = _batch(jcfg)
     jmodel = JaxClassifier(jcfg)
     tree = _random_tree(jmodel, batch)
@@ -192,7 +194,25 @@ def train_runs():
         if i == 0:
             port_out["grads"] = _port_grads(state.model)
             port_out["batch_stats"] = _flat(to_jax_variables(state.model)["batch_stats"])
+    port_out["logits"] = make_eval_step()(state, batch)["logits"]
     return jax_out, port_out
+
+
+# the JAX package's layout settings, which it reads as no-ops without a
+# model axis or pipeline stages (d2r_tpu/parallel/mesh.py:200-205,228-236,
+# d2r_tpu/models/bert.py:225-239)
+LAYOUT = dict(seq_shard=True, fabric_shard=True, pipeline_microbatches=2)
+
+
+def test_layout_flags_change_nothing_in_one_process():
+    """The port accepts the layout settings in one process: its losses and
+    logits equal those without them, and JAX's run with the same settings
+    gives the same losses as the port within the step test's tolerance."""
+    _, plain = train_runs()
+    jax_flags, port_flags = train_runs(**LAYOUT)
+    assert port_flags["losses"] == plain["losses"]
+    assert torch.equal(port_flags["logits"], plain["logits"])
+    np.testing.assert_allclose(port_flags["losses"], jax_flags["losses"], atol=1e-4, rtol=0)
 
 
 GRAD_MODULES = ["fc"] + [f"model/{m}" for m in (
@@ -247,19 +267,34 @@ def _opt_tree():
     return _random_tree(JaxClassifier(jcfg), _batch(jcfg), seed=3)
 
 
-@pytest.mark.parametrize("freeze", [False, True])
-def test_optimizer_matches_jax_multi_transform(freeze):
-    """Five steps of the same numpy gradients; lr 1e-3 and warmup_ratio 0.2
-    (the first step at lr 0, a fractional warmup of 1.0 step over 5)."""
-    jcfg, tcfg = _configs(DR_step=3, lr=1e-3, warmup_ratio=0.2, freeze_towers=freeze)
+@pytest.mark.parametrize("freeze,impl", [
+    pytest.param(False, "multi_transform", id="False"),
+    pytest.param(True, "multi_transform", id="True"),
+    *(pytest.param(f, i, id=f"{f}-{i}") for i in ("grouped", "fused", "fused_leaf")
+      for f in (False, True))])
+def test_optimizer_matches_jax_multi_transform(freeze, impl):
+    """Five steps of the same numpy gradients through the JAX package's
+    ``impl`` and the port's AdamW (the kernel's plain twin, with the count
+    and the schedule as device scalars); lr 1e-3 and warmup_ratio 0.2 (the
+    first step at lr 0, a fractional warmup of 1.0 step over 5). ``fused``
+    with ``freeze_towers`` raises the same ``ValueError`` in both."""
+    jcfg, tcfg = _configs(DR_step=3, lr=1e-3, warmup_ratio=0.2, freeze_towers=freeze,
+                          optimizer_impl=impl)
     total = 5
     tree = copy.deepcopy(_opt_tree())
-    tx = joptim.make_optimizer(jcfg, total)
     jparams = jax.tree_util.tree_map(jnp.asarray, tree["params"])
+    model = from_jax_variables(tcfg, copy.deepcopy(tree)).train()
+    template = None if impl == "multi_transform" else jparams
+    if freeze and impl == "fused":
+        with pytest.raises(ValueError, match="freeze_towers is incompatible"):
+            joptim.make_optimizer(jcfg, total, template)
+        with pytest.raises(ValueError, match="freeze_towers is incompatible"):
+            toptim.make_optimizer(tcfg, total, model)
+        return
+    tx = joptim.make_optimizer(jcfg, total, template)
     opt_state = tx.init(jparams)
 
-    model = from_jax_variables(tcfg, copy.deepcopy(tree)).train()
-    optimizer, scheduler = toptim.make_optimizer(tcfg, total, model)
+    optimizer = toptim.make_optimizer(tcfg, total, model)
     gmodel = copy.deepcopy(model)
     rng = np.random.default_rng(11)
     fc_sched = joptim.linear_warmup_decay(jcfg.fc_lr, jcfg.warmup_ratio * total, total)
@@ -273,10 +308,9 @@ def test_optimizer_matches_jax_multi_transform(freeze):
         load_jax_variables(gmodel, {"params": grads, "batch_stats": tree["batch_stats"]})
         for (_, p), (_, g) in zip(model.named_parameters(), gmodel.named_parameters()):
             p.grad = g.detach().clone()
-        fc_lr = next(g["lr"] for g in optimizer.param_groups if g["name"] == "fc")
-        np.testing.assert_allclose(fc_lr, float(fc_sched(step)), rtol=1e-6)
+        np.testing.assert_allclose(float(optimizer.lrs()["fc"]), float(fc_sched(step)),
+                                   rtol=1e-6)
         optimizer.step()
-        scheduler.step()
 
     ref = _flat(jparams)
     got = _flat(to_jax_variables(model)["params"])
@@ -308,10 +342,16 @@ def test_optimizer_state_of_torch_adamw_loads():
 
 @pytest.mark.parametrize("warmup,total", [(0.0, 10), (1.5, 10), (0.3, 4), (20.0, 10)])
 def test_schedule_matches_jax(warmup, total):
+    """The optimizer's schedule, in fp32 on the device (the AdamW kernel's,
+    through its plain twin), equals JAX's ``jnp`` schedule bit for bit, at
+    fractional warmups too."""
     ref = joptim.linear_warmup_decay(5e-2, warmup, total)
-    got = toptim.linear_warmup_decay(5e-2, warmup, total)
+    sch = tadamw.schedule(warmup, total)
     for step in range(total + 2):
-        np.testing.assert_allclose(got(step), float(ref(step)), rtol=1e-6, atol=1e-12)
+        factor = tadamw.schedule_plain(torch.tensor(float(step)), sch)
+        device_lr = torch.tensor(np.float32(5e-2)) * factor
+        assert device_lr.dtype == torch.float32
+        assert device_lr.numpy().tobytes() == np.asarray(ref(step), np.float32).tobytes(), step
 
 
 def test_group_labels_and_tower_mask_match_jax():
@@ -417,8 +457,8 @@ def test_multi_and_eval_steps():
 
 def test_dropout_draws_from_the_step_generator_only():
     """With the bert-base dropout rates: two steps from the same state and
-    seed agree bitwise whatever the global RNG does, and another seed
-    differs."""
+    seed agree bitwise whatever the global RNG does (every mask comes from
+    the step's seed buffer), and another seed differs."""
     cfg = tconfig.tiny_test_config(DR_step=3)
     batch = _batch(cfg)
 
@@ -491,7 +531,7 @@ def test_bf16_first_moments_match_optax_grouped():
     opt_state = tx.init(jparams)
 
     model = from_jax_variables(tcfg, copy.deepcopy(tree)).train()
-    optimizer, scheduler = toptim.make_optimizer(tcfg, total, model)
+    optimizer = toptim.make_optimizer(tcfg, total, model)
     gmodel = copy.deepcopy(model)
     rng = np.random.default_rng(12)
     for _ in range(total):
@@ -504,7 +544,6 @@ def test_bf16_first_moments_match_optax_grouped():
         for (_, p), (_, g) in zip(model.named_parameters(), gmodel.named_parameters()):
             p.grad = g.detach().clone()
         optimizer.step()
-        scheduler.step()
 
     adam = opt_state[0]
     assert {x.dtype for x in jax.tree_util.tree_leaves(adam.mu)} == {jnp.dtype(jnp.bfloat16)}
@@ -575,4 +614,5 @@ def test_every_optimizer_impl_spelling_builds_the_same_optimizer(impl):
     state = create_train_state(cfg, TOTAL_STEPS, device="cpu", seed=0)
     groups = {g["name"]: (len(g["params"]), g["lr"]) for g in state.optimizer.param_groups}
     assert set(groups) == set(toptim.GROUPS)
-    assert groups["fc"] == (2, 0.0)           # weight and bias; warmup: lr 0 at step 0
+    assert groups["fc"] == (2, 5e-2)          # weight and bias at the base lr
+    assert float(state.optimizer.lrs()["fc"]) == 0.0   # warmup: lr 0 at step 0

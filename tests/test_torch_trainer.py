@@ -242,7 +242,7 @@ def test_checkpoint_round_trip(with_opt, tmp_path):
     opt, opt2 = state.optimizer.state_dict(), fresh.optimizer.state_dict()
     if with_opt:
         assert fresh.step == state.step == 1
-        assert fresh.scheduler.state_dict() == state.scheduler.state_dict()
+        assert float(fresh.optimizer.count) == float(state.optimizer.count) == 1   # the schedule
         assert opt2["param_groups"] == opt["param_groups"]
         assert opt2["state"].keys() == opt["state"].keys()
         for i, s in opt["state"].items():
@@ -327,7 +327,7 @@ def test_grad_accum_schedule_counts_optimizer_steps():
     assert tr.train_num_steps == 4
     tr.train()
     assert tr.step == tr.state.step == 4
-    assert tr.state.scheduler.last_epoch == 4
+    assert float(tr.state.optimizer.count) == 4     # the schedule's position
 
 
 def test_tensorboard_unavailable_warns_and_continues(monkeypatch, caplog):
@@ -470,6 +470,11 @@ ACCEPTED_FLAGS = ("--pretrained_dir", "--dry_run", "--async_checkpoint", "--debu
                   "--prng_impl", "--sentic_lexicon", "--mesh_data", "--mesh_model",
                   "--mesh_topology", "--coordinator_address", "--num_processes",
                   "--process_id")
+# the JAX package's layout settings, no-ops in one process there and here:
+# accepted (the CLI runs with them), and refused where they would act, with
+# the flags that make them act
+LAYOUT_FLAGS = {"--seq_shard": ["--mesh_model", "2"], "--fabric_shard": ["--mesh_model", "2"],
+                "--pipeline_microbatches": ["--mesh_stage", "2"]}
 # the multi-process flags, honoured since: in one process a mesh larger than
 # the world raises naming it, and a coordinator flag alone raises naming the
 # others it needs, before anything is written
@@ -499,7 +504,8 @@ def _cli_runs_with(argv, tmp_path):
     tcli.main(_tiny_cli_flags(paths) + argv + ["--save_path", str(out)])
     cfg = tconfig.load_config_json(str(out / "config.json"))
     field = argv[0][2:].replace("sentic_lexicon", "sentic_lexicon_path")
-    assert getattr(cfg, field) == (True if len(argv) == 1 else argv[1])
+    value = getattr(cfg, field)
+    assert value == (True if len(argv) == 1 else type(value)(argv[1]))
     assert (out / "best_model" / tckpt.MODEL_FILE).exists()
 
 
@@ -568,9 +574,16 @@ def test_refused_flags_raise_naming_themselves(argv, tmp_path):
     ``--mesh_stage`` is refused through ``pipeline_stages``, hence the one
     below. A flag of :data:`ACCEPTED_FLAGS` is no longer refused: its case
     runs it, or for the multi-process flags in one process checks the error
-    that names what is missing (:data:`PARALLEL_ERRORS`)."""
+    that names what is missing (:data:`PARALLEL_ERRORS`). A layout flag
+    (:data:`LAYOUT_FLAGS`, ``config.UNPORTED``) runs in one process and is
+    refused beside the flags that would make it act."""
     assert len(REFUSED_FLAGS) == (len(tcli.REFUSED) + len(tconfig.UNPORTED) + 1
                                   + len(ACCEPTED_FLAGS))
+    assert set(LAYOUT_FLAGS) == {flag for _, flag, _, _ in tconfig.UNPORTED}
+    if argv[0] in LAYOUT_FLAGS:
+        _cli_runs_with(argv, tmp_path)
+        argv = argv + LAYOUT_FLAGS[argv[0]]
+        tmp_path = tmp_path / "refused"
     if argv[0] in ACCEPTED_FLAGS:
         assert all(flag != argv[0] for flag, _, _ in tcli.REFUSED)
         assert all(flag != argv[0] for _, flag, _, _ in tconfig.UNPORTED)
@@ -600,7 +613,9 @@ def test_the_trainer_refuses_what_the_cli_refuses(override):
     """The library entry point refuses the same config values as the CLI,
     a model passed in or not; those ported since (the trainer extras, the
     lexicon path and ``mesh_topology``) it accepts, as the CLI does. A mesh
-    larger than one process's world raises, naming the world."""
+    larger than one process's world raises, naming the world. The layout
+    settings (``config.UNPORTED``) it accepts in one process, and their
+    check refuses them under a model axis or pipeline stages."""
     field = list(override)[0]
     if field == "mesh_shape":   # the CLI's axis names for the shape
         override = dict(override, mesh_axis_names=("data", "model")[:len(override[field])])
@@ -609,6 +624,14 @@ def test_the_trainer_refuses_what_the_cli_refuses(override):
         if field in ("async_checkpoint", "debug_nans", "prng_impl", "sentic_lexicon_path",
                      "mesh_topology"):
             Trainer(train_data=[_tiny_batch(cfg)], cfg=cfg, model=model, device="cpu")
+            continue
+        if field in ("pipeline_microbatches", "seq_shard", "fabric_shard"):
+            Trainer(train_data=[_tiny_batch(cfg)], cfg=cfg, model=model, device="cpu")
+            acting = dict(override, **(dict(pipeline_stages=2) if field == "pipeline_microbatches"
+                                       else dict(mesh_shape=(2, 2),
+                                                 mesh_axis_names=("data", "model"))))
+            with pytest.raises(NotImplementedError, match=field + r"=.*ROADMAP\.md Queue 1 item 9b"):
+                tconfig.tiny_test_config(save_path=None, **acting).check_supported(world=4)
             continue
         if field == "mesh_shape":
             with pytest.raises(ValueError, match="the world has 1 process"):

@@ -251,9 +251,9 @@ def test_prng_impl_names_give_the_same_bits(accum):
 
 def test_only_the_parallel_settings_are_refused():
     """What stays refused is the next parallel slice's: pipeline stages,
-    the two layout hints, int8 training under a model axis and threefry's
-    bits across processes; a (data, model) mesh and its flags are
-    accepted."""
+    the two layout hints under a model axis (and the microbatches of
+    pipeline stages), int8 training under a model axis and threefry's bits
+    across processes; a (data, model) mesh and its flags are accepted."""
     assert {f for f, *_ in tconfig.UNPORTED} == {
         "pipeline_microbatches", "seq_shard", "fabric_shard"}
     assert {flag for flag, *_ in tcli.REFUSED} == set()
@@ -262,8 +262,18 @@ def test_only_the_parallel_settings_are_refused():
     tconfig.tiny_test_config(mesh_topology=True, quant_train="int8_all", mesh_shape=(4,)
                              ).check_supported()
     tconfig.tiny_test_config(**mesh).check_supported()
+    # the layout hints: accepted where JAX reads them as no-ops (no model
+    # axis, one stage; a model built whole, serving), refused where they act
+    layout = dict(seq_shard=True, fabric_shard=True, pipeline_microbatches=2)
+    tconfig.tiny_test_config(**layout).check_supported()
+    tconfig.tiny_test_config(mesh_shape=(4,), **layout).check_supported(world=4)
+    tconfig.tiny_test_config(**layout, **mesh).check_supported(model_axis=1)
     for bad, match in ((dict(quant_train="int8", **mesh), "quant_train='int8' with --mesh_model 2"),
-                       (dict(pipeline_stages=2), "pipeline_stages=2 .--mesh_stage")):
+                       (dict(pipeline_stages=2), "pipeline_stages=2 .--mesh_stage"),
+                       (dict(seq_shard=True, **mesh), "seq_shard=True .--seq_shard"),
+                       (dict(fabric_shard=True, **mesh), "fabric_shard=True .--fabric_shard"),
+                       (dict(pipeline_microbatches=2, pipeline_stages=2),
+                        "pipeline_microbatches=2 .--pipeline_microbatches")):
         with pytest.raises(NotImplementedError, match=match + ".*Queue 1 item 9b"):
             tconfig.tiny_test_config(**bad).check_supported()
     tconfig.tiny_test_config(use_sentic_graph=True, sentic_lexicon_path="x", quant_train="int8_all",
