@@ -107,7 +107,9 @@ Phases; any failure exits non-zero without the final ``ok`` line:
    trainer and checkpoints. The items that decode to the fallback frame
    must be exactly the corrupt files. Counts set to 0 before, read after:
    34 K1 and 34 K2 host calls a warm-up step and at the capture (the
-   trainer runs the captured step), 34 K1 an eval batch; finite losses;
+   trainer runs the captured step), 34 K1 at the eval warm-up forward and
+   at the eval capture (dev and test batches share one signature, and
+   every later eval batch is a replay); finite losses;
    the best model and ``config.json`` saved. The trainer's own
    samples/s and the shares of its epoch loop, step time (CUDA events a
    step: median, quartiles and extremes), host wait on the loader, eval and
@@ -115,7 +117,11 @@ Phases; any failure exits non-zero without the final ``ok`` line:
    and kernel counts in a replayed step from the run's ``--profile_dir``
    trace (the first dispatch after the capture). Then the restore probe:
    ``--only_test --load_path <best_model>`` gives the trained run's test
-   loss bit for bit.
+   loss bit for bit. Then ``eval_replay_check`` on the best model: three
+   different batches through the captured eval step, each batch's kept
+   loss and logits equal to its eager forward bit for bit, again after a
+   train step and after ``restore_checkpoint``, and a dev pass (8 batches
+   of 64) timed eager and replayed.
 
 13. The HTTP service as a user runs it: ``server.build_service`` (the code
    of ``python -m d2r_tpu_torch.server``) on a D2R-base checkpoint (the
@@ -244,6 +250,28 @@ operations at the type's peak).
    group ended at the CLI's exit. With two cards or more, also two NCCL
    processes (dp = 2); with one, that is logged as not run.
 
+Between phases 13 and 14, ``serve_export``: the serving artifact as a
+user makes it. After ``step_kernels``, ``export_start`` saves phase 13's
+D2R-base checkpoint under ``build/`` and starts ``export_artifacts`` in a
+process of its own, which runs beside phases 4-13 (exporting is host
+work: tracing and JSON; a program's trace and save take 15-28 s and its
+load 8-14 s on that machine): ``python -m d2r_tpu_torch.export`` at
+buckets 1/8/32 (uint8 pixels; the CLI's self-check reloads bucket 1),
+again with ``--quantize int8`` at ``EXPORT_INT8_BUCKETS``, D2R-large at
+``EXPORT_LARGE_BUCKETS`` through ``export_predictor``, and ``--format
+torch``. ``serve_export`` waits for it, then ``load_exported`` with the
+checkpoint's model: each bucket's program holds 34 K1 op nodes
+(``d2r_torch::fused_attention_fwd``; D2R-large 29 and 29 K3) and no
+einsum of the plain attention, its warm-up calls K1 2 x 34 times (the
+eager forward and the capture through the program), its replayed
+probabilities equal ``Predictor``'s on the same rows (atol 1e-6, labels
+equal; int8 within ``QUANT_LOGITS_TOL``; the difference is printed), and
+traced replays at the first and last bucket (bf16 and large) show the
+kernels by name. Per
+bucket: trace and save s, program bytes against the bytes of the tensors
+it takes, load s, replayed forward ms beside ``Predictor``'s; the
+reference checkpoint's key count.
+
 Between phases 3 and 4, ``step_kernels``: the AdamW kernel against its
 16-pass plain twin, bit for bit, fp32 and bf16 first moments, 3 steps
 through a fractional warmup, on odd sizes (1, 3, 1023, 2^25 + 7) and on
@@ -270,6 +298,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -367,6 +396,14 @@ SCALED_KNOBS = dict(scan_layers=True, remat=True, adam_mu_dtype="bfloat16")
 SCALED_BATCH = 16
 # the recipe's CLI run: one short epoch, 64 posts a split
 SCALED_CLI_DATA = {"n": 64, "image_size": 256, "corrupt_every": 50}
+# The serving export (phase serve_export): the CLI at the serving buckets
+# for D2R-base in bf16, ``--quantize int8`` at two of them, D2R-large at
+# bucket 1
+EXPORT_INT8_BUCKETS = (1, 8)
+EXPORT_LARGE_BUCKETS = (1,)
+# the most phase serve_export waits for the exports still running (on an
+# H100 host they ran 266.5 s beside phases 4-13's 262 s)
+EXPORT_WAIT_S = 400
 # the CCR weight of the alpha card-vs-CPU check
 CCR_ALPHA = 0.5
 # int8 quantized training (phase 18): fp32 logits card against CPU. The
@@ -1178,17 +1215,27 @@ def host_calls(steps):
     return min(steps, WARMUP_STEPS) + (1 if steps > WARMUP_STEPS else 0)
 
 
+def eval_calls(batches):
+    """Host calls a wrapper makes in ``batches`` eval forwards of one batch
+    signature, in one process on the card: one a warm-up forward
+    (``train.state.EVAL_WARMUP``), one for the capture, none for a
+    replay."""
+    from d2r_tpu_torch.train.state import EVAL_WARMUP
+    return min(batches, EVAL_WARMUP) + (1 if batches > EVAL_WARMUP else 0)
+
+
 def check_step_counts(counts, steps, k1=34, k3=0, k1_recompute=0, k3_recompute=0,
                       eval_batches=0, eval_k1=None, eval_k3=None):
     """The launch counts of ``steps`` captured train steps (plus
-    ``eval_batches`` eager eval forwards): K1 and K3 a forward site (and a
-    remat recompute), K2 a K1 site, one AdamW a step, the hidden dropout
-    launched whenever a step ran."""
+    ``eval_batches`` captured eval forwards of one batch signature): K1 and
+    K3 a forward site (and a remat recompute), K2 a K1 site, one AdamW a
+    step, the hidden dropout launched whenever a step ran."""
     calls = host_calls(steps)
     eval_k1 = k1 if eval_k1 is None else eval_k1
     eval_k3 = k3 if eval_k3 is None else eval_k3
-    want = {"k1": (k1 + k1_recompute) * calls + eval_k1 * eval_batches, "k2": k1 * calls,
-            "k3": (k3 + k3_recompute) * calls + eval_k3 * eval_batches}
+    evals = eval_calls(eval_batches)
+    want = {"k1": (k1 + k1_recompute) * calls + eval_k1 * evals, "k2": k1 * calls,
+            "k3": (k3 + k3_recompute) * calls + eval_k3 * evals}
     assert attention(counts) == want, (counts, want)
     assert counts["adamw"] == calls, (counts, calls)
     assert counts["dropout"] > 0 or steps == 0, counts
@@ -2013,12 +2060,72 @@ def phase_train_cli(report):
         result["restore_probe"] = {"test_loss": probe["loss"], "launches": probe_launches}
         log(f"[train_cli] restore probe: test loss {probe['loss']!r} (trained run "
             f"{test['loss']!r}), K1 {probe_launches['k1']}, K2 {probe_launches['k2']}")
-        assert probe_launches == {**no_counts(), "k1": 34 * batches}, probe_launches
+        assert probe_launches == {**no_counts(), "k1": 34 * eval_calls(batches)}, probe_launches
         assert probe["loss"] == test["loss"] and probe["f_score"] == test["f_score"]
+        result["eval_replay"] = eval_replay_check(best, cfg, batches)
         return {n: launches[n] + probe_launches[n] for n in launches}
     finally:
         logging.getLogger("d2r_tpu_torch").removeHandler(handler)
         shutil.rmtree(root, ignore_errors=True)
+
+
+def eval_replay_check(best, cfg, batches):
+    """The captured eval step on the trained checkpoint: three different
+    batches through ``make_eval_step`` (the eager warm-up, the capture and a
+    replay), each batch's kept loss and logits against its eager forward,
+    bit for bit, read after all three ran; again after a train step (the
+    AdamW kernel writes the weights in place) and after
+    ``restore_checkpoint`` (``load_state_dict`` copies them in). Then a dev
+    pass of ``batches`` batches timed eager and replayed (CUDA events)."""
+    import numpy as np
+    import torch
+    from d2r_tpu_torch.train import state as st
+    from d2r_tpu_torch.train.checkpoint import restore_checkpoint
+    state = restore_checkpoint(best, st.create_train_state(cfg, total_steps=10, device="cuda"))
+    data = [dict(uint8_batch(cfg, cfg.batch_size, seed=40 + i),
+                 valid=np.ones(cfg.batch_size, bool)) for i in range(3)]
+    step = st.make_eval_step()
+
+    def compare(when):
+        with torch.no_grad():
+            ref = [st._eager_eval(state, b) for b in data]
+        got = [step(state, b) for b in data]
+        diff = max(max((g[k].float() - r[k].float()).abs().max().item() for k in ("loss", "logits"))
+                   for g, r in zip(got, ref))
+        equal = all(torch.equal(g[k], r[k]) for g, r in zip(got, ref) for k in ("loss", "logits"))
+        log(f"[train_cli] eval replay {when}: kept loss and logits of 3 batches "
+            f"{'==' if equal else '!='} eager (max abs diff {diff:.3g})")
+        return {"bit_equal": equal, "max_abs_diff": diff}, ref
+
+    out = {}
+    out["trained"], first = compare("on the trained weights")
+    state, _ = st.make_train_step()(state, data[0], 1)
+    out["after_train_step"], _ = compare("after a train step")
+    restore_checkpoint(best, state)
+    out["after_restore"], again = compare("after restore_checkpoint")
+    out["restored_equals_trained"] = all(torch.equal(a["logits"], b["logits"])
+                                         for a, b in zip(first, again))
+    timed = {}
+    for mode, fn in (("eager", lambda b: st._eager_eval(state, b)), ("replay",
+                                                                    lambda b: step(state, b))):
+        ms = []
+        for _ in range(3):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            with torch.no_grad():
+                for i in range(batches):
+                    fn(data[i % 3])
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+        timed[mode] = float(np.median(ms))
+    out["dev_pass_ms"] = timed
+    log(f"[train_cli] a dev pass of {batches} batches of {cfg.batch_size}: eager "
+        f"{timed['eager']:.1f} ms, replayed {timed['replay']:.1f} ms (CUDA events, median "
+        f"of 3)")
+    assert all(out[k]["bit_equal"] for k in ("trained", "after_train_step", "after_restore")), out
+    assert out["restored_equals_trained"], out
+    return out
 
 
 def make_posts(n, image_size, corrupt_every, seed=0):
@@ -2338,6 +2445,253 @@ def phase_serve_http(report):
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
+
+EXPORT_ROOT = os.path.join("build", "chip_smoke_serve_export")
+EXPORT_LINE = re.compile(r"exported bucket (\d+) for (\w+): trace ([\d.]+) s, save ([\d.]+) s, "
+                         r"(\d+) bytes")
+# the processes this script starts, stopped by main() if still running
+STARTED = []
+
+
+def export_cli(argv):
+    """``python -m d2r_tpu_torch.export`` in a process of its own: its wall
+    seconds, its JSON line, and each exported bucket's trace and save
+    seconds and bytes from its log."""
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "d2r_tpu_torch.export", *argv],
+                       capture_output=True, text=True)
+    if p.returncode != 0:
+        raise RuntimeError(f"export CLI {argv} exited {p.returncode}: {p.stderr[-3000:]}")
+    buckets = {int(m[1]): {"trace_s": float(m[3]), "save_s": float(m[4]), "bytes": int(m[5])}
+               for m in EXPORT_LINE.finditer(p.stderr)}
+    return {"wall_s": time.perf_counter() - t0, "line": json.loads(p.stdout.splitlines()[-1]),
+            "buckets": buckets}
+
+
+def export_artifacts(root):
+    """The exports of phase ``serve_export``, run in a process of their own
+    (``phase_export_start``) beside phases 4-13: they are host work
+    (tracing, JSON) but for the self-checks' few forwards. The CLI on the
+    D2R-base checkpoint at ``BUCKETS`` and, with ``--quantize int8``, at
+    ``EXPORT_INT8_BUCKETS``; D2R-large (seed 0, built on the card) through
+    ``export_predictor`` at ``EXPORT_LARGE_BUCKETS``; ``--format torch``.
+    Writes ``root/exports.json``."""
+    import logging
+    from d2r_tpu_torch import export as texport
+    from d2r_tpu_torch.models.unimo import build_model
+    best = os.path.join(root, "best_model")
+    out = {}
+    for name, flags, buckets in (("bf16", [], BUCKETS),
+                                 ("int8", ["--quantize", "int8"], EXPORT_INT8_BUCKETS)):
+        out[name] = export_cli(["--load_path", best, "--out_dir", os.path.join(root, name),
+                                "--batch_buckets", ",".join(map(str, buckets)), *flags])
+    rows = []
+    handler = logging.Handler()
+    handler.emit = lambda record: rows.append(record.args)
+    logger = logging.getLogger("d2r_tpu_torch.export")
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    t0 = time.perf_counter()
+    texport.export_predictor(model_config("large", compute_dtype="bfloat16"),
+                             build_model(model_config("large", compute_dtype="bfloat16"),
+                                         device="cuda", seed=0),
+                             os.path.join(root, "large"), batch_buckets=EXPORT_LARGE_BUCKETS,
+                             self_check=False)
+    out["large"] = {"wall_s": time.perf_counter() - t0,
+                    "buckets": {b: {"trace_s": tr, "save_s": sv, "bytes": n}
+                                for b, _, tr, sv, n in rows}}
+    out["torch"] = export_cli(["--load_path", best, "--out_dir", os.path.join(root, "torch"),
+                               "--format", "torch"])
+    with open(os.path.join(root, "exports.json"), "w") as f:
+        json.dump(out, f)
+
+
+def phase_export_start(report):
+    """Save phase 13's D2R-base checkpoint (phase 4's model) under
+    ``EXPORT_ROOT`` and start :func:`export_artifacts` in a process of its
+    own; ``phase_serve_export`` waits for it."""
+    import shutil
+    import types
+    from d2r_tpu_torch.config import save_config_json
+    from d2r_tpu_torch.models.unimo import build_model
+    from d2r_tpu_torch.train.checkpoint import save_checkpoint
+    shutil.rmtree(EXPORT_ROOT, ignore_errors=True)
+    cfg = model_config("base", compute_dtype="bfloat16")
+    save_checkpoint(os.path.join(EXPORT_ROOT, "best_model"),
+                    types.SimpleNamespace(model=build_model(cfg, device="cpu", seed=0)))
+    save_config_json(cfg, os.path.join(EXPORT_ROOT, "config.json"))
+    log_file = open(os.path.join(EXPORT_ROOT, "exports.log"), "w")
+    STARTED.append(subprocess.Popen(
+        [sys.executable, "-c", f"import chip_smoke as c; c.export_artifacts({EXPORT_ROOT!r})"],
+        stdout=log_file, stderr=subprocess.STDOUT))
+    log_file.close()
+    report["export_start_t"] = time.time()
+    log(f"[export_start] D2R-base checkpoint saved; exports started (pid {STARTED[-1].pid})")
+
+
+def op_nodes(program):
+    """Nodes of an exported program by target: the custom ops K1
+    (``d2r_torch::fused_attention_fwd``) and K3, and einsums with the plain
+    attention's equations."""
+    import torch
+    targets = {torch.ops.d2r_torch.fused_attention_fwd.default: "k1",
+               torch.ops.d2r_torch.flash_attention_fwd.default: "k3"}
+    out = {"k1": 0, "k3": 0, "plain_attention_einsums": 0, "nodes": 0}
+    for n in program.graph.nodes:
+        out["nodes"] += 1
+        if n.op != "call_function":
+            continue
+        if n.target in targets:
+            out[targets[n.target]] += 1
+        elif str(n.target) == "aten.einsum.default" and n.args[0] in (
+                "blhd,bshd->bhls", "bhls,bshd->blhd"):
+            out["plain_attention_einsums"] += 1
+    return out
+
+
+def replay_ms(graph, n=7):
+    """Median ms of ``n`` replays of ``graph`` (CUDA events each)."""
+    import numpy as np
+    import torch
+    ms = []
+    for _ in range(n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    return float(np.median(ms))
+
+
+def export_run(tag, out, live, model, rows, spec, tol, exported, trace=True):
+    """Load the artifact at ``out`` with ``model`` and hold each bucket's
+    replayed probabilities to ``live``'s (a ``Predictor`` of the same
+    weights) on the same rows: labels equal, within ``tol``. Per bucket
+    (``exported`` holds its trace and save seconds and bytes): the
+    program's op nodes (``spec``'s K1 and K3 counts, no plain attention),
+    load s, warm-up s (an eager forward and the capture, whose K1 and K3
+    host calls are counted), replayed forward ms beside ``live``'s, and,
+    with ``trace``, a traced replay at the first and last bucket."""
+    import numpy as np
+    from d2r_tpu_torch.export import load_exported
+    pred = load_exported(out, model)
+    result = {}
+    for b in pred.batch_buckets:
+        r = result[b] = dict(exported[b])
+        t0 = time.perf_counter()
+        pred._program(b)
+        r["load_s"] = time.perf_counter() - t0
+        r["nodes"] = op_nodes(pred.programs[b])
+        before = read_counts()
+        t0 = time.perf_counter()
+        g = pred.graph(b, np.uint8)
+        r["warmup_s"] = time.perf_counter() - t0
+        r["host_calls"] = {k: read_counts()[k] - before[k] for k in ATTENTION}
+        mine = (rows[0][:b], rows[1][:b], rows[2][:b], rows[3][:b])
+        got = pred.predict(*mine)
+        want = live.predict(*mine)
+        r["max_abs_diff"] = float(np.abs(got["probs"] - want["probs"]).max())
+        r["bit_equal"] = bool(np.array_equal(got["probs"], want["probs"]))
+        r["labels_equal"] = bool(np.array_equal(got["label"], want["label"]))
+        r["replay_ms"] = replay_ms(g.graph)
+        r["predictor_replay_ms"] = replay_ms(live.graph(b, np.uint8).graph)
+        if trace and b in (pred.batch_buckets[0], pred.batch_buckets[-1]):
+            prof = device_profile(g.graph.replay, 3, "forward")
+            r["traced_replay"] = {k: prof.get(f"{k}_kernels_per_forward") for k in ("k1", "k3")}
+        log(f"[export{spec['tag']}] {tag} bucket {b:2d}: {r['nodes']['k1']} K1 and "
+            f"{r['nodes']['k3']} K3 op nodes of {r['nodes']['nodes']}, plain attention "
+            f"einsums {r['nodes']['plain_attention_einsums']}; trace {r['trace_s']:.1f} s, save "
+            f"{r['save_s']:.1f} s, {r['bytes']} bytes, load {r['load_s']:.1f} s, warmup "
+            f"{r['warmup_s']:.1f} s (host calls {r['host_calls']}); "
+            f"{'==' if r['bit_equal'] else '!='} Predictor (max abs diff "
+            f"{r['max_abs_diff']:.3g}, labels {'equal' if r['labels_equal'] else 'DIFFER'}); "
+            f"replay {r['replay_ms']:.3f} ms, Predictor's {r['predictor_replay_ms']:.3f} ms"
+            + (f"; traced replay {r['traced_replay']}" if "traced_replay" in r else ""))
+        assert r["labels_equal"] and r["max_abs_diff"] <= tol, (tag, b, r)
+        assert r["nodes"]["k1"] == spec["k1"] and r["nodes"]["k3"] == spec["k3"], r["nodes"]
+        assert r["nodes"]["plain_attention_einsums"] == 0, r["nodes"]
+        assert r["host_calls"] == {"k1": 2 * spec["k1"], "k2": 0, "k3": 2 * spec["k3"]}, r
+        if "traced_replay" in r:
+            assert (r["traced_replay"]["k1"], r["traced_replay"]["k3"]) == (
+                spec["k1"], spec["k3"]), r["traced_replay"]
+    return result
+
+
+def phase_serve_export(report):
+    """The serving artifacts that ``export_artifacts`` wrote beside phases
+    4-13 (waited for here), loaded with ``load_exported`` and replayed in
+    their bucket graphs beside ``Predictor``'s on the same rows: D2R-base
+    through the CLI at buckets 1/8/32, uint8 pixels (atol 1e-6, labels
+    equal, 34 K1 op nodes a program), int8 at ``EXPORT_INT8_BUCKETS``
+    (within ``QUANT_LOGITS_TOL``, labels equal) and D2R-large at
+    ``EXPORT_LARGE_BUCKETS`` (29 K1 and 29 K3 op nodes); the ``--format
+    torch`` file's keys."""
+    import copy
+    import shutil
+    import torch
+    from d2r_tpu_torch.models.unimo import build_model
+    from d2r_tpu_torch.serve import Predictor
+    from d2r_tpu_torch.train.checkpoint import restore_model
+
+    zero_counts()
+    try:
+        proc = STARTED[-1]
+        t0 = time.perf_counter()
+        rc = proc.wait(timeout=EXPORT_WAIT_S)
+        waited = time.perf_counter() - t0
+        with open(os.path.join(EXPORT_ROOT, "exports.log")) as f:
+            tail = f.read()[-3000:]
+        assert rc == 0, f"the exports exited {rc}: {tail}"
+        with open(os.path.join(EXPORT_ROOT, "exports.json")) as f:
+            exported = json.load(f)
+        result = report["serve_export"] = {
+            "waited_s": waited, "exports_s": time.time() - report["export_start_t"] - waited,
+            "cli": {k: {"wall_s": v["wall_s"], "line": v.get("line")}
+                    for k, v in exported.items()}}
+        log(f"[export] the exports ran {result['exports_s']:.1f} s beside phases 4-13 "
+            f"(CLI wall s: {({k: round(v['wall_s'], 1) for k, v in exported.items()})}); "
+            f"waited {waited:.1f} s for them")
+        cfg = model_config("base", compute_dtype="bfloat16")
+        model = restore_model(os.path.join(EXPORT_ROOT, "best_model"), cfg)
+        requests = make_requests(cfg)[-1]
+        for name, quantize, tol in (("bf16", None, 1e-6), ("int8", "int8", QUANT_LOGITS_TOL)):
+            buckets = exported[name]["line"]["buckets"]
+            # a Predictor takes its model over: each side gets a copy
+            live = Predictor(cfg, copy.deepcopy(model), batch_buckets=buckets,
+                             quantize=quantize)
+            run = export_run(name, os.path.join(EXPORT_ROOT, name), live,
+                             copy.deepcopy(model), requests, MODELS["base"], tol,
+                             {int(b): v for b, v in exported[name]["buckets"].items()},
+                             trace=quantize is None)
+            result[name] = {"buckets": run,
+                            "tensor_bytes": sum(t.nbytes for t in live.tensors().values())}
+            log(f"[export] {name}: program bytes {[run[b]['bytes'] for b in run]} against "
+                f"{result[name]['tensor_bytes']} bytes of the tensors a program takes")
+            del live
+            gc.collect()
+            torch.cuda.empty_cache()
+        del model
+        large = model_config("large", compute_dtype="bfloat16")
+        model = build_model(large, device="cuda", seed=0)
+        live = Predictor(large, copy.deepcopy(model), batch_buckets=EXPORT_LARGE_BUCKETS)
+        result["large"] = {"buckets": export_run(
+            "large", os.path.join(EXPORT_ROOT, "large"), live, model, make_requests(large)[-1],
+            MODELS["large"], 1e-6, {int(b): v for b, v in exported["large"]["buckets"].items()})}
+        del live, model
+        sd = torch.load(os.path.join(EXPORT_ROOT, "torch", "best_model.pth"), weights_only=True,
+                        mmap=True)
+        result["format_torch"] = {"keys": len(sd), "wall_s": exported["torch"]["wall_s"],
+                                  "bytes": sum(t.nbytes for t in sd.values())}
+        log(f"[export] --format torch: {len(sd)} keys, {result['format_torch']['bytes']} bytes "
+            f"(the CLI's wall {exported['torch']['wall_s']:.1f} s)")
+        assert len(sd) == exported["torch"]["line"]["keys"], result["format_torch"]
+        launches = read_counts()
+        result["launches"] = launches
+        assert launches["k2"] == 0 and launches["k1"] > 0 and launches["k3"] > 0, launches
+        return launches
+    finally:
+        shutil.rmtree(EXPORT_ROOT, ignore_errors=True)
 
 def fabricate_pretrained(cfg, directory, seed):
     """Write ``bert.pt`` and ``clip_vit.pt`` for ``cfg``'s two towers into
@@ -3615,7 +3969,7 @@ def main():
     log(f"[card] {report['card']}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     paths = {}   # launch counts of each path's run, by phase
     phases = [("build", phase_build), ("kernels", phase_kernels), ("k3", phase_k3),
-              ("step_kernels", phase_step_kernels)]
+              ("step_kernels", phase_step_kernels), ("export_start", phase_export_start)]
     for key in MODELS:
         suffix = MODELS[key]["suffix"]
         phases += [("main_path" + suffix, lambda r, k=key: phase_main_path(r, k)),
@@ -3625,6 +3979,7 @@ def main():
                     lambda r, k=key: phase_train_card_vs_cpu(r, k))]
     phases.append(("train_cli", phase_train_cli))
     phases.append(("serve_http", phase_serve_http))
+    phases.append(("serve_export", phase_serve_export))
     phases += [("pretrained", phase_pretrained), ("train_scaled", phase_train_scaled),
                ("card_vs_cpu_alpha", lambda r: phase_card_vs_cpu(r, "base", alpha=CCR_ALPHA))]
     phases += [("train_sentic", phase_sentic), ("train_int8", phase_int8),
@@ -3655,6 +4010,10 @@ def main():
         log(f"[{name}] ok in {time.perf_counter() - t0:.1f} s; card memory (GB) "
             f"{json.dumps(report['memory_gb'][name])}")
 
+    for proc in STARTED:          # one that a failed phase left running
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)

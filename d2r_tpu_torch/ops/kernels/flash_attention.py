@@ -30,6 +30,9 @@ need no copies.
 
 :func:`flash_attention` launches the kernel for CUDA tensors and raises for
 what it cannot take; only a tensor on the CPU goes to the plain version.
+The launch is the ``torch.library`` custom op
+``d2r_torch::flash_attention_fwd``, with a fake implementation, so that an
+exported program holds each K3 site as one node.
 """
 
 from __future__ import annotations
@@ -104,7 +107,15 @@ def _kernel():
     return _fn[0]
 
 
-def _launch(q, k, v, bias, scale) -> torch.Tensor:
+# K3 as a torch.library custom op in the port's namespace (see
+# fused_attention.py): one node of an exported program; CUDA only, the CPU
+# takes the plain version before it.
+@torch.library.custom_op(
+    "d2r_torch::flash_attention_fwd", mutates_args=(), device_types="cuda",
+    schema="(Tensor q, Tensor k, Tensor v, Tensor? bias, float scale) -> Tensor")
+def flash_attention_fwd_op(q, k, v, bias, scale):
+    """K3's launch: online-softmax attention of q over k, v with the fp32
+    (B, S) key bias."""
     _check(q, k, v, bias)
     b, l, h, d = q.shape
     s = k.shape[1]
@@ -123,6 +134,12 @@ def _launch(q, k, v, bias, scale) -> torch.Tensor:
     return out
 
 
+@flash_attention_fwd_op.register_fake
+def _(q, k, v, bias, scale):
+    _check(q, k, v, bias)
+    return q.new_empty(q.shape)
+
+
 class FlashAttention(torch.autograd.Function):
     """K3 forward on a CUDA tensor (the plain version on a CPU tensor);
     backward by recomputation through the plain twin, as the JAX custom
@@ -135,7 +152,7 @@ class FlashAttention(torch.autograd.Function):
         ctx.scale = scale
         if q.device.type == "cpu":
             return flash_attention_plain(q, k, v, bias, scale)
-        return _launch(q, k, v, bias, scale)
+        return flash_attention_fwd_op(q, k, v, bias, scale)
 
     @staticmethod
     def backward(ctx, g):

@@ -42,7 +42,12 @@ on the CPU only: on the card it raises.
 
 :func:`fused_attention_small` and :func:`fused_attention_small_bwd` launch
 the kernels for CUDA tensors and raise for what they cannot take; only a
-tensor on the CPU goes to the plain versions.
+tensor on the CPU goes to the plain versions. Each launch is a
+``torch.library`` custom op (``d2r_torch::fused_attention_fwd`` and
+``d2r_torch::fused_attention_bwd``) with a fake implementation, the one way
+in to its kernel: ``torch.export`` on the card records each K1 site as one
+node of the program (``d2r_tpu_torch/export.py``), and the ops' CUDA
+implementations count the launches.
 """
 
 from __future__ import annotations
@@ -307,7 +312,31 @@ def dropout_launch_args(rate: float, seed, device: torch.device):
     return keep_threshold(rate), _inv_keep(rate), seed.seed.data_ptr(), int(seed.site), 1
 
 
-def _launch_fwd(q, k, v, bias, scale, rate, seed) -> torch.Tensor:
+def _op_seed(rate: float, seed, device: torch.device):
+    """The ``(seed buffer or None, site)`` arguments of a K1/K2 op call:
+    a :class:`DropoutSeed` on ``device`` taken apart, as the op's schema
+    takes it (``Tensor? seed, int site``)."""
+    dropout_launch_args(rate, seed, device)       # raises for an int or another device
+    return (None, 0) if rate == 0.0 else (seed.seed, int(seed.site))
+
+
+def _op_dropout(rate: float, seed: Optional[torch.Tensor], site: int, device):
+    return dropout_launch_args(rate, None if seed is None else DropoutSeed(seed, site), device)
+
+
+# K1 and K2 as torch.library custom ops in the port's namespace, so that
+# torch.export records each launch as one node (``d2r_torch::...``) and an
+# exported program runs the kernel. The fake implementations give the
+# outputs' shapes, types and strides without touching data; the CUDA
+# implementations launch the kernels and count the launches. Neither op has
+# a CPU implementation: a CPU tensor takes the plain versions before it.
+@torch.library.custom_op(
+    "d2r_torch::fused_attention_fwd", mutates_args=(), device_types="cuda",
+    schema="(Tensor q, Tensor k, Tensor v, Tensor? bias, float scale, float rate, "
+           "Tensor? seed, int site) -> Tensor")
+def fused_attention_fwd_op(q, k, v, bias, scale, rate, seed, site):
+    """K1's launch: softmax(q.k^T * scale + bias) with post-softmax dropout
+    at ``rate`` drawn from the seed buffer ``seed`` at ``site``, then p.V."""
     _check(q, k, v, bias)
     b, l, h, d = q.shape
     s = k.shape[1]
@@ -319,12 +348,63 @@ def _launch_fwd(q, k, v, bias, scale, rate, seed) -> torch.Tensor:
                  None if bias is None else bias.data_ptr(), out.data_ptr(),
                  b, l, s, h, d, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
                  v.stride(0), v.stride(1), float(scale),
-                 *dropout_launch_args(rate, seed, q.device), stream)
+                 *_op_dropout(rate, seed, site, q.device), stream)
     if err != 0:
         raise RuntimeError(f"fused_attention_fwd launch failed: cudaError {err}")
     fused_attention_small.launches += 1
     fused_attention_small.flops += 4 * b * h * l * s * d
     return out
+
+
+@fused_attention_fwd_op.register_fake
+def _(q, k, v, bias, scale, rate, seed, site):
+    _check(q, k, v, bias)
+    return q.new_empty(q.shape)
+
+
+@torch.library.custom_op(
+    "d2r_torch::fused_attention_bwd", mutates_args=(), device_types="cuda",
+    schema="(Tensor q, Tensor k, Tensor v, Tensor? bias, Tensor g, float scale, float rate, "
+           "Tensor? seed, int site, bool need_dbias) -> (Tensor, Tensor, Tensor, Tensor)")
+def fused_attention_bwd_op(q, k, v, bias, g, scale, rate, seed, site, need_dbias):
+    """K2's launch: (dq, dk, dv, dbias), dbias an empty (0,) tensor unless
+    ``need_dbias``. ``bias`` is fp32 and contiguous, ``g`` of q's type and
+    readable by its strides."""
+    b, l, h, d = q.shape
+    s = k.shape[1]
+    dq = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    dbias = (torch.zeros((b, s), dtype=torch.float32, device=q.device) if need_dbias
+             else torch.empty((0,), dtype=torch.float32, device=q.device))
+    fn = _kernel("fused_attention_bwd")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 None if bias is None else bias.data_ptr(), g.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 dbias.data_ptr() if need_dbias else None,
+                 b, l, s, h, d, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+                 v.stride(0), v.stride(1), g.stride(0), g.stride(1), float(scale),
+                 *_op_dropout(rate, seed, site, q.device), stream)
+    if err != 0:
+        raise RuntimeError(f"fused_attention_bwd launch failed: cudaError {err}")
+    fused_attention_small_bwd.launches += 1
+    fused_attention_small_bwd.flops += 8 * b * h * l * s * d
+    return dq, dk, dv, dbias
+
+
+@fused_attention_bwd_op.register_fake
+def _(q, k, v, bias, g, scale, rate, seed, site, need_dbias):
+    b, l, h, d = q.shape
+    s = k.shape[1]
+    return (q.new_empty((b, l, h, d)), q.new_empty((b, s, h, d)), q.new_empty((b, s, h, d)),
+            q.new_empty((b, s) if need_dbias else (0,), dtype=torch.float32))
+
+
+def _launch_fwd(q, k, v, bias, scale, rate, seed) -> torch.Tensor:
+    return fused_attention_fwd_op(q, k, v, bias, float(scale), float(rate),
+                                  *_op_seed(rate, seed, q.device))
 
 
 def fused_attention_small_bwd(
@@ -355,32 +435,15 @@ def fused_attention_small_bwd(
     if g.shape != q.shape or g.device != q.device:
         raise ValueError(f"g must match q: got {tuple(g.shape)} on {g.device}, "
                          f"q {tuple(q.shape)} on {q.device}")
-    b, l, h, d = q.shape
-    s = k.shape[1]
+    d = q.shape[3]
     if g.stride(3) != 1 or g.stride(2) != d:
         g = g.contiguous()
         fused_attention_small_bwd.g_copies += 1
     bias = None if key_bias is None else key_bias.to(torch.float32).contiguous()
-    dq = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
-    dk = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
-    dv = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
-    dbias = (torch.zeros((b, s), dtype=torch.float32, device=q.device)
-             if need_dbias else None)
-    fn = _kernel("fused_attention_bwd")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 None if bias is None else bias.data_ptr(), g.data_ptr(),
-                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                 None if dbias is None else dbias.data_ptr(),
-                 b, l, s, h, d, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-                 v.stride(0), v.stride(1), g.stride(0), g.stride(1), float(scale),
-                 *dropout_launch_args(dropout_rate, dropout_seed, q.device), stream)
-    if err != 0:
-        raise RuntimeError(f"fused_attention_bwd launch failed: cudaError {err}")
-    fused_attention_small_bwd.launches += 1
-    fused_attention_small_bwd.flops += 8 * b * h * l * s * d
-    return dq, dk, dv, dbias
+    dq, dk, dv, dbias = fused_attention_bwd_op(
+        q, k, v, bias, g, float(scale), float(dropout_rate),
+        *_op_seed(dropout_rate, dropout_seed, q.device), bool(need_dbias))
+    return dq, dk, dv, (dbias if need_dbias else None)
 
 
 # launches of the K2 kernel since the count was last set to 0, and copies of

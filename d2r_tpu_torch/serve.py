@@ -19,6 +19,11 @@ so it allocates nothing on the device. A capture fails loudly; nothing falls
 back to the eager path on the card. On the CPU ``predict`` runs the eager
 forward.
 
+The bucket forward is ``Predictor._program(b)``: here the model's eager
+forward; ``export.ExportedPredictor`` supplies the bucket's exported program
+instead and inherits the rest (buckets, padding, chunking, staging, graphs,
+``latency_stats``).
+
 Captures use ``capture_error_mode="thread_local"``: a server builds and
 warms a new predictor on one thread while another thread keeps replaying
 the old one (``server.InferenceService.reload``).
@@ -27,9 +32,10 @@ the old one (``server.InferenceService.reload``).
 from __future__ import annotations
 
 import bisect
+import functools
 import threading
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -70,6 +76,19 @@ def pad_into(buf: np.ndarray, x: np.ndarray) -> None:
         buf[:n] = 0
     buf[n:] = 0
     buf[(slice(0, n),) + tuple(slice(0, d) for d in x.shape[1:])] = x
+
+
+def bucket_probs(model: nn.Module, input_ids, attention_mask, token_type_ids, pixel_values,
+                 tensors: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+    """fp32 probabilities of ``model``'s eval forward on one bucket's device
+    tensors; with ``tensors``, the model's parameters and buffers replaced
+    by them (``torch.func.functional_call``), as an exported bucket program
+    takes them."""
+    labels = torch.zeros(input_ids.shape[0], dtype=torch.long, device=input_ids.device)
+    args = (input_ids, attention_mask, token_type_ids, labels, pixel_values)
+    _, logits, _ = (model(*args) if tensors is None
+                    else torch.func.functional_call(model, tensors, args))
+    return torch.softmax(logits.float(), dim=-1)
 
 
 class _BucketGraph:
@@ -121,14 +140,25 @@ class Predictor:
         i = bisect.bisect_left(self.batch_buckets, n)
         return self.batch_buckets[min(i, len(self.batch_buckets) - 1)]
 
+    def tensors(self) -> Dict[str, torch.Tensor]:
+        """The parameters and buffers the bucket forward reads, by name, as
+        they lie on the device (quantized and cast): the first input of an
+        exported bucket program (``d2r_tpu_torch/export.py``)."""
+        return {**dict(self.model.named_parameters()), **dict(self.model.named_buffers())}
+
+    def _program(self, b: int) -> Callable:
+        """The forward of batch bucket ``b``: (input_ids, attention_mask,
+        token_type_ids, pixel_values) on the device -> fp32 probabilities.
+        Here the model's own eager forward; ``export.ExportedPredictor``
+        runs the bucket's exported program instead."""
+        return functools.partial(bucket_probs, self.model)
+
     @torch.inference_mode()
     def _forward(self, input_ids, attention_mask, token_type_ids, pixel_values):
-        """One bucket-sized eager forward on device tensors -> fp32
+        """One bucket-sized forward on device tensors -> fp32
         probabilities."""
-        labels = torch.zeros(input_ids.shape[0], dtype=torch.long, device=self.device)
-        _, logits, _ = self.model(input_ids, attention_mask, token_type_ids,
-                                  labels, pixel_values)
-        return torch.softmax(logits.float(), dim=-1)
+        return self._program(input_ids.shape[0])(input_ids, attention_mask, token_type_ids,
+                                                 pixel_values)
 
     def _static_shapes(self, b: int):
         vc = self.cfg.vision_config()

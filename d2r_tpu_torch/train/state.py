@@ -33,6 +33,10 @@ the card in one process, a step is a CUDA graph replay:
   outputs on the device. No step is lost or repeated by the capture, and
   no host value is read back in the step.
 
+The eval step (:func:`make_eval_step`) is one program too: one eager
+forward a batch signature on the side stream, then a graph of the eval-mode
+forward, replayed a batch, whose outputs are copied out before the next.
+
 The eager step stays, by this rule and no other: on the CPU, and with a
 mesh of more than one process (the gloo collectives the mesh runs cannot be
 captured). A one-process NCCL world has no mesh here and captures.
@@ -98,6 +102,8 @@ OPTIONAL_KEYS = ("valid", "sentic_adj")
 REDUCE_BUCKET = 1 << 24
 # eager steps of each batch signature and step kind before its capture
 WARMUP_STEPS = 2
+# eager eval forwards of each batch signature before its capture
+EVAL_WARMUP = 1
 
 
 @dataclasses.dataclass
@@ -316,11 +322,12 @@ class _Captured:
         self._events: Dict[tuple, List] = {}
         self._turn: Dict[tuple, int] = {}
 
-    def write(self, arrays: Mapping, dsts: Mapping[str, torch.Tensor], seed: int) -> None:
+    def write(self, arrays: Mapping, dsts: Mapping[str, torch.Tensor],
+              seed: Optional[int] = None) -> None:
         """Queue copies of ``arrays`` (numpy or tensors) into ``dsts`` and of
-        ``seed`` into the seed buffer, on the current stream, through pinned
-        buffers: no host sync, save a wait for the copies of two writes ago
-        to have run before their buffers are reused."""
+        ``seed``, when given, into the seed buffer, on the current stream,
+        through pinned buffers: no host sync, save a wait for the copies of
+        two writes ago to have run before their buffers are reused."""
         key = tuple((k, tuple(d.shape), d.dtype) for k, d in dsts.items())
         if key not in self._slots:
             self._slots[key] = [None, None]
@@ -335,8 +342,9 @@ class _Captured:
                 **{k: torch.empty(d.shape, dtype=d.dtype).pin_memory() for k, d in dsts.items()},
                 "__seed__": torch.empty(1, dtype=torch.int64).pin_memory()}
         slot = self._slots[key][i]
-        slot["__seed__"].copy_(seed_tensor(seed))
-        self.seed.copy_(slot["__seed__"], non_blocking=True)
+        if seed is not None:
+            slot["__seed__"].copy_(seed_tensor(seed))
+            self.seed.copy_(slot["__seed__"], non_blocking=True)
         for k, dst in dsts.items():
             x = arrays[k]
             if isinstance(x, torch.Tensor) and x.device.type == "cuda":
@@ -349,10 +357,11 @@ class _Captured:
         event.record()
         self._events[key][i] = event
 
-    def warm(self, key: tuple) -> bool:
-        """Whether the step ``key`` still runs eagerly; counts the run."""
+    def warm(self, key: tuple, runs: int = WARMUP_STEPS) -> bool:
+        """Whether the step ``key`` still runs eagerly (its first ``runs``
+        calls); counts the run."""
         n = self.eager.get(key, 0)
-        if n < WARMUP_STEPS:
+        if n < runs:
             self.eager[key] = n + 1
             return True
         return False
@@ -553,15 +562,47 @@ def make_accum_step(accum_steps: int, debug_nans: bool = False) -> Callable:
     return accum_step
 
 
+def _eval_forward(model: nn.Module, inputs: Mapping[str, torch.Tensor]):
+    model.eval()
+    loss, logits, aux = model(**inputs)
+    return {"loss": loss, "logits": logits, **aux}
+
+
+def _eager_eval(state: TrainState, batch: Mapping) -> Dict[str, torch.Tensor]:
+    return _eval_forward(state.model, _model_inputs(batch, _device(state.model)))
+
+
+def _captured_eval(state: TrainState, batch: Mapping) -> Dict[str, torch.Tensor]:
+    key = ("eval", _signature(batch))
+
+    def build(cap: _Captured, p: _Program) -> None:
+        cap.capture("eval", p, lambda: _eval_forward(state.model, p.inputs))
+
+    p = _program(state, key, batch, build)
+    _captured(state).write(batch, p.inputs)
+    p.graphs["eval"].replay()
+    return _outputs(p, p.out)
+
+
 def make_eval_step() -> Callable:
     """``eval_step(state, batch) -> metrics``: an eval-mode forward (no
     dropout, BatchNorm on its running statistics) returning the loss, the
-    logits, ce_loss and js_loss. Eager on every device."""
+    logits, ce_loss and js_loss, as the JAX package's one jitted eval
+    program. On the card in one process (:func:`captures`), a CUDA graph
+    replay a batch signature after :data:`EVAL_WARMUP` eager forward on the
+    side stream; the graph reads the parameters and BatchNorm statistics
+    where they live, so train steps (the AdamW kernel) and
+    ``restore_checkpoint`` (``load_state_dict``) reach it by writing them in
+    place. The metrics are copies of the graph's static outputs, so every
+    batch keeps its own. Eager on the CPU and across processes."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Mapping) -> Dict[str, torch.Tensor]:
-        model = state.model.eval()
-        loss, logits, aux = model(**_model_inputs(batch, _device(model)))
-        return {"loss": loss, "logits": logits, **aux}
+        if not captures(state):
+            return _eager_eval(state, batch)
+        cap = _captured(state)
+        if cap.warm(("eval", _signature(batch)), EVAL_WARMUP):
+            return cap.eagerly(_eager_eval, state, batch)
+        return _captured_eval(state, batch)
 
     return eval_step

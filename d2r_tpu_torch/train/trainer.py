@@ -471,8 +471,9 @@ class Trainer:
         """Returns (metrics_dict, true_labels, pred_labels). The loss sums
         the batches' losses, each masked by ``valid`` in the model, so a
         wrap-padded final batch counts its valid rows only. Losses and logits
-        stay on the device until the loop ends, then come back in one
-        transfer each."""
+        stay on the device until the loop ends (on the card, copies of the
+        replayed eval graph's outputs: ``make_eval_step``), then come back
+        in one transfer each."""
         t0 = time.perf_counter()
         losses, logits, rows = [], [], []
         for batch in data:

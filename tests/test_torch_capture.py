@@ -266,3 +266,24 @@ def test_a_checkpoint_of_the_earlier_format_restores_count_and_base_lrs(tmp_path
     make_train_step()(state, b, 1)
     for p, q in zip(state.model.parameters(), fresh.model.parameters()):
         assert torch.equal(p, q)
+
+
+def test_eval_step_stays_eager_where_the_state_does_not_capture():
+    """On the CPU (``captures(state)`` false) ``make_eval_step`` runs the
+    eager eval forward at every call: no captured program, no warm-up
+    count, and every batch's outputs its own."""
+    from d2r_tpu.data.dataset import synthetic_batch
+    from d2r_tpu_torch.train.state import BATCH_KEYS, captures, make_eval_step
+    cfg = tconfig.tiny_test_config()
+    state = create_train_state(cfg, total_steps=4, device="cpu")
+    assert not captures(state)
+    step = make_eval_step()
+    batches = [synthetic_batch(2, cfg.max_seq, cfg.vision_config().image_size,
+                               vocab_size=cfg.text_config().vocab_size, seed=s) for s in range(3)]
+    outs = [step(state, b) for b in batches]
+    assert state.captured is None and not state.model.training
+    with torch.no_grad():
+        for b, out in zip(batches, outs):
+            loss, logits, _ = state.model(**{k: torch.as_tensor(b[k]) for k in BATCH_KEYS})
+            assert torch.equal(out["logits"], logits) and torch.equal(out["loss"], loss)
+    assert not torch.equal(outs[0]["logits"], outs[1]["logits"])

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: K1 (forward, with and without
 dropout), K2 (backward, at the sites and at the edges of its bf16 tiling)
-and K3 (long-context forward) against their plain versions, and the
-serving and training paths launching them at every attention site. Every
+and K3 (long-context forward) against their plain versions, their
+``torch.library`` custom ops under ``opcheck``, and the serving, export,
+training and eval paths launching them at every attention site. Every
 test is marked ``cuda`` and skips itself where ``torch.cuda.is_available()``
 is false.
 
@@ -21,6 +22,9 @@ no JAX; ``tests/conftest.py`` does, so run it there without the conftest:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 """
+
+import json
+import os
 
 import pytest
 import torch
@@ -733,3 +737,117 @@ def test_cuda_captured_debug_nans_raises_before_the_update(cuda):
     assert state.step == 3 and float(state.optimizer.count) == 3
     assert all(torch.equal(p, q) for p, q in zip(state.model.parameters(), before))
     assert {"fb", "apply"} <= set(next(iter(state.captured.programs.values())).graphs)
+
+
+@pytest.mark.cuda
+def test_cuda_custom_ops_pass_opcheck(cuda):
+    """``torch.library.opcheck`` on K1, K2 and K3's custom ops: schema,
+    fake implementation against the kernel (shapes, types, strides) and
+    dispatch, with and without dropout and bias."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    for dtype in (torch.float32, torch.bfloat16):
+        qkv = torch.randn((2, 50, 3, 4 * 32), generator=g, device=cuda).to(dtype)
+        q, k, v = (qkv[:, :, i].view(2, 50, 4, 32) for i in range(3))
+        bias = tattn.padding_key_bias(torch.arange(50, device=cuda)[None] < torch.tensor(
+            [[50], [20]], device=cuda))
+        seed = tfa.seed_tensor(11, cuda)
+        gout = torch.randn((2, 50, 4, 32), generator=g, device=cuda).to(dtype)
+        for b, rate in ((None, 0.0), (bias, 0.1)):
+            torch.library.opcheck(torch.ops.d2r_torch.fused_attention_fwd.default,
+                                  (q, k, v, b, 0.125, rate, seed if rate else None, 3))
+            for need in (True, False):
+                torch.library.opcheck(torch.ops.d2r_torch.fused_attention_bwd.default,
+                                      (q, k, v, b, gout, 0.125, rate, seed if rate else None,
+                                       3, need))
+            torch.library.opcheck(torch.ops.d2r_torch.flash_attention_fwd.default,
+                                  (q, k, v, b, 0.125))
+
+
+def _plain_attention_einsums(program):
+    return sum(1 for n in program.graph.nodes if n.op == "call_function"
+               and str(n.target) == "aten.einsum.default"
+               and n.args[0] in ("blhd,bshd->bhls", "bhls,bshd->blhd"))
+
+
+@pytest.mark.cuda
+def test_cuda_exported_program_holds_k1_and_replays_equal_to_predictor(cuda, tmp_path):
+    """A tiny DR_step=4 model exported on the card: each bucket's program
+    holds the K1 op at its 14 sites and no plain einsum attention; loaded
+    with the same weights, its replay in the bucket graph equals
+    ``Predictor``'s replay bit for bit, and a loader on the card refuses a
+    program exported for the CPU."""
+    import copy
+
+    import numpy as np
+
+    from d2r_tpu_torch import export as texport
+    _, gpu, args = _tiny_predictors(cuda, compute_dtype="bfloat16")
+    cfg = gpu.cfg
+    from d2r_tpu_torch.models.unimo import build_model
+    model = build_model(cfg, device="cpu", seed=0)
+    out = str(tmp_path / "art")
+    manifest = texport.export_predictor(cfg, model, out, batch_buckets=(2, 4),
+                                        platforms=("cpu", "cuda"))
+    assert manifest["platforms"] == ["cpu", "cuda"]
+    loaded = texport.load_exported(out, copy.deepcopy(model))
+    tfa.fused_attention_small.launches = 0
+    loaded.warmup()
+    assert tfa.fused_attention_small.launches == 2 * 14 * 2
+    for b in (2, 4):
+        program = loaded.programs[b]
+        k1 = [n for n in program.graph.nodes
+              if n.target is torch.ops.d2r_torch.fused_attention_fwd.default]
+        assert len(k1) == 14 and _plain_attention_einsums(program) == 0
+        cpu_program = torch.export.load(os.path.join(out, manifest["files"][str(b)]["cpu"]))
+        assert _plain_attention_einsums(cpu_program) == 2 * 14
+    for n in (1, 3):
+        got, want = loaded.predict(*(x[:n] for x in args)), gpu.predict(*(x[:n] for x in args))
+        np.testing.assert_array_equal(got["probs"], want["probs"])
+    with open(os.path.join(out, "manifest.json")) as f:
+        only_cpu = dict(json.load(f), platforms=["cpu"])
+    with open(os.path.join(out, "manifest.json"), "w") as f:
+        json.dump(only_cpu, f)
+    with pytest.raises(ValueError, match="export on the card"):
+        texport.load_exported(out, copy.deepcopy(model))
+
+
+@pytest.mark.cuda
+def test_cuda_replayed_eval_equals_eager_after_steps_and_restore(cuda, tmp_path):
+    """Three different batches through ``make_eval_step`` on the card (the
+    eager warm-up, the capture, a replay): each batch's kept loss and logits
+    equal its eager forward bit for bit, read after all three ran, so no
+    replay overwrote an earlier batch's; again after a train step and after
+    ``restore_checkpoint``; one eval graph, its wrappers called twice."""
+    import types
+
+    from d2r_tpu_torch.models.unimo import build_model
+    from d2r_tpu_torch.train import checkpoint as tckpt
+    from d2r_tpu_torch.train import state as st
+    cfg = _step_config(dropout=True)
+    path = str(tmp_path / "best_model")
+    tckpt.save_checkpoint(path, types.SimpleNamespace(model=build_model(cfg, device="cpu",
+                                                                        seed=0)))
+    state = tckpt.restore_checkpoint(path, st.create_train_state(cfg, 10, device=cuda))
+    batches = _batches(3, seed=7)
+    step = st.make_eval_step()
+
+    def check():
+        with torch.no_grad():
+            ref = [st._eager_eval(state, b) for b in batches]
+        got = [step(state, b) for b in batches]
+        for g, r in zip(got, ref):
+            assert torch.equal(g["loss"], r["loss"]) and torch.equal(g["logits"], r["logits"])
+        return ref
+
+    tfa.fused_attention_small.launches = 0
+    first = check()
+    evals = [k for k in state.captured.programs if k[0] == "eval"]
+    assert len(evals) == 1 and "eval" in state.captured.programs[evals[0]].graphs
+    # the eager references: 3 x 14; make_eval_step: the warm-up and the capture
+    assert tfa.fused_attention_small.launches == 3 * 14 + 2 * 14
+    state, _ = st.make_train_step()(state, batches[0], 5)
+    moved = check()
+    assert not torch.equal(moved[0]["logits"], first[0]["logits"])
+    tckpt.restore_checkpoint(path, state)
+    again = check()
+    assert all(torch.equal(a["logits"], b["logits"]) for a, b in zip(first, again))

@@ -98,13 +98,15 @@ def test_cli_defaults_to_cuda_and_refuses_a_missing_gpu(tmp_path):
 
 SERVING_ENTRY_POINTS = {
     "server": ["--load_path", "absent/best_model"],
-    "predict": ["--load_path", "absent/best_model", "--input", "absent.jsonl"]}
+    "predict": ["--load_path", "absent/best_model", "--input", "absent.jsonl"],
+    "export": ["--load_path", "absent/best_model", "--out_dir", "absent/artifact"]}
 
 
 @pytest.mark.parametrize("entry", sorted(SERVING_ENTRY_POINTS))
 def test_serving_entry_points_default_to_cuda_and_refuse_a_missing_gpu(entry):
-    """``python -m d2r_tpu_torch.server`` and ``.predict`` without
-    ``--device`` ask for the card, before they read a checkpoint."""
+    """``python -m d2r_tpu_torch.server``, ``.predict`` and ``.export``
+    without ``--device`` ask for the card, before they read a
+    checkpoint."""
     if torch.cuda.is_available():
         pytest.skip("this check is for hosts without a GPU")
     import importlib
@@ -129,7 +131,8 @@ def _broad(handler):
     return any(t is None or (isinstance(t, ast.Name) and t.id in BROAD) for t in types)
 
 
-@pytest.mark.parametrize("module", ["serve.py", "quant.py", "server.py", "predict.py"])
+@pytest.mark.parametrize("module", ["serve.py", "quant.py", "server.py", "predict.py",
+                                    "export.py"])
 def test_serving_path_swallows_no_device_error(module):
     """Every handler in the serving path that could catch a device error
     (bare, ``Exception``, ``BaseException``, ``RuntimeError``) re-raises it
