@@ -219,9 +219,17 @@ operations at the type's peak).
    losses bit for bit); :data:`EXTRAS_RUNS`; then ``debug_nans`` on a batch
    with NaN pixels raises ``FloatingPointError``.
 
-20-21. Training across processes (``d2r_tpu_torch/parallel``), D2R-base,
-   global batch 64, on meshes dp = 2 (phase 20) and (2, 2) (phase 21,
-   whose model axis is tp = 2). The machine has one card and NCCL takes one rank a card, so
+Between phases 13 and ``serve_export``, ``mesh_start``: the one-process
+fp32 runs of phases 23 and 21's meshes (:data:`BACKGROUND_MESHES`), then
+their ranks from a thread of the script's process, one mesh after the
+other, beside ``serve_export``, 14 and 15: the ranks spend most of a step
+waiting on gloo's copies through host memory, and those phases mostly on
+the host or in CUDA graphs. Phases 21 and 23 wait for them and check them.
+
+20-21. Training across processes (``d2r_tpu_torch/parallel``), D2R-base
+   at full width with towers of :data:`MESH_DEPTH` blocks (cut for the
+   script's time limit), global batch 64, on meshes dp = 2 (phase 20) and
+   (2, 2) (phase 21, whose model axis is tp = 2). The machine has one card and NCCL takes one rank a card, so
    the ranks run on the one card over gloo (``parallel.launch.spawn``;
    gloo carries the CUDA tensors through host memory, and every collective
    of the port is an all-reduce or a broadcast, the two gloo takes on
@@ -235,20 +243,52 @@ operations at the type's peak).
    gradient and of the updated parameters within rtol 2e-4 / atol 2e-6
    (:func:`mesh_fp32_errors` says which parameter elements it excuses and
    why: Adam's step where the gradient is within that tolerance of 0).
-   Then 3 bf16 steps with the text tower's dropout (0.1): 34 K1 and 34 K2
-   launches a step on every rank, the kernels seeing each rank's own heads
+   Then 3 bf16 steps with the text tower's dropout (0.1): 18 K1 and 18 K2
+   launches a step on every rank (4 + 4 tower blocks, 2 extra layers, 8
+   IMRC cells), the kernels seeing each rank's own heads
    (6 / 6 / 8 at the BERT / CLIP / IMRC sites at tp = 2), step ms a rank,
    different dropout seeds across the data ranks and across the model
    ranks at the head-split sites (K1's bits from two ranks' seeds differ in
    ≈18% of a site's elements), and afterwards the tensors that the model
    axis leaves whole bit-equal across the model ranks and every tensor
    bit-equal across the data ranks (``parallel.mesh.replica_mismatches``).
+   Phase 21's ranks then run ``seq_shard``, ``fabric_shard`` and
+   ``quant_train="int8"`` in fp32 against one process (the plain run for
+   the two hints, an int8 one-process run for int8, whose gradients are
+   held within 2/127 of each leaf's max, a share of 1e-5 of the elements
+   excepted, and the parameters excused only where they differ by what
+   Adam's first step makes of the two gradients), recording each rank's
+   step peak
+   memory and routing-fabric ms beside the plain run's, and ``quant_dot``
+   split over the model group along K and along N, bit for bit one
+   process's (:func:`qdot_mesh_check`).
 22. The CLI with ``--coordinator_address 127.0.0.1:<free> --num_processes 1
    --process_id 0``: a process group of one under NCCL, two epochs at
    run.sh's recipe on :data:`EXTRAS_DATA` (four steps, captured as in one
    process; 34 K1 an eval batch) and its restore probe (the test loss bit for bit); the
    group ended at the CLI's exit. With two cards or more, also two NCCL
    processes (dp = 2); with one, that is logged as not run.
+23. Pipeline stages (``models/pipeline.py``), D2R-base at full width and
+   depth. In one process (bf16, batch 64, 2 stages x 4 microbatches,
+   captured): its step timed beside the sequential one; in fp32 four
+   steps (two eager, the capture, a replay) against the sequential steps
+   from the same weights (dropout off; every loss within 1e-4, the first
+   step's gradients within 1e-3 of each leaf's max, the parameters after
+   it within rtol 2e-4 / atol 2e-6 but where that bound leaves Adam's sign
+   free; every step's gradient and parameter gaps recorded), 106 K1 and
+   106 K2 a step (24 blocks x 4 microbatches + 10), the
+   replays against eager steps (:func:`replay_checks`), and a pipelined
+   checkpoint through ``restore_model``, served unpipelined at bucket 8
+   with the unpipelined model's probabilities bit for bit. Then the stage
+   mesh (data, stage, model) = (1, 2, 2) on the one card over gloo, its
+   ranks run in the background since ``mesh_start``: fp32 against the
+   one-process sequential run at 2 microbatches (as phases 20-21), 2 bf16
+   dropout steps at 2 and at 4 microbatches each
+   (per rank 34 and 58 K1 and K2 a step: 6 + 6 blocks a microbatch, 2
+   extra layers, 8 IMRC cells), step ms and peak memory a rank (not
+   scaling figures: four ranks share one card through host memory), the
+   pipeline's (microbatch, block) dropout seeds all distinct, within and
+   across the stages.
 
 Between phases 13 and 14, ``serve_export``: the serving artifact as a
 user makes it. After ``step_kernels``, ``export_start`` saves phase 13's
@@ -286,7 +326,7 @@ hidden-dropout kernel; ``launches`` counts the
 wrappers' host calls in the serving and training runs of both
 configurations, the HTTP phase, phases 14-15, the main-path runs of
 phases 17-19 (not their card-against-CPU checks) and the bf16 steps of
-every rank of phases 20-21 and the CLI runs of phase 22, a graph capture
+every rank of phases 20-21 and 23 and the CLI runs of phase 22, a graph capture
 counting once and a replay not at all; ``ms``, ``plain_ms`` and
 ``library_ms`` back to back from the host, ``device_ms`` and
 ``library_device_ms`` the card alone), the card line, and last
@@ -435,9 +475,44 @@ EXTRAS_RUNS = (("int8", ["--quant_train", "int8"]),
 # H100, and NCCL takes one rank a card, so the mesh phases run their ranks
 # on the one card over gloo (CUDA tensors through host memory): they hold
 # the mesh to one process and run K1 and K2 in every rank; they measure no
-# scaling. D2R-base, global batch 64.
-PARALLEL_MESHES = {"train_dp": [(2,)], "train_tp": [(2, 2)]}
+# scaling. D2R-base at full width, global batch 64; phases 20-21 cut its
+# towers to MESH_DEPTH blocks (the script's time limit), phase 23
+# (train_pp) runs them whole, 6 blocks a stage. Each phase: its meshes,
+# tower depth, pipeline stages and microbatches (fp32 check; bf16 steps at
+# each of ``bf16_microbatches``, ``bf16_steps`` of them, default
+# PARALLEL_BF16_STEPS), and the configurations its ranks run after the
+# plain one (fp32, each against one process).
+MESH_DEPTH = 4
+PARALLEL_MESHES = {
+    "train_dp": dict(shapes=[(2,)], depth=MESH_DEPTH),
+    "train_tp": dict(shapes=[(2, 2)], depth=MESH_DEPTH,
+                     more=(("seq_shard", dict(seq_shard=True)),
+                           ("fabric_shard", dict(fabric_shard=True)),
+                           ("int8", dict(quant_train="int8")))),
+    "train_pp": dict(shapes=[(1, 2, 2)], depth=12, stages=2, microbatches=2,
+                     bf16_microbatches=(2, 4), bf16_steps=2),
+}
 PARALLEL_BF16_STEPS = 3
+# the meshes whose ranks run in a thread of the script's process beside
+# the phases after mesh_start (serve_export, pretrained, train_scaled: host
+# work and the card's, while the ranks wait on gloo), one after the other;
+# phases 21 and 23 collect them, waiting at most MESH_WAIT_S
+BACKGROUND_MESHES = ("train_pp", "train_tp")
+MESH_WAIT_S = 1300
+# int8 training on a mesh against one process (phase 21): a quantized
+# activation's code can flip where the float work before it (a data-group
+# sum) rounds differently, which moves a gradient by a step of its
+# slice's scale; gradients are held within two such steps, 2/127 of the
+# leaf's max, the bound of tests/test_torch_qdot.py
+QDOT_STEP_BOUND = 2 / 127
+# ...and the share of gradient elements allowed beyond it: each flipped
+# code moves the gradients of what its row feeds, so at full width a few
+# elements in a million land beyond two steps (3.9e-6 on an H100 at (2, 2)
+# with 4-block towers, the first reading; the bound set after it)
+INT8_MESH_GRAD_SHARE = 1e-5
+# the one-process pipelined step (phase 23): two stages over four
+# microbatches, captured, against the sequential step
+PP_LOCAL = dict(pipeline_stages=2, pipeline_microbatches=4)
 # phase 22's epochs on EXTRAS_DATA: 4 steps, so that the step is captured
 MP_EPOCHS = 2
 # the fp32 mesh run against the one-process run: the JAX package's
@@ -1142,6 +1217,29 @@ def phase_step_kernels(report):
                     f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']})"
                     if "kernel_ms" in row else ""))
             assert row["equal"], row
+    # a sequence slice (seq_shard, tp = 2 of the training site): the kernel
+    # on each half draws the rows of the whole tensor's mask, forward and
+    # backward, as the plain version with the same layout
+    b, length, width = DROPOUT_SHAPE
+    x = torch.randn(DROPOUT_SHAPE, generator=g, device="cuda").to(torch.bfloat16)
+    seed = device_seed(2 ** 40 + 5, site=11)
+    whole = tdrop.hidden_dropout(x, 0.1, seed)
+    for i in range(2):
+        part = x[:, i * length // 2:(i + 1) * length // 2].contiguous().requires_grad_()
+        layout = (length // 2 * width, length * width, i * length // 2 * width)
+        y = tdrop.hidden_dropout(part, 0.1, seed, layout)
+        y.backward(part.detach())
+        ref = tdrop.hidden_dropout_plain(part.detach(), 0.1, seed, layout)
+        row = {"slice": i, "of": 2, "shape": list(part.shape), "dtype": "bfloat16",
+               "equal_to_whole_rows": bool(torch.equal(
+                   y.detach(), whole[:, i * length // 2:(i + 1) * length // 2])),
+               "equal": bool(torch.equal(y.detach(), ref) and torch.equal(part.grad, ref)),
+               "max_abs_err": (y.detach().float() - ref.float()).abs().max().item()}
+        result["dropout"].append(row)
+        log(f"[step kernels] hidden dropout on sequence slice {i} of 2 {tuple(part.shape)}: "
+            f"equal to the plain version {row['equal']}, to the whole tensor's rows "
+            f"{row['equal_to_whole_rows']}")
+        assert row["equal"] and row["equal_to_whole_rows"], row
     result["kernels_line"] = {"adamw": adamw_row, "dropout": dropout_row}
     for name, fn in counters().items():   # the comparisons do not count
         fn.launches = saved[name]
@@ -1647,7 +1745,7 @@ def phase_train(report, key="base"):
     return launches
 
 
-def replay_checks(tag, cfg, weights, batch, seed=1):
+def replay_checks(tag, cfg, weights, batch, seed=1, dropouts=("off", "on")):
     """The captured step against the eager one from the same ``weights``
     (a state dict) on ``batch``, with dropout off (a registered dropout-0
     text preset) and on: ``WARMUP_STEPS`` eager steps, the capture's step
@@ -1677,6 +1775,8 @@ def replay_checks(tag, cfg, weights, batch, seed=1):
         tc, hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0))
     result = {}
     for dropout, bert_name in (("off", nodrop), ("on", cfg.bert_name)):
+        if dropout not in dropouts:
+            continue
         c = dataclasses.replace(cfg, bert_name=bert_name)
         state = fresh_state(c, weights)
         step = st.make_train_step()
@@ -3576,11 +3676,37 @@ def nodrop_base_config(**overrides):
     return model_config("base", bert_name=name, **overrides)
 
 
-def mesh_fp32_config():
-    """The fp32 mesh check's configuration: D2R-base, dropout off, batch 64,
-    no LR warm-up (the first step's LR is the full LR)."""
-    return nodrop_base_config(compute_dtype="float32", warmup_ratio=0.0,
-                              batch_size=TRAIN_BATCH)
+def tower_presets(depth, dropout=True):
+    """(text, vision) preset names of D2R-base's towers at full width cut
+    to ``depth`` blocks (the text tower's dropout off unless ``dropout``),
+    registered here, in every process that calls it."""
+    import dataclasses
+    from d2r_tpu_torch import config as tconfig
+    base = model_config("base")
+    tc, vc = base.text_config(), base.vision_config()
+    if not dropout:
+        tc = dataclasses.replace(tc, hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    tc = dataclasses.replace(tc, num_hidden_layers=depth)
+    vc = dataclasses.replace(vc, num_hidden_layers=depth)
+    text = f"{base.bert_name}-{depth}l" + ("" if dropout else "-dropout-0")
+    vision = f"{base.vit_name}-{depth}l"
+    tconfig.register_text_preset(text, lambda: tc)
+    tconfig.register_vision_preset(vision, lambda: vc)
+    return text, vision
+
+
+def mesh_config(spec, fp32=True, **overrides):
+    """A mesh phase's configuration: D2R-base at full width with
+    ``spec["depth"]``-block towers, batch 64; in fp32 with dropout off and
+    no LR warm-up (the fp32 check), else bf16 with dropout on; the
+    phase's pipeline stages and ``overrides``."""
+    text, vision = tower_presets(spec["depth"], dropout=not fp32)
+    pipe = dict(pipeline_stages=spec.get("stages", 1),
+                pipeline_microbatches=spec.get("microbatches", 0))
+    kind = (dict(compute_dtype="float32", warmup_ratio=0.0) if fp32
+            else dict(compute_dtype="bfloat16"))
+    return model_config("base", bert_name=text, vit_name=vision, batch_size=TRAIN_BATCH,
+                        **{**kind, **pipe, **overrides})
 
 
 def mesh_rows(batch, mesh):
@@ -3591,66 +3717,165 @@ def mesh_rows(batch, mesh):
     return {k: v[mesh.data_index * n:(mesh.data_index + 1) * n] for k, v in batch.items()}
 
 
-def mesh_base_model():
-    """:func:`condition_fabric`'s seed-1 D2R-base, built whole on the CPU as
-    one process builds it."""
+def mesh_base_model(cfg):
+    """:func:`condition_fabric`'s seed-1 model of ``cfg``, built whole on the
+    CPU as one process builds it."""
     from d2r_tpu_torch.models.unimo import build_model
-    return condition_fabric(build_model(mesh_fp32_config(), device="cpu", seed=1))
+    return condition_fabric(build_model(cfg, device="cpu", seed=1))
 
 
-def mesh_fp32_run(model, mesh=None):
+def mesh_steps(spec):
+    """The bf16 steps a mesh phase's ranks take at each microbatch count."""
+    return spec.get("bf16_steps", PARALLEL_BF16_STEPS)
+
+
+def k1_per_step(depth, held_stages=1, microbatches=1):
+    """K1 (and K2) launches a train step of a rank holding 1/``held_stages``
+    of each ``depth``-block tower, its blocks run ``microbatches`` times:
+    the two towers, the two extra layers and the 8 IMRC cells of DR_step
+    4."""
+    return 2 * (depth // held_stages) * microbatches + 2 + 8
+
+
+def fabric_timer(model):
+    """CUDA events around both routing branches' forwards: a list that each
+    forward appends its (start, end) pair of each branch to."""
+    import torch
+    spans = []
+    for branch in (model.model.itr_module, model.model.Reversed_itr_module):
+        def pre(_m, _a):
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            spans.append([start, None])
+
+        def post(_m, _a, _o):
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            spans[-1][1] = end
+
+        branch.register_forward_pre_hook(pre)
+        branch.register_forward_hook(post)
+    return spans
+
+
+def mesh_fp32_run(model, cfg, mesh=None):
     """From ``model`` (:func:`mesh_base_model`) in fp32 (TF32 off) on this
     rank's rows of one batch of 64: a train-mode forward (loss, JS loss,
-    logits, the SAF BatchNorms' running statistics after it), then, from
-    the same start, one train step: its loss on the CPU, and on the card
-    the whole updated parameters and buffers, the whole gradients it
-    applied and each parameter's LR (``"whole"``)."""
+    logits, the SAF BatchNorms' running statistics after it, both routing
+    branches' ms), then, from the same start, one train step: its loss and
+    its peak memory above what was allocated before it on the CPU, and on
+    the card the whole updated parameters and buffers, the whole gradients
+    it applied and, in one process, each parameter's LR (``"whole"``)."""
     import numpy as np
     import torch
-    from d2r_tpu_torch.parallel.mesh import full_state_dict, gather_full
+    from d2r_tpu_torch.parallel.mesh import full_gradients, full_state_dict
     from d2r_tpu_torch.train.state import _model_inputs, create_train_state, make_train_step
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = mesh_fp32_config()
     state = create_train_state(cfg, 100, device="cuda", model=model, mesh=mesh)
     batch = mesh_rows(model_batch(cfg, TRAIN_BATCH, seed=7), mesh)
     batch["valid"] = np.ones(len(batch["labels"]), bool)
     running = {k: v for k, v in state.model.named_buffers() if "running" in k}
     start = {k: v.clone() for k, v in running.items()}
+    spans = fabric_timer(state.model)
     with torch.no_grad():
         loss, logits, aux = state.model.train()(**_model_inputs(batch, "cuda"))
+    torch.cuda.synchronize()
     out = {"loss": loss.item(), "js_loss": aux["js_loss"].item(), "logits": logits.cpu(),
-           "running": {k: v.cpu().clone() for k, v in running.items()}}
+           "running": {k: v.cpu().clone() for k, v in running.items()},
+           "fabric_ms": sum(a.elapsed_time(b) for a, b in spans)}
     for k, v in running.items():
         v.copy_(start[k])
+    del loss, logits, aux
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     state, metrics = make_train_step()(state, batch, 0)
     out["step_loss"] = metrics["loss"].item()
-    lr = {id(p): g["lr"] for g in state.optimizer.param_groups for p in g["params"]}
-    whole = out["whole"] = {"params": full_state_dict(state.model, mesh), "grads": {},
-                            "lr": {}}
-    for key, p in state.model.named_parameters():
-        *prefix, name = key.split(".")
-        module = state.model.get_submodule(".".join(prefix))
-        axis = getattr(module, "shards", {}).get(name)
-        whole["grads"][key] = p.grad if axis is None else gather_full(module, name, p.grad,
-                                                                        axis, mesh)
-        whole["lr"][key] = lr[id(p)]
+    out["step_peak_gb"] = (torch.cuda.max_memory_allocated() - before) / 1e9
+    whole = out["whole"] = {"params": full_state_dict(state.model, mesh),
+                            "grads": full_gradients(state.model, mesh), "lr": {}}
+    if mesh is None:
+        lr = {id(p): g["lr"] for g in state.optimizer.param_groups for p in g["params"]}
+        whole["lr"] = {k: lr[id(p)] for k, p in state.model.named_parameters()}
     return out
 
 
-def mesh_fp32_errors(got, ref, mesh, whole=None):
+def params_after_one_step(params, ref, excuse):
+    """Parameters after one AdamW step against ``ref``'s, both from the same
+    weights: (elements beyond rtol 2e-4 / atol 2e-6, elements excused, max
+    abs difference, elements). ``excuse(name, ref tensor, difference)``
+    gives the mask of a tensor's elements that the difference beyond the
+    tolerance is excused at (:func:`sign_free_steps`,
+    :func:`adam_explained_steps`), or None to hold it to the tolerance."""
+    bad = excused = total = 0
+    worst = 0.0
+    for k, v in ref.items():
+        d = params[k] - v
+        beyond = d.abs() > MESH_STEP_ATOL + MESH_STEP_RTOL * v.abs()
+        ok = excuse(k, v, d)
+        if ok is not None:
+            excused += int((beyond & ok).sum())
+            beyond &= ~ok
+        bad += int(beyond.sum())
+        worst = max(worst, d.abs().max().item())
+        total += v.numel()
+    return bad, excused, worst, total
+
+
+def sign_free_steps(grads, lr, sign_free):
+    """An ``excuse`` of :func:`params_after_one_step` from the reference
+    step's gradients and base LRs: Adam's first step moves an element by
+    lr g / (|g| + eps), about lr sign(g), so two steps whose gradients agree
+    in sign agree within the tolerance. An element is excused only where
+    ``sign_free(name, g)`` is true (the gradient's sign is not fixed by the
+    tolerance the gradients are held to) and the two differ by at most the
+    most one step can move it either way, 2 lr (1 + wd |p|)."""
+    from d2r_tpu_torch.train.optimizer import WEIGHT_DECAY
+
+    def excuse(k, v, d):
+        if k not in grads:
+            return None
+        return sign_free(k, grads[k]) & (d.abs() <= 2 * lr[k] * (1 + WEIGHT_DECAY * v.abs()))
+    return excuse
+
+
+def adam_explained_steps(grads, ref_grads, lr):
+    """An ``excuse`` of :func:`params_after_one_step` where the gradients
+    differ by more than rounding (int8's code flips): an element is excused
+    only where the two parameters differ by what Adam's first step makes
+    of the two gradients, lr (g / (|g| + eps) - g' / (|g'| + eps)), within
+    the tolerance. A wrong LR, weight decay or moment fails it; the
+    gradients themselves are held to their own bound."""
+    from d2r_tpu_torch.train.optimizer import EPS
+    normed = lambda g: g / (g.abs() + EPS)
+
+    def excuse(k, v, d):
+        if k not in ref_grads:
+            return None
+        step_gap = lr[k] * (normed(ref_grads[k]) - normed(grads[k]))
+        return (d - step_gap).abs() <= MESH_STEP_ATOL + MESH_STEP_RTOL * v.abs()
+    return excuse
+
+
+def mesh_fp32_errors(got, ref, mesh, whole=None, grad_bound=None):
     """This rank's fp32 results against the one-process run's: relative
     errors of the losses, the logits' max abs error over its rows, the
     running statistics' max relative error and, given the one-process run's
     ``whole`` tensors, the gradient and updated parameter elements beyond
     rtol 2e-4 / atol 2e-6 (compared on the card).
-    An updated parameter is excused only where the one-process gradient
-    lies within that tolerance of zero and the two differ by at most the
-    most one AdamW step can move an element either way, 2 lr (1 + wd |p|):
-    there Adam's normalised step g / (|g| + eps) takes its sign and size
-    from digits the gradient tolerance does not fix (at |g| near eps,
-    1e-8). The excused elements are counted."""
-    from d2r_tpu_torch.train.optimizer import WEIGHT_DECAY
+    An updated parameter is excused only where Adam's sign is not fixed
+    (:func:`sign_free_steps`): where the one-process gradient lies within
+    that tolerance of zero, so that Adam's normalised step g / (|g| + eps)
+    takes its sign from digits the gradient tolerance does not fix. The
+    excused elements are counted. ``grad_bound`` (int8 training): the
+    gradient elements beyond that share of their leaf's max (the bound of
+    ``tests/test_torch_qdot.py``) are counted as a share of all
+    (:data:`INT8_MESH_GRAD_SHARE` holds it), and a parameter is excused
+    only where it differs from one process's by what Adam's first step
+    makes of the two gradients (:func:`adam_explained_steps`): a code flip
+    moves a small gradient by much of itself, and the fc group's LR of
+    5e-2 turns the eps term's share of that into a visible step."""
     rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
     rows = slice(None)
     if mesh.dp > 1:
@@ -3663,43 +3888,48 @@ def mesh_fp32_errors(got, ref, mesh, whole=None):
                               .max().item() for k, v in ref["running"].items()),
            "step_loss_rel": rel(got["step_loss"], ref["step_loss"])}
     if whole is not None:
-        beyond_tol = lambda a, b: (a - b).abs() > MESH_STEP_ATOL + MESH_STEP_RTOL * b.abs()
-        bad = grads_bad = excused = total = 0
-        worst = 0.0
         mine = got["whole"]
-        for k, v in whole["params"].items():
-            d = (mine["params"][k] - v).abs()
-            beyond = d > MESH_STEP_ATOL + MESH_STEP_RTOL * v.abs()
-            if k in whole["grads"]:
-                g = whole["grads"][k]
-                grads_bad += int(beyond_tol(mine["grads"][k], g).sum())
-                lr = whole["lr"][k]
-                ok = (g.abs() <= MESH_STEP_ATOL) & (d <= 2 * lr * (1 + WEIGHT_DECAY * v.abs()))
-                excused += int((beyond & ok).sum())
-                beyond &= ~ok
-            bad += int(beyond.sum())
-            worst = max(worst, d.max().item())
-            total += v.numel()
+        assert list(mine["params"]) == list(whole["params"]), "keys differ from one process's"
+        grads = whole["grads"]
+        if grad_bound is None:
+            grads_bad = sum(int(((mine["grads"][k] - g).abs()
+                                 > MESH_STEP_ATOL + MESH_STEP_RTOL * g.abs()).sum())
+                            for k, g in grads.items())
+            excuse = sign_free_steps(grads, whole["lr"],
+                                     lambda k, g: g.abs() <= MESH_STEP_ATOL)
+        else:
+            # a leaf whose gradient is rounding noise (the cross-modal key
+            # biases, to which a softmax is invariant) is held against 1e-4
+            # of the largest leaf's max, as tests/test_torch_qdot.py does
+            floor = 1e-4 * max(g.abs().max().item() for g in grads.values())
+            beyond_bound = sum(
+                int(((mine["grads"][k] - g).abs() > grad_bound * max(g.abs().max().item(), floor))
+                    .sum()) for k, g in grads.items())
+            out["grads_share_beyond_bound"] = (
+                beyond_bound / sum(v.numel() for v in whole["params"].values()))
+            grads_bad = 0
+            excuse = adam_explained_steps(mine["grads"], grads, whole["lr"])
+        bad, excused, worst, total = params_after_one_step(mine["params"], whole["params"],
+                                                           excuse)
         out.update(params_beyond_tol=bad, grads_beyond_tol=grads_bad,
                    params_excused=excused, params_max_abs=worst, params_total=total)
     return out
 
 
-def mesh_bf16_steps(mesh, steps, weights):
-    """``steps`` train steps of D2R-base in bf16 with its dropout (0.1 on
-    the text tower), from the whole CPU state dict ``weights``, on this
-    rank's rows of one batch of 64: the launch
-    counts, step ms (CUDA events; the ranks share one card), losses, the
-    dropout seed and the (L, heads, D) of every attention call of the first
-    step, and afterwards the tensors that differ from their copies on the
-    other model ranks and data ranks (``replica_mismatches``)."""
+def mesh_bf16_steps(mesh, steps, weights, cfg):
+    """``steps`` train steps of ``cfg`` (bf16, dropout on) from the whole CPU
+    state dict ``weights``, on this rank's rows of one batch of 64: the
+    launch counts, step ms (CUDA events; the ranks share one card), peak
+    memory above what was allocated before, losses, the dropout seed and
+    the (L, heads, D) of every attention call of the first step, and
+    afterwards the tensors that differ from their copies on the other
+    model, stage and data ranks (``replica_mismatches``)."""
     import torch
     from d2r_tpu_torch.models.unimo import D2RClassifier
     from d2r_tpu_torch.ops import attention
     from d2r_tpu_torch.ops.kernels.fused_attention import dropout_key
     from d2r_tpu_torch.parallel.mesh import replica_mismatches
     from d2r_tpu_torch.train.state import create_train_state, make_train_step
-    cfg = model_config("base", batch_size=TRAIN_BATCH, compute_dtype="bfloat16")
     model = D2RClassifier(cfg)
     model.load_state_dict(weights)
     state = create_train_state(cfg, 1000, device="cuda", model=model, mesh=mesh)
@@ -3716,6 +3946,9 @@ def mesh_bf16_steps(mesh, steps, weights):
 
     attention.fused_attention_small = recording
     losses, events, first = [], [], None
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     try:
         zero_counts()
         for _ in range(steps):
@@ -3732,138 +3965,372 @@ def mesh_bf16_steps(mesh, steps, weights):
         attention.fused_attention_small = kernel
     ms = [a.elapsed_time(b) for a, b in events]
     return {"launches": counts, "step_ms": ms, "losses": [float(x) for x in losses],
+            "peak_gb": (torch.cuda.max_memory_allocated() - before) / 1e9,
             "calls": first, "replica_mismatches": replica_mismatches(state.model, mesh)}
 
 
-def mesh_rank(rank, world, shape, ref_root, steps):
+def qdot_mesh_check(mesh):
+    """``quant_dot`` on this rank's model group, at the BERT FFN site
+    (4096 x 768 -> 3072, bf16) and an odd fp32 one, split along K
+    (row-parallel) and along N (column-parallel), both modes: whether the
+    forward and the quantized backward equal this rank's part of one
+    process's on the card, bit for bit. ``int8``'s backward is two float
+    products (the straight-through estimator), of other shapes on a rank
+    (a column split's input gradient sums two halves), whose library
+    kernels need not give the same bits: held within 1e-5 (fp32) or 2e-2
+    (bf16) of the largest value."""
+    import torch
+    from d2r_tpu_torch.ops.qdot import quant_dot
+    out = {}
+    gen = torch.Generator().manual_seed(5)
+    for name, m, k, n, dtype in (("bert_ffn", 4096, 768, 3072, torch.bfloat16),
+                                 ("odd", 6, 40, 24, torch.float32)):
+        x0, w0, g0 = (torch.randn(shape, generator=gen).to(dtype).cuda()
+                      for shape in ((m, k), (n, k), (m, n)))
+        t, i = mesh.tp, mesh.model_index
+        ks, ns = slice(i * k // t, (i + 1) * k // t), slice(i * n // t, (i + 1) * n // t)
+        for mode in ("int8", "int8_all"):
+            def run(x, w, g, **kw):
+                x, w = x.clone().requires_grad_(), w.clone().requires_grad_()
+                y = quant_dot(x, w, mode, **kw)
+                y.backward(g)
+                return y.detach(), x.grad, w.grad
+
+            y, dx, dw = run(x0, w0, g0)
+            yr, dxr, dwr = run(x0[:, ks], w0[:, ks], g0, model_group=mesh.model_group,
+                               split="row")
+            yc, dxc, dwc = run(x0, w0[ns], g0[:, ns], model_group=mesh.model_group,
+                               split="column")
+            def same(a, b):
+                if mode == "int8_all":
+                    return torch.equal(a, b)
+                tol = 1e-5 if a.dtype == torch.float32 else 2e-2
+                return bool((a.float() - b.float()).abs().max().item()
+                            <= tol * b.float().abs().max().item())
+
+            out[f"{name}_{mode}"] = {
+                "row": [torch.equal(yr, y), same(dxr, dx[:, ks]), same(dwr, dw[:, ks])],
+                "column": [torch.equal(yc, y[:, ns]), same(dxc, dx), same(dwc, dw[ns])]}
+    return out
+
+
+def mesh_rank(rank, world, shape, ref_root, steps, name):
     """One rank of a mesh on the card (``launch.spawn``, gloo): the fp32
     check against the one-process run saved under ``ref_root`` (rank 0
     holds the whole tensors against it), then the bf16 steps from the same
-    weights."""
+    weights (at each of the phase's ``bf16_microbatches``), then the
+    phase's further configurations in fp32, each against its one-process
+    run, and ``quant_dot`` on the model group."""
     import torch
+    from d2r_tpu_torch.models.unimo import D2RClassifier
     from d2r_tpu_torch.parallel import distributed
     from d2r_tpu_torch.parallel.mesh import make_mesh
+    spec = PARALLEL_MESHES[name]
     torch.cuda.set_device(0)
-    mesh = make_mesh(shape, ("data", "model")[:len(shape)], device="cuda")
+    names = ("data", "stage", "model") if len(shape) == 3 else ("data", "model")[:len(shape)]
+    mesh = make_mesh(shape, names, device="cuda")
     distributed.warmup_collectives(mesh)
-    t0 = time.perf_counter()
-    model = mesh_base_model()
-    weights = {k: v.clone() for k, v in model.state_dict().items()}
-    got = mesh_fp32_run(model, mesh)
-    ref = torch.load(os.path.join(ref_root, "one_process.pth"), weights_only=True)
-    whole = (torch.load(os.path.join(ref_root, "whole.pth"), map_location="cuda",
-                        weights_only=True) if rank == 0 else None)
-    fp32 = mesh_fp32_errors(got, ref, mesh, whole)
-    del got, whole, model
-    fp32["s"] = time.perf_counter() - t0
-    gc.collect()
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    bf16 = mesh_bf16_steps(mesh, steps, weights)
-    bf16["s"] = time.perf_counter() - t0
-    return {"rank": rank, "data_index": mesh.data_index, "model_index": mesh.model_index,
-            "fp32": fp32, "bf16": bf16, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+    def fp32(tag, overrides, weights=None, grad_bound=None):
+        t0 = time.perf_counter()
+        cfg = mesh_config(spec, **overrides)
+        if weights is None:
+            model = mesh_base_model(cfg)
+            weights = {k: v.clone() for k, v in model.state_dict().items()}
+        else:                     # the same weights: the layout settings name no tensor
+            model = D2RClassifier(cfg)
+            model.load_state_dict(weights)
+        got = mesh_fp32_run(model, cfg, mesh)
+        ref = torch.load(os.path.join(ref_root, f"one_process{tag}.pth"), weights_only=True)
+        if rank == 0 and tag not in wholes:
+            wholes.clear()
+            wholes[tag] = torch.load(os.path.join(ref_root, f"whole{tag}.pth"),
+                                     map_location="cuda", weights_only=True)
+        errors = mesh_fp32_errors(got, ref, mesh, wholes.get(tag), grad_bound)
+        errors.update(fabric_ms=got["fabric_ms"], step_peak_gb=got["step_peak_gb"],
+                      s=time.perf_counter() - t0)
+        del got, model
+        gc.collect()
+        torch.cuda.empty_cache()
+        return errors, weights
+
+    out = {"rank": rank, "data_index": mesh.data_index, "stage_index": mesh.stage_index,
+           "model_index": mesh.model_index}
+    wholes = {}    # rank 0: the one-process run's whole tensors, loaded once a tag
+    out["fp32"], weights = fp32("", {})
+    if not spec.get("more"):
+        wholes.clear()
+    out["bf16"] = {}
+    for m in spec.get("bf16_microbatches", (spec.get("microbatches", 0),)):
+        t0 = time.perf_counter()
+        b16 = mesh_bf16_steps(mesh, steps, weights,
+                              mesh_config(spec, fp32=False, pipeline_microbatches=m))
+        b16["s"] = time.perf_counter() - t0
+        out["bf16"][m] = b16
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["more"] = {}
+    for tag, overrides in spec.get("more", ()):
+        out["more"][tag] = fp32(
+            "_int8" if "quant_train" in overrides else "", overrides, weights,
+            QDOT_STEP_BOUND if "quant_train" in overrides else None)[0]
+    del weights
+    wholes.clear()
+    if mesh.tp > 1 and spec.get("more"):
+        out["quant_dot"] = qdot_mesh_check(mesh)
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
 
 
-def check_mesh(shape, ranks):
+def check_mesh(shape, ranks, spec):
     """Assert a mesh's results: the fp32 tolerances, K1 and K2 on every rank
-    at every site with the rank's local heads, different dropout seeds
-    across data ranks and across model ranks at the head-split sites, whole
-    tensors bit-equal across model ranks and every tensor across data
-    ranks."""
-    tp = shape[1] if len(shape) > 1 else 1
+    at every site with the rank's local heads and the launches its blocks
+    imply, different dropout seeds across data ranks, across model ranks
+    at the head-split sites and across the (microbatch, block) pairs of a
+    pipeline, whole tensors bit-equal across model and stage ranks and
+    every tensor across data ranks; the further configurations at their
+    tolerances, and ``quant_dot`` bit for bit."""
+    tp = shape[-1] if len(shape) > 1 else 1
+    pp = shape[1] if len(shape) == 3 else 1
+    depth = spec["depth"]
     for r in ranks:
-        e = r["fp32"]
-        assert e["loss_rel"] <= MESH_FWD_RTOL and e["js_loss_rel"] <= MESH_FWD_RTOL, e
-        assert e["logits_abs"] <= MESH_LOGITS_ATOL and e["running_rel"] <= MESH_FWD_RTOL, e
-        assert e["step_loss_rel"] <= MESH_STEP_RTOL, e
-        assert e.get("params_beyond_tol", 0) == 0 and e.get("grads_beyond_tol", 0) == 0, e
-        b = r["bf16"]
-        assert attention(b["launches"]) == {"k1": 34 * PARALLEL_BF16_STEPS,
-                                            "k2": 34 * PARALLEL_BF16_STEPS, "k3": 0}, b["launches"]
-        assert b["launches"]["adamw"] == PARALLEL_BF16_STEPS, b["launches"]
-        assert all(math.isfinite(x) for x in b["losses"]), b["losses"]
-        heads = {(l, d): h for _, _, (l, h, d) in b["calls"]}
-        assert heads == {(64, 64): 12 // tp, (50, 64): 12 // tp, (64, 48): 16 // tp,
-                         (50, 48): 16 // tp}, heads
-        assert b["replica_mismatches"] == {"model": [], "data": []}, b["replica_mismatches"]
-    seeds = {(r["data_index"], r["model_index"]): [c[0] for c in r["bf16"]["calls"] if c[1] > 0]
-             for r in ranks}
-    for (d, m), s in seeds.items():
-        assert len(s) == 13, len(s)          # 12 BERT layers + the extra text layer
-        if (d + 1, m) in seeds:
-            assert all(a != b for a, b in zip(s, seeds[(d + 1, m)])), "data ranks share a seed"
-        if (d, m + 1) in seeds:
-            assert all(a != b for a, b in zip(s, seeds[(d, m + 1)])), "model ranks share a seed"
+        for tag, e in [("plain", r["fp32"])] + list(r["more"].items()):
+            # int8: a code flip behind a data-group sum moves a value by a
+            # step of its row's scale (QUANT_LOGITS_TOL, QDOT_STEP_BOUND)
+            fwd, logits = ((QUANT_LOGITS_TOL, QUANT_LOGITS_TOL) if tag == "int8"
+                           else (MESH_FWD_RTOL, MESH_LOGITS_ATOL))
+            assert e["loss_rel"] <= fwd and e["js_loss_rel"] <= fwd, (tag, e)
+            assert e["logits_abs"] <= logits and e["running_rel"] <= fwd, (tag, e)
+            assert e["step_loss_rel"] <= max(fwd, MESH_STEP_RTOL), (tag, e)
+            assert e.get("params_beyond_tol", 0) == 0 and e.get("grads_beyond_tol", 0) == 0, \
+                (tag, e)
+            assert e.get("grads_share_beyond_bound", 0) <= INT8_MESH_GRAD_SHARE, (tag, e)
+        for m, b in r["bf16"].items():
+            k1 = k1_per_step(depth, pp, max(m, 1) if spec.get("stages", 1) > 1 else 1)
+            steps = mesh_steps(spec)
+            assert attention(b["launches"]) == {"k1": k1 * steps, "k2": k1 * steps,
+                                                "k3": 0}, (m, b["launches"])
+            assert b["launches"]["adamw"] == steps, b["launches"]
+            assert all(math.isfinite(x) for x in b["losses"]), b["losses"]
+            heads = {(l, d): h for _, _, (l, h, d) in b["calls"]}
+            assert heads == {(64, 64): 12 // tp, (50, 64): 12 // tp, (64, 48): 16 // tp,
+                             (50, 48): 16 // tp}, heads
+            want = {"model": [], **({"stage": []} if pp > 1 else {}), "data": []}
+            assert b["replica_mismatches"] == want, b["replica_mismatches"]
+        for check in r.get("quant_dot", {}).values():
+            assert all(check["row"]) and all(check["column"]), r["quant_dot"]
+    seeds = {}
+    for m in ranks[0]["bf16"]:
+        seeds[m] = {(r["data_index"], r["stage_index"], r["model_index"]):
+                    [c[0] for c in r["bf16"][m]["calls"] if c[1] > 0] for r in ranks}
+        tower = (depth // pp) * (max(m, 1) if spec.get("stages", 1) > 1 else 1)
+        for (d, s, mi), ks in seeds[m].items():
+            assert len(ks) == tower + 1, len(ks)      # the BERT blocks + the extra text layer
+            assert len(set(ks[:tower])) == tower, "a pipeline's (microbatch, block) share a seed"
+            if (d + 1, s, mi) in seeds[m]:
+                assert all(a != b for a, b in zip(ks, seeds[m][(d + 1, s, mi)])), \
+                    "data ranks share a seed"
+            if (d, s, mi + 1) in seeds[m]:
+                assert all(a != b for a, b in zip(ks, seeds[m][(d, s, mi + 1)])), \
+                    "model ranks share a seed"
+            if (d, s + 1, mi) in seeds[m]:
+                assert not set(ks[:tower]) & set(seeds[m][(d, s + 1, mi)][:tower]), \
+                    "stages share a seed"
     return seeds
 
 
-def mesh_phase(report, name):
-    """Every mesh of :data:`PARALLEL_MESHES` ``[name]`` on the one card over
-    gloo: the one-process fp32 run first (saved for the ranks), then the
-    ranks (:func:`mesh_rank`); their launch counts summed."""
+def mesh_refs(report, name):
+    """The one-process fp32 runs of :data:`PARALLEL_MESHES` ``[name]`` (the
+    sequential towers, whose math a pipeline's equals), saved under
+    ``build/chip_smoke_<name>`` for the ranks; returns that directory."""
     import shutil
     import torch
-    from d2r_tpu_torch.ops.kernels.fused_attention import dropout_keep_mask
-    from d2r_tpu_torch.parallel.launch import spawn
+    from d2r_tpu_torch.models.unimo import D2RClassifier
+    spec = PARALLEL_MESHES[name]
     root = os.path.join("build", "chip_smoke_" + name)
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
     result = report[name] = {}
-    total = no_counts()
-    try:
-        t0 = time.perf_counter()
-        ref = mesh_fp32_run(mesh_base_model())
-        torch.save(ref.pop("whole"), os.path.join(root, "whole.pth"))
-        torch.save(ref, os.path.join(root, "one_process.pth"))
+    t0 = time.perf_counter()
+    sequential = dict(pipeline_stages=1, pipeline_microbatches=0)
+    refs = [("", {})]
+    if any("quant_train" in o for _, o in spec.get("more", ())):
+        refs.append(("_int8", dict(quant_train="int8")))
+    weights = None
+    for tag, overrides in refs:
+        cfg = mesh_config(spec, **{**sequential, **overrides})
+        if weights is None:
+            model = mesh_base_model(cfg)
+            weights = {k: v.clone() for k, v in model.state_dict().items()}
+        else:
+            model = D2RClassifier(cfg)
+            model.load_state_dict(weights)
+        ref = mesh_fp32_run(model, cfg)
+        del model
+        result[f"one_process{tag}"] = {"fabric_ms": ref["fabric_ms"],
+                                       "step_peak_gb": ref["step_peak_gb"]}
+        torch.save(ref.pop("whole"), os.path.join(root, f"whole{tag}.pth"))
+        torch.save(ref, os.path.join(root, f"one_process{tag}.pth"))
         del ref
-        result["one_process_s"] = time.perf_counter() - t0
         gc.collect()
         torch.cuda.empty_cache()
-        for shape in PARALLEL_MESHES[name]:
-            t0 = time.perf_counter()
-            world = math.prod(shape)
-            ranks = spawn(mesh_rank, world, (shape, root, PARALLEL_BF16_STEPS),
-                          backend="gloo", timeout_s=600)
-            wall = time.perf_counter() - t0
-            label = "x".join(map(str, shape))
-            result[label] = {"wall_s": wall,
-                             "ranks": [{k: r[k] for k in r if k != "bf16"}
-                                       | {"bf16": {k: v for k, v in r["bf16"].items()
-                                                   if k != "calls"}} for r in ranks]}
-            for r in ranks:
+    result["one_process_s"] = time.perf_counter() - t0
+    return root
+
+
+def mesh_spawn(name, root):
+    """The ranks of every mesh of :data:`PARALLEL_MESHES` ``[name]`` on the
+    one card over gloo (:func:`mesh_rank`): (shape, the ranks' results,
+    wall s) a mesh."""
+    from d2r_tpu_torch.parallel.launch import spawn
+    spec = PARALLEL_MESHES[name]
+    runs = []
+    for shape in spec["shapes"]:
+        t0 = time.perf_counter()
+        ranks = spawn(mesh_rank, math.prod(shape), (shape, root, mesh_steps(spec), name),
+                      backend="gloo", timeout_s=600)
+        runs.append((shape, ranks, time.perf_counter() - t0))
+    return runs
+
+
+def mesh_report(report, name, runs):
+    """Log and check (:func:`check_mesh`) the meshes' results of
+    :func:`mesh_spawn`; returns their launch counts summed."""
+    from d2r_tpu_torch.ops.kernels.fused_attention import dropout_keep_mask
+    spec = PARALLEL_MESHES[name]
+    result = report[name]
+    steps = mesh_steps(spec)
+    total = no_counts()
+    for shape, ranks, wall in runs:
+        world = math.prod(shape)
+        label = "x".join(map(str, shape))
+        result[label] = {"wall_s": wall, "depth": spec["depth"], "ranks": [
+            {k: r[k] for k in r if k != "bf16"}
+            | {"bf16": {m: {k: v for k, v in b.items() if k != "calls"}
+                        for m, b in r["bf16"].items()}} for r in ranks]}
+        for r in ranks:
+            for b16 in r["bf16"].values():
                 for n in total:
-                    total[n] += r["bf16"]["launches"][n]
-                e, b16 = r["fp32"], r["bf16"]
-                log(f"[{name} {label}] rank {r['rank']} (data {r['data_index']}, model "
-                    f"{r['model_index']}): fp32 loss rel {e['loss_rel']:.2e}, js rel "
-                    f"{e['js_loss_rel']:.2e}, logits abs {e['logits_abs']:.2e}, running rel "
-                    f"{e['running_rel']:.2e}, step loss rel {e['step_loss_rel']:.2e}"
-                    + (f", gradient elements beyond rtol 2e-4/atol 2e-6: "
-                       f"{e['grads_beyond_tol']}, updated parameters beyond it: "
-                       f"{e['params_beyond_tol']} of {e['params_total']}, excused (gradient "
-                       f"within the tolerance of 0, within 2 lr): {e['params_excused']} (max "
-                       f"abs {e['params_max_abs']:.2e})" if "params_total" in e else "")
-                    + f"; bf16 dropout 0.1: K1/K2/K3 {b16['launches']} in "
-                    f"{PARALLEL_BF16_STEPS} steps, step ms {[round(x, 1) for x in b16['step_ms']]}, "
-                    f"losses {[round(x, 4) for x in b16['losses']]}, tensors differing from "
-                    f"their copies across model / data ranks "
-                    f"{len(b16['replica_mismatches']['model'])} / "
-                    f"{len(b16['replica_mismatches']['data'])}, peak "
-                    f"{r['peak_mem_gb']:.1f} GB")
-            seeds = check_mesh(shape, ranks)
-            # the masks of the first BERT site on two ranks, from the kernels' bits
-            a, b = (seeds[(r["data_index"], r["model_index"])][0] for r in ranks[:2])
-            heads = 12 // (shape[1] if len(shape) > 1 else 1)
-            masks = [dropout_keep_mask(x, 4, heads, 64, 64, 0.1, "cuda") for x in (a, b)]
-            differ = result[label]["mask_share_differing"] = (
-                (masks[0] != masks[1]).float().mean().item())
-            assert differ > 0.05, differ
-            log(f"[{name} {label}] {world} ranks on one card over gloo in {wall:.1f} s; first "
-                f"BERT site masks differ in {differ:.1%} of elements between ranks 0 and 1")
-        return total
+                    total[n] += b16["launches"][n]
+            e = r["fp32"]
+            log(f"[{name} {label}] rank {r['rank']} (data {r['data_index']}, stage "
+                f"{r['stage_index']}, model {r['model_index']}), towers of "
+                f"{spec['depth']} blocks: fp32 loss rel {e['loss_rel']:.2e}, js rel "
+                f"{e['js_loss_rel']:.2e}, logits abs {e['logits_abs']:.2e}, running rel "
+                f"{e['running_rel']:.2e}, step loss rel {e['step_loss_rel']:.2e}"
+                + (f", gradient elements beyond rtol 2e-4/atol 2e-6: "
+                   f"{e['grads_beyond_tol']}, updated parameters beyond it: "
+                   f"{e['params_beyond_tol']} of {e['params_total']}, excused (Adam's sign "
+                   f"not fixed, within 2 lr): {e['params_excused']} (max "
+                   f"abs {e['params_max_abs']:.2e})" if "params_total" in e else "")
+                + f"; fabric {e['fabric_ms']:.2f} ms, step peak {e['step_peak_gb']:.2f} GB"
+                + f", peak {r['peak_mem_gb']:.1f} GB")
+            for m, b16 in r["bf16"].items():
+                log(f"[{name} {label}] rank {r['rank']} bf16 dropout 0.1"
+                    + (f", {m} microbatches" if spec.get("stages", 1) > 1 else "")
+                    + f": K1/K2/K3 {b16['launches']} in {steps} steps, "
+                    f"step ms {[round(x, 1) for x in b16['step_ms']]}, peak "
+                    f"{b16['peak_gb']:.2f} GB, losses {[round(x, 4) for x in b16['losses']]}, "
+                    f"tensors differing from their copies "
+                    f"{ {k: len(v) for k, v in b16['replica_mismatches'].items()} }")
+            for tag, e in r["more"].items():
+                log(f"[{name} {label}] rank {r['rank']} {tag} fp32: loss rel "
+                    f"{e['loss_rel']:.2e}, js rel {e['js_loss_rel']:.2e}, logits abs "
+                    f"{e['logits_abs']:.2e}, step loss rel {e['step_loss_rel']:.2e}"
+                    + (f", gradients beyond: {e['grads_beyond_tol']}, parameters beyond: "
+                       f"{e['params_beyond_tol']} (excused {e['params_excused']})"
+                       if "params_total" in e else "")
+                    + (f", share of gradient elements beyond 2/127 of their leaf's max "
+                       f"{e['grads_share_beyond_bound']:.3g}"
+                       if "grads_share_beyond_bound" in e else "")
+                    + f"; fabric {e['fabric_ms']:.2f} ms (plain {r['fp32']['fabric_ms']:.2f}),"
+                    f" step peak {e['step_peak_gb']:.2f} GB (plain "
+                    f"{r['fp32']['step_peak_gb']:.2f})")
+            if "quant_dot" in r:
+                log(f"[{name} {label}] rank {r['rank']} quant_dot split over the model "
+                    f"group, equal to one process's bits: {json.dumps(r['quant_dot'])}")
+        seeds = check_mesh(shape, ranks, spec)
+        # the masks of the first BERT site on two ranks, from the kernels' bits
+        first = next(iter(seeds.values()))
+        a, b = (first[(r["data_index"], r["stage_index"], r["model_index"])][0]
+                for r in ranks[:2])
+        tp = shape[-1] if len(shape) > 1 else 1
+        m0 = next(iter(ranks[0]["bf16"]))
+        rows = TRAIN_BATCH // shape[0] // (max(m0, 1) if spec.get("stages", 1) > 1 else 1)
+        masks = [dropout_keep_mask(x, rows, 12 // tp, 64, 64, 0.1, "cuda") for x in (a, b)]
+        differ = result[label]["mask_share_differing"] = (
+            (masks[0] != masks[1]).float().mean().item())
+        assert differ > 0.05, differ
+        log(f"[{name} {label}] {world} ranks on one card over gloo in {wall:.1f} s; first "
+            f"BERT site masks differ in {differ:.1%} of elements between ranks 0 and 1")
+    return total
+
+
+def mesh_phase(report, name):
+    """Every mesh of :data:`PARALLEL_MESHES` ``[name]`` on the one card over
+    gloo, in this thread: the one-process fp32 runs first
+    (:func:`mesh_refs`), then the ranks (:func:`mesh_spawn`); their launch
+    counts summed (:func:`mesh_report`)."""
+    import shutil
+    root = mesh_refs(report, name)
+    try:
+        return mesh_report(report, name, mesh_spawn(name, root))
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+# the meshes of :data:`BACKGROUND_MESHES`, by name, as the background
+# thread of phase mesh_start leaves them: "done" (an Event), then "runs"
+# (mesh_spawn's) or "error"
+LANE = {}
+
+
+def phase_mesh_start(report):
+    """Phase ``mesh_start``, between phases 13 and ``serve_export``: the
+    one-process runs of :data:`BACKGROUND_MESHES` here (:func:`mesh_refs`),
+    then their ranks, one mesh after the other, from a thread of this
+    process, beside the phases that follow; phases 21 and 23 collect them
+    (:func:`mesh_collect`)."""
+    import shutil
+    import threading
+    roots = {name: mesh_refs(report, name) for name in BACKGROUND_MESHES}
+    LANE.update({name: {"done": threading.Event(), "started": time.perf_counter()}
+                 for name in BACKGROUND_MESHES})
+
+    def run():
+        for name in BACKGROUND_MESHES:
+            lane = LANE[name]
+            try:
+                lane["runs"] = mesh_spawn(name, roots[name])
+            except Exception as e:  # noqa: BLE001 - raised again by mesh_collect
+                lane["error"] = e
+            finally:
+                shutil.rmtree(roots[name], ignore_errors=True)
+                lane["ended"] = time.perf_counter()
+                lane["done"].set()
+
+    threading.Thread(target=run, name="meshes", daemon=True).start()
+    log(f"[mesh_start] one-process runs of {list(BACKGROUND_MESHES)} saved; their ranks "
+        f"started beside the next phases")
+
+
+def mesh_collect(report, name):
+    """The background mesh ``name`` (:func:`phase_mesh_start`): wait for its
+    ranks, then log and check them (:func:`mesh_report`)."""
+    lane = LANE.get(name)
+    if lane is None:
+        raise RuntimeError(f"{name}: phase mesh_start did not start its ranks")
+    t0 = time.perf_counter()
+    if not lane["done"].wait(MESH_WAIT_S):
+        raise TimeoutError(f"{name}: its ranks gave no result within {MESH_WAIT_S} s")
+    if "error" in lane:
+        raise lane["error"]
+    report[name].update(waited_s=time.perf_counter() - t0,
+                        ranks_s=lane["ended"] - lane["started"])
+    log(f"[{name}] its ranks ran in the background ({lane['ended'] - lane['started']:.1f} s "
+        f"from mesh_start, the meshes before it included); waited "
+        f"{report[name]['waited_s']:.1f} s for them here")
+    return mesh_report(report, name, lane["runs"])
 
 
 def phase_train_dp(report):
@@ -3872,8 +4339,157 @@ def phase_train_dp(report):
 
 
 def phase_train_tp(report):
-    """Phase 21: tensor parallelism, (2, 2) (see :func:`mesh_phase`)."""
-    return mesh_phase(report, "train_tp")
+    """Phase 21: tensor parallelism, (2, 2), then ``seq_shard``,
+    ``fabric_shard`` and int8 training on the same ranks; its ranks ran in
+    the background since ``mesh_start`` (:func:`mesh_collect`)."""
+    return mesh_collect(report, "train_tp")
+
+
+def phase_train_pp(report):
+    """Phase 23: pipeline stages. First in one process at full width and
+    depth (D2R-base, bf16, batch 64, :data:`PP_LOCAL`): the captured
+    pipelined step against the sequential one (dropout off, the train-step
+    tolerances), its replays against its eager steps
+    (:func:`replay_checks`), its launches (every block a microbatch), and
+    its checkpoint served unpipelined through ``restore_model`` at bucket
+    8, bit for bit the unpipelined model's; then the stage mesh (1, 2, 2)
+    on the one card over gloo, whose ranks ran in the background since
+    ``mesh_start`` (:func:`mesh_collect`)."""
+    import dataclasses
+    import torch
+    from d2r_tpu_torch.models.unimo import D2RClassifier, build_model
+    from d2r_tpu_torch.serve import Predictor
+    from d2r_tpu_torch.train import checkpoint as ckpt
+    from d2r_tpu_torch.train import state as st
+    result = report["train_pp_local"] = {}
+    total = no_counts()
+    cfg = model_config("base", batch_size=TRAIN_BATCH, compute_dtype="bfloat16")
+    piped = dataclasses.replace(cfg, **PP_LOCAL)
+    weights = {k: v.clone() for k, v in build_model(cfg, device="cpu", seed=3).state_dict().items()}
+    batch = {k: torch.from_numpy(v).cuda() for k, v in model_batch(cfg, TRAIN_BATCH, 0).items()}
+    # the recipe (bf16, dropout on): captured steps, sequential and pipelined
+    for tag, c in (("sequential", cfg), ("pipelined", piped)):
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        state = fresh_state(c, weights)
+        zero_counts()
+        state, timed = timed_steps(state, batch)
+        counts = read_counts()
+        result[tag] = {"launches": counts, "step_ms": timed["step_ms_median"],
+                       "losses": timed["losses"],
+                       "peak_gb": (torch.cuda.max_memory_allocated() - before) / 1e9}
+        if tag == "pipelined":
+            check_step_counts(counts, timed["steps"],
+                              k1=k1_per_step(12, 1, PP_LOCAL["pipeline_microbatches"]))
+            total = {n: total[n] + counts[n] for n in total}
+        del state
+    # the math: fp32 (TF32 off), dropout off, the conditioned fabric, as
+    # phase 7 holds a train step; two eager steps, the capture, a replay.
+    # Held: each loss within 1e-4; the first step's gradients within 1e-3
+    # of each leaf's max (a leaf whose gradient is rounding noise, the
+    # SAF's loss-invariant softmax bias, against 1e-4 of the largest
+    # leaf's max); the parameters after the first step within rtol 2e-4 /
+    # atol 2e-6, excused only where that gradient bound leaves Adam's sign
+    # free (params_after_one_step). Every step's gradient and parameter
+    # gaps are recorded: after the first, the two runs' weights differ, and
+    # Adam's normalised step g / (|g| + eps) turns a gradient's last digits
+    # into a step of up to lr wherever g is near 0
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    c32 = nodrop_base_config(batch_size=TRAIN_BATCH, compute_dtype="float32", warmup_ratio=0.0)
+    w32 = {k: v.clone() for k, v in
+           condition_fabric(build_model(c32, device="cpu", seed=3)).state_dict().items()}
+    steps = st.WARMUP_STEPS + 2
+    losses, ref_grads, ref_params = {}, [], []
+    gaps, first = {"grad_rel": [], "param_abs": []}, None
+
+    def grad_gap(grads, want):
+        floor = 1e-4 * max(g.abs().max().item() for g in want.values())
+        return max((grads[n] - g).abs().max().item() / max(g.abs().max().item(), floor)
+                   for n, g in want.items())
+
+    for tag, c in (("sequential", c32), ("pipelined", dataclasses.replace(c32, **PP_LOCAL))):
+        state, step = fresh_state(c, w32), st.make_train_step()
+        losses[tag] = []
+        for i in range(steps):
+            state, m = step(state, batch, 1)
+            losses[tag].append(m["loss"].item())
+            grads = {n: p.grad.detach().clone() for n, p in state.model.named_parameters()}
+            params = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+            if tag == "sequential":
+                ref_grads.append(grads)
+                ref_params.append(params)
+            else:
+                gaps["grad_rel"].append(grad_gap(grads, ref_grads[i]))
+                gaps["param_abs"].append(max((params[n] - p).abs().max().item()
+                                             for n, p in ref_params[i].items()))
+                if i == 0:
+                    first = params
+            del grads, params
+        if tag == "sequential":
+            lr = {n: g["lr"] for g in state.optimizer.param_groups
+                  for n, p in state.model.named_parameters() if any(p is q for q in g["params"])}
+        del state, step
+        torch.cuda.empty_cache()
+    loss_diff = max(abs(a - b) for a, b in zip(losses["sequential"], losses["pipelined"]))
+    want = ref_grads[0]
+    floor = 1e-4 * max(g.abs().max().item() for g in want.values())
+    limit = {n: 1e-3 * max(g.abs().max().item(), floor) for n, g in want.items()}
+    beyond, excused, worst, n_params = params_after_one_step(
+        first, ref_params[0], sign_free_steps(want, lr, lambda n, g: g.abs() <= limit[n]))
+    grad_rel = gaps["grad_rel"][0]
+    result.update(fp32_losses=losses, loss_max_abs_diff=loss_diff, grad_max_rel_diff=grad_rel,
+                  step_gaps=gaps, first_step_params_beyond_tol=beyond,
+                  first_step_params_excused=excused, first_step_params_max_abs=worst,
+                  params_total=n_params)
+    log(f"[train_pp local] D2R-base batch 64, 2 stages x 4 microbatches in one process: bf16 "
+        f"replayed step {result['pipelined']['step_ms']:.2f} ms against the sequential "
+        f"{result['sequential']['step_ms']:.2f} ms (CUDA events, median of {TIMED_STEPS}), peak "
+        f"{result['pipelined']['peak_gb']:.2f} / {result['sequential']['peak_gb']:.2f} GB, "
+        f"launches {result['pipelined']['launches']}; fp32, {steps} steps (the last two "
+        f"replayed) against the sequential ones: losses max abs diff {loss_diff:.3g}, the first "
+        f"step's gradients max diff {grad_rel:.3g} of the leaf's max, its parameters beyond "
+        f"rtol 2e-4 / atol 2e-6: {beyond} of {n_params} (excused where the gradient bound leaves "
+        f"Adam's sign free: {excused}, max abs {worst:.3g}); gradient gaps by step "
+        f"{[f'{x:.3g}' for x in gaps['grad_rel']]} of the leaf's max, parameter gaps by step "
+        f"{[f'{x:.3g}' for x in gaps['param_abs']]}")
+    assert loss_diff <= 1e-4 * max(1.0, max(abs(x) for x in losses["sequential"])), result
+    assert grad_rel <= 1e-3 and beyond == 0, result
+    del ref_grads, ref_params, first, want
+    # dropout on only: the off case is the fp32 comparison's replays above
+    result["replay_checks"] = replay_checks("[train_pp local replay]", piped, weights, batch,
+                                            dropouts=("on",))
+    # a pipelined checkpoint, served unpipelined: bit for bit the
+    # unpipelined model's answers at bucket 8
+    root = os.path.join("build", "chip_smoke_train_pp")
+    try:
+        model = D2RClassifier(piped)
+        model.load_state_dict(weights)
+        ckpt.save_checkpoint(os.path.join(root, "best_model"),
+                             type("S", (), {"model": model})())
+        served = ckpt.restore_model(os.path.join(root, "best_model"), piped, "cuda")
+        assert served.model.encoder_text_layers.stages == 1
+        plain = D2RClassifier(cfg)
+        plain.load_state_dict(weights)
+        rows = next(r for r in make_requests(cfg) if len(r[0]) == 8)
+        zero_counts()
+        got = Predictor(piped, served, batch_buckets=(8,)).predict(*rows)
+        want = Predictor(cfg, plain, batch_buckets=(8,)).predict(*rows)
+        served_counts = read_counts()
+        equal = bool((got["probs"] == want["probs"]).all())
+        result["served_unpipelined_equal"] = equal
+        log(f"[train_pp local] pipelined checkpoint through restore_model, bucket 8: "
+            f"probabilities equal to the unpipelined model's bit for bit: {equal}")
+        assert equal
+        total = {n: total[n] + served_counts[n] for n in total}
+    finally:
+        import shutil
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = mesh_collect(report, "train_pp")
+    return {n: total[n] + mesh[n] for n in total}
 
 
 def phase_train_cli_mp(report):
@@ -3979,13 +4595,14 @@ def main():
                     lambda r, k=key: phase_train_card_vs_cpu(r, k))]
     phases.append(("train_cli", phase_train_cli))
     phases.append(("serve_http", phase_serve_http))
+    phases.append(("mesh_start", phase_mesh_start))
     phases.append(("serve_export", phase_serve_export))
     phases += [("pretrained", phase_pretrained), ("train_scaled", phase_train_scaled),
                ("card_vs_cpu_alpha", lambda r: phase_card_vs_cpu(r, "base", alpha=CCR_ALPHA))]
     phases += [("train_sentic", phase_sentic), ("train_int8", phase_int8),
                ("train_extras", phase_extras)]
     phases += [("train_dp", phase_train_dp), ("train_tp", phase_train_tp),
-               ("train_cli_mp", phase_train_cli_mp)]
+               ("train_cli_mp", phase_train_cli_mp), ("train_pp", phase_train_pp)]
     failed = {}
     for name, fn in phases:
         t0 = time.perf_counter()

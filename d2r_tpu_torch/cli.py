@@ -16,17 +16,19 @@ JAX package's keys (:func:`_dry_run`).
 Across processes, one per card: ``--coordinator_address HOST:PORT
 --num_processes N --process_id RANK`` in each process (or ``--num_processes
 -1`` under a launcher that sets ``RANK``/``WORLD_SIZE``/``MASTER_ADDR``/
-``MASTER_PORT``, such as torchrun), with ``--mesh_data`` x ``--mesh_model``
-equal to N (-1 absorbs the rest). NCCL on the card, gloo with ``--device
-cpu``. The process group is joined before any device use and ended at exit;
-every data row loads its slice of each batch.
+``MASTER_PORT``, such as torchrun), with ``--mesh_data`` x ``--mesh_stage``
+x ``--mesh_model`` equal to N (-1 absorbs the rest; the axes in JAX's
+order, data, stage, model). NCCL on the card, gloo with ``--device cpu``.
+The process group is joined before any device use and ended at exit;
+every data row loads its slice of each batch, the stage and model ranks of
+a row the same rows. ``--mesh_stage`` runs the towers as a pipeline of
+that many stages over ``--pipeline_microbatches``; ``--seq_shard`` and
+``--fabric_shard`` act under ``--mesh_model`` > 1.
 
-Every flag the port cannot honour yet (pipeline stages, the tensor-parallel
-layout hints, int8 training under a model axis) raises
-``NotImplementedError`` naming the flag and the ROADMAP.md item that ports
-it: those without a config field here (:data:`REFUSED`, none now), the
-others in ``D2RConfig.check_supported``, which the trainer and the model
-also call. None is accepted and then ignored.
+The one flag the port cannot honour yet (``--prng_impl threefry2x32``
+across processes) raises ``NotImplementedError`` naming it and the
+ROADMAP.md item that ports it, in ``D2RConfig.check_supported``, which the
+trainer and the model also call. None is accepted and then ignored.
 """
 
 from __future__ import annotations
@@ -46,24 +48,14 @@ from d2r_tpu_torch.parallel.mesh import mesh_for
 
 logger = logging.getLogger(__name__)
 
-# (flag, test of the parsed args that the flag is in use, the ROADMAP.md
-# item that ports it): the flags with no config field that the port cannot
-# honour; those with one are refused by D2RConfig.check_supported
-# (config.UNPORTED)
-REFUSED = ()
-
-
 def refuse_unsupported(args) -> None:
-    """Raise ``NotImplementedError`` naming every flag of :data:`REFUSED` in
-    use, and ``--no_pallas`` off the CPU: the card has no path without the
-    kernels, and the port hides none behind a flag."""
-    bad = [f"{flag} (ROADMAP.md {item})" for flag, used, item in REFUSED if used(args)]
+    """Raise ``NotImplementedError`` for ``--no_pallas`` off the CPU: the
+    card has no path without the kernels, and the port hides none behind a
+    flag."""
     if args.no_pallas and args.device != "cpu":
-        bad.append("--no_pallas off the CPU (the card runs the kernels; "
-                   "--device cpu runs the plain path)")
-    if bad:
-        raise NotImplementedError("d2r_tpu_torch.cli does not support " + ", ".join(bad)
-                                  + " yet")
+        raise NotImplementedError(
+            "d2r_tpu_torch.cli does not support --no_pallas off the CPU (the card runs the "
+            "kernels; --device cpu runs the plain path) yet")
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -114,7 +106,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--dev_json", default=None, type=str)
     p.add_argument("--test_json", default=None, type=str)
     p.add_argument("--img_dir", default=None, type=str)
-    # --- the JAX package's flags; REFUSED lists those the port cannot honour ---
+    # --- the JAX package's flags ---
     p.add_argument("--compute_dtype", default="bfloat16",
                    choices=["float32", "bfloat16"])
     p.add_argument("--no_pallas", action="store_true",
@@ -129,9 +121,11 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="tensor-parallel axis size: the tower matmuls, word "
                         "embeddings and cross-modal projections split over it")
     p.add_argument("--mesh_stage", default=1, type=int,
-                   help="pipeline-parallel axis size (refused)")
+                   help="pipeline-parallel axis size: the towers run as a GPipe "
+                        "pipeline of that many stages")
     p.add_argument("--pipeline_microbatches", default=0, type=int,
-                   help="microbatches per batch for --mesh_stage (refused)")
+                   help="microbatches per batch for --mesh_stage (0 = the "
+                        "stage count)")
     p.add_argument("--mesh_topology", action="store_true",
                    help="order mesh axes along the interconnect (the port keeps "
                         "process order, as the JAX package does off a TPU)")
@@ -203,9 +197,10 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="the JAX package's scanned tower layout for weights "
                         "and checkpoints (the towers run the same loop)")
     p.add_argument("--seq_shard", action="store_true",
-                   help="sequence parallelism (refused)")
+                   help="sequence parallelism of the towers under --mesh_model")
     p.add_argument("--fabric_shard", action="store_true",
-                   help="fabric work-sharing under tensor parallelism (refused)")
+                   help="fabric work-sharing under tensor parallelism: the "
+                        "routing fabric's rows spread over the model ranks")
     p.add_argument("--async_checkpoint", action="store_true",
                    help="overlap best-model checkpoint writes with the next "
                         "epoch's compute (awaited before the test reload)")

@@ -3,11 +3,14 @@
 A copy of ``d2r_tpu/config.py``'s dataclasses, presets and JSON loader, so
 that a ``config.json`` written by the JAX package loads here unchanged. Every
 field of the JAX config is kept, including those that mean nothing on this
-path (``device``, ``use_pallas``, the pipeline knobs): a checkpoint's
-config must load whole. The mesh fields name the processes a run trains on
-(``parallel/mesh.py``); a model is never split from them alone, so a
-checkpoint trained on a mesh serves in one process. ``scan_layers`` sets only the layout of
-the JAX weight trees the port reads and writes (``weights.py``).
+path (``device``, ``use_pallas``): a checkpoint's config must load whole.
+The mesh fields name the processes a run trains on (``parallel/mesh.py``);
+a model is never split from them alone, so a checkpoint trained on a mesh
+serves in one process. ``scan_layers`` sets only the layout of the JAX
+weight trees the port reads and writes (``weights.py``);
+``pipeline_stages`` and ``pipeline_microbatches`` set how the towers run
+(``models/pipeline.py``) and that layout, not the port's parameters: a
+pipelined checkpoint serves unpipelined (:func:`serving_config`).
 :meth:`D2RConfig.check_supported` raises on the values the port cannot
 honour yet.
 
@@ -179,24 +182,9 @@ ADAM_MU_DTYPES = ("float32", "bfloat16")
 # masks fold in the mesh coordinates, so threefry2x32 is refused there.
 PRNG_IMPLS = ("rbg", "threefry2x32")
 
-# the part of the JAX package's parallelism still to port: pipeline stages,
-# the two tensor-parallel layout hints, quantized training under a model
-# axis and serving over a mesh
+# the part of the JAX package's parallelism still to port: threefry's bits
+# across processes and serving over a mesh
 _PARALLEL_NEXT = "Queue 1 item 9b (parallel, next slice)"
-# (field, the CLI flag that sets it, test that it is in use given the size
-# of the model axis the run has, the ROADMAP.md item that ports it): the
-# JAX package's layout settings the port has no counterpart for where they
-# act. Where JAX reads them as no-ops (no model axis larger than 1, one
-# pipeline stage: d2r_tpu/parallel/mesh.py:200-205,228-236 and
-# d2r_tpu/models/bert.py:225-239) they are accepted; the model and the
-# trainer both refuse the rest
-UNPORTED = (
-    ("pipeline_microbatches", "--pipeline_microbatches",
-     lambda c, tp: c.pipeline_microbatches != 0 and c.pipeline_stages > 1, _PARALLEL_NEXT),
-    ("seq_shard", "--seq_shard", lambda c, tp: c.seq_shard and tp > 1, _PARALLEL_NEXT),
-    ("fabric_shard", "--fabric_shard", lambda c, tp: c.fabric_shard and tp > 1,
-     _PARALLEL_NEXT),
-)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -325,25 +313,15 @@ class D2RConfig:
             raise ValueError(f"unknown compute_dtype {self.compute_dtype!r}")
         return dt
 
-    def check_supported(self, world: int = 1, model_axis: Optional[int] = None) -> None:
+    def check_supported(self, world: int = 1) -> None:
         """Raise on settings the port cannot honour yet (it never ignores
-        one silently): those of :data:`UNPORTED`, named with their flag and
-        the ROADMAP.md item that ports it, and the values below. An unknown
-        ``quant_train`` mode raises the JAX package's ``ValueError``.
-        ``world`` is the number of processes that train together;
-        ``model_axis`` the size of the model axis the caller runs under
-        (default: ``mesh_shape``'s; 1 for a model built whole in one
-        process, as serving and ``build_model`` build it)."""
+        one silently): threefry's bits across processes, named with the
+        ROADMAP.md item that ports it, and the invalid values below. An
+        unknown ``quant_train`` mode raises the JAX package's
+        ``ValueError``. ``world`` is the number of processes that train
+        together."""
         check_mode(self.quant_train)
-        tp = self.model_axis_size() if model_axis is None else model_axis
-        bad = [f"{field}={getattr(self, field)!r} ({flag}, ROADMAP.md {item})"
-               for field, flag, used, item in UNPORTED if used(self, tp)]
-        if self.pipeline_stages > 1:
-            bad.append(f"pipeline_stages={self.pipeline_stages} (--mesh_stage, "
-                       f"ROADMAP.md {_PARALLEL_NEXT})")
-        if self.quant_train != "none" and self.model_axis_size() > 1:
-            bad.append(f"quant_train={self.quant_train!r} with --mesh_model "
-                       f"{self.model_axis_size()} (ROADMAP.md {_PARALLEL_NEXT})")
+        bad = []
         if self.prng_impl not in PRNG_IMPLS:
             bad.append(f"prng_impl={self.prng_impl!r}")
         elif self.prng_impl == "threefry2x32" and world > 1:
@@ -361,6 +339,16 @@ class D2RConfig:
             raise NotImplementedError(
                 "d2r_tpu_torch does not support " + ", ".join(bad)
                 + " yet (see ROADMAP.md, Queue 1)")
+
+
+def serving_config(cfg: D2RConfig) -> D2RConfig:
+    """``cfg`` with its towers unpipelined: a pipelined checkpoint serves
+    as one stack, as the JAX package's ``Predictor`` relayouts it
+    (``d2r_tpu/serve.py:41-55``); the parameters are the same, and so is
+    the math of an eval forward."""
+    if cfg.pipeline_stages == 1 and cfg.pipeline_microbatches == 0:
+        return cfg
+    return dataclasses.replace(cfg, pipeline_stages=1, pipeline_microbatches=0)
 
 
 def save_config_json(cfg: D2RConfig, path: str) -> None:

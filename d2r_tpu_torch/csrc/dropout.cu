@@ -14,6 +14,15 @@
 // from a seed in device memory, which the graph's replays rewrite, and a
 // remat recompute has to draw it again from the site's ordinal alone.
 //
+// The tensor may be a slice of a larger one (a sequence slice under
+// seq_shard): element e then draws the bits of element
+// g = (e / seg) * whole + offset + e % seg of the whole, so the slices'
+// masks are the rows of the whole tensor's mask. seg, whole and offset are
+// multiples of 4 (the wrapper checks), so a group of four elements stays on
+// one Philox call. seg = whole, offset = 0 is the tensor itself: the launch
+// then takes the kernel without the slice arithmetic (kSliced false), whose
+// counter is the group's index, as before slices were added.
+//
 // What bounds it on the H100: bytes. One read and one write of each
 // element (8 bytes in fp32, 4 in bf16) against one Philox call (ten rounds
 // of two 32-bit multiplies) per four elements. Each thread takes groups of
@@ -43,17 +52,18 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-template <typename T>
+template <typename T, bool kSliced>
 __global__ void __launch_bounds__(kThreads)
-dropout_kernel(const T* __restrict__ x, T* __restrict__ y, long long n,
-               unsigned int threshold, float inv_keep,
+dropout_kernel(const T* __restrict__ x, T* __restrict__ y, long long n, long long seg,
+               long long whole, long long offset, unsigned int threshold, float inv_keep,
                const unsigned long long* __restrict__ seed, unsigned int site) {
   const unsigned long long key = d2r::site_key(seed, site);
   const long long groups = (n + 3) / 4;
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x; q < groups;
        q += stride) {
-    const uint4 w = d2r::philox4x32_10((uint32_t)q, (uint32_t)(q >> 32), 0u, 0u, key);
+    const long long c = kSliced ? ((4 * q / seg) * whole + offset + 4 * q % seg) / 4 : q;
+    const uint4 w = d2r::philox4x32_10((uint32_t)c, (uint32_t)(c >> 32), 0u, 0u, key);
     const uint32_t words[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
@@ -66,28 +76,38 @@ dropout_kernel(const T* __restrict__ x, T* __restrict__ y, long long n,
 }
 
 template <typename T>
-int launch(const void* x, void* y, long long n, unsigned int threshold, float inv_keep,
+int launch(const void* x, void* y, long long n, long long seg, long long whole,
+           long long offset, unsigned int threshold, float inv_keep,
            const unsigned long long* seed, unsigned int site, cudaStream_t stream) {
   const long long groups = (n + 3) / 4;
   const long long want = (groups + kThreads - 1) / kThreads;
   const int blocks = (int)(want < kMaxBlocks ? want : kMaxBlocks);
-  dropout_kernel<T><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(y), n, threshold, inv_keep, seed, site);
+  if (seg == whole && offset == 0)
+    dropout_kernel<T, false><<<blocks, kThreads, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<T*>(y), n, seg, whole, offset, threshold,
+        inv_keep, seed, site);
+  else
+    dropout_kernel<T, true><<<blocks, kThreads, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<T*>(y), n, seg, whole, offset, threshold,
+        inv_keep, seed, site);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. x and y contiguous, n >= 1 elements;
-// seed points at the step's 64-bit seed in device memory. Returns the
-// cudaError_t of the launch (0 on success).
-extern "C" int d2r_dropout(int dtype, const void* x, void* y, long long n,
-                           unsigned int threshold, float inv_keep, const void* seed,
-                           unsigned int site, void* stream) {
-  if (n < 1 || seed == nullptr) return (int)cudaErrorInvalidValue;
+// dtype: 0 = float32, 1 = bfloat16. x and y contiguous, n >= 1 elements,
+// a slice of the whole as (seg, whole, offset) (see above); seed points at
+// the step's 64-bit seed in device memory. Returns the cudaError_t of the
+// launch (0 on success).
+extern "C" int d2r_dropout(int dtype, const void* x, void* y, long long n, long long seg,
+                           long long whole, long long offset, unsigned int threshold,
+                           float inv_keep, const void* seed, unsigned int site, void* stream) {
+  if (n < 1 || seed == nullptr || seg < 1 || offset < 0) return (int)cudaErrorInvalidValue;
   const unsigned long long* s = static_cast<const unsigned long long*>(seed);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(x, y, n, threshold, inv_keep, s, site, st);
-  if (dtype == 1) return launch<__nv_bfloat16>(x, y, n, threshold, inv_keep, s, site, st);
+  if (dtype == 0)
+    return launch<float>(x, y, n, seg, whole, offset, threshold, inv_keep, s, site, st);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(x, y, n, seg, whole, offset, threshold, inv_keep, s, site, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -209,7 +209,7 @@ class DataLoader:
         computes the same deterministic global order and this loader yields
         only rank's contiguous batch_size/count slice of each batch (and of
         its ``valid`` mask), disjoint across ranks and concatenating to the
-        one-process batch. Under a (data, model) mesh ``rank`` is the data
+        one-process batch. Under a (data, stage, model) mesh ``rank`` is the data
         index and ``count`` the data axis (``Mesh.data_shard``)."""
         if process_shard is not None:
             rank, count = process_shard

@@ -20,11 +20,15 @@ from d2r_tpu_torch.models.layers import (
     Embed,
     LayerNorm,
     QKVDense,
+    SeqShard,
     TorchLinear,
+    _Parallel,
     attention_dropout,
     remat,
 )
+from d2r_tpu_torch.models.pipeline import PipelinedStack
 from d2r_tpu_torch.ops.attention import dot_product_attention, merge_heads, split_heads
+from d2r_tpu_torch.parallel.distributed import gather_seq, split_seq
 
 
 class BertEmbeddings(nn.Module):
@@ -94,9 +98,10 @@ class BertSelfAttention(nn.Module):
         self.head_dim = cfg.head_dim
         self.qkv = QKVDense(cfg.hidden_size, cfg.hidden_size, dtype)
 
-    def forward(self, x: torch.Tensor, key_bias, rng=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, key_bias, rng=None,
+                seq: Optional[SeqShard] = None) -> torch.Tensor:
         h = self.qkv.hidden // self.head_dim     # this rank's heads under a model axis
-        q, k, v = self.qkv(x)
+        q, k, v = self.qkv(x, seq)
         rate, seed = attention_dropout(self, self.cfg.attention_probs_dropout_prob, rng,
                                        self.qkv)
         ctx = dot_product_attention(split_heads(q, h), split_heads(k, h),
@@ -112,12 +117,14 @@ class BertSelfOutput(nn.Module):
     def __init__(self, cfg: TextEncoderConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dense = TorchLinear(cfg.hidden_size, cfg.hidden_size, dtype=dtype)
+        self.dense.side = "out"
         self.LayerNorm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, dtype)
         self.dropout = Dropout(cfg.hidden_dropout_prob)
 
     def forward(self, hidden: torch.Tensor, input_tensor: torch.Tensor,
-                rng=None) -> torch.Tensor:
-        return self.LayerNorm(self.dropout(self.dense(hidden), rng) + input_tensor)
+                rng=None, seq: Optional[SeqShard] = None) -> torch.Tensor:
+        return self.LayerNorm(self.dropout(self.dense(hidden, seq), rng, seq) + input_tensor,
+                              seq)
 
 
 class BertLayer(nn.Module):
@@ -138,38 +145,82 @@ class BertLayer(nn.Module):
         self.attention_output = BertSelfOutput(c, dtype)
         self.intermediate_dense = TorchLinear(c.hidden_size, c.intermediate_size, dtype=dtype)
         self.output_dense = TorchLinear(c.intermediate_size, c.hidden_size, dtype=dtype)
+        self.attention_self.qkv.side, self.intermediate_dense.side = "in", "in"
+        self.output_dense.side = "out"
         self.output_LayerNorm = LayerNorm(c.hidden_size, c.layer_norm_eps, dtype)
         self.output_dropout = Dropout(c.hidden_dropout_prob)
 
-    def ffn_out(self, pre: torch.Tensor) -> torch.Tensor:
-        return self.output_dense(self.act(pre))
+    def ffn_out(self, pre: torch.Tensor, seq: Optional[SeqShard] = None) -> torch.Tensor:
+        return self.output_dense(self.act(pre), seq)
 
-    def forward(self, x: torch.Tensor, key_bias=None, rng=None) -> torch.Tensor:
-        x = self.attention_output(self.attention_self(x, key_bias, rng), x, rng)
-        pre = self.intermediate_dense(x)
-        h = remat(self.ffn_out, pre) if self.remat_ffn_act else self.ffn_out(pre)
-        return self.output_LayerNorm(self.output_dropout(h, rng) + x)
+    def forward(self, x: torch.Tensor, key_bias=None, rng=None,
+                seq: Optional[SeqShard] = None) -> torch.Tensor:
+        """``seq``: ``x`` and the output are this rank's sequence slices
+        (``models/layers.py``)."""
+        x = self.attention_output(self.attention_self(x, key_bias, rng, seq), x, rng, seq)
+        pre = self.intermediate_dense(x, seq)
+        h = remat(self.ffn_out, pre, seq) if self.remat_ffn_act else self.ffn_out(pre, seq)
+        return self.output_LayerNorm(self.output_dropout(h, rng, seq) + x, seq)
 
 
-class BertEncoder(nn.Module):
+class BertEncoder(_Parallel, nn.Module):
     """Stack of ``num_hidden_layers`` post-LN blocks, named ``layer_{i}``.
     ``remat``: each block rematerialised (:func:`remat`), keeping only its
     input for the backward, as ``nn.remat(BertLayer)`` at
     ``d2r_tpu/models/bert.py:255-259``. The JAX package's ``scan_layers``
     changes only its parameters' layout (``weights.py``): the loop is the
-    same."""
+    same. ``stages`` > 1 runs the blocks as a GPipe pipeline of that many
+    stages over ``microbatches`` (``models/pipeline.py``; JAX
+    ``d2r_tpu/models/bert.py:225-239``); under a stage axis this process
+    holds only its stage's blocks (``parallel.mesh.shard_model``).
+    ``seq_shard``: under a model axis that divides the sequence, the blocks
+    run on this rank's sequence slice (JAX ``bert.py:193-195,262-265``);
+    a pipelined stack leaves it out, as JAX does."""
 
     def __init__(self, cfg: TextEncoderConfig, dtype: torch.dtype = torch.float32,
-                 remat: bool = False, remat_ffn_act: bool = False):
+                 remat: bool = False, remat_ffn_act: bool = False, stages: int = 1,
+                 microbatches: int = 0, seq_shard: bool = False):
         super().__init__()
         self.num_layers = cfg.num_hidden_layers
         self.remat = remat
+        self.stages, self.microbatches = stages, microbatches or stages
+        self.seq_shard = seq_shard
         for i in range(self.num_layers):
             self.add_module(f"layer_{i}", BertLayer(cfg, dtype, remat_ffn_act))
 
+    def block(self, i: int, x, key_bias=None, rng=None, seq=None):
+        layer = getattr(self, f"layer_{i}")
+        return (remat(layer, x, key_bias, rng, seq, rng=rng) if self.remat
+                else layer(x, key_bias, rng, seq))
+
     def forward(self, x: torch.Tensor, key_bias=None, rng=None) -> torch.Tensor:
+        if self.stages > 1:
+            return pipeline_of(self)(x, key_bias, rng)
+        seq = seq_shard_of(self, x)
+        x = x if seq is None else split_seq(x, seq.group)
         for i in range(self.num_layers):
-            layer = getattr(self, f"layer_{i}")
-            x = (remat(layer, x, key_bias, rng, rng=rng) if self.remat
-                 else layer(x, key_bias, rng))
-        return x
+            x = self.block(i, x, key_bias, rng, seq)
+        return x if seq is None else gather_seq(x, seq.group, summed=False)
+
+
+def seq_shard_of(tower: nn.Module, x: torch.Tensor) -> Optional[SeqShard]:
+    """The sequence slices of a tower's blocks: under ``seq_shard`` with a
+    model axis larger than 1 that divides the sequence, else None (a no-op,
+    as JAX's ``seq_sharding_constraint``, ``d2r_tpu/parallel/mesh.py:200-205``)."""
+    mesh = tower.mesh
+    if not tower.seq_shard or mesh is None or mesh.tp == 1 or x.shape[1] % mesh.tp:
+        return None
+    return SeqShard(mesh.model_group, mesh.model_index, mesh.tp, x.shape[1])
+
+
+def held_layers(tower: nn.Module):
+    """The block indices this process holds, in order."""
+    return [i for i in range(tower.num_layers) if hasattr(tower, f"layer_{i}")]
+
+
+def pipeline_of(tower: nn.Module) -> PipelinedStack:
+    """The GPipe schedule over ``tower``'s blocks (its ``block``)."""
+    return PipelinedStack(tower.block, tower.num_layers, tower.stages, tower.microbatches,
+                          lambda: [p for i in held_layers(tower)
+                                   for p in getattr(tower, f"layer_{i}").parameters()],
+                          tower.mesh)

@@ -17,13 +17,38 @@ whose weights the model axis splits: a "column" ``TorchLinear`` or
 ``QKVDense`` sums its input's gradient over the model group, a "row"
 ``TorchLinear`` sums its partial output over it and adds the bias after, a
 "vocab" ``Embed`` looks up its own rows and sums. ``TorchBatchNorm`` takes
-its train-mode statistics over the data group. Without a mesh (``mesh`` is
+its train-mode statistics over the data group (over the fabric group while
+the fabric's rows are spread, ``rows_group``). Without a mesh (``mesh`` is
 None) every module computes as one process does.
+
+Sequence parallelism (``cfg.seq_shard``, a :class:`SeqShard` passed down a
+tower block): the block's input, LayerNorms, dropouts and residuals hold
+this model rank's slice of the sequence. A column-parallel layer (``side``
+"in") gathers the slices of its input, and a row-parallel one (``side``
+"out") splits its summed output (Megatron's reduce-scatter, with the
+all-reduce's sum), so the products are those of the unsharded block. The
+hidden dropout of a slice draws the bits of the slice's elements of the
+whole tensor (``ops/kernels/dropout.py``'s ``layout``), so its masks are
+the unsharded ones. The tensors a slice uses whole (the LayerNorms, the
+row-parallel biases) get from each rank the gradient of its slice alone:
+:func:`grad_scaled` multiplies it by the slice count, so that the
+trainer's mean over the model group of the tensors it leaves whole is the
+sum of the slices' gradients.
+
+Quantized training under a model axis (``quant`` with ``tp``): the product
+whose contraction the model axis splits (a row-parallel forward, a
+column-parallel ``int8_all`` input gradient) takes its scales over the
+whole contraction (a max over the model group) and sums its int32 partial
+products over the group before they are scaled, as GSPMD partitions the
+JAX program; so the quantized product equals one process's bit for bit,
+and a column-parallel layer's input gradient is summed in ``quant_dot``,
+not by :func:`copy_to`.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
 from typing import Callable, Optional, Tuple, Union
 
@@ -35,7 +60,13 @@ from torch.utils.checkpoint import checkpoint
 from d2r_tpu_torch.ops.kernels.dropout import hidden_dropout
 from d2r_tpu_torch.ops.kernels.fused_attention import DropoutSeed, seed_tensor, splitmix64
 from d2r_tpu_torch.ops.qdot import quant_dot
-from d2r_tpu_torch.parallel.distributed import all_reduce_sum, copy_to, reduce_from
+from d2r_tpu_torch.parallel.distributed import (
+    all_reduce_sum,
+    copy_to,
+    gather_seq,
+    reduce_from,
+    split_seq,
+)
 
 _M64 = (1 << 64) - 1
 
@@ -69,20 +100,78 @@ def fold_in(seed: int, data: int) -> int:
     return splitmix64((splitmix64(int(seed) & _M64) + int(data)) & _M64)
 
 
+@dataclasses.dataclass(frozen=True)
+class SeqShard:
+    """A tower block's activations cut along the sequence over the model
+    group: this rank holds slice ``index`` of ``count``, of a sequence of
+    ``length``."""
+
+    group: object
+    index: int
+    count: int
+    length: int
+
+
 class _Parallel:
     """The process mesh (``parallel/mesh.py``) and, where the model axis
     splits the module's tensors, how (``tp``) and along which Flax axis
-    (``shards``: tensor name -> axis). Set by ``shard_model``."""
+    (``shards``: tensor name -> axis). Set by ``shard_model``.
+    ``rows_group``, when set, replaces the data group as the group whose
+    ranks hold the batch's rows (the fabric group under ``fabric_shard``,
+    for the duration of the fabric's forward)."""
 
     mesh = None
     tp: Optional[str] = None
     shards: dict = {}
+    rows_group = None
 
     def _model_group(self):
         return self.mesh.model_group if self.tp else None
 
     def _data_group(self):
+        if self.rows_group is not None:
+            return self.rows_group
         return None if self.mesh is None else self.mesh.data_group
+
+    def _quant_groups(self) -> dict:
+        """``quant_dot``'s groups: the rows' group, and the model group
+        with the side it splits."""
+        return {"group": self._data_group(), "model_group": self._model_group(),
+                "split": self.tp}
+
+
+class _GradScaled(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, k):
+        ctx.k = k
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.k, None
+
+
+def grad_scaled(t: torch.Tensor, seq: Optional[SeqShard]) -> torch.Tensor:
+    """``t`` itself; under ``seq``, its gradient times the slice count (see
+    the module docstring)."""
+    return t if seq is None else _GradScaled.apply(t, float(seq.count))
+
+
+def _column_input(module: "_Parallel", x: torch.Tensor, seq: Optional[SeqShard]):
+    """The input of a module at the "in" side of a tower block's pair: the
+    sequence slices joined under ``seq``; the partial gradients summed over
+    the model group where the module is column-parallel, unless its
+    quantized product sums them itself."""
+    summed = module.tp == "column" and module.quant == "none"
+    if seq is not None:
+        return gather_seq(x, seq.group, summed)
+    return copy_to(x, module._model_group()) if summed else x
+
+
+def _seq_output(y: torch.Tensor, seq: Optional[SeqShard]) -> torch.Tensor:
+    """The output of a module at the "out" side of a pair, already summed
+    over the model group: this rank's sequence slice under ``seq``."""
+    return y if seq is None else split_seq(y, seq.group)
 
 
 class TorchLinear(_Parallel, nn.Module):
@@ -100,6 +189,9 @@ class TorchLinear(_Parallel, nn.Module):
         self.dtype = dtype
         self.bias_init_value = bias_init_value
         self.quant = "none"
+        # "in" or "out": the end of a tower block's column/row pair this
+        # layer is, set by the block (sequence parallelism)
+        self.side: Optional[str] = None
         self.weight = _param(out_features, in_features)
         self.bias = _param(out_features) if use_bias else None
 
@@ -115,17 +207,26 @@ class TorchLinear(_Parallel, nn.Module):
 
     def _product(self, x: torch.Tensor) -> torch.Tensor:
         return quant_dot(x.to(self.dtype), self.weight.to(self.dtype), self.quant,
-                         self._data_group()).to(self.dtype)
+                         **self._quant_groups()).to(self.dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, seq: Optional[SeqShard] = None) -> torch.Tensor:
+        """``seq``: a tower block's sequence slices (``side`` says which end
+        of its pair this layer is)."""
         bias = None if self.bias is None else self.bias.to(self.dtype)
-        if self.tp == "column":
-            x = copy_to(x, self._model_group())
-        elif self.tp == "row":     # the partial products summed, then the bias once
-            y = (F.linear(x.to(self.dtype), self.weight.to(self.dtype)) if self.quant == "none"
-                 else self._product(x))
-            y = reduce_from(y, self._model_group())
-            return y if bias is None else y + bias
+        if seq is not None and self.side is None:
+            raise ValueError("a sequence-sharded input reaches a layer with no side")
+        if self.tp == "row" or (seq is not None and self.side == "out"):
+            # the partial products summed (the quantized product sums its
+            # int32 ones), then the bias once
+            if self.quant == "none":
+                y = reduce_from(F.linear(x.to(self.dtype), self.weight.to(self.dtype)),
+                                self._model_group())
+            else:
+                y = self._product(x)
+            y = _seq_output(y, seq)
+            return y if bias is None else y + grad_scaled(bias, seq)
+        if self.tp == "column" or seq is not None:
+            x = _column_input(self, x, seq)
         if self.quant == "none":
             return F.linear(x.to(self.dtype), self.weight.to(self.dtype), bias)
         y = self._product(x)
@@ -155,14 +256,14 @@ class QKVDense(_Parallel, nn.Module):
         self.weight.data.uniform_(-bound, bound, generator=gen)
         self.bias.data.uniform_(-bound, bound, generator=gen)
 
-    def forward(self, x: torch.Tensor):
-        x = copy_to(x, self._model_group())
+    def forward(self, x: torch.Tensor, seq: Optional[SeqShard] = None):
+        x = _column_input(self, x, seq)
         if self.quant == "none":
             y = F.linear(x.to(self.dtype), self.weight.to(self.dtype),
                          self.bias.to(self.dtype))
         else:
             y = (quant_dot(x.to(self.dtype), self.weight.to(self.dtype), self.quant,
-                           self._data_group()).to(self.dtype) + self.bias.to(self.dtype))
+                           **self._quant_groups()).to(self.dtype) + self.bias.to(self.dtype))
         y = y.view(*y.shape[:-1], 3, self.hidden)
         return y[..., 0, :], y[..., 1, :], y[..., 2, :]
 
@@ -194,9 +295,11 @@ class LayerNorm(nn.Module):
         self.weight.data.fill_(1.0)
         self.bias.data.zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.layer_norm(x.float(), self.weight.shape, self.weight.float(),
-                         self.bias.float(), self.eps)
+    def forward(self, x: torch.Tensor, seq: Optional[SeqShard] = None) -> torch.Tensor:
+        """``seq``: ``x`` is a sequence slice (the gradient of the weight and
+        bias :func:`grad_scaled`)."""
+        y = F.layer_norm(x.float(), self.weight.shape, grad_scaled(self.weight, seq).float(),
+                         grad_scaled(self.bias, seq).float(), self.eps)
         return y.to(self.dtype)
 
 
@@ -301,12 +404,19 @@ class Dropout(nn.Module):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x: torch.Tensor, rng: Optional[DropoutRNG]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rng: Optional[DropoutRNG],
+                seq: Optional[SeqShard] = None) -> torch.Tensor:
+        """``seq``: ``x`` (B, L/n, ...) is a sequence slice, and draws the
+        bits of its elements in the whole (B, L, ...) tensor."""
         if not self.training or self.rate == 0.0:
             return x
         if rng is None:
             raise ValueError("train-mode dropout needs a DropoutRNG")
-        return hidden_dropout(x, self.rate, rng.next_seed())
+        layout = None
+        if seq is not None:
+            row = math.prod(x.shape[2:])
+            layout = (x.shape[1] * row, seq.length * row, seq.index * x.shape[1] * row)
+        return hidden_dropout(x, self.rate, rng.next_seed(), layout)
 
 
 def attention_dropout(module: nn.Module, rate: float, rng: Optional[DropoutRNG],

@@ -27,6 +27,19 @@ data group for the JS loss's Gram matrices (the path signatures in
 ``InteractionModule``), and the cross-entropy's sum and count are summed
 over it. The model is built whole; ``parallel.mesh.shard_model`` cuts it
 for a mesh, never the config alone.
+
+``cfg.pipeline_stages`` runs the towers as pipelines (``models/pipeline.py``)
+and ``cfg.seq_shard`` cuts their blocks' activations along the sequence
+under a model axis (``models/bert.py``). ``cfg.fabric_shard`` under a model
+axis (JAX ``d2r_tpu/models/unimo.py:111-127`` with
+``d2r_tpu/parallel/mesh.py:210-239``): the routing fabric of a data row
+runs on ``1/tp`` of its rows on each model rank, the fabric's modules
+whole there (``shard_model`` leaves them unsplit), and its two streams are
+gathered back over the model group. While it runs, what spans the batch
+is taken over the fabric group (data x model): the SAF BatchNorm
+statistics, the ``int8_all`` dW scales and the path signatures of the JS
+loss's Gram matrices. A batch whose rows the model axis does not divide
+runs the fabric whole, as JAX's constraint is then a no-op.
 """
 
 from __future__ import annotations
@@ -36,7 +49,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from d2r_tpu_torch.config import D2RConfig, resolve_device
+from d2r_tpu_torch.config import D2RConfig, resolve_device, serving_config
 from d2r_tpu_torch.models.bert import BertEmbeddings, BertEncoder, BertLayer
 from d2r_tpu_torch.models.graph import GraphConvolution
 from d2r_tpu_torch.models.interaction import InteractionModule
@@ -53,15 +66,15 @@ from d2r_tpu_torch.models.xmodules import BlockFusion
 from d2r_tpu_torch.ops.attention import padding_key_bias
 from d2r_tpu_torch.ops.losses import cross_entropy_loss, path_consistency_loss
 from d2r_tpu_torch.ops.qdot import set_quant_mode
-from d2r_tpu_torch.parallel.distributed import gather_rows
+from d2r_tpu_torch.parallel.distributed import gather_rows, scatter_rows
 
 
 class D2RModel(_Parallel, nn.Module):
     def __init__(self, cfg: D2RConfig):
         super().__init__()
-        # built whole, in one process: ``shard_model`` checks the layout
-        # settings against the model axis it cuts for
-        cfg.check_supported(model_axis=1)
+        # built whole, in one process: ``shard_model`` checks the settings
+        # against the world it cuts for
+        cfg.check_supported()
         self.cfg = cfg
         dt = cfg.dtype
         tc, vc = cfg.text_config(), cfg.vision_config()
@@ -71,8 +84,9 @@ class D2RModel(_Parallel, nn.Module):
         # remat: the tower stacks only; remat_ffn_act: every BERT and CLIP
         # block, as the JAX step's policy reaches every tagged activation
         ffn = cfg.remat_ffn_act
-        self.encoder_vision_layers = CLIPVisionEncoder(vc, dt, cfg.remat, ffn)
-        self.encoder_text_layers = BertEncoder(tc, dt, cfg.remat, ffn)
+        layout = (cfg.pipeline_stages, cfg.pipeline_microbatches, cfg.seq_shard)
+        self.encoder_vision_layers = CLIPVisionEncoder(vc, dt, cfg.remat, ffn, *layout)
+        self.encoder_text_layers = BertEncoder(tc, dt, cfg.remat, ffn, *layout)
         self.sentic_gcn = (GraphConvolution(tc.hidden_size, tc.hidden_size, dt)
                            if cfg.use_sentic_graph else None)
         self.self_text = BertLayer(tc, dt, ffn)
@@ -105,8 +119,8 @@ class D2RModel(_Parallel, nn.Module):
         text_cls = self.text_cls_pool(self.self_text(text_out, key_bias, rng))
         vision_cls = self.vision_cls_pool(self.self_vision(vision_out, rng))
 
-        text_stream, sim_paths = self.itr_module(text_out, vision_out, valid)
-        vision_stream, rev_sim_paths = self.Reversed_itr_module(text_out, vision_out, valid)
+        text_stream, sim_paths, vision_stream, rev_sim_paths = self._fabric(
+            text_out, vision_out, valid)
 
         group = self._data_group()
         text_cls = gather_rows(text_cls.float(), group)
@@ -120,6 +134,42 @@ class D2RModel(_Parallel, nn.Module):
         fused = self.block_fusion(self.text_pool(text_stream),
                                   self.vision_pool(vision_stream))
         return fused, js_loss
+
+    def _fabric_group(self, rows: int):
+        """The fabric group when ``fabric_shard`` spreads this batch's
+        ``rows`` over the model ranks, else None."""
+        mesh = self.mesh
+        if (not self.cfg.fabric_shard or mesh is None or mesh.tp == 1
+                or rows % mesh.tp):
+            return None
+        return mesh.fabric_group
+
+    def _fabric(self, text_out, vision_out, valid):
+        """Both routing branches: on this model rank's rows under
+        ``fabric_shard`` (the streams gathered back), else on all."""
+        fabric = self._fabric_group(text_out.shape[0])
+        if fabric is None:
+            text_stream, sim_paths = self.itr_module(text_out, vision_out, valid)
+            vision_stream, rev = self.Reversed_itr_module(text_out, vision_out, valid)
+            return text_stream, sim_paths, vision_stream, rev
+        model_group = self.mesh.model_group
+        text, vision = scatter_rows(text_out, model_group), scatter_rows(vision_out, model_group)
+        rows = None
+        if valid is not None:
+            n = valid.shape[0] // self.mesh.tp
+            rows = valid[self.mesh.model_index * n:(self.mesh.model_index + 1) * n]
+        modules = [m for branch in (self.itr_module, self.Reversed_itr_module)
+                   for m in branch.modules() if isinstance(m, _Parallel)]
+        for m in modules:
+            m.rows_group = fabric
+        try:
+            text_stream, sim_paths = self.itr_module(text, vision, rows)
+            vision_stream, rev = self.Reversed_itr_module(text, vision, rows)
+        finally:
+            for m in modules:
+                m.rows_group = None
+        return (gather_rows(text_stream, model_group), sim_paths,
+                gather_rows(vision_stream, model_group), rev)
 
 
 class D2RClassifier(_Parallel, nn.Module):
@@ -147,6 +197,20 @@ class D2RClassifier(_Parallel, nn.Module):
         logits = self.fc(pooled)
         ce = cross_entropy_loss(logits, labels, valid, self._data_group())
         return ce + js_loss, logits, {"ce_loss": ce, "js_loss": js_loss}
+
+
+def unpipelined(model: nn.Module) -> nn.Module:
+    """``model`` (holding every block) with its towers run as one stack, in
+    place, and its config's pipeline fields reset (``serving_config``):
+    the same parameters and eval-forward math, any batch size."""
+    for m in model.modules():
+        if isinstance(m, (BertEncoder, CLIPVisionEncoder)):
+            if any(not hasattr(m, f"layer_{i}") for i in range(m.num_layers)):
+                raise ValueError("a stage rank's cut of the towers cannot run unpipelined")
+            m.stages, m.microbatches = 1, 1
+        if isinstance(getattr(m, "cfg", None), D2RConfig):
+            m.cfg = serving_config(m.cfg)
+    return model
 
 
 def build_model(cfg: D2RConfig, device="cuda", seed: int = 0) -> D2RClassifier:

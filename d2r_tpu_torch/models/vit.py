@@ -14,16 +14,19 @@ import torch.nn.functional as F
 from torch import nn
 
 from d2r_tpu_torch.config import VisionEncoderConfig
+from d2r_tpu_torch.models.bert import pipeline_of, seq_shard_of
 from d2r_tpu_torch.models.layers import (
     ACT2FN,
     Embed,
     LayerNorm,
     QKVDense,
     TorchLinear,
+    _Parallel,
     attention_dropout,
     remat,
 )
 from d2r_tpu_torch.ops.attention import dot_product_attention, merge_heads, split_heads
+from d2r_tpu_torch.parallel.distributed import gather_seq, split_seq
 
 # CLIP's pixel statistics (copied from d2r_tpu/data/image.py)
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
@@ -90,14 +93,14 @@ class CLIPAttention(nn.Module):
         self.qkv = QKVDense(cfg.hidden_size, cfg.hidden_size, dtype)
         self.out_proj = TorchLinear(cfg.hidden_size, cfg.hidden_size, dtype=dtype)
 
-    def forward(self, x: torch.Tensor, rng=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rng=None, seq=None) -> torch.Tensor:
         h = self.qkv.hidden // self.head_dim     # this rank's heads under a model axis
-        q, k, v = self.qkv(x)
+        q, k, v = self.qkv(x, seq)
         rate, seed = attention_dropout(self, self.cfg.attention_dropout, rng, self.qkv)
         ctx = dot_product_attention(split_heads(q, h), split_heads(k, h),
                                     split_heads(v, h), scale=self.cfg.head_dim ** -0.5,
                                     dropout_rate=rate, dropout_seed=seed)
-        return self.out_proj(merge_heads(ctx))
+        return self.out_proj(merge_heads(ctx), seq)
 
 
 class CLIPEncoderLayer(nn.Module):
@@ -115,30 +118,45 @@ class CLIPEncoderLayer(nn.Module):
         self.layer_norm2 = LayerNorm(c.hidden_size, c.layer_norm_eps, dtype)
         self.mlp_fc1 = TorchLinear(c.hidden_size, c.intermediate_size, dtype=dtype)
         self.mlp_fc2 = TorchLinear(c.intermediate_size, c.hidden_size, dtype=dtype)
+        self.self_attn.qkv.side, self.mlp_fc1.side = "in", "in"
+        self.self_attn.out_proj.side, self.mlp_fc2.side = "out", "out"
 
-    def ffn_out(self, pre: torch.Tensor) -> torch.Tensor:
-        return self.mlp_fc2(self.act(pre))
+    def ffn_out(self, pre: torch.Tensor, seq=None) -> torch.Tensor:
+        return self.mlp_fc2(self.act(pre), seq)
 
-    def forward(self, x: torch.Tensor, rng=None) -> torch.Tensor:
-        x = x + self.self_attn(self.layer_norm1(x), rng)
-        pre = self.mlp_fc1(self.layer_norm2(x))
-        return x + (remat(self.ffn_out, pre) if self.remat_ffn_act else self.ffn_out(pre))
+    def forward(self, x: torch.Tensor, rng=None, seq=None) -> torch.Tensor:
+        """``seq``: ``x`` and the output are this rank's sequence slices."""
+        x = x + self.self_attn(self.layer_norm1(x, seq), rng, seq)
+        pre = self.mlp_fc1(self.layer_norm2(x, seq), seq)
+        return x + (remat(self.ffn_out, pre, seq) if self.remat_ffn_act
+                    else self.ffn_out(pre, seq))
 
 
-class CLIPVisionEncoder(nn.Module):
-    """Stack of pre-LN blocks, named ``layer_{i}``; ``remat`` as in
-    ``bert.BertEncoder`` (``d2r_tpu/models/vit.py:179-183``)."""
+class CLIPVisionEncoder(_Parallel, nn.Module):
+    """Stack of pre-LN blocks, named ``layer_{i}``; ``remat``, ``stages``,
+    ``microbatches`` and ``seq_shard`` as in ``bert.BertEncoder``
+    (``d2r_tpu/models/vit.py:143-183``)."""
 
     def __init__(self, cfg: VisionEncoderConfig, dtype: torch.dtype = torch.float32,
-                 remat: bool = False, remat_ffn_act: bool = False):
+                 remat: bool = False, remat_ffn_act: bool = False, stages: int = 1,
+                 microbatches: int = 0, seq_shard: bool = False):
         super().__init__()
         self.num_layers = cfg.num_hidden_layers
         self.remat = remat
+        self.stages, self.microbatches = stages, microbatches or stages
+        self.seq_shard = seq_shard
         for i in range(self.num_layers):
             self.add_module(f"layer_{i}", CLIPEncoderLayer(cfg, dtype, remat_ffn_act))
 
+    def block(self, i: int, x, key_bias=None, rng=None, seq=None):
+        layer = getattr(self, f"layer_{i}")
+        return remat(layer, x, rng, seq, rng=rng) if self.remat else layer(x, rng, seq)
+
     def forward(self, x: torch.Tensor, rng=None) -> torch.Tensor:
+        if self.stages > 1:
+            return pipeline_of(self)(x, None, rng)
+        seq = seq_shard_of(self, x)
+        x = x if seq is None else split_seq(x, seq.group)
         for i in range(self.num_layers):
-            layer = getattr(self, f"layer_{i}")
-            x = remat(layer, x, rng, rng=rng) if self.remat else layer(x, rng)
-        return x
+            x = self.block(i, x, None, rng, seq)
+        return x if seq is None else gather_seq(x, seq.group, summed=False)

@@ -36,6 +36,16 @@ Under a data axis (``parallel/mesh.py``) the ``int8_all`` backward's dW
 scales, one a column over ALL batch rows, take the max over the data group,
 so every rank quantizes with the global batch's scales, as one process
 would; the rest holds row by row and needs nothing.
+
+Under a model axis (``split``): where the model axis splits a product's
+contraction (a row-parallel forward, whose K it splits; a column-parallel
+``int8_all`` input gradient, whose N it splits) every amax over the
+contraction is a max over the model group and the int32 partial products
+are summed over it before the scales multiply, as GSPMD partitions the JAX
+program; the product then equals one process's bit for bit. A
+column-parallel ``int8`` input gradient, a float product, is summed over
+the group here too (the layer then skips ``copy_to``). Every other product
+is local to the rank's rows or columns.
 """
 
 from __future__ import annotations
@@ -45,7 +55,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from d2r_tpu_torch.parallel.distributed import all_reduce_max
+from d2r_tpu_torch.parallel.distributed import all_reduce_max, sum_over
 
 MODES = ("none", "int8", "int8_all")
 
@@ -101,12 +111,13 @@ def int_mm(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
     return y[:m, :n] if (mp, np_) != (m, n) else y
 
 
-def _int8_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _int8_matmul(x: torch.Tensor, w: torch.Tensor, group=None) -> torch.Tensor:
     """``x (..., K) @ w.T`` for ``w`` (N, K), quantized: x per row over K, w
-    per output row over K. fp32 (..., N)."""
-    qx, sx = _quantize(x, -1)                       # sx (..., 1)
-    qw, sw = _quantize(w, 1)                        # sw (N, 1)
-    y = int_mm(qx.reshape(-1, x.shape[-1]), qw)
+    per output row over K. fp32 (..., N). ``group``: the model ranks whose
+    slices of K make the whole contraction."""
+    qx, sx = _quantize(x, -1, group)                # sx (..., 1)
+    qw, sw = _quantize(w, 1, group)                 # sw (N, 1)
+    y = sum_over(int_mm(qx.reshape(-1, x.shape[-1]), qw), group)
     return y.reshape(*x.shape[:-1], w.shape[0]).float() * sx * sw[:, 0]
 
 
@@ -115,10 +126,11 @@ class QuantDot(torch.autograd.Function):
     straight-through backward of ``mode``. The output has ``x``'s type."""
 
     @staticmethod
-    def forward(ctx, x, w, mode, group):
+    def forward(ctx, x, w, mode, group, model_group, split):
         ctx.save_for_backward(x, w)
         ctx.mode, ctx.group = mode, group
-        return _int8_matmul(x, w).to(x.dtype)
+        ctx.column = model_group if split == "column" else None
+        return _int8_matmul(x, w, model_group if split == "row" else None).to(x.dtype)
 
     @staticmethod
     def backward(ctx, g):
@@ -127,21 +139,25 @@ class QuantDot(torch.autograd.Function):
         g2d = g.reshape(-1, g.shape[-1])
         if ctx.mode == "int8_all":
             # dx[..., k] = sum_n g[..., n] w[n, k]: contract N, per-k scales of w
-            dx = _int8_matmul(g, w.t())
+            dx = _int8_matmul(g, w.t(), ctx.column)
             # dW[n, k] = sum_m g[m, n] x[m, k]: contract the rows
             qx, sx = _quantize(x2d, 0, ctx.group)   # sx (1, K)
             qg, sg = _quantize(g2d, 0, ctx.group)   # sg (1, N)
             dw = int_mm(qg.t(), qx.t()).float() * sx * sg.t()
         else:
             # the unquantized product's backward on the saved operands
-            dx = torch.matmul(g, w)
+            dx = sum_over(torch.matmul(g, w), ctx.column)
             dw = torch.matmul(g2d.t().float(), x2d.float())
-        return dx.to(x.dtype), dw.to(w.dtype), None, None
+        return dx.to(x.dtype), dw.to(w.dtype), None, None, None, None
 
 
 def quant_dot(x: torch.Tensor, w: torch.Tensor, mode: str = "int8",
-              group=None) -> torch.Tensor:
+              group=None, model_group=None, split=None) -> torch.Tensor:
     """Quantized ``x @ w.T`` with the backward of ``mode`` (``int8`` or
     ``int8_all``); ``w`` is (N, K). ``group``: the data group whose rows
-    share the ``int8_all`` dW scales."""
-    return QuantDot.apply(x, w, mode, group)
+    share the ``int8_all`` dW scales. ``split`` "row" or "column": this
+    rank holds its ``model_group`` slice of K or of N (module
+    docstring)."""
+    if split not in ("row", "column"):
+        model_group = split = None
+    return QuantDot.apply(x, w, mode, group, model_group, split)

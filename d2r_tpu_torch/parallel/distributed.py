@@ -2,7 +2,7 @@
 
 The JAX package runs one process per host, each owning its local chips, in
 one SPMD program. The port runs one process per card (``torch.distributed``):
-a (data, model) mesh of ``dp x tp`` processes (``parallel/mesh.py``). This
+a (data, stage, model) mesh of ``dp x pp x tp`` processes (``parallel/mesh.py``). This
 module joins the processes, gives each its card, and holds the collectives
 the model and the trainer call.
 
@@ -30,6 +30,22 @@ whose backward sums the partial input gradients (:func:`copy_to`), a
 row-parallel layer's output is a sum forward whose backward is the identity
 (:func:`reduce_from`), and a sharded output gathered for a replicated
 consumer returns each rank its own columns (:func:`gather_features`).
+Sequence parallelism (``seq_shard``) cuts the replicated activations
+between a block's matmuls along the sequence: :func:`split_seq` takes a
+rank's slice (backward: the slices' gradients gathered), and
+:func:`gather_seq` joins them for a column-parallel input (backward: the
+partial gradients summed, then the rank's slice), so a row-parallel
+output summed and split is Megatron's reduce-scatter, with the
+all-reduce's sum. The fabric's work-sharing (``fabric_shard``) spreads a
+data row's batch over its model ranks: :func:`scatter_rows` takes the
+rank's rows, and :func:`gather_rows` over the model group joins them.
+Inside the spread fabric every model rank differentiates the one loss
+through its own rows only, so the gather's summed backward gives the
+fabric ``tp`` times its share, as the data group gives ``dp`` times, and
+the trainer's mean over the model group of the replicated fabric's
+gradients is then the sum of the ranks' shares; :func:`scatter_rows`
+divides its gathered gradient by ``tp`` again for the towers. The
+pipeline's stage group has its hop in ``models/pipeline.py``.
 
 Every collective is built from ``all_reduce`` alone: it is the one that the
 gloo backend takes on CUDA tensors besides broadcast (several ranks on one
@@ -137,16 +153,16 @@ def local_device(device="cuda") -> torch.device:
 
 
 def warmup_collectives(mesh) -> None:
-    """One tiny all-reduce over the world, then over this rank's data group
-    and model group, while the processes are still in step from
+    """One tiny all-reduce over the world, then over each group of this
+    rank (data, stage, model, fabric), while the processes are still in step from
     :func:`initialize`: each transport connects now, not inside the first
     step, behind a skew of seconds between the ranks' first forwards. With
     a process group of one (``--num_processes 1``) the world's all-reduce
     still runs, so its backend is exercised; without a group, nothing."""
     if not dist.is_initialized():
         return
-    for group in [dist.group.WORLD] + [g for g in (mesh.data_group, mesh.model_group)
-                                       if g is not None]:
+    groups = (mesh.data_group, mesh.stage_group, mesh.model_group, mesh.fabric_group)
+    for group in [dist.group.WORLD] + [g for g in groups if g is not None]:
         dist.all_reduce(torch.zeros(8, device=mesh.device), group=group)
     logger.info("collectives warmed up (%d processes)", mesh.world)
 
@@ -197,16 +213,40 @@ class _AllReduceSum(torch.autograd.Function):
         return _summed(g, ctx.group), None
 
 
-class _GatherRows(torch.autograd.Function):
+class _Gather(torch.autograd.Function):
+    """The ranks' blocks of ``x`` along ``dim``; backward: this rank's block
+    of the gradient, summed over the group first when ``summed``."""
+
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group, ctx.rows = group, x.shape[0]
-        return _gather(x, group, 0)
+    def forward(ctx, x, group, dim, summed):
+        ctx.group, ctx.dim, ctx.width, ctx.summed = group, dim, x.shape[dim], summed
+        return _gather(x, group, dim)
 
     @staticmethod
     def backward(ctx, g):
         r = dist.get_rank(ctx.group)
-        return _summed(g, ctx.group).narrow(0, r * ctx.rows, ctx.rows), None
+        if ctx.summed:
+            g = _summed(g, ctx.group)
+        return g.narrow(ctx.dim, r * ctx.width, ctx.width).contiguous(), None, None, None
+
+
+class _Split(torch.autograd.Function):
+    """This rank's block of ``x`` along ``dim``; backward: the ranks'
+    gradient blocks gathered, times ``scale``."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim, scale):
+        n, r = _size_rank(group)
+        if x.shape[dim] % n:
+            raise ValueError(f"a dimension of {x.shape[dim]} does not split over {n} ranks")
+        ctx.group, ctx.dim, ctx.scale = group, dim, scale
+        k = x.shape[dim] // n
+        return x.narrow(dim, r * k, k).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        out = _gather(g.contiguous(), ctx.group, ctx.dim)
+        return (out if ctx.scale == 1.0 else out.mul_(ctx.scale)), None, None, None
 
 
 class _CopyTo(torch.autograd.Function):
@@ -230,17 +270,6 @@ class _ReduceFrom(torch.autograd.Function):
         return g, None
 
 
-class _GatherFeatures(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group, ctx.width = group, x.shape[-1]
-        return _gather(x, group, x.dim() - 1)
-
-    @staticmethod
-    def backward(ctx, g):
-        r = dist.get_rank(ctx.group)
-        return g.narrow(-1, r * ctx.width, ctx.width).contiguous(), None
-
 
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     """Sum over the data group; backward: the gradients summed over it."""
@@ -250,7 +279,31 @@ def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
 def gather_rows(x: torch.Tensor, group) -> torch.Tensor:
     """The ranks' rows of ``x`` (dim 0) in rank order; backward: the
     gradients summed over the group, cut to this rank's rows."""
-    return x if group is None else _GatherRows.apply(x, group)
+    return x if group is None else _Gather.apply(x, group, 0, True)
+
+
+def scatter_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """This rank's block of the rows of ``x``, replicated over ``group``
+    (the fabric's input under ``fabric_shard``); backward: the ranks'
+    gradient blocks gathered and divided by the group's size (see the
+    module docstring)."""
+    return x if group is None else _Split.apply(x, group, 0, 1.0 / dist.get_world_size(group))
+
+
+def split_seq(x: torch.Tensor, group) -> torch.Tensor:
+    """This rank's slice of ``x`` (B, L, ...) along the sequence, ``x``
+    replicated over the model ``group``; backward: the slices' gradients
+    gathered."""
+    return x if group is None else _Split.apply(x, group, 1, 1.0)
+
+
+def gather_seq(x: torch.Tensor, group, summed: bool = True) -> torch.Tensor:
+    """The model ranks' sequence slices of ``x`` joined (dim 1). Backward:
+    with ``summed``, the partial gradients of a column-parallel consumer
+    summed over the group, then this rank's slice; without, this rank's
+    slice of its own gradient (a replicated consumer, or one whose
+    backward sums already)."""
+    return x if group is None else _Gather.apply(x, group, 1, summed)
 
 
 def copy_to(x: torch.Tensor, group) -> torch.Tensor:
@@ -268,7 +321,13 @@ def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
 def gather_features(x: torch.Tensor, group) -> torch.Tensor:
     """The model ranks' columns of ``x`` (last dim) in rank order, for a
     replicated consumer; backward: this rank's columns of the gradient."""
-    return x if group is None else _GatherFeatures.apply(x, group)
+    return x if group is None else _Gather.apply(x, group, x.dim() - 1, False)
+
+
+def sum_over(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group`` (no gradient); any dtype, int32
+    included."""
+    return x if group is None else _summed(x, group)
 
 
 @torch.no_grad()

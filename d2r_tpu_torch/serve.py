@@ -41,8 +41,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from d2r_tpu_torch.config import D2RConfig, resolve_device
+from d2r_tpu_torch.config import D2RConfig, resolve_device, serving_config
 from d2r_tpu_torch.models.layers import Embed, QKVDense, TorchLinear
+from d2r_tpu_torch.models.unimo import unpipelined
 from d2r_tpu_torch.models.vit import PatchConv
 from d2r_tpu_torch.quant import Int8Weight, quantize_model
 
@@ -116,8 +117,10 @@ class Predictor:
                  seq_buckets: Optional[Sequence[int]] = None,
                  device="cuda", quantize: Optional[str] = None):
         self.device = resolve_device(device)
-        self.cfg = cfg
-        model = model.eval().to(self.device)
+        # a pipelined model serves unpipelined, as the JAX package's does
+        # (d2r_tpu/serve.py:41-55): a bucket of 1 divides no microbatches
+        self.cfg = cfg = serving_config(cfg)
+        model = unpipelined(model).eval().to(self.device)
         if quantize:
             quantize_model(model, quantize)
         self.model = compute_cast(model, cfg.dtype)

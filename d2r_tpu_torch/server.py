@@ -635,7 +635,7 @@ def resolve_serve_config(load_path: str, config_json: Optional[str] = None,
     if unknown:  # a raise, not an assert: must survive `python -O`
         raise ValueError(f"unexpected serve overrides: {sorted(unknown)}")
     cfg = dataclasses.replace(base, **fields)
-    cfg.check_supported(model_axis=1)   # one process serves
+    cfg.check_supported()   # one process serves
     return cfg
 
 

@@ -24,12 +24,15 @@ reading a path that may have a save in flight and before the process exits.
 Across processes (a train state with a ``mesh``): a checkpoint does not
 depend on the mesh. Every rank gathers the whole tensors (the split
 parameters and their Adam moments, over the model group), rank 0 alone
-writes them, and the ranks meet at a barrier before anyone reads; with
+writes them (every stage's tower blocks gathered over the stage group
+too), and the ranks meet at a barrier before anyone reads; with
 ``async_save`` the gather is synchronous on every rank and only rank 0's
 thread writes (``wait_for_async_saves(mesh)`` awaits it, then meets). A
-restore reads the whole tensors on every rank and keeps its slices. So a
-(2, 2) run's ``model.pth`` loads into one process, and one process's into
-any mesh.
+restore reads the whole tensors on every rank and keeps its slices and
+its stage's blocks. So a (2, 2) run's ``model.pth`` loads into one
+process, and one process's into any mesh; the port's keys do not change
+with ``pipeline_stages``, so a pipelined run's checkpoint serves
+unpipelined (:func:`restore_model`).
 """
 
 from __future__ import annotations
@@ -41,7 +44,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from d2r_tpu_torch.config import load_config_json, resolve_device
+from d2r_tpu_torch.config import load_config_json, resolve_device, serving_config
 from d2r_tpu_torch.models.unimo import D2RClassifier
 from d2r_tpu_torch.parallel.mesh import (
     full_optimizer_state,
@@ -183,9 +186,11 @@ def restore_model(load_path: str, cfg, device="cuda"):
     ``D2RClassifier(cfg)`` in eval mode on ``device`` holding the weights of
     the checkpoint at ``load_path``. Only ``model.pth`` is read; optimizer
     state, when saved, is skipped. A checkpoint of another geometry
-    raises."""
+    raises. A pipelined config's model comes back unpipelined
+    (``config.serving_config``; the weights are the same), as the JAX
+    package serves it (``d2r_tpu/serve.py:41-55``)."""
     dev = resolve_device(device)
-    model = D2RClassifier(cfg)
+    model = D2RClassifier(serving_config(cfg))
     model.load_state_dict(torch.load(_model_file(load_path), map_location="cpu",
                                      weights_only=True))
     return model.eval().to(dev)

@@ -68,14 +68,18 @@ global batch's, and after the backward (after the last microbatch, with
 accumulation) the gradients of the optimizer's parameters are averaged
 over the data group, which is the global loss's gradient (the scheme of
 ``parallel/distributed.py``); those of the tensors a model axis leaves
-whole are first averaged over the model group, which keeps the replicas
-equal to the bit (:func:`_reduce_gradients`). No ``DistributedDataParallel`` wrapper: one
+whole are first averaged over the model group, and those of the tensors
+outside the towers' blocks over the stage group (a stage rank's own blocks
+are reduced over the data group only), which keeps the replicas equal to
+the bit (:func:`_reduce_gradients`). No ``DistributedDataParallel`` wrapper: one
 explicit reduction a step covers the leaves that get no gradient (CMA's
 unread ``fc_1``/``fc_2`` at ``alpha != 0``; AdamW still decays them) and
 frozen towers alike, and the state dict keeps its keys. The dropout seed
 of a step folds in the rank's data index when the data axis is larger than
 1, so data ranks draw different masks, and the model ranks of a data row
-the same ones for their replicated activations.
+the same ones for their replicated activations; so do the stage ranks (a
+pipelined tower's blocks draw per (microbatch, block),
+``models/pipeline.py``).
 """
 
 from __future__ import annotations
@@ -92,7 +96,7 @@ from d2r_tpu_torch.config import D2RConfig, resolve_device
 from d2r_tpu_torch.models.layers import DropoutRNG, fold_in
 from d2r_tpu_torch.models.unimo import build_model
 from d2r_tpu_torch.ops.kernels.fused_attention import seed_tensor
-from d2r_tpu_torch.parallel.mesh import Mesh, shard_model
+from d2r_tpu_torch.parallel.mesh import Mesh, shard_model, stage_owned
 from d2r_tpu_torch.train.optimizer import AdamW, make_optimizer
 
 BATCH_KEYS = ("input_ids", "attention_mask", "token_type_ids", "labels",
@@ -231,17 +235,25 @@ def _reduce_gradients(state: TrainState) -> None:
     card (a scatter-add's order can differ between two processes, e.g. the
     token-type embedding's backward, where every token hits row 0), and
     replicas updated from different bits drift apart; the mean of equal
-    values changes nothing. Then the mean of every gradient over the data
-    group: the global loss's gradient."""
+    values changes nothing. (Under ``fabric_shard`` each model rank's
+    fabric gradient is ``tp`` times its rows' share, and the mean is their
+    sum: ``parallel/distributed.py``.) Under a stage axis, the same mean
+    over the stage group of the tensors outside the towers' blocks, which
+    every stage rank holds and computes. Then the mean of every gradient
+    over the data group: the global loss's gradient."""
     mesh = state.mesh
     if mesh is None:
         return
+    named = {id(p): k for k, p in state.model.named_parameters()}
     grads = [p for g in state.optimizer.param_groups for p in g["params"]
              if p.grad is not None]
     if mesh.tp > 1:
         split = {id(getattr(m, name)) for m in state.model.modules()
                  for name in getattr(m, "shards", {})}
         _mean_over([p.grad for p in grads if id(p) not in split], mesh.model_group, mesh.tp)
+    if mesh.pp > 1:
+        _mean_over([p.grad for p in grads if not stage_owned(named[id(p)], mesh)],
+                   mesh.stage_group, mesh.pp)
     if mesh.dp > 1:
         _mean_over([p.grad for p in grads], mesh.data_group, mesh.dp)
 

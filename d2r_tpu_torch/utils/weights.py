@@ -24,7 +24,9 @@ config must say ``position_style="roberta"``.
 own tree (:func:`~d2r_tpu_torch.weights.to_jax_variables`), its tower
 leaves replaced, loaded back in place (``load_jax_variables``), so the
 parameters an optimizer already holds receive the weights. A model with
-``scan_layers`` takes the scanned tree, converted on its per-layer view.
+``scan_layers`` takes the scanned tree, and a pipelined one
+(``pipeline_stages`` > 1, JAX ``d2r_tpu/utils/weights.py:191-200``) the
+pipelined tree, each converted on its per-layer view.
 """
 
 from __future__ import annotations
@@ -39,8 +41,10 @@ from torch import nn
 
 from d2r_tpu_torch.weights import (
     load_jax_variables,
+    pipeline_tower_layers,
     stack_tower_layers,
     to_jax_variables,
+    unpipeline_tower_layers,
     unstack_tower_layers,
 )
 
@@ -165,13 +169,13 @@ def load_pretrained_state_dicts(model: nn.Module, bert_state_dict: Dict[str, Any
     dicts, in place; every other tensor keeps its value."""
     cfg = model.cfg
     variables = to_jax_variables(model)
-    params = variables["params"]
-    if cfg.scan_layers:
-        params = unstack_tower_layers(params)
+    params = unstack_tower_layers(unpipeline_tower_layers(variables["params"]))
     params = convert_pretrained(params, bert_state_dict, clip_vision_state_dict,
                                 cfg.text_config().num_hidden_layers,
                                 cfg.vision_config().num_hidden_layers)
-    if cfg.scan_layers:
+    if cfg.pipeline_stages > 1:
+        params = pipeline_tower_layers(params, cfg.pipeline_stages)
+    elif cfg.scan_layers:
         params = stack_tower_layers(params)
     return load_jax_variables(model, {**variables, "params": params})
 

@@ -33,6 +33,10 @@ package's scanned layout: each tower's blocks as ONE subtree
 ``layers_scanned/layer`` whose leaves stack the blocks' leaves on a leading
 (N,) axis (``d2r_tpu/utils/weights.py:213-270``, :func:`stack_tower_layers`).
 The port runs the same loop of blocks either way; only the tree differs.
+A model whose config sets ``pipeline_stages`` > 1 reads and writes the
+pipelined layout: ``layers_pipelined/pipeline/stages_pipelined/layers/layer``
+with (S, N/S, ...) leaves, the scanned stack reshaped
+(``d2r_tpu/utils/weights.py:273-325``, :func:`pipeline_tower_layers`).
 """
 
 from __future__ import annotations
@@ -117,9 +121,61 @@ def unstack_tower_layers(tree: Mapping) -> dict:
     return _map_towers(tree, unstack)
 
 
+def _leading(stacked: Mapping) -> tuple:
+    first = stacked
+    while isinstance(first, Mapping):
+        first = next(iter(first.values()))
+    return np.shape(first)
+
+
+def pipeline_tower_layers(tree: Mapping, stages: int) -> dict:
+    """Per-layer or scanned towers -> the pipelined layout: the scanned
+    (N, ...) stack reshaped to (stages, N/stages, ...) under
+    ``layers_pipelined/pipeline/stages_pipelined/layers/layer`` (stage s
+    holds blocks [s N/S, (s+1) N/S)). Values and order are untouched."""
+
+    def pipe(tower):
+        if "layers_scanned" not in tower:
+            return tower
+        stacked = tower["layers_scanned"]["layer"]
+        n = _leading(stacked)[0]
+        if n % stages != 0:
+            raise ValueError(f"pipeline stages {stages} must divide the tower depth {n}")
+        reshaped = _tree_map(lambda x: np.asarray(x).reshape(
+            (stages, n // stages) + np.shape(x)[1:]), stacked)
+        out = {"layers_pipelined": {"pipeline": {"stages_pipelined": {
+            "layers": {"layer": reshaped}}}}}
+        out.update({k: v for k, v in tower.items() if k != "layers_scanned"})
+        return out
+
+    return _map_towers(stack_tower_layers(tree), pipe)
+
+
+def unpipeline_tower_layers(tree: Mapping) -> dict:
+    """The inverse of :func:`pipeline_tower_layers`: pipelined towers back
+    to the scanned (N, ...) layout; others pass through."""
+
+    def unpipe(tower):
+        if "layers_pipelined" not in tower:
+            return tower
+        stacked = tower["layers_pipelined"]["pipeline"]["stages_pipelined"]["layers"]["layer"]
+        merged = _tree_map(lambda x: np.asarray(x).reshape(
+            (np.shape(x)[0] * np.shape(x)[1],) + np.shape(x)[2:]), stacked)
+        out = {"layers_scanned": {"layer": merged}}
+        out.update({k: v for k, v in tower.items() if k != "layers_pipelined"})
+        return out
+
+    return _map_towers(tree, unpipe)
+
+
 def _scanned(model: nn.Module) -> bool:
     cfg = getattr(model, "cfg", None)
     return bool(getattr(cfg, "scan_layers", False))
+
+
+def _stages(model: nn.Module) -> int:
+    cfg = getattr(model, "cfg", None)
+    return int(getattr(cfg, "pipeline_stages", 1) or 1)
 
 
 def _translate(module: nn.Module, leaf: str, a):
@@ -150,9 +206,19 @@ def _translate(module: nn.Module, leaf: str, a):
 def load_jax_variables(model: nn.Module, variables: Mapping) -> nn.Module:
     """Set every parameter and buffer of ``model`` from the Flax tree
     ``{"params": ..., "batch_stats": ...}`` (nested mappings of arrays), in
-    place. When ``model.cfg.scan_layers`` is set, every tower of the tree
-    must be in the scanned layout."""
-    if _scanned(model):
+    place. When ``model.cfg.pipeline_stages`` > 1, every tower of the tree
+    must be in the pipelined layout; else, when ``model.cfg.scan_layers``
+    is set, in the scanned layout."""
+    if _stages(model) > 1:
+        def pipelined(tower):
+            if "layers_pipelined" not in tower or _layer_names(tower):
+                raise KeyError("pipeline_stages is set but a tower of the Flax tree is not in "
+                               "the pipelined layout (layers_pipelined/pipeline/"
+                               "stages_pipelined/layers/layer)")
+            return tower
+        variables = {c: unstack_tower_layers(unpipeline_tower_layers(_map_towers(t, pipelined)))
+                     for c, t in variables.items()}
+    elif _scanned(model):
         def scanned(tower):
             if "layers_scanned" not in tower or _layer_names(tower):
                 raise KeyError("scan_layers is set but a tower of the Flax tree is not in "
@@ -236,8 +302,10 @@ def flax_path(model: nn.Module, key: str) -> str:
 def to_jax_variables(model: nn.Module) -> Dict[str, dict]:
     """The port model's parameters and buffers as the Flax tree
     ``{"params": ..., "batch_stats": ...}`` of numpy fp32 arrays in Flax
-    layouts (the scanned one when ``model.cfg.scan_layers`` is set), which
-    :func:`load_jax_variables` takes back unchanged."""
+    layouts (the pipelined one when ``model.cfg.pipeline_stages`` > 1, else
+    the scanned one when ``model.cfg.scan_layers`` is set), which
+    :func:`load_jax_variables` takes back unchanged. The model must hold
+    every block (not a stage rank's cut)."""
     tree: Dict[str, dict] = {"params": {}, "batch_stats": {}}
     for key, t in model.state_dict().items():
         *prefix, name = key.split(".")
@@ -253,4 +321,6 @@ def to_jax_variables(model: nn.Module) -> Dict[str, dict]:
         if leaf in node:
             raise KeyError(f"port key {key!r} sets Flax leaf {leaf!r} twice")
         node[leaf] = np.ascontiguousarray(arr)
+    if _stages(model) > 1:
+        return {c: pipeline_tower_layers(t, _stages(model)) for c, t in tree.items()}
     return {c: stack_tower_layers(t) for c, t in tree.items()} if _scanned(model) else tree

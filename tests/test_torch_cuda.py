@@ -851,3 +851,55 @@ def test_cuda_replayed_eval_equals_eager_after_steps_and_restore(cuda, tmp_path)
     tckpt.restore_checkpoint(path, state)
     again = check()
     assert all(torch.equal(a["logits"], b["logits"]) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+def test_cuda_pipelined_replayed_steps_equal_eager_steps(cuda):
+    """A tiny model whose towers run as two pipeline stages over two
+    microbatches in one process: six steps through ``make_train_step``
+    (two eager warm-up steps, then the capture and four replays) against
+    six eager steps from the same weights, dropout on: the losses and every
+    parameter within 1e-5 of each leaf's max |value|, and the replays launch
+    no wrapper from the host."""
+    import copy
+
+    from d2r_tpu_torch.models.unimo import build_model
+    from d2r_tpu_torch.train import state as st
+    cfg = _step_config(True, pipeline_stages=2)
+    model = build_model(cfg, device="cpu", seed=0)
+    batches = _batches(6)
+    ref = st.create_train_state(cfg, 10, device=cuda, model=copy.deepcopy(model))
+    ref_losses = _eager_run(ref, batches, 5)
+    got = st.create_train_state(cfg, 10, device=cuda, model=copy.deepcopy(model))
+    step = st.make_train_step()
+    losses = []
+    for i, b in enumerate(batches):
+        if i == st.WARMUP_STEPS + 1:
+            before = tfa.fused_attention_small.launches
+        got, m = step(got, b, 5)
+        losses.append(m["loss"])
+    assert tfa.fused_attention_small.launches == before
+    assert all("step" in p.graphs for p in got.captured.programs.values())
+    for a, b in zip(losses, ref_losses):
+        assert abs(float(a) - float(b)) <= 1e-5 * max(1.0, abs(float(b))), (losses, ref_losses)
+    for (n, p), q in zip(got.model.named_parameters(), ref.model.parameters()):
+        assert (p - q).abs().max().item() <= 1e-5 * q.abs().max().clamp_min(1e-30).item(), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_quant_dot_under_two_gloo_ranks_is_one_process_s_bits(cuda, dtype):
+    """``quant_dot`` split over the model group of two gloo ranks on the
+    card, along K and along N, both modes: the forward and the quantized
+    backward equal one process's bits (``tests/test_torch_parallel_ranks.py
+    ::qdot_rank``)."""
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import test_torch_parallel_ranks as ranks
+
+    from d2r_tpu_torch.parallel.launch import spawn
+    for r in spawn(ranks.qdot_rank, 2, (dtype, "cuda")):
+        for mode, sides in r.items():
+            for side, checks in sides.items():
+                assert all(checks), (mode, side, checks)

@@ -267,6 +267,132 @@ def drift_rank(rank, world, shape):
     return bad, perturbed
 
 
+# the mesh axes of the layout checks (pipeline stages, the two hints), in
+# JAX's order
+def layout_axes(shape):
+    return {1: ("data",), 2: ("data", "model"), 3: ("data", "stage", "model")}[len(shape)]
+
+
+def layout_step(overrides, mesh=None, seed=2):
+    """One train step of the dropout-0 tiny config with ``overrides`` (a
+    ``bert_name`` among them selects the text preset) from
+    :func:`conditioned_model`, on this rank's rows of the wrap-padded global
+    batch: the loss, the JS loss, the whole reduced gradients and the whole
+    updated state dict, the sequence length the first text block and the
+    first vision block see and the rows the first routing layer sees; and
+    the state."""
+    from d2r_tpu_torch.parallel.mesh import full_gradients
+    from d2r_tpu_torch.train.state import create_train_state, make_train_step
+    cfg = tconfig.tiny_test_config(**{"batch_size": BATCH, "bert_name": NODROP,
+                                      "warmup_ratio": 0.0, **overrides})
+    state = create_train_state(cfg, total_steps=10, device="cpu", model=conditioned_model(cfg),
+                               mesh=mesh)
+    model, seen = state.model.model, {}
+    probes = {"text_len": next(getattr(model.encoder_text_layers, f"layer_{i}")
+                               for i in range(model.encoder_text_layers.num_layers)
+                               if hasattr(model.encoder_text_layers, f"layer_{i}")),
+              "vision_len": next(getattr(model.encoder_vision_layers, f"layer_{i}")
+                                 for i in range(model.encoder_vision_layers.num_layers)
+                                 if hasattr(model.encoder_vision_layers, f"layer_{i}")),
+              "fabric_rows": model.itr_module.dynamic_itr_l0}
+    def probe(name):
+        def hook(_m, args):
+            seen.setdefault(name, args[1].shape[0] if name == "fabric_rows"
+                            else args[0].shape[1])
+        return hook
+
+    hooks = [m.register_forward_pre_hook(probe(name)) for name, m in probes.items()]
+    state, m = make_train_step()(state, local_rows(global_batch(cfg, seed, PADDED), mesh), 5)
+    for h in hooks:
+        h.remove()
+    return {"loss": float(m["loss"]), "js_loss": float(m["js_loss"]), **seen,
+            "grads": full_gradients(state.model, mesh),
+            "params": full_state_dict(state.model, mesh)}, state
+
+
+def layout_rank(rank, world, shape, variants):
+    """Each of ``variants`` ({name: config overrides}) as a :func:`layout_step`
+    on this rank of the mesh ``shape``, with ``replica_mismatches`` after
+    it; the whole tensors on rank 0 only."""
+    register_presets()
+    mesh = make_mesh(shape, layout_axes(shape))
+    out = {}
+    for name, overrides in variants.items():
+        r, state = layout_step(overrides, mesh)
+        r["replicas"] = replica_mismatches(state.model, mesh)
+        if rank != 0:
+            r.pop("grads"), r.pop("params")
+        out[name] = r
+    return out
+
+
+def pipeline_checkpoint_rank(rank, world, shape, directory):
+    """A pipelined step on the stage mesh ``shape``, saved with its
+    optimizer state under ``directory/mesh``; then a fresh mesh state
+    restored from it and one restored from the one-process pipelined
+    checkpoint ``directory/one``: their whole state dicts, optimizer states
+    and steps (rank 0)."""
+    from d2r_tpu_torch.parallel.mesh import full_optimizer_state
+    from d2r_tpu_torch.train import checkpoint as ckpt
+    from d2r_tpu_torch.train.state import create_train_state
+    register_presets()
+    mesh = make_mesh(shape, layout_axes(shape))
+    overrides = dict(pipeline_stages=2)
+    _, state = layout_step(overrides, mesh)
+    ckpt.save_checkpoint(os.path.join(directory, "mesh"), state, include_opt_state=True)
+    out = {}
+    for name in ("mesh", "one"):
+        cfg = tconfig.tiny_test_config(batch_size=BATCH, bert_name=NODROP, **overrides)
+        fresh = create_train_state(cfg, total_steps=10, device="cpu", seed=1, mesh=mesh)
+        ckpt.restore_checkpoint(os.path.join(directory, name), fresh)
+        out[name] = (full_state_dict(fresh.model, mesh),
+                     full_optimizer_state(fresh.model, fresh.optimizer, mesh), fresh.step)
+    return out if rank == 0 else None
+
+
+def qdot_rank(rank, world, dtype_name, device="cpu"):
+    """``quant_dot`` on the model group of (1, 2): one seeded (x, w, g),
+    split by the model axis along K (row-parallel) and along N
+    (column-parallel), in both modes: whether the forward, the input
+    gradient and the weight gradient equal this rank's part of the one
+    process product's, bit for bit (on ``device``: the card's ranks share
+    card 0 over gloo)."""
+    from d2r_tpu_torch.ops.qdot import quant_dot
+    if device != "cpu":
+        torch.cuda.set_device(0)
+    mesh = make_mesh((1, 2), ("data", "model"), device=device)
+    dtype = getattr(torch, dtype_name)
+    rng = np.random.default_rng(0)
+    x0 = torch.tensor(rng.standard_normal((3, 7, 40)), dtype=dtype, device=device)
+    w0 = torch.tensor(rng.standard_normal((24, 40)), dtype=dtype, device=device)
+    g0 = torch.tensor(rng.standard_normal((3, 7, 24)), dtype=dtype, device=device)
+    out = {}
+    for mode in ("int8", "int8_all"):
+        def run(x, w, g, **kw):
+            x, w = x.clone().requires_grad_(), w.clone().requires_grad_()
+            y = quant_dot(x, w, mode, **kw)
+            y.backward(g)
+            return y.detach(), x.grad, w.grad
+
+        y, dx, dw = run(x0, w0, g0)
+        k, n, i = 20, 12, mesh.model_index
+        yr, dxr, dwr = run(x0[..., i * k:(i + 1) * k], w0[:, i * k:(i + 1) * k], g0,
+                           model_group=mesh.model_group, split="row")
+        yc, dxc, dwc = run(x0, w0[i * n:(i + 1) * n], g0[..., i * n:(i + 1) * n],
+                           model_group=mesh.model_group, split="column")
+        out[mode] = {
+            "row": [torch.equal(yr, y), torch.equal(dxr, dx[..., i * k:(i + 1) * k]),
+                    torch.equal(dwr, dw[:, i * k:(i + 1) * k])],
+            "column": [torch.equal(yc, y[..., i * n:(i + 1) * n]),
+                       # int8's input gradient is a float product, summed
+                       # over the two ranks' halves of N in another order
+                       torch.equal(dxc, dx) if mode == "int8_all" else bool(torch.allclose(
+                           dxc.float(), dx.float(), rtol=0, atol=1e-5 if dtype_name ==
+                           "float32" else 0.1)),
+                       torch.equal(dwc, dw[i * n:(i + 1) * n])]}
+    return out
+
+
 def gather_rank(rank, world, lengths):
     from d2r_tpu_torch.parallel.mesh import make_mesh as mk
     mesh = mk((-1,), ("data",))

@@ -309,8 +309,9 @@ def test_reload_swaps_guards_geometry_and_refuses_a_second_reload():
 # --------------------------------------------------------- configuration
 def test_resolve_serve_config_reads_a_jax_config_json(tmp_path, capsys):
     """config.json beside best_model (written by the JAX package), flags over
-    it, quant_train dropped, unknown overrides and unported settings
-    refused."""
+    it, quant_train dropped, unknown overrides refused; a pipelined
+    run's config resolves, and its checkpoint serves unpipelined with the
+    answers of the same weights unpipelined."""
     jax_save_config_json(jax_tiny_config(quant_train="int8", max_seq=24),
                          str(tmp_path / "config.json"))
     load = str(tmp_path / "best_model")
@@ -324,7 +325,8 @@ def test_resolve_serve_config_reads_a_jax_config_json(tmp_path, capsys):
         server.resolve_serve_config(load, config_json=str(tmp_path / "absent.json"))
     # a sentic model serves, as in the JAX package, without the GCN (no
     # adjacency reaches a served forward); the layout hints of a run with a
-    # model axis serve (one process has none), pipeline stages are refused
+    # model axis serve (one process has none), and so does a pipelined run,
+    # unpipelined (d2r_tpu/serve.py:41-55)
     jax_save_config_json(jax_tiny_config(use_sentic_graph=True), str(tmp_path / "config.json"))
     assert server.resolve_serve_config(load).use_sentic_graph
     jax_save_config_json(jax_tiny_config(seq_shard=True, fabric_shard=True, mesh_shape=(2, 2),
@@ -333,8 +335,21 @@ def test_resolve_serve_config_reads_a_jax_config_json(tmp_path, capsys):
     assert server.resolve_serve_config(load).seq_shard
     jax_save_config_json(jax_tiny_config(pipeline_stages=2, pipeline_microbatches=2),
                          str(tmp_path / "config.json"))
-    with pytest.raises(NotImplementedError, match="pipeline_stages=2.*Queue 1 item 9b"):
-        server.resolve_serve_config(load)
+    piped = server.resolve_serve_config(load)
+    assert (piped.pipeline_stages, piped.pipeline_microbatches) == (2, 2)
+    from d2r_tpu_torch.serve import Predictor
+    from d2r_tpu_torch.train.checkpoint import restore_model
+    from tests.test_torch_serve import KEYS, batch
+    ckpt_path = tiny_checkpoint(tmp_path / "piped")
+    pred = Predictor(piped, restore_model(ckpt_path, piped, "cpu"), batch_buckets=(1, 4),
+                     device="cpu")
+    plain = Predictor(tiny_test_config(), restore_model(ckpt_path, tiny_test_config(), "cpu"),
+                      batch_buckets=(1, 4), device="cpu")
+    assert pred.cfg.pipeline_stages == 1 and pred.model.model.encoder_text_layers.stages == 1
+    b = batch(tiny_test_config(), 3, seed=2)
+    for n in (1, 3):
+        got, want = (p.predict(*[b[k][:n] for k in KEYS]) for p in (pred, plain))
+        np.testing.assert_array_equal(got["probs"], want["probs"])
     assert server.resolve_serve_config(str(tmp_path / "elsewhere" / "m")) == D2RConfig(
         **server._SERVE_DEFAULTS)
 

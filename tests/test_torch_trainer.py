@@ -469,17 +469,18 @@ REFUSED_FLAGS = [["--dry_run"], ["--async_checkpoint"], ["--debug_nans"],
 ACCEPTED_FLAGS = ("--pretrained_dir", "--dry_run", "--async_checkpoint", "--debug_nans",
                   "--prng_impl", "--sentic_lexicon", "--mesh_data", "--mesh_model",
                   "--mesh_topology", "--coordinator_address", "--num_processes",
-                  "--process_id")
-# the JAX package's layout settings, no-ops in one process there and here:
-# accepted (the CLI runs with them), and refused where they would act, with
-# the flags that make them act
-LAYOUT_FLAGS = {"--seq_shard": ["--mesh_model", "2"], "--fabric_shard": ["--mesh_model", "2"],
-                "--pipeline_microbatches": ["--mesh_stage", "2"]}
+                  "--process_id", "--mesh_stage", "--pipeline_microbatches", "--seq_shard",
+                  "--fabric_shard")
+# the JAX package's layout settings: no-ops in one process, there and here,
+# so the CLI runs with each alone; they act across processes
+# (tests/test_torch_pipeline.py, tests/test_torch_parallel_hints.py)
+LAYOUT_FLAGS = ("--seq_shard", "--fabric_shard", "--pipeline_microbatches")
 # the multi-process flags, honoured since: in one process a mesh larger than
 # the world raises naming it, and a coordinator flag alone raises naming the
 # others it needs, before anything is written
 PARALLEL_ERRORS = {"--mesh_data": "the world has 1 process",
                    "--mesh_model": "the world has 1 process",
+                   "--mesh_stage": "the world has 1 process",
                    "--coordinator_address": "--num_processes N and --process_id",
                    "--process_id": "--process_id needs --coordinator_address"}
 
@@ -569,39 +570,23 @@ def _cli_fine_tunes_frozen_pretrained_towers(tmp_path):
 
 @pytest.mark.parametrize("argv", REFUSED_FLAGS, ids=lambda a: a[0])
 def test_refused_flags_raise_naming_themselves(argv, tmp_path):
-    """The CLI's own refusals (flags without a config field) and the
-    config's (``config.UNPORTED``) both name the flag and its ROADMAP item;
-    ``--mesh_stage`` is refused through ``pipeline_stages``, hence the one
-    below. A flag of :data:`ACCEPTED_FLAGS` is no longer refused: its case
-    runs it, or for the multi-process flags in one process checks the error
-    that names what is missing (:data:`PARALLEL_ERRORS`). A layout flag
-    (:data:`LAYOUT_FLAGS`, ``config.UNPORTED``) runs in one process and is
-    refused beside the flags that would make it act."""
-    assert len(REFUSED_FLAGS) == (len(tcli.REFUSED) + len(tconfig.UNPORTED) + 1
-                                  + len(ACCEPTED_FLAGS))
-    assert set(LAYOUT_FLAGS) == {flag for _, flag, _, _ in tconfig.UNPORTED}
-    if argv[0] in LAYOUT_FLAGS:
+    """Every flag here was once refused, naming itself and its ROADMAP item,
+    and none is now: each is in :data:`ACCEPTED_FLAGS` and runs. Its case
+    runs the CLI with it (a layout flag of :data:`LAYOUT_FLAGS` alone, a
+    no-op in one process), or for the multi-process flags in one process
+    checks the error that names what is missing (:data:`PARALLEL_ERRORS`)."""
+    assert sorted(a[0] for a in REFUSED_FLAGS) == sorted(ACCEPTED_FLAGS)
+    assert set(LAYOUT_FLAGS) <= set(ACCEPTED_FLAGS)
+    if argv[0] == "--pretrained_dir":
+        _cli_fine_tunes_frozen_pretrained_towers(tmp_path)
+    elif argv[0] == "--num_processes":
+        _cli_runs_a_world_of_one(tmp_path)
+    elif argv[0] in PARALLEL_ERRORS:
+        with pytest.raises(ValueError, match=re.escape(PARALLEL_ERRORS[argv[0]])):
+            tcli.main(argv + ["--device", "cpu", "--save_path", str(tmp_path / "out")])
+        assert not (tmp_path / "out").exists()
+    else:
         _cli_runs_with(argv, tmp_path)
-        argv = argv + LAYOUT_FLAGS[argv[0]]
-        tmp_path = tmp_path / "refused"
-    if argv[0] in ACCEPTED_FLAGS:
-        assert all(flag != argv[0] for flag, _, _ in tcli.REFUSED)
-        assert all(flag != argv[0] for _, flag, _, _ in tconfig.UNPORTED)
-        if argv[0] == "--pretrained_dir":
-            _cli_fine_tunes_frozen_pretrained_towers(tmp_path)
-        elif argv[0] == "--num_processes":
-            _cli_runs_a_world_of_one(tmp_path)
-        elif argv[0] in PARALLEL_ERRORS:
-            with pytest.raises(ValueError, match=re.escape(PARALLEL_ERRORS[argv[0]])):
-                tcli.main(argv + ["--device", "cpu", "--save_path", str(tmp_path / "out")])
-            assert not (tmp_path / "out").exists()
-        else:
-            _cli_runs_with(argv, tmp_path)
-        return
-    with pytest.raises(NotImplementedError,
-                       match=re.escape(argv[0]) + r"[ /,][^;]*ROADMAP\.md Queue 1 item"):
-        tcli.main(argv + ["--device", "cpu", "--save_path", str(tmp_path / "out")])
-    assert not (tmp_path / "out").exists()
 
 
 @pytest.mark.parametrize("override", [
@@ -612,10 +597,11 @@ def test_refused_flags_raise_naming_themselves(argv, tmp_path):
 def test_the_trainer_refuses_what_the_cli_refuses(override):
     """The library entry point refuses the same config values as the CLI,
     a model passed in or not; those ported since (the trainer extras, the
-    lexicon path and ``mesh_topology``) it accepts, as the CLI does. A mesh
-    larger than one process's world raises, naming the world. The layout
-    settings (``config.UNPORTED``) it accepts in one process, and their
-    check refuses them under a model axis or pipeline stages."""
+    lexicon path, ``mesh_topology`` and the layout settings) it accepts, as
+    the CLI does. A mesh larger than one process's world raises, naming the
+    world. The layout settings it accepts in one process, and their check
+    accepts them under a model axis or pipeline stages too, where they act;
+    pipeline stages build a trainer in one process."""
     field = list(override)[0]
     if field == "mesh_shape":   # the CLI's axis names for the shape
         override = dict(override, mesh_axis_names=("data", "model")[:len(override[field])])
@@ -630,14 +616,13 @@ def test_the_trainer_refuses_what_the_cli_refuses(override):
             acting = dict(override, **(dict(pipeline_stages=2) if field == "pipeline_microbatches"
                                        else dict(mesh_shape=(2, 2),
                                                  mesh_axis_names=("data", "model"))))
-            with pytest.raises(NotImplementedError, match=field + r"=.*ROADMAP\.md Queue 1 item 9b"):
-                tconfig.tiny_test_config(save_path=None, **acting).check_supported(world=4)
+            acting_cfg = tconfig.tiny_test_config(save_path=None, **acting)
+            acting_cfg.check_supported(world=4)
+            if field == "pipeline_microbatches":
+                Trainer(train_data=[_tiny_batch(acting_cfg)], cfg=acting_cfg, device="cpu")
             continue
-        if field == "mesh_shape":
-            with pytest.raises(ValueError, match="the world has 1 process"):
-                Trainer(train_data=[_tiny_batch(cfg)], cfg=cfg, model=model, device="cpu")
-            continue
-        with pytest.raises(NotImplementedError, match=field + r"=.*ROADMAP\.md Queue 1 item"):
+        assert field == "mesh_shape", field
+        with pytest.raises(ValueError, match="the world has 1 process"):
             Trainer(train_data=[_tiny_batch(cfg)], cfg=cfg, model=model, device="cpu")
     tconfig.tiny_test_config(mesh_shape=(1,)).check_supported()    # one device: honoured
 

@@ -1,6 +1,6 @@
 """The trainer extras the port once refused, on the CPU: ``--dry_run``,
 ``--async_checkpoint``, ``--debug_nans`` and ``--prng_impl``, and the
-refusals left (the parallel settings only).
+refusal left (threefry's bits across processes).
 
 - ``--dry_run`` at tiny width prints one JSON line with the JAX CLI's key
   set, and its ``params`` equals what JAX's ``_dry_run`` prints for the same
@@ -250,32 +250,34 @@ def test_prng_impl_names_give_the_same_bits(accum):
 
 
 def test_only_the_parallel_settings_are_refused():
-    """What stays refused is the next parallel slice's: pipeline stages,
-    the two layout hints under a model axis (and the microbatches of
-    pipeline stages), int8 training under a model axis and threefry's bits
-    across processes; a (data, model) mesh and its flags are accepted."""
-    assert {f for f, *_ in tconfig.UNPORTED} == {
-        "pipeline_microbatches", "seq_shard", "fabric_shard"}
-    assert {flag for flag, *_ in tcli.REFUSED} == set()
-    assert all("Queue 1 item 9b" in item for *_, item in tconfig.UNPORTED + tcli.REFUSED)
+    """What stays refused is the next parallel slice's: threefry's bits
+    across processes. The settings this test once refused run now:
+    pipeline stages (and their microbatches) train a step in this process;
+    the two layout hints and int8 training under a model axis pass the
+    check and cut a (2, 2) model (their mesh runs are
+    ``tests/test_torch_parallel_hints.py``)."""
+    from d2r_tpu_torch.models.unimo import build_model
+    from d2r_tpu_torch.parallel.mesh import Mesh, shard_model
     mesh = dict(mesh_shape=(2, 2), mesh_axis_names=("data", "model"))
     tconfig.tiny_test_config(mesh_topology=True, quant_train="int8_all", mesh_shape=(4,)
                              ).check_supported()
     tconfig.tiny_test_config(**mesh).check_supported()
-    # the layout hints: accepted where JAX reads them as no-ops (no model
-    # axis, one stage; a model built whole, serving), refused where they act
     layout = dict(seq_shard=True, fabric_shard=True, pipeline_microbatches=2)
     tconfig.tiny_test_config(**layout).check_supported()
     tconfig.tiny_test_config(mesh_shape=(4,), **layout).check_supported(world=4)
-    tconfig.tiny_test_config(**layout, **mesh).check_supported(model_axis=1)
-    for bad, match in ((dict(quant_train="int8", **mesh), "quant_train='int8' with --mesh_model 2"),
-                       (dict(pipeline_stages=2), "pipeline_stages=2 .--mesh_stage"),
-                       (dict(seq_shard=True, **mesh), "seq_shard=True .--seq_shard"),
-                       (dict(fabric_shard=True, **mesh), "fabric_shard=True .--fabric_shard"),
-                       (dict(pipeline_microbatches=2, pipeline_stages=2),
-                        "pipeline_microbatches=2 .--pipeline_microbatches")):
-        with pytest.raises(NotImplementedError, match=match + ".*Queue 1 item 9b"):
-            tconfig.tiny_test_config(**bad).check_supported()
+    tconfig.tiny_test_config(**layout, **mesh).check_supported()
+    for runs in (dict(quant_train="int8", **mesh), dict(pipeline_stages=2),
+                 dict(seq_shard=True, **mesh), dict(fabric_shard=True, **mesh),
+                 dict(pipeline_microbatches=2, pipeline_stages=2)):
+        cfg = tconfig.tiny_test_config(**runs)
+        cfg.check_supported(world=4)
+        if cfg.model_axis_size() > 1:
+            model = shard_model(build_model(cfg, device="cpu"), Mesh(2, 2, 0, "cpu"))
+            assert model.model.encoder_text_layers.layer_0.output_dense.tp == "row"
+            continue
+        state = create_train_state(cfg, total_steps=2, device="cpu")
+        _, metrics = make_train_step()(state, _batch(cfg, 0), 0)
+        assert np.isfinite(float(metrics["loss"]))
     tconfig.tiny_test_config(use_sentic_graph=True, sentic_lexicon_path="x", quant_train="int8_all",
                              async_checkpoint=True, debug_nans=True,
                              prng_impl="threefry2x32").check_supported()
