@@ -23,13 +23,18 @@ Phases; any failure exits non-zero without the final ``ok`` line:
    of its bf16 tensor-core tiling (``K1_EDGES``: D=40, L=7 against S=128
    with a bias, L=S=D=128, L=S=1, and two views that only element loads
    stage, D=37 and rows padded by 4; the 7-row shape with dropout too),
-   fp32 and bf16, errors only.
+   fp32 and bf16, errors only. Then K1 and K2 with dropout on rows 4: and
+   heads 6: of a (8, 64, 12, 64) site, the slice's global offsets in its
+   seed (``DropoutSeed.b0``/``.h0``, as a mesh rank passes them): out, dq,
+   dk and dv equal the whole launch's rows and heads bit for bit.
 3. K3 against its plain version the same way, at D2R-large's vision-site
    geometry (B=32, L=S=257, H=16, D=64, strided QKV views, no bias), three
    off-path shapes (L=200, S=333, D=48, B=4, H=8 with a padding bias;
-   L=S=1024, H=16, D=128 at batch 2; L=S=300, H=4, D=256, the widest head,
-   at batch 2 with a bias) and four edges of the bf16 tiling (L=17 against
-   S=300 with a bias; S=1; D=37; rows padded by 4), max abs error <= 1e-5
+   L=S=1024, H=16, D=128 at batch 2; L=S=300, H=4, D=256, the widest head
+   of the first two bodies, at batch 2 with a bias), four edges of the bf16
+   tiling (L=17 against S=300 with a bias; S=1; D=37; rows padded by 4)
+   and two heads for the wide body (L=S=257, H=2, B=2: D=320 with a bias,
+   D=512, timed on the card alone too), max abs error <= 1e-5
    in fp32 and <= 4e-3 of max(1, max |ref|) in bf16 (one ulp of outputs in
    [0.5, 1)). In bf16 at most 1% of the outputs may differ from the plain
    version's at all, and the control, p rounded to bf16 once (K1's
@@ -220,11 +225,13 @@ operations at the type's peak).
    with NaN pixels raises ``FloatingPointError``.
 
 Between phases 13 and ``serve_export``, ``mesh_start``: the one-process
-fp32 runs of phases 23 and 21's meshes (:data:`BACKGROUND_MESHES`), then
-their ranks from a thread of the script's process, one mesh after the
-other, beside ``serve_export``, 14 and 15: the ranks spend most of a step
-waiting on gloo's copies through host memory, and those phases mostly on
-the host or in CUDA graphs. Phases 21 and 23 wait for them and check them.
+fp32 runs of phases 23, 21 and 20's meshes (:data:`BACKGROUND_MESHES`) and
+``serve_mesh``'s checkpoint and posts, then their ranks and servers from a
+thread of the script's process, one after the other, beside
+``serve_export``, 14 and 15 and on: the ranks spend most of a step waiting
+on gloo's copies through host memory, and those phases mostly on the host
+or in CUDA graphs. Phases 20, 21, 23 and ``serve_mesh`` wait for them and
+check them.
 
 20-21. Training across processes (``d2r_tpu_torch/parallel``), D2R-base
    at full width with towers of :data:`MESH_DEPTH` blocks (cut for the
@@ -247,9 +254,10 @@ the host or in CUDA graphs. Phases 21 and 23 wait for them and check them.
    launches a step on every rank (4 + 4 tower blocks, 2 extra layers, 8
    IMRC cells), the kernels seeing each rank's own heads
    (6 / 6 / 8 at the BERT / CLIP / IMRC sites at tp = 2), step ms a rank,
-   different dropout seeds across the data ranks and across the model
-   ranks at the head-split sites (K1's bits from two ranks' seeds differ in
-   ≈18% of a site's elements), and afterwards the tensors that the model
+   the step's dropout seeds the same on every rank with the rank's global
+   (row, head) offsets (K1's masks of two ranks each the one-process mask
+   cut at their rows and heads, differing from each other in ≈18% of a
+   site's elements), and afterwards the tensors that the model
    axis leaves whole bit-equal across the model ranks and every tensor
    bit-equal across the data ranks (``parallel.mesh.replica_mismatches``).
    Phase 21's ranks then run ``seq_shard``, ``fabric_shard`` and
@@ -257,8 +265,11 @@ the host or in CUDA graphs. Phases 21 and 23 wait for them and check them.
    the two hints, an int8 one-process run for int8, whose gradients are
    held within 2/127 of each leaf's max, a share of 1e-5 of the elements
    excepted, and the parameters excused only where they differ by what
-   Adam's first step makes of the two gradients), recording each rank's
-   step peak
+   Adam's first step makes of the two gradients), and both phases' ranks
+   one fp32 step with the text tower's dropout on under
+   ``prng_impl="threefry2x32"`` against one process's dropout step under
+   rbg, at the plain run's tolerances (the masks keyed on global
+   coordinates), recording each rank's step peak
    memory and routing-fabric ms beside the plain run's, and ``quant_dot``
    split over the model group along K and along N, bit for bit one
    process's (:func:`qdot_mesh_check`).
@@ -289,6 +300,15 @@ the host or in CUDA graphs. Phases 21 and 23 wait for them and check them.
    scaling figures: four ranks share one card through host memory), the
    pipeline's (microbatch, block) dropout seeds all distinct, within and
    across the stages.
+24. ``serve_mesh``: serving over a mesh, D2R-base at full width (bf16,
+   buckets 1/8/32), run in the background since ``mesh_start``: ``python
+   -m d2r_tpu_torch.server --dp 2`` (two processes on the one card over
+   gloo, each replaying its CUDA graphs of its share of a bucket) answers
+   /predict_batch of 1, 8 and 32 posts, and a (data, model) = (1, 2)
+   ``Predictor`` (eager, each rank K1 on its own heads) the same rows;
+   each against one process's replay of the same arrays within
+   ``QUANT_LOGITS_TOL``, labels equal, both ranks' answers equal. Not a
+   scaling figure: the ranks share one card.
 
 Between phases 13 and 14, ``serve_export``: the serving artifact as a
 user makes it. After ``step_kernels``, ``export_start`` saves phase 13's
@@ -319,14 +339,18 @@ D2R-base's 400,186,367-element parameter list, timed there beside
 ``torch.optim.AdamW(fused=True)`` and the bytes bound; the hidden-dropout
 kernel against its plain version at a BERT hidden state (64, 64, 768),
 bf16 and fp32, and an odd shape, forward and backward bit for bit, timed
-beside ``F.dropout``.
+beside ``F.dropout``; then the sliced hidden dropout (a sequence half,
+a data rank's batch half, both) equal to the whole tensor's elements; then
+one forward of each module of ``models/extras.py`` and each loss of
+``ops/losses_extra.py``, card against CPU in fp32 (:data:`EXTRAS_TOL`).
 
 It prints one ``kernels`` JSON line (K1, K2, K3, the AdamW kernel and the
 hidden-dropout kernel; ``launches`` counts the
 wrappers' host calls in the serving and training runs of both
 configurations, the HTTP phase, phases 14-15, the main-path runs of
 phases 17-19 (not their card-against-CPU checks) and the bf16 steps of
-every rank of phases 20-21 and 23 and the CLI runs of phase 22, a graph capture
+every rank of phases 20-21 and 23, the CLI runs of phase 22 and the
+(1, 2) Predictor's ranks of phase 24, a graph capture
 counting once and a replay not at all; ``ms``, ``plain_ms`` and
 ``library_ms`` back to back from the host, ``device_ms`` and
 ``library_device_ms`` the card alone), the card line, and last
@@ -398,7 +422,11 @@ K3_SHAPES = (("clip_l", 32, 257, 257, 16, 64, False, 0),
              ("l17_bias", 3, 17, 300, 4, 64, True, 0),
              ("s1", 2, 100, 1, 4, 64, False, 0),
              ("d37_odd", 2, 70, 90, 4, 37, True, 0),
-             ("row_pad", 4, 257, 257, 4, 64, False, 4))
+             ("row_pad", 4, 257, 257, 4, 64, False, 4),
+             # heads wider than 256: the wide body (any D), at the
+             # 257-token geometry
+             ("wide_d320", 2, 257, 257, 2, 320, True, 0),
+             ("wide_d512", 2, 257, 257, 2, 512, False, 0))
 # (name, B, L, S, H, D, key bias, row pad): K1 at the edges of its bf16
 # tiling: D not a multiple of 16, 7 query rows against 128 keys, the largest
 # tile, one key, and the two views that only element loads stage
@@ -483,12 +511,19 @@ EXTRAS_RUNS = (("int8", ["--quant_train", "int8"]),
 # PARALLEL_BF16_STEPS), and the configurations its ranks run after the
 # plain one (fp32, each against one process).
 MESH_DEPTH = 4
+# a mesh step with the text tower's dropout on (0.1) under threefry2x32,
+# held in fp32 to one process's step with dropout on under rbg: the masks
+# are keyed on global coordinates, so the mesh draws one process's, and the
+# two names give the same bits
+DROPOUT_THREEFRY = dict(dropout=True, prng_impl="threefry2x32")
 PARALLEL_MESHES = {
-    "train_dp": dict(shapes=[(2,)], depth=MESH_DEPTH),
+    "train_dp": dict(shapes=[(2,)], depth=MESH_DEPTH,
+                     more=(("dropout_threefry", DROPOUT_THREEFRY),)),
     "train_tp": dict(shapes=[(2, 2)], depth=MESH_DEPTH,
                      more=(("seq_shard", dict(seq_shard=True)),
                            ("fabric_shard", dict(fabric_shard=True)),
-                           ("int8", dict(quant_train="int8")))),
+                           ("int8", dict(quant_train="int8")),
+                           ("dropout_threefry", DROPOUT_THREEFRY))),
     "train_pp": dict(shapes=[(1, 2, 2)], depth=12, stages=2, microbatches=2,
                      bf16_microbatches=(2, 4), bf16_steps=2),
 }
@@ -496,9 +531,17 @@ PARALLEL_BF16_STEPS = 3
 # the meshes whose ranks run in a thread of the script's process beside
 # the phases after mesh_start (serve_export, pretrained, train_scaled: host
 # work and the card's, while the ranks wait on gloo), one after the other;
-# phases 21 and 23 collect them, waiting at most MESH_WAIT_S
-BACKGROUND_MESHES = ("train_pp", "train_tp")
+# phases 20, 21 and 23 collect them, waiting at most MESH_WAIT_S
+BACKGROUND_MESHES = ("train_pp", "train_tp", "train_dp")
 MESH_WAIT_S = 1300
+# serving over a mesh (phase serve_mesh), D2R-base at full width: the HTTP
+# service as ``python -m d2r_tpu_torch.server --dp 2`` (two processes on
+# the one card over gloo, each replaying its CUDA graphs of its rows), then
+# a (data, model) = (1, 2) Predictor (eager); each answers SERVE_MESH_ROWS
+# posts (buckets 1/8/32) against one process's replay within
+# QUANT_LOGITS_TOL, labels equal. Its lane runs after the meshes'.
+SERVE_MESH_ROWS = (1, 8, 32)
+SERVE_MESH_SHAPE = (1, 2)
 # int8 training on a mesh against one process (phase 21): a quantized
 # activation's code can flip where the float work before it (a data-group
 # sum) rounds differently, which moves a gradient by a step of its
@@ -708,6 +751,7 @@ def phase_kernels(report):
     report["k1_dropout"] = k1_dropout_checks(failures)
     report["k2_sites"] = k2_checks(failures)
     report["dropout_identity"] = dropout_identity(failures)
+    report["dropout_offsets"] = offset_checks(failures)
     if failures:
         raise AssertionError("; ".join(failures))
 
@@ -926,6 +970,45 @@ def dropout_identity(failures):
     return {"sum_dv": a, "sum_out": b}
 
 
+def offset_checks(failures):
+    """K1 and K2 with dropout on a slice of the batch rows and heads, the
+    slice's global offsets in its seed (``DropoutSeed.b0``/``.h0``, as a
+    rank of a mesh passes them), against the whole tensor's launch: the
+    slice's output and dq, dk, dv equal the whole one's rows and heads bit
+    for bit, fp32 and bf16, and the slice's K1 equals its plain version
+    within ``K1_TOL``."""
+    import torch
+    from d2r_tpu_torch.ops.kernels import fused_attention as fa
+    rows = []
+    b, l, h, d, b0, h0 = 8, 64, 12, 64, 4, 6
+    for dtype_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dtype_name)
+        q, k, v, bias = k1_inputs(b, l, h, d, True, dtype, seed=450)
+        g = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(451),
+                        device="cuda").to(dtype)
+        seed = device_seed(2 ** 35 + 3, site=7)
+        part_seed = seed._replace(b0=b0, h0=h0)
+        cut = lambda x: x[b0:, :, h0:]
+        whole = [fa.fused_attention_small(q, k, v, bias, 0.125, 0.1, seed),
+                 *fa.fused_attention_small_bwd(q, k, v, bias, g, 0.125, 0.1, seed,
+                                               need_dbias=False)[:3]]
+        args = (cut(q), cut(k), cut(v), bias[b0:])
+        part = [fa.fused_attention_small(*args, 0.125, 0.1, part_seed),
+                *fa.fused_attention_small_bwd(*args, cut(g), 0.125, 0.1, part_seed,
+                                              need_dbias=False)[:3]]
+        ref = fa.fused_attention_small_plain(*args, 0.125, 0.1, part_seed)
+        err = (part[0].float() - ref.float()).abs().max().item()
+        equal = all(torch.equal(x, cut(y)) for x, y in zip(part, whole))
+        rows.append({"dtype": dtype_name, "B": b, "H": h, "L": l, "D": d, "b0": b0, "h0": h0,
+                     "equal_to_whole": equal, "max_abs_err": err})
+        log(f"[K1/K2 offsets] {dtype_name}: rows {b0}: and heads {h0}: of B{b} H{h} with "
+            f"their offsets: out, dq, dk, dv equal the whole launch's {equal}; K1 against "
+            f"its plain version err {err:.3g}")
+        if not (equal and err <= K1_TOL[dtype_name]):
+            failures.append(f"K1/K2 offsets {dtype_name}: {rows[-1]}")
+    return rows
+
+
 def k3_inputs(b, l, s, h, d, with_bias, dtype, seed, row_pad=0):
     """q, k, v for K3 (and K1's edges). At L = S they are strided views of
     one (B, L, 3*H*D + row_pad) tensor, as the QKV projection gives them
@@ -1010,7 +1093,8 @@ def phase_k3(report):
                 "library_ms": cuda_time_ms(sdpa, iters=20),
                 "bound_ms": bound_ms, "bound_by": bound_by})
             r = rows[-1]
-            if (site, dtype_name) == ("clip_l", "bfloat16"):   # the kernels line's site
+            if (site, dtype_name) in (("clip_l", "bfloat16"),    # the kernels line's site
+                                      ("wide_d512", "bfloat16")):
                 r.update(device_times(kernel, sdpa, iters=20))
             share = (f"; differs from plain in {rounding['diff_share']:.3g} of outputs "
                      f"(p rounded once: {rounding['control_diff_share']:.3g}), mean abs err "
@@ -1217,33 +1301,104 @@ def phase_step_kernels(report):
                     f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']})"
                     if "kernel_ms" in row else ""))
             assert row["equal"], row
-    # a sequence slice (seq_shard, tp = 2 of the training site): the kernel
-    # on each half draws the rows of the whole tensor's mask, forward and
+    # a rank's slice of the training site: a sequence half (seq_shard, tp =
+    # 2), a data rank's batch half (dp = 2), and both: the kernel on each
+    # draws its elements' bits of the whole tensor's mask, forward and
     # backward, as the plain version with the same layout
+    from d2r_tpu_torch.models.layers import SeqShard, slice_layout
     b, length, width = DROPOUT_SHAPE
     x = torch.randn(DROPOUT_SHAPE, generator=g, device="cuda").to(torch.bfloat16)
     seed = device_seed(2 ** 40 + 5, site=11)
     whole = tdrop.hidden_dropout(x, 0.1, seed)
-    for i in range(2):
-        part = x[:, i * length // 2:(i + 1) * length // 2].contiguous().requires_grad_()
-        layout = (length // 2 * width, length * width, i * length // 2 * width)
+    for row0, i in ((0, 0), (0, 1), (b // 2, None), (b // 2, 1)):
+        rows = slice(row0, b)
+        cols = slice(None) if i is None else slice(i * length // 2, (i + 1) * length // 2)
+        part = x[rows, cols].contiguous().requires_grad_()
+        seq = None if i is None else SeqShard(None, i, 2, length)
+        layout = slice_layout(part, row0, seq)
         y = tdrop.hidden_dropout(part, 0.1, seed, layout)
         y.backward(part.detach())
         ref = tdrop.hidden_dropout_plain(part.detach(), 0.1, seed, layout)
-        row = {"slice": i, "of": 2, "shape": list(part.shape), "dtype": "bfloat16",
-               "equal_to_whole_rows": bool(torch.equal(
-                   y.detach(), whole[:, i * length // 2:(i + 1) * length // 2])),
+        row = {"rows_from": row0, "seq_slice": i, "of": 2, "shape": list(part.shape),
+               "dtype": "bfloat16",
+               "equal_to_whole_rows": bool(torch.equal(y.detach(), whole[rows, cols])),
                "equal": bool(torch.equal(y.detach(), ref) and torch.equal(part.grad, ref)),
                "max_abs_err": (y.detach().float() - ref.float()).abs().max().item()}
         result["dropout"].append(row)
-        log(f"[step kernels] hidden dropout on sequence slice {i} of 2 {tuple(part.shape)}: "
-            f"equal to the plain version {row['equal']}, to the whole tensor's rows "
-            f"{row['equal_to_whole_rows']}")
+        log(f"[step kernels] hidden dropout on rows {row0}: and sequence slice {i} of 2 "
+            f"{tuple(part.shape)}: equal to the plain version {row['equal']}, to the whole "
+            f"tensor's elements {row['equal_to_whole_rows']}")
         assert row["equal"] and row["equal_to_whole_rows"], row
     result["kernels_line"] = {"adamw": adamw_row, "dropout": dropout_row}
+    result["extras"] = extras_card_vs_cpu()
     for name, fn in counters().items():   # the comparisons do not count
         fn.launches = saved[name]
     return result
+
+
+# the off-path extras (models/extras.py, ops/losses_extra.py) card against
+# CPU in fp32 (TF32 off): outputs within this share of max(1, max |ref|)
+EXTRAS_TOL = 1e-4
+
+
+def extras_card_vs_cpu():
+    """One forward of each module of ``models/extras.py`` at D2R-base's
+    widths (768 features, 12 heads), train mode (BatchNorm on batch
+    statistics), and each loss of ``ops/losses_extra.py``, on the card and
+    on the CPU from the same weights and inputs, fp32: the error over
+    max(1, max |ref|) of each (:data:`EXTRAS_TOL`). No kernel of the port
+    runs in them."""
+    import copy
+    import torch
+    from d2r_tpu_torch.models import extras as tx
+    from d2r_tpu_torch.models.layers import init_weights
+    from d2r_tpu_torch.ops import losses_extra as tle
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator().manual_seed(21)
+    x = lambda *shape: torch.randn(*shape, generator=g)
+    unit = lambda t: t / t.norm(dim=-1, keepdim=True)
+    noise = [x(16, 2), x(16, 2)]
+    cases = {
+        "SELayer": (tx.SELayer(2), (x(16, 2, 768),), {}),
+        "GraphReasoning": (tx.GraphReasoning(256), (x(16, 10, 256),), {}),
+        "GatedQueryAttLayer": (tx.GatedQueryAttLayer(768, 12), (x(16, 64, 768),), {}),
+        "AGSA": (tx.AGSA(2, 768, 12), (x(16, 64, 768),), {}),
+        "SelfEncoder": (tx.SelfEncoder(768, 768, 12), (x(16, 64, 768),), {}),
+        "VariationalEncoder": (tx.VariationalEncoder(768), (x(16, 768),), {}),
+        "AmbiguityLearning": (tx.AmbiguityLearning(768, 768), (x(16, 768), x(16, 768),
+                                                              x(16, 3)), {"noise": noise}),
+    }
+    feats, labels = unit(x(16, 2, 128)), torch.randint(0, 3, (16,), generator=g)
+    binary = (labels > 0).float()   # labeled_js_div's labels are 0/1
+    losses = {
+        "soft_contrastive_loss": (tle.soft_contrastive_loss,
+                                  (unit(x(16, 128)), unit(x(16, 128))),
+                                  dict(alpha=0.5, margin=0.2, max_violation=True)),
+        "diff_loss": (tle.diff_loss, (x(16, 64), x(16, 64)), {}),
+        "labeled_js_div": (tle.labeled_js_div, (x(16, 3), x(16, 3), binary), {}),
+        "supcon_loss": (tle.supcon_loss, (feats,), dict(labels=labels)),
+    }
+    out = {}
+    with torch.no_grad():
+        for name, (module, args, kw) in cases.items():
+            init_weights(module, torch.Generator().manual_seed(3))
+            on_card = copy.deepcopy(module).cuda().train()
+            ref = module.train()(*args, **kw)
+            got = on_card(*[a.cuda() for a in args],
+                          **{k: [t.cuda() for t in v] for k, v in kw.items()})
+            ref, got = (t if isinstance(t, tuple) else (t,) for t in (ref, got))
+            out[name] = max((b.cpu() - a).abs().max().item() / max(1.0, a.abs().max().item())
+                            for a, b in zip(ref, got))
+        for name, (fn, args, kw) in losses.items():
+            ref = fn(*args, **kw)
+            got = fn(*[a.cuda() for a in args],
+                     **{k: v.cuda() if isinstance(v, torch.Tensor) else v for k, v in kw.items()})
+            out[name] = (got.cpu() - ref).abs().item() / max(1.0, ref.abs().item())
+    log(f"[extras] card against CPU, fp32, error / max(1, max |ref|): "
+        f"{ {k: float(f'{v:.3g}') for k, v in out.items()} }")
+    assert all(v <= EXTRAS_TOL for v in out.values()), out      # NaN fails too
+    return out
 
 
 def special_ids(tc):
@@ -1689,11 +1844,16 @@ def phase_train(report, key="base"):
         prof["adamw_kernels_per_step"] = sum(v for k, v in names.items() if "adamw_kernel" in k)
         log(f"[profile{spec['tag']}] replayed train step: " + json.dumps(brief(prof)))
         wrong = [n for n in want if prof.get(f"{n}_kernels_per_step") != want[n]]
-        lost = not float(prof.get("kernels_per_step", 0)).is_integer()
+        # three replays of one graph launch the same kernels: a count that
+        # is not a whole number a step, or one kernel seen in some replays
+        # and not others, is a trace that lost events, not the step's
+        lost = not float(prof.get("kernels_per_step", 0)).is_integer() or any(
+            not float(prof.get(f"{n}_kernels_per_step", 0)).is_integer() for n in wrong)
         if not (wrong and lost):
             break
         log(f"[profile{spec['tag']}] the trace lost kernel events ({prof['kernels_per_step']} "
-            f"kernels a step on average over three replays of one graph); profiling again")
+            f"kernels a step on average over three replays of one graph; {wrong} off); "
+            f"profiling again")
     prof["trace_attempts"] = attempt + 1
     out["optimizer_kernels"] = {k: v for k, v in names.items() if "adamw" in k}
     out["foreach_kernels"] = {k: v for k, v in names.items() if "multi_tensor_apply" in k}
@@ -3695,12 +3855,13 @@ def tower_presets(depth, dropout=True):
     return text, vision
 
 
-def mesh_config(spec, fp32=True, **overrides):
+def mesh_config(spec, fp32=True, dropout=None, **overrides):
     """A mesh phase's configuration: D2R-base at full width with
-    ``spec["depth"]``-block towers, batch 64; in fp32 with dropout off and
-    no LR warm-up (the fp32 check), else bf16 with dropout on; the
-    phase's pipeline stages and ``overrides``."""
-    text, vision = tower_presets(spec["depth"], dropout=not fp32)
+    ``spec["depth"]``-block towers, batch 64; in fp32 with dropout off
+    (on where ``dropout``) and no LR warm-up (the fp32 check), else bf16
+    with dropout on; the phase's pipeline stages and ``overrides``."""
+    text, vision = tower_presets(spec["depth"], dropout=not fp32 if dropout is None
+                                 else dropout)
     pipe = dict(pipeline_stages=spec.get("stages", 1),
                 pipeline_microbatches=spec.get("microbatches", 0))
     kind = (dict(compute_dtype="float32", warmup_ratio=0.0) if fp32
@@ -3758,16 +3919,25 @@ def fabric_timer(model):
     return spans
 
 
+def mesh_ref_tag(overrides):
+    """The one-process run a mesh configuration is held to: the int8
+    run, the dropout run, or the plain one (the layout settings)."""
+    return ("_int8" if "quant_train" in overrides else
+            "_dropout" if overrides.get("dropout") else "")
+
+
 def mesh_fp32_run(model, cfg, mesh=None):
     """From ``model`` (:func:`mesh_base_model`) in fp32 (TF32 off) on this
     rank's rows of one batch of 64: a train-mode forward (loss, JS loss,
     logits, the SAF BatchNorms' running statistics after it, both routing
-    branches' ms), then, from the same start, one train step: its loss and
+    branches' ms; dropout, where on, from a seed at the rank's global
+    rows), then, from the same start, one train step: its loss and
     its peak memory above what was allocated before it on the CPU, and on
     the card the whole updated parameters and buffers, the whole gradients
     it applied and, in one process, each parameter's LR (``"whole"``)."""
     import numpy as np
     import torch
+    from d2r_tpu_torch.models.layers import DropoutRNG
     from d2r_tpu_torch.parallel.mesh import full_gradients, full_state_dict
     from d2r_tpu_torch.train.state import _model_inputs, create_train_state, make_train_step
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3778,8 +3948,9 @@ def mesh_fp32_run(model, cfg, mesh=None):
     running = {k: v for k, v in state.model.named_buffers() if "running" in k}
     start = {k: v.clone() for k, v in running.items()}
     spans = fabric_timer(state.model)
+    rng = DropoutRNG(5, "cuda", row0=0 if mesh is None else mesh.data_index * len(batch["labels"]))
     with torch.no_grad():
-        loss, logits, aux = state.model.train()(**_model_inputs(batch, "cuda"))
+        loss, logits, aux = state.model.train()(**_model_inputs(batch, "cuda"), rng=rng)
     torch.cuda.synchronize()
     out = {"loss": loss.item(), "js_loss": aux["js_loss"].item(), "logits": logits.cpu(),
            "running": {k: v.cpu().clone() for k, v in running.items()},
@@ -3927,7 +4098,6 @@ def mesh_bf16_steps(mesh, steps, weights, cfg):
     import torch
     from d2r_tpu_torch.models.unimo import D2RClassifier
     from d2r_tpu_torch.ops import attention
-    from d2r_tpu_torch.ops.kernels.fused_attention import dropout_key
     from d2r_tpu_torch.parallel.mesh import replica_mismatches
     from d2r_tpu_torch.train.state import create_train_state, make_train_step
     model = D2RClassifier(cfg)
@@ -3940,8 +4110,10 @@ def mesh_bf16_steps(mesh, steps, weights, cfg):
     kernel = attention.fused_attention_small
 
     def recording(q, k, v, bias, scale, rate=0.0, seed=None):
-        # the site's Philox key, read from the seed buffer (a sync a call)
-        calls.append((None if seed is None else dropout_key(seed), rate, tuple(q.shape[1:])))
+        # the site's seed (read from the buffer: a sync a call), ordinal and
+        # global (row, head) offsets
+        calls.append((None if seed is None else (int(seed.seed), *seed[1:]), rate,
+                      tuple(q.shape[1:])))
         return kernel(q, k, v, bias, scale, rate, seed)
 
     attention.fused_attention_small = recording
@@ -4071,9 +4243,8 @@ def mesh_rank(rank, world, shape, ref_root, steps, name):
         torch.cuda.empty_cache()
     out["more"] = {}
     for tag, overrides in spec.get("more", ()):
-        out["more"][tag] = fp32(
-            "_int8" if "quant_train" in overrides else "", overrides, weights,
-            QDOT_STEP_BOUND if "quant_train" in overrides else None)[0]
+        out["more"][tag] = fp32(mesh_ref_tag(overrides), overrides, weights,
+                                QDOT_STEP_BOUND if "quant_train" in overrides else None)[0]
     del weights
     wholes.clear()
     if mesh.tp > 1 and spec.get("more"):
@@ -4085,9 +4256,9 @@ def mesh_rank(rank, world, shape, ref_root, steps, name):
 def check_mesh(shape, ranks, spec):
     """Assert a mesh's results: the fp32 tolerances, K1 and K2 on every rank
     at every site with the rank's local heads and the launches its blocks
-    imply, different dropout seeds across data ranks, across model ranks
-    at the head-split sites and across the (microbatch, block) pairs of a
-    pipeline, whole tensors bit-equal across model and stage ranks and
+    imply, the step's dropout seeds the same on every rank with the rank's
+    global (row, head) offsets, different seeds across the (microbatch,
+    block) pairs of a pipeline, whole tensors bit-equal across model and stage ranks and
     every tensor across data ranks; the further configurations at their
     tolerances, and ``quant_dot`` bit for bit."""
     tp = shape[-1] if len(shape) > 1 else 1
@@ -4124,17 +4295,17 @@ def check_mesh(shape, ranks, spec):
         seeds[m] = {(r["data_index"], r["stage_index"], r["model_index"]):
                     [c[0] for c in r["bf16"][m]["calls"] if c[1] > 0] for r in ranks}
         tower = (depth // pp) * (max(m, 1) if spec.get("stages", 1) > 1 else 1)
+        rows = TRAIN_BATCH // shape[0] // (max(m, 1) if spec.get("stages", 1) > 1 else 1)
         for (d, s, mi), ks in seeds[m].items():
             assert len(ks) == tower + 1, len(ks)      # the BERT blocks + the extra text layer
-            assert len(set(ks[:tower])) == tower, "a pipeline's (microbatch, block) share a seed"
-            if (d + 1, s, mi) in seeds[m]:
-                assert all(a != b for a, b in zip(ks, seeds[m][(d + 1, s, mi)])), \
-                    "data ranks share a seed"
-            if (d, s, mi + 1) in seeds[m]:
-                assert all(a != b for a, b in zip(ks, seeds[m][(d, s, mi + 1)])), \
-                    "model ranks share a seed"
+            keys = [k[:2] for k in ks]                # (step seed, site ordinal)
+            assert len(set(keys[:tower])) == tower, "a pipeline's (microbatch, block) share a seed"
+            # every rank takes the step's seeds as they are, at its global
+            # rows and heads
+            assert keys == [k[:2] for k in seeds[m][(0, s, 0)]], "ranks' seeds differ"
+            assert all(k[2:] == (d * rows, mi * (12 // tp)) for k in ks), ks
             if (d, s + 1, mi) in seeds[m]:
-                assert not set(ks[:tower]) & set(seeds[m][(d, s + 1, mi)][:tower]), \
+                assert not set(keys[:tower]) & {k[:2] for k in seeds[m][(d, s + 1, mi)][:tower]}, \
                     "stages share a seed"
     return seeds
 
@@ -4156,6 +4327,8 @@ def mesh_refs(report, name):
     refs = [("", {})]
     if any("quant_train" in o for _, o in spec.get("more", ())):
         refs.append(("_int8", dict(quant_train="int8")))
+    if any(o.get("dropout") for _, o in spec.get("more", ())):
+        refs.append(("_dropout", dict(dropout=True)))      # prng_impl rbg
     weights = None
     for tag, overrides in refs:
         cfg = mesh_config(spec, **{**sequential, **overrides})
@@ -4196,7 +4369,12 @@ def mesh_spawn(name, root):
 def mesh_report(report, name, runs):
     """Log and check (:func:`check_mesh`) the meshes' results of
     :func:`mesh_spawn`; returns their launch counts summed."""
-    from d2r_tpu_torch.ops.kernels.fused_attention import dropout_keep_mask
+    import torch
+    from d2r_tpu_torch.ops.kernels.fused_attention import (
+        DropoutSeed,
+        dropout_keep_mask,
+        seed_tensor,
+    )
     spec = PARALLEL_MESHES[name]
     result = report[name]
     steps = mesh_steps(spec)
@@ -4250,33 +4428,28 @@ def mesh_report(report, name, runs):
                 log(f"[{name} {label}] rank {r['rank']} quant_dot split over the model "
                     f"group, equal to one process's bits: {json.dumps(r['quant_dot'])}")
         seeds = check_mesh(shape, ranks, spec)
-        # the masks of the first BERT site on two ranks, from the kernels' bits
+        # the masks of the first BERT site on two ranks, from the kernels'
+        # bits: each the one-process mask of the whole batch and heads cut
+        # at the rank's rows and heads, and so different from the other's
         first = next(iter(seeds.values()))
-        a, b = (first[(r["data_index"], r["stage_index"], r["model_index"])][0]
-                for r in ranks[:2])
         tp = shape[-1] if len(shape) > 1 else 1
         m0 = next(iter(ranks[0]["bf16"]))
         rows = TRAIN_BATCH // shape[0] // (max(m0, 1) if spec.get("stages", 1) > 1 else 1)
-        masks = [dropout_keep_mask(x, rows, 12 // tp, 64, 64, 0.1, "cuda") for x in (a, b)]
+        masks = []
+        for r in ranks[:2]:
+            seed, site, b0, h0 = first[(r["data_index"], r["stage_index"], r["model_index"])][0]
+            at = DropoutSeed(seed_tensor(seed, "cuda"), site, b0, h0)
+            masks.append(dropout_keep_mask(at, rows, 12 // tp, 64, 64, 0.1, "cuda"))
+            whole = dropout_keep_mask(at._replace(b0=0, h0=0), rows * shape[0], 12, 64, 64, 0.1,
+                                      "cuda")
+            assert torch.equal(masks[-1], whole[b0:b0 + rows, h0:h0 + 12 // tp]), (b0, h0)
         differ = result[label]["mask_share_differing"] = (
             (masks[0] != masks[1]).float().mean().item())
         assert differ > 0.05, differ
         log(f"[{name} {label}] {world} ranks on one card over gloo in {wall:.1f} s; first "
-            f"BERT site masks differ in {differ:.1%} of elements between ranks 0 and 1")
+            f"BERT site masks of ranks 0 and 1 equal one process's at their global rows "
+            f"and heads, and differ from each other in {differ:.1%} of elements")
     return total
-
-
-def mesh_phase(report, name):
-    """Every mesh of :data:`PARALLEL_MESHES` ``[name]`` on the one card over
-    gloo, in this thread: the one-process fp32 runs first
-    (:func:`mesh_refs`), then the ranks (:func:`mesh_spawn`); their launch
-    counts summed (:func:`mesh_report`)."""
-    import shutil
-    root = mesh_refs(report, name)
-    try:
-        return mesh_report(report, name, mesh_spawn(name, root))
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
 
 
 # the meshes of :data:`BACKGROUND_MESHES`, by name, as the background
@@ -4287,55 +4460,254 @@ LANE = {}
 
 def phase_mesh_start(report):
     """Phase ``mesh_start``, between phases 13 and ``serve_export``: the
-    one-process runs of :data:`BACKGROUND_MESHES` here (:func:`mesh_refs`),
-    then their ranks, one mesh after the other, from a thread of this
-    process, beside the phases that follow; phases 21 and 23 collect them
-    (:func:`mesh_collect`)."""
+    one-process runs of :data:`BACKGROUND_MESHES` here (:func:`mesh_refs`)
+    and ``serve_mesh``'s checkpoint and posts (:func:`serve_mesh_prepare`),
+    then their ranks, one mesh after the other, and ``serve_mesh``'s
+    servers last, from a thread of this process, beside the phases that
+    follow; phases 21, 23 and ``serve_mesh`` collect them
+    (:func:`mesh_collect`, :func:`lane_wait`)."""
     import shutil
     import threading
     roots = {name: mesh_refs(report, name) for name in BACKGROUND_MESHES}
+    serving = serve_mesh_prepare(report)
+    names = BACKGROUND_MESHES + ("serve_mesh",)
     LANE.update({name: {"done": threading.Event(), "started": time.perf_counter()}
-                 for name in BACKGROUND_MESHES})
+                 for name in names})
+    LANE["serve_mesh"]["inputs"] = serving
 
     def run():
-        for name in BACKGROUND_MESHES:
+        for name in names:
             lane = LANE[name]
             try:
-                lane["runs"] = mesh_spawn(name, roots[name])
-            except Exception as e:  # noqa: BLE001 - raised again by mesh_collect
+                lane["runs"] = (serve_mesh_lane(*serving) if name == "serve_mesh"
+                                else mesh_spawn(name, roots[name]))
+            except Exception as e:  # noqa: BLE001 - raised again by its collecting phase
                 lane["error"] = e
             finally:
-                shutil.rmtree(roots[name], ignore_errors=True)
+                if name in roots:
+                    shutil.rmtree(roots[name], ignore_errors=True)
                 lane["ended"] = time.perf_counter()
                 lane["done"].set()
 
     threading.Thread(target=run, name="meshes", daemon=True).start()
     log(f"[mesh_start] one-process runs of {list(BACKGROUND_MESHES)} saved; their ranks "
-        f"started beside the next phases")
+        f"and serve_mesh's servers started beside the next phases")
 
 
-def mesh_collect(report, name):
-    """The background mesh ``name`` (:func:`phase_mesh_start`): wait for its
-    ranks, then log and check them (:func:`mesh_report`)."""
+def lane_wait(report, name):
+    """The background lane ``name``'s result, once it has ended."""
     lane = LANE.get(name)
     if lane is None:
-        raise RuntimeError(f"{name}: phase mesh_start did not start its ranks")
+        raise RuntimeError(f"{name}: phase mesh_start did not start it")
     t0 = time.perf_counter()
     if not lane["done"].wait(MESH_WAIT_S):
         raise TimeoutError(f"{name}: its ranks gave no result within {MESH_WAIT_S} s")
     if "error" in lane:
         raise lane["error"]
-    report[name].update(waited_s=time.perf_counter() - t0,
-                        ranks_s=lane["ended"] - lane["started"])
+    report.setdefault(name, {}).update(waited_s=time.perf_counter() - t0,
+                                       ranks_s=lane["ended"] - lane["started"])
     log(f"[{name}] its ranks ran in the background ({lane['ended'] - lane['started']:.1f} s "
-        f"from mesh_start, the meshes before it included); waited "
+        f"from mesh_start, the lanes before it included); waited "
         f"{report[name]['waited_s']:.1f} s for them here")
-    return mesh_report(report, name, lane["runs"])
+    return lane["runs"]
+
+
+SERVE_MESH_ROOT = os.path.join("build", "chip_smoke_serve_mesh")
+
+
+def serve_mesh_prepare(report):
+    """``serve_mesh``'s inputs, made in the foreground: a D2R-base
+    checkpoint (bf16 serving config, seed 2) under ``build/``, 32 posts
+    and their arrays as the service's preprocessing makes them
+    (``encode_text``, ``decode_image_bytes``; uint8 pixels)."""
+    import shutil
+    import types
+    import numpy as np
+    from d2r_tpu_torch.config import save_config_json
+    from d2r_tpu_torch.data.dataset import encode_text
+    from d2r_tpu_torch.data.image import decode_image_bytes
+    from d2r_tpu_torch.data.tokenizer import load_tokenizer
+    from d2r_tpu_torch.models.unimo import build_model
+    from d2r_tpu_torch.train.checkpoint import save_checkpoint
+    import base64
+    t0 = time.perf_counter()
+    shutil.rmtree(SERVE_MESH_ROOT, ignore_errors=True)
+    cfg = model_config("base", compute_dtype="bfloat16")
+    best = os.path.join(SERVE_MESH_ROOT, "best_model")
+    save_checkpoint(best, types.SimpleNamespace(model=build_model(cfg, device="cpu", seed=2)))
+    save_config_json(cfg, os.path.join(SERVE_MESH_ROOT, "config.json"))
+    posts = make_posts(max(SERVE_MESH_ROWS), 256, 50, seed=17)
+    tok = load_tokenizer(cfg.bert_name, vocab_size=cfg.text_config().vocab_size)
+    size = cfg.vision_config().image_size
+    rows = [(*encode_text(tok, p["text"], cfg.max_seq),
+             decode_image_bytes(base64.b64decode(p["image_b64"]), size, raw_uint8=True))
+            for p in posts]
+    arrays = [np.stack([r[i] for r in rows]) for i in range(4)]
+    report["serve_mesh"] = {"prepare_s": time.perf_counter() - t0}
+    return best, posts, arrays
+
+
+def serve_mesh_server(best, posts):
+    """``python -m d2r_tpu_torch.server --dp 2`` on ``best``: one
+    /predict_batch of each of :data:`SERVE_MESH_ROWS` first posts, then
+    Ctrl-C. Returns (answers by rows, startup s, request ms by rows, exit
+    code)."""
+    import signal
+    import threading
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "d2r_tpu_torch.server", "--load_path", best, "--dp", "2",
+         "--port", "0", "--batch_buckets", ",".join(map(str, BUCKETS)), "--max_wait_ms", "5"],
+        stdout=subprocess.PIPE, text=True, env=dict(os.environ, PYTHONPATH=os.getcwd()))
+    STARTED.append(proc)
+    url = None
+    for line in proc.stdout:
+        found = re.search(r"serving on (http://\S+)", line)
+        if found:
+            url = found.group(1)
+            break
+    if url is None:
+        raise RuntimeError(f"the --dp 2 server exited with {proc.wait()} before serving")
+    # the ranks' later lines, read so that the pipe never fills
+    threading.Thread(target=proc.stdout.read, daemon=True).start()
+    startup = time.perf_counter() - t0
+    answers, ms = {}, {}
+    try:
+        for n in SERVE_MESH_ROWS:
+            status, body, ms[n] = http_post(url + "/predict_batch", {"items": posts[:n]},
+                                            timeout=300)
+            if status != 200:
+                raise RuntimeError(f"--dp 2 server: {n} posts answered {status}: {body}")
+            answers[n] = body["results"]
+    finally:
+        proc.send_signal(signal.SIGINT)
+        try:
+            rc = proc.wait(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return answers, startup, ms, rc
+
+
+def serve_mesh_rank(rank, world, best, arrays):
+    """One rank of the :data:`SERVE_MESH_SHAPE` Predictor on the card
+    (gloo): built from the checkpoint, warmed, then the first rows of
+    ``arrays`` at each of :data:`SERVE_MESH_ROWS`, counts set to 0 just
+    before them and read after; each request's ms (host clock), and
+    ``latency_stats``'s p50 at bucket 8."""
+    import torch
+    from d2r_tpu_torch.parallel.mesh import make_mesh
+    from d2r_tpu_torch.serve import Predictor, latency_stats
+    from d2r_tpu_torch.train.checkpoint import restore_model
+    torch.cuda.set_device(0)
+    mesh = make_mesh(SERVE_MESH_SHAPE, ("data", "model"), device="cuda")
+    cfg = model_config("base", compute_dtype="bfloat16")
+    t0 = time.perf_counter()
+    pred = Predictor(cfg, restore_model(best, cfg, "cpu"), batch_buckets=BUCKETS, mesh=mesh)
+    pred.warmup()
+    build_s = time.perf_counter() - t0
+    zero_counts()
+    probs, ms = {}, {}
+    for n in SERVE_MESH_ROWS:
+        t0 = time.perf_counter()
+        probs[n] = pred.predict(*[a[:n] for a in arrays])["probs"]
+        ms[n] = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    # latency_stats on the mesh (every rank calls it), at bucket 8
+    ms["latency_stats_8"] = 1e3 * latency_stats(
+        pred, dict(zip(("input_ids", "attention_mask", "token_type_ids", "pixel_values"),
+                       [a[:8] for a in arrays])), iters=2, warmup=0)["p50"]
+    return {"probs": probs, "launches": counts, "build_s": build_s, "ms": ms,
+            "qkv_hidden": pred.model.model.encoder_text_layers.layer_0.attention_self.qkv.hidden}
+
+
+def serve_mesh_lane(best, posts, arrays):
+    """``serve_mesh``'s background work: the ``--dp 2`` server, then the
+    :data:`SERVE_MESH_SHAPE` Predictor's ranks (``launch.spawn``)."""
+    from d2r_tpu_torch.parallel.launch import spawn
+    out = {"server": serve_mesh_server(best, posts)}
+    t0 = time.perf_counter()
+    out["ranks"] = spawn(serve_mesh_rank, math.prod(SERVE_MESH_SHAPE), (best, arrays),
+                         backend="gloo", timeout_s=600)
+    out["ranks_s"] = time.perf_counter() - t0
+    return out
+
+
+def phase_serve_mesh(report):
+    """Serving over a mesh, D2R-base at full width (bf16, buckets
+    1/8/32), whose servers ran in the background since ``mesh_start``: the
+    answers of ``server.py --dp 2`` (HTTP) and of the (1, 2) Predictor
+    against one process's replay of the same arrays (a ``Predictor`` here
+    on the same checkpoint), within :data:`QUANT_LOGITS_TOL`, labels
+    equal; the (1, 2) ranks launch K1 on their own heads (34 sites a
+    forward), counted over the three requests. Not a scaling figure: two
+    processes share one card."""
+    import shutil
+    import numpy as np
+    from d2r_tpu_torch.serve import Predictor
+    from d2r_tpu_torch.train.checkpoint import restore_model
+    try:
+        runs = lane_wait(report, "serve_mesh")
+        best, posts, arrays = LANE["serve_mesh"]["inputs"]
+        result = report["serve_mesh"]
+        cfg = model_config("base", compute_dtype="bfloat16")
+        pred = Predictor(cfg, restore_model(best, cfg, "cuda"), batch_buckets=BUCKETS)
+        pred.warmup()
+        want = {n: pred.predict(*[a[:n] for a in arrays])["probs"] for n in SERVE_MESH_ROWS}
+        del pred
+        answers, startup, ms, rc = runs["server"]
+        result["server"] = {"startup_s": startup, "request_ms": ms, "exit_code": rc}
+        assert rc == 0, f"the --dp 2 server exited with {rc} at Ctrl-C"
+        ranks = runs["ranks"]
+        result["predictor"] = {"shape": list(SERVE_MESH_SHAPE), "ranks_s": runs["ranks_s"],
+                               "build_s": [r["build_s"] for r in ranks],
+                               "forward_ms": [r["ms"] for r in ranks],
+                               "launches": [r["launches"] for r in ranks]}
+        errors = {"server": {}, "predictor": {}}
+        for n in SERVE_MESH_ROWS:
+            got = np.array([a["probs"] for a in answers[n]], np.float32)
+            labels = np.array([a["label"] for a in answers[n]])
+            errors["server"][n] = float(np.abs(got - want[n]).max())
+            assert np.array_equal(labels, want[n].argmax(-1)), ("server", n)
+            for r in ranks:
+                assert np.array_equal(r["probs"][n], ranks[0]["probs"][n]), "ranks differ"
+            errors["predictor"][n] = float(np.abs(ranks[0]["probs"][n] - want[n]).max())
+            assert np.array_equal(ranks[0]["probs"][n].argmax(-1), want[n].argmax(-1))
+        result["max_abs_err"] = errors
+        log(f"[serve_mesh] server --dp 2 (2 ranks on one card, gloo; startup {startup:.1f} s, "
+            f"/predict_batch ms by rows { {n: round(v, 1) for n, v in ms.items()} }): max abs "
+            f"err against one process's replay {errors['server']}; (1, 2) Predictor "
+            f"(eager, 2 ranks): {errors['predictor']}, request ms by rows (rank 0, host "
+            f"clock) { {n: round(v, 1) for n, v in ranks[0]['ms'].items()} }, K1 a "
+            f"rank over the three requests {[r['launches']['k1'] for r in ranks]}")
+        assert all(v <= QUANT_LOGITS_TOL for e in errors.values() for v in e.values()), errors
+        k1 = MODELS["base"]["k1"] * len(SERVE_MESH_ROWS)
+        for r in ranks:
+            assert r["qkv_hidden"] == 768 // 2, r["qkv_hidden"]
+            assert r["launches"] == {**no_counts(), "k1": k1}, r["launches"]
+        total = no_counts()
+        for r in ranks:
+            for name in total:
+                total[name] += r["launches"][name]
+        return total
+    finally:
+        shutil.rmtree(SERVE_MESH_ROOT, ignore_errors=True)
+
+
+def mesh_collect(report, name):
+    """The background mesh ``name`` (:func:`phase_mesh_start`): wait for its
+    ranks (:func:`lane_wait`), then log and check them
+    (:func:`mesh_report`)."""
+    return mesh_report(report, name, lane_wait(report, name))
 
 
 def phase_train_dp(report):
-    """Phase 20: data parallelism, dp = 2 (see :func:`mesh_phase`)."""
-    return mesh_phase(report, "train_dp")
+    """Phase 20: data parallelism, dp = 2, then the dropout step; its
+    ranks ran in the background since ``mesh_start``
+    (:func:`mesh_collect`)."""
+    return mesh_collect(report, "train_dp")
 
 
 def phase_train_tp(report):
@@ -4602,7 +4974,8 @@ def main():
     phases += [("train_sentic", phase_sentic), ("train_int8", phase_int8),
                ("train_extras", phase_extras)]
     phases += [("train_dp", phase_train_dp), ("train_tp", phase_train_tp),
-               ("train_cli_mp", phase_train_cli_mp), ("train_pp", phase_train_pp)]
+               ("train_cli_mp", phase_train_cli_mp), ("train_pp", phase_train_pp),
+               ("serve_mesh", phase_serve_mesh)]
     failed = {}
     for name, fn in phases:
         t0 = time.perf_counter()

@@ -25,10 +25,9 @@ a row the same rows. ``--mesh_stage`` runs the towers as a pipeline of
 that many stages over ``--pipeline_microbatches``; ``--seq_shard`` and
 ``--fabric_shard`` act under ``--mesh_model`` > 1.
 
-The one flag the port cannot honour yet (``--prng_impl threefry2x32``
-across processes) raises ``NotImplementedError`` naming it and the
-ROADMAP.md item that ports it, in ``D2RConfig.check_supported``, which the
-trainer and the model also call. None is accepted and then ignored.
+Every flag is honoured, in one process and across many; an invalid value
+raises in ``D2RConfig.check_supported``, which the trainer and the model
+also call. None is accepted and then ignored.
 """
 
 from __future__ import annotations
@@ -216,9 +215,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--prng_impl", default="rbg",
                    choices=["rbg", "threefry2x32"],
                    help="the JAX package's dropout bit generator; the port "
-                        "draws Philox4x32-10 bits under either name (one process "
-                        "has no sharding for threefry's bits to be stable across; "
-                        "threefry2x32 is refused across processes)")
+                        "draws Philox4x32-10 bits under either name, keyed on "
+                        "global coordinates, so they do not depend on the mesh")
     p.add_argument("--quant_train", default="none",
                    choices=["none", "int8", "int8_all"],
                    help="run the projection products as int8 x int8 -> int32 "
@@ -398,7 +396,6 @@ def main(argv=None) -> None:
 
 def _main(args, cfg: D2RConfig, device: torch.device):
     mesh = mesh_for(cfg, device)
-    cfg.check_supported(mesh.world)
     logger.info(args)
 
     # the reference seeds numpy and torch; the port's init, shuffle and
@@ -464,6 +461,12 @@ def _main(args, cfg: D2RConfig, device: torch.device):
             trainer.train()
     finally:
         ckpt.wait_for_async_saves()     # --async_checkpoint: durable before exit
+
+
+def console_main() -> None:
+    """The ``d2r-torch-train`` console script: :func:`main` with its return
+    value (the dry run's summary) dropped, so that the exit code is 0."""
+    main()
 
 
 if __name__ == "__main__":

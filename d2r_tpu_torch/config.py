@@ -177,14 +177,11 @@ ADAM_MU_DTYPES = ("float32", "bfloat16")
 
 
 # The JAX package's dropout bit generators (``--prng_impl``). The port draws
-# Philox4x32-10 bits under either name: one process has no sharding for
-# threefry's sharding-stable bits to be stable across. Across processes the
-# masks fold in the mesh coordinates, so threefry2x32 is refused there.
+# Philox4x32-10 bits under either name, keyed on each element's global
+# coordinates (batch row, head, position), so they are the same whatever
+# the process mesh: what threefry2x32's sharding-stable bits give in JAX,
+# both names give here, in one process and across many.
 PRNG_IMPLS = ("rbg", "threefry2x32")
-
-# the part of the JAX package's parallelism still to port: threefry's bits
-# across processes and serving over a mesh
-_PARALLEL_NEXT = "Queue 1 item 9b (parallel, next slice)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -313,20 +310,15 @@ class D2RConfig:
             raise ValueError(f"unknown compute_dtype {self.compute_dtype!r}")
         return dt
 
-    def check_supported(self, world: int = 1) -> None:
-        """Raise on settings the port cannot honour yet (it never ignores
-        one silently): threefry's bits across processes, named with the
-        ROADMAP.md item that ports it, and the invalid values below. An
+    def check_supported(self) -> None:
+        """Raise on the values below, which the port cannot honour (it
+        never ignores one silently), in one process and across many. An
         unknown ``quant_train`` mode raises the JAX package's
-        ``ValueError``. ``world`` is the number of processes that train
-        together."""
+        ``ValueError``."""
         check_mode(self.quant_train)
         bad = []
         if self.prng_impl not in PRNG_IMPLS:
             bad.append(f"prng_impl={self.prng_impl!r}")
-        elif self.prng_impl == "threefry2x32" and world > 1:
-            bad.append(f"prng_impl='threefry2x32' across {world} processes (its bits "
-                       f"would depend on the mesh; ROADMAP.md {_PARALLEL_NEXT})")
         if self.adam_mu_dtype not in ADAM_MU_DTYPES:
             bad.append(f"adam_mu_dtype={self.adam_mu_dtype!r}")
         if self.optimizer_impl not in OPTIMIZER_IMPLS:

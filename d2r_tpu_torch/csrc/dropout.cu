@@ -14,8 +14,9 @@
 // from a seed in device memory, which the graph's replays rewrite, and a
 // remat recompute has to draw it again from the site's ordinal alone.
 //
-// The tensor may be a slice of a larger one (a sequence slice under
-// seq_shard): element e then draws the bits of element
+// The tensor may be a slice of a larger one, the whole step's tensor (a
+// data rank's batch rows, a sequence slice under seq_shard, or both):
+// element e then draws the bits of element
 // g = (e / seg) * whole + offset + e % seg of the whole, so the slices'
 // masks are the rows of the whole tensor's mask. seg, whole and offset are
 // multiples of 4 (the wrapper checks), so a group of four elements stays on

@@ -10,14 +10,17 @@
 //
 // Element (b, h, i, j) of the (B, H, L, S) probability tile takes word
 // j % 4 of Philox4x32-10 at counter (j / 4, i, h, b) under the key
-// (key mod 2^32, key >> 32). The mask therefore depends on no grid or
-// tile size: K1 and K2 regenerate the same bits without storing them, and
+// (key mod 2^32, key >> 32), b and h being the GLOBAL batch row and head
+// (a launch adds its offsets b0 and h0 to its own), so the mask depends on
+// no grid, tile size or process mesh: K1 and K2 regenerate the same bits
+// without storing them, and
 // d2r_tpu_torch/ops/kernels/fused_attention.py::dropout_keep_mask computes
 // them in plain tensor ops. An element is kept iff its bits are >= the
 // threshold min(int(rate * 2^32), 2^32 - 1), the rule of
 // d2r_tpu/ops/kernels/fused_attention.py::_keep_mask. Element e of a
 // flat tensor (hidden dropout, dropout.cu) takes word e % 4 at counter
-// ((e / 4) mod 2^32, (e / 4) >> 32, 0, 0).
+// ((e / 4) mod 2^32, (e / 4) >> 32, 0, 0), e its index in the whole
+// step's tensor (dropout.cu's slice layout).
 //
 // Rounds and key schedule as Random123's philox4x32_R and cuRAND's
 // curand_Philox4x32_10; the tests hold the plain version to Random123's

@@ -12,7 +12,7 @@
 //   acc    = acc * c + sum_j p[j] * v[b,j,h,:]           (p stays fp32, :65)
 //   out[b,i,h,:] = acc / l, cast once to the input type  (:73)
 //
-// for any L, S >= 1 and D <= 256, fp32 or bf16, with the additive (B,S)
+// for any L, S, D >= 1, fp32 or bf16, with the additive (B,S)
 // fp32 key bias or none. No dropout (the JAX dispatch sends dropout
 // elsewhere). Keys past S are not padded but absent: they are masked to
 // -inf in the scores of the last key tile.
@@ -69,7 +69,16 @@
 // different banks; V as [j][d], lanes owning columns. A warp scores its 4
 // rows at once; p goes through a per-warp row of shared memory to the p.V
 // products. 48.25 KiB at D = 64, 88.5 KiB at D = 128, 169 KiB at D = 256.
-// Both launches raise the dynamic shared-memory limit past 48 KiB.
+//
+// D > 256, fp32 and bf16: CUDA cores (flash_attention_fwd_wide_kernel), the
+// fp32 kernel's arithmetic with the head walked in slabs of 64 columns for
+// the scores and the output cut in chunks of 128 columns, one a block, so
+// shared memory stays at 64.25 KiB and the registers at 4 output columns a
+// lane for any D (see its comment). JAX's kernel has no limit on D; neither
+// has this one.
+//
+// A launch that needs more than 48 KiB of shared memory raises the dynamic
+// limit first.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -86,7 +95,7 @@ constexpr int kRowsPerWarp = 4;
 constexpr int kRowsPerBlock = kWarps * kRowsPerWarp;  // 32
 constexpr int kTileK = 64;                            // keys a tile: 2 a lane
 constexpr int kLdK = kTileK + 1;                      // K^T row, padded
-constexpr int kMaxDim = 256;
+constexpr int kMaxDim = 256;                          // wider heads: the wide kernel
 constexpr float kNegInit = -1e30f;                    // flash_attention.py:34
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -290,6 +299,188 @@ int launch(const void* q, const void* k, const void* v, const float* bias, void*
   return (int)cudaGetLastError();
 }
 
+// ---- any head width: D > 256, fp32 and bf16 ----
+//
+// The kernels above size registers and shared memory by the head: above
+// D = 256 the fp32 one's tiles outgrow shared memory and the bf16 one's
+// accumulator its registers. This one takes any D. Each block owns 32
+// query rows and one chunk of kWideChunk output columns (grid
+// (ceil(L / 32) x ceil(D / 128), H, B)); the scores walk the head in slabs
+// of kWideSlab columns, q's and K^T's slab staged in shared memory in
+// turn, and the p.V accumulator holds only the block's chunk. The blocks of
+// one query tile thus compute the same scores and softmax, each for its own
+// columns (ceil(D / 128) times the score work, none of it shared through
+// memory). Its arithmetic is the fp32 kernel's for every input type: fp32
+// products on the CUDA cores, in the same order over d, so at D <= 256 it
+// would give that kernel's bits; bf16 inputs are widened on load.
+// Shared memory does not grow with D: 32 x 64 + 64 x 65 + 64 x 128 +
+// 8 x 4 x 64 floats = 64.25 KiB.
+
+constexpr int kWideSlab = 64;                  // head columns a score pass
+constexpr int kWideChunk = 128;                // output columns a block
+constexpr int kWideNT = kWideChunk / 32;       // 4 a lane
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_attention_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                                const T* __restrict__ v, const float* __restrict__ bias,
+                                T* __restrict__ out, int L, int S, int H, int D,
+                                long long q_bs, long long q_rs, long long k_bs,
+                                long long k_rs, long long v_bs, long long v_rs,
+                                float scale, int chunks) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* qs = smem;                                // [kRowsPerBlock][kWideSlab]
+  float* kt = qs + kRowsPerBlock * kWideSlab;      // [kWideSlab][kLdK]
+  float* vs = kt + kWideSlab * kLdK;               // [kTileK][kWideChunk]
+  float* ps = vs + kTileK * kWideChunk;            // [kWarps][kRowsPerWarp][kTileK]
+
+  const int h = blockIdx.y;
+  const long long b = blockIdx.z;
+  const int c0 = (blockIdx.x % chunks) * kWideChunk;
+  const int dc = min(kWideChunk, D - c0);
+  const int row0 = (blockIdx.x / chunks) * kRowsPerBlock;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+
+  float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][kWideNT];
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+    m[r] = kNegInit;
+    l[r] = 0.f;
+#pragma unroll
+    for (int t = 0; t < kWideNT; ++t) acc[r][t] = 0.f;
+  }
+
+  const T* qb = q + b * q_bs + (long long)h * D;
+  const T* kb = k + b * k_bs + (long long)h * D;
+  const T* vb = v + b * v_bs + (long long)h * D + c0;
+  const float* bb = bias == nullptr ? nullptr : bias + b * S;
+  const float4* qw = reinterpret_cast<const float4*>(qs + warp * kRowsPerWarp * kWideSlab);
+  float* pw = ps + warp * kRowsPerWarp * kTileK;
+
+  for (int j0 = 0; j0 < S; j0 += kTileK) {
+    const int nk = min(kTileK, S - j0);
+    float s[kRowsPerWarp][2];
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) s[r][0] = s[r][1] = 0.f;
+    for (int d0 = 0; d0 < D; d0 += kWideSlab) {
+      const int ds = min(kWideSlab, D - d0);
+      __syncthreads();  // the previous slab (and tile) is no longer read
+      for (int i = tid; i < kRowsPerBlock * kWideSlab; i += kThreads) {
+        const int r = i / kWideSlab, d = i % kWideSlab, row = row0 + r;
+        qs[i] = (row < L && d < ds) ? to_float(qb[row * q_rs + d0 + d]) * scale : 0.f;
+      }
+      for (int i = tid; i < kTileK * kWideSlab; i += kThreads) {
+        const int j = i / kWideSlab, d = i % kWideSlab;
+        kt[d * kLdK + j] = (j < nk && d < ds) ? to_float(kb[(long long)(j0 + j) * k_rs + d0 + d])
+                                              : 0.f;
+      }
+      if (d0 == 0) {  // the tile's V chunk, read after the last slab
+        for (int i = tid; i < kTileK * kWideChunk; i += kThreads) {
+          const int j = i / kWideChunk, d = i % kWideChunk;
+          vs[i] = (j < nk && d < dc) ? to_float(vb[(long long)(j0 + j) * v_rs + d]) : 0.f;
+        }
+      }
+      __syncthreads();
+      for (int d4 = 0; d4 < kWideSlab / 4; ++d4) {
+        float4 qv[kRowsPerWarp];
+#pragma unroll
+        for (int r = 0; r < kRowsPerWarp; ++r) qv[r] = qw[r * (kWideSlab / 4) + d4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float* kr = kt + (4 * d4 + e) * kLdK;
+          const float k0 = kr[lane];
+          const float k1 = kr[lane + 32];
+#pragma unroll
+          for (int r = 0; r < kRowsPerWarp; ++r) {
+            const float qd = lane_of(qv[r], e);
+            s[r][0] = fmaf(qd, k0, s[r][0]);
+            s[r][1] = fmaf(qd, k1, s[r][1]);
+          }
+        }
+      }
+    }
+    const bool in0 = lane < nk, in1 = lane + 32 < nk;
+    const float b0 = (bb != nullptr && in0) ? bb[j0 + lane] : 0.f;
+    const float b1 = (bb != nullptr && in1) ? bb[j0 + lane + 32] : 0.f;
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+      const float s0 = in0 ? s[r][0] + b0 : -INFINITY;
+      const float s1 = in1 ? s[r][1] + b1 : -INFINITY;
+      float mt = fmaxf(s0, s1);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, o));
+      const float m_new = fmaxf(m[r], mt);
+      const float c = expf(m[r] - m_new);
+      const float p0 = expf(s0 - m_new);
+      const float p1 = expf(s1 - m_new);
+      m[r] = m_new;
+      l[r] = l[r] * c + (p0 + p1);
+#pragma unroll
+      for (int t = 0; t < kWideNT; ++t) acc[r][t] *= c;
+      pw[r * kTileK + lane] = p0;
+      pw[r * kTileK + lane + 32] = p1;
+    }
+    __syncwarp();
+    const float4* pw4 = reinterpret_cast<const float4*>(pw);
+    for (int j4 = 0; j4 < (nk + 3) / 4; ++j4) {
+      float4 pv[kRowsPerWarp];
+#pragma unroll
+      for (int r = 0; r < kRowsPerWarp; ++r) pv[r] = pw4[r * (kTileK / 4) + j4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float* vr = vs + (4 * j4 + e) * kWideChunk;
+#pragma unroll
+        for (int t = 0; t < kWideNT; ++t) {
+          const float x = vr[lane + 32 * t];  // zero past the chunk's columns
+#pragma unroll
+          for (int r = 0; r < kRowsPerWarp; ++r)
+            acc[r][t] = fmaf(lane_of(pv[r], e), x, acc[r][t]);
+        }
+      }
+    }
+    __syncwarp();
+  }
+
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+    float sum = l[r];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    const int row = row0 + warp * kRowsPerWarp + r;
+    if (row >= L) continue;
+    T* orow = out + ((b * L + row) * H + h) * (long long)D + c0;
+#pragma unroll
+    for (int t = 0; t < kWideNT; ++t) {
+      const int d = lane + 32 * t;
+      if (d < dc) orow[d] = from_float<T>(acc[r][t] / sum);
+    }
+  }
+}
+
+template <typename T>
+int launch_wide(const void* q, const void* k, const void* v, const float* bias, void* out,
+                int B, int L, int S, int H, int D, long long q_bs, long long q_rs,
+                long long k_bs, long long k_rs, long long v_bs, long long v_rs, float scale,
+                cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (kRowsPerBlock * kWideSlab + kWideSlab * kLdK +
+                                       kTileK * kWideChunk + kWarps * kRowsPerWarp * kTileK);
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_fwd_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int chunks = (D + kWideChunk - 1) / kWideChunk;
+  const long long tiles = (L + kRowsPerBlock - 1) / kRowsPerBlock;
+  if (tiles * chunks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)(tiles * chunks), H, B);
+  flash_attention_fwd_wide_kernel<T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias,
+      static_cast<T*>(out), L, S, H, D, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, scale, chunks);
+  return (int)cudaGetLastError();
+}
+
 // ---- bf16 on the tensor cores ----
 
 using bf16 = __nv_bfloat16;
@@ -488,11 +679,16 @@ extern "C" int d2r_flash_attention_fwd(int dtype, const void* q, const void* k,
                                        long long k_bs, long long k_rs,
                                        long long v_bs, long long v_rs, float scale,
                                        void* stream) {
-  if (B < 1 || L < 1 || S < 1 || H < 1 || D < 1 || D > kMaxDim || B > 65535 ||
-      H > 65535)
+  if (B < 1 || L < 1 || S < 1 || H < 1 || D < 1 || B > 65535 || H > 65535)
     return (int)cudaErrorInvalidValue;
   const float* bp = static_cast<const float*>(bias);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D > kMaxDim && dtype == 0)
+    return launch_wide<float>(q, k, v, bp, out, B, L, S, H, D, q_bs, q_rs, k_bs, k_rs, v_bs,
+                              v_rs, scale, st);
+  if (D > kMaxDim && dtype == 1)
+    return launch_wide<bf16>(q, k, v, bp, out, B, L, S, H, D, q_bs, q_rs, k_bs, k_rs, v_bs,
+                             v_rs, scale, st);
   if (dtype == 0)
     return launch<float>(q, k, v, bp, out, B, L, S, H, D, q_bs, q_rs, k_bs, k_rs, v_bs,
                          v_rs, scale, st);

@@ -163,7 +163,7 @@ fused_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            long long g_bs, long long g_rs, float scale,
                            unsigned int threshold, float inv_keep,
                            const unsigned long long* __restrict__ seed_ptr,
-                           unsigned int site, int dropout) {
+                           unsigned int site, unsigned int b0, unsigned int h0, int dropout) {
   // the site's Philox key, from the step's seed in device memory
   const unsigned long long seed = dropout ? d2r::site_key(seed_ptr, site) : 0ull;
   extern __shared__ float smem[];
@@ -237,8 +237,9 @@ fused_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int j = lane + 32 * t;
       p[t] = e[t] / sum;
       if (j < S && dropout)
-        dp[t] = d2r::dropout_bits(seed, (uint32_t)b, h, i, j) >= threshold ? dp[t] * inv_keep
-                                                                           : 0.f;
+        dp[t] = d2r::dropout_bits(seed, (uint32_t)b + b0, h + h0, i, j) >= threshold
+                    ? dp[t] * inv_keep
+                    : 0.f;
       pdp = fmaf(dp[t], p[t], pdp);
     }
     pdp = warp_sum(pdp);
@@ -296,7 +297,8 @@ fused_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         float dp = dot(tb + i * ld, yw, D);
         float pd = p;
         if (dropout) {
-          const bool keep = d2r::dropout_bits(seed, (uint32_t)b, h, i, j) >= threshold;
+          const bool keep =
+              d2r::dropout_bits(seed, (uint32_t)b + b0, h + h0, i, j) >= threshold;
           dp = keep ? dp * inv_keep : 0.f;
           pd = keep ? p * inv_keep : 0.f;
         }
@@ -347,7 +349,8 @@ int launch(const void* q, const void* k, const void* v, const float* bias, const
            long long q_bs, long long q_rs, long long k_bs, long long k_rs, long long v_bs,
            long long v_rs, long long g_bs, long long g_rs, float scale,
            unsigned int threshold, float inv_keep,
-           const unsigned long long* seed, unsigned int site, int dropout,
+           const unsigned long long* seed, unsigned int site,
+           unsigned int b0, unsigned int h0, int dropout,
            cudaStream_t stream) {
   const size_t n = L > S ? L : S;
   const size_t smem =
@@ -363,7 +366,7 @@ int launch(const void* q, const void* k, const void* v, const float* bias, const
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias,
       static_cast<const T*>(g), static_cast<T*>(dq), static_cast<T*>(dk),
       static_cast<T*>(dv), dbias, L, S, H, D, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, g_bs,
-      g_rs, scale, threshold, inv_keep, seed, site, dropout);
+      g_rs, scale, threshold, inv_keep, seed, site, b0, h0, dropout);
   return (int)cudaGetLastError();
 }
 
@@ -387,7 +390,8 @@ fused_attention_bwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restri
                                 long long v_bs, long long v_rs, long long g_bs, long long g_rs,
                                 float scale, unsigned int threshold, float inv_keep,
                                 const unsigned long long* __restrict__ seed_ptr,
-                                unsigned int site, int dropout, int vec) {
+                                unsigned int site,
+                                unsigned int b0, unsigned int h0, int dropout, int vec) {
   // the site's Philox key, from the step's seed in device memory
   const unsigned long long seed = dropout ? d2r::site_key(seed_ptr, site) : 0ull;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -457,7 +461,7 @@ fused_attention_bwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restri
       float pd[4] = {s[n][0], s[n][1], s[n][2], s[n][3]};
       if (dropout && n * 8 < S) {
         uint32_t bits[4];
-        d2r::fragment_dropout_bits(bits, seed, (uint32_t)b, h, row_w, n, lane);
+        d2r::fragment_dropout_bits(bits, seed, (uint32_t)b + b0, h + h0, row_w, n, lane);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const bool keep = bits[e] >= threshold;
@@ -582,7 +586,8 @@ int launch_bf16(const void* q, const void* k, const void* v, const float* bias, 
                 long long q_bs, long long q_rs, long long k_bs, long long k_rs, long long v_bs,
                 long long v_rs, long long g_bs, long long g_rs, float scale,
                 unsigned int threshold, float inv_keep,
-                const unsigned long long* seed, unsigned int site, int dropout,
+                const unsigned long long* seed, unsigned int site,
+                unsigned int b0, unsigned int h0, int dropout,
                 cudaStream_t stream) {
   const size_t l16 = (L + 15) & ~15, s16 = (S + 15) & ~15;
   const size_t ld = ((D + 15) & ~15) + 8, lds = s16 + 8;
@@ -602,7 +607,7 @@ int launch_bf16(const void* q, const void* k, const void* v, const float* bias, 
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       bias, static_cast<const bf16*>(g), static_cast<bf16*>(dq), static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), dbias, L, S, H, D, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, g_bs, g_rs,
-      scale, threshold, inv_keep, seed, site, dropout, vec);
+      scale, threshold, inv_keep, seed, site, b0, h0, dropout, vec);
   return (int)cudaGetLastError();
 }
 
@@ -612,15 +617,16 @@ int launch_bf16_d(const void* q, const void* k, const void* v, const float* bias
                   long long q_bs, long long q_rs, long long k_bs, long long k_rs,
                   long long v_bs, long long v_rs, long long g_bs, long long g_rs, float scale,
                   unsigned int threshold, float inv_keep,
-                  const unsigned long long* seed, unsigned int site, int dropout,
+                  const unsigned long long* seed, unsigned int site,
+                  unsigned int b0, unsigned int h0, int dropout,
                   cudaStream_t stream) {
   if (D <= 64)
     return launch_bf16<SMAX, 64>(q, k, v, bias, g, dq, dk, dv, dbias, B, L, S, H, D, q_bs,
                                  q_rs, k_bs, k_rs, v_bs, v_rs, g_bs, g_rs, scale, threshold,
-                                 inv_keep, seed, site, dropout, stream);
+                                 inv_keep, seed, site, b0, h0, dropout, stream);
   return launch_bf16<SMAX, 128>(q, k, v, bias, g, dq, dk, dv, dbias, B, L, S, H, D, q_bs, q_rs,
                                 k_bs, k_rs, v_bs, v_rs, g_bs, g_rs, scale, threshold, inv_keep,
-                                seed, site, dropout, stream);
+                                seed, site, b0, h0, dropout, stream);
 }
 
 }  // namespace
@@ -628,7 +634,8 @@ int launch_bf16_d(const void* q, const void* k, const void* v, const float* bias
 // dtype: 0 = float32, 1 = bfloat16. bias may be null (no key bias); dbias
 // may be null (not wanted), else a zeroed (B, S) fp32 buffer it adds into.
 // dropout = 0: no dropout; else keep iff the element's Philox bits >=
-// threshold, kept values times inv_keep (as K1 with the same seed and site).
+// threshold, kept values times inv_keep (as K1 with the same seed, site, b0
+// and h0).
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int d2r_fused_attention_bwd(int dtype, const void* q, const void* k,
                                        const void* v, const void* bias, const void* g,
@@ -639,7 +646,8 @@ extern "C" int d2r_fused_attention_bwd(int dtype, const void* q, const void* k,
                                        long long g_rs, float scale,
                                        unsigned int threshold, float inv_keep,
                                        const unsigned long long* seed,
-                                       unsigned int site, int dropout,
+                                       unsigned int site,
+                                       unsigned int b0, unsigned int h0, int dropout,
                                        void* stream) {
   if (B < 1 || L < 1 || S < 1 || H < 1 || D < 1 || L > kMaxSeq || S > kMaxSeq ||
       D > kMaxDim || B > 65535 || H > 65535)
@@ -650,15 +658,15 @@ extern "C" int d2r_fused_attention_bwd(int dtype, const void* q, const void* k,
   if (dtype == 0)
     return launch<float>(q, k, v, bi, g, dq, dk, dv, db, B, L, S, H, D, q_bs, q_rs, k_bs,
                          k_rs, v_bs, v_rs, g_bs, g_rs, scale, threshold, inv_keep, seed, site,
-                         dropout, st);
+                         b0, h0, dropout, st);
   if (dtype == 1) {
     if (S <= 64)
       return launch_bf16_d<64>(q, k, v, bi, g, dq, dk, dv, db, B, L, S, H, D, q_bs, q_rs,
                                k_bs, k_rs, v_bs, v_rs, g_bs, g_rs, scale, threshold, inv_keep,
-                               seed, site, dropout, st);
+                               seed, site, b0, h0, dropout, st);
     return launch_bf16_d<128>(q, k, v, bi, g, dq, dk, dv, db, B, L, S, H, D, q_bs, q_rs, k_bs,
-                              k_rs, v_bs, v_rs, g_bs, g_rs, scale, threshold, inv_keep, seed, site,
-                              dropout, st);
+                              k_rs, v_bs, v_rs, g_bs, g_rs, scale, threshold, inv_keep, seed,
+                              site, b0, h0, dropout, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -103,7 +103,7 @@ fused_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            long long k_rs, long long v_bs, long long v_rs,
                            float scale, unsigned int threshold, float inv_keep,
                            const unsigned long long* __restrict__ seed_ptr,
-                           unsigned int site, int dropout) {
+                           unsigned int site, unsigned int b0, unsigned int h0, int dropout) {
   // the site's Philox key, from the step's seed in device memory
   const unsigned long long seed = dropout ? d2r::site_key(seed_ptr, site) : 0ull;
   extern __shared__ float smem[];
@@ -182,8 +182,9 @@ fused_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (j < S) {
         float p = e[t] / sum;
         if (dropout)
-          p = d2r::dropout_bits(seed, (uint32_t)b, h, row, j) >= threshold ? p * inv_keep
-                                                                           : 0.f;
+          p = d2r::dropout_bits(seed, (uint32_t)b + b0, h + h0, row, j) >= threshold
+                  ? p * inv_keep
+                  : 0.f;
         pw[j] = to_float(from_float<T>(p));
       }
     }
@@ -217,7 +218,8 @@ int launch(const void* q, const void* k, const void* v, const float* bias,
            void* out, int B, int L, int S, int H, int D, long long q_bs,
            long long q_rs, long long k_bs, long long k_rs, long long v_bs,
            long long v_rs, float scale, unsigned int threshold, float inv_keep,
-           const unsigned long long* seed, unsigned int site, int dropout, cudaStream_t stream) {
+           const unsigned long long* seed, unsigned int site,
+           unsigned int b0, unsigned int h0, int dropout, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (2 * (size_t)S * (D + 1) + (size_t)kWarps * D + (size_t)kWarps * S);
   if (smem > 48 * 1024) {
@@ -230,7 +232,7 @@ int launch(const void* q, const void* k, const void* v, const float* bias,
   fused_attention_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       bias, static_cast<T*>(out), L, S, H, D, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs,
-      scale, threshold, inv_keep, seed, site, dropout);
+      scale, threshold, inv_keep, seed, site, b0, h0, dropout);
   return (int)cudaGetLastError();
 }
 
@@ -252,7 +254,8 @@ fused_attention_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restri
                                 long long k_rs, long long v_bs, long long v_rs, float scale,
                                 unsigned int threshold, float inv_keep,
                                 const unsigned long long* __restrict__ seed_ptr,
-                                unsigned int site, int dropout, int vec) {
+                                unsigned int site,
+                                unsigned int b0, unsigned int h0, int dropout, int vec) {
   // the site's Philox key, from the step's seed in device memory
   const unsigned long long seed = dropout ? d2r::site_key(seed_ptr, site) : 0ull;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -309,7 +312,7 @@ fused_attention_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restri
     for (int n = 0; n < SMAX / 8; ++n) {
       if (n * 8 >= S) break;
       uint32_t bits[4];
-      d2r::fragment_dropout_bits(bits, seed, (uint32_t)b, h, row_w, n, lane);
+      d2r::fragment_dropout_bits(bits, seed, (uint32_t)b + b0, h + h0, row_w, n, lane);
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = bits[e] >= threshold ? s[n][e] * inv_keep : 0.f;
     }
@@ -340,7 +343,8 @@ int launch_bf16(const void* q, const void* k, const void* v, const float* bias, 
                 int B, int L, int S, int H, int D, long long q_bs, long long q_rs,
                 long long k_bs, long long k_rs, long long v_bs, long long v_rs, float scale,
                 unsigned int threshold, float inv_keep,
-                const unsigned long long* seed, unsigned int site, int dropout,
+                const unsigned long long* seed, unsigned int site,
+                unsigned int b0, unsigned int h0, int dropout,
                 cudaStream_t stream) {
   const int warps = (L + 15) / 16;
   const size_t ld = ((D + 15) & ~15) + 8;
@@ -357,7 +361,7 @@ int launch_bf16(const void* q, const void* k, const void* v, const float* bias, 
   fused_attention_fwd_bf16_kernel<SMAX, DMAX><<<grid, 32 * warps, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       bias, static_cast<bf16*>(out), L, S, H, D, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, scale,
-      threshold, inv_keep, seed, site, dropout, vec);
+      threshold, inv_keep, seed, site, b0, h0, dropout, vec);
   return (int)cudaGetLastError();
 }
 
@@ -366,15 +370,16 @@ int launch_bf16_d(int D, const void* q, const void* k, const void* v, const floa
                   void* out, int B, int L, int S, int H, long long q_bs, long long q_rs,
                   long long k_bs, long long k_rs, long long v_bs, long long v_rs, float scale,
                   unsigned int threshold, float inv_keep,
-                  const unsigned long long* seed, unsigned int site, int dropout,
+                  const unsigned long long* seed, unsigned int site,
+                  unsigned int b0, unsigned int h0, int dropout,
                   cudaStream_t stream) {
   if (D <= 64)
     return launch_bf16<SMAX, 64>(q, k, v, bias, out, B, L, S, H, D, q_bs, q_rs, k_bs, k_rs,
                                  v_bs, v_rs, scale, threshold, inv_keep,
-                                 seed, site, dropout, stream);
+                                 seed, site, b0, h0, dropout, stream);
   return launch_bf16<SMAX, 128>(q, k, v, bias, out, B, L, S, H, D, q_bs, q_rs, k_bs, k_rs,
                                 v_bs, v_rs, scale, threshold, inv_keep,
-                                seed, site, dropout, stream);
+                                seed, site, b0, h0, dropout, stream);
 }
 
 }  // namespace
@@ -385,6 +390,9 @@ int launch_bf16_d(int D, const void* q, const void* k, const void* v, const floa
 // under the key site_key(seed, site) (dropout_philox.cuh): seed points at
 // the step's 64-bit seed in device memory, so a CUDA graph that captured
 // the launch draws the masks of whatever step the buffer holds.
+// b0 and h0: the global batch row and head of this launch's (0, 0), so the
+// bits of element (b, h, i, j) are those of (b + b0, h + h0, i, j) of the
+// whole step's tensor, whichever rows and heads this process holds.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int d2r_fused_attention_fwd(int dtype, const void* q, const void* k,
                                        const void* v, const void* bias, void* out,
@@ -394,7 +402,8 @@ extern "C" int d2r_fused_attention_fwd(int dtype, const void* q, const void* k,
                                        long long v_bs, long long v_rs, float scale,
                                        unsigned int threshold, float inv_keep,
                                        const unsigned long long* seed,
-                                       unsigned int site, int dropout,
+                                       unsigned int site,
+                                       unsigned int b0, unsigned int h0, int dropout,
                                        void* stream) {
   if (B < 1 || L < 1 || S < 1 || H < 1 || D < 1 || L > kMaxSeq || S > kMaxSeq ||
       D > kMaxDim || B > 65535 || H > 65535)
@@ -403,13 +412,16 @@ extern "C" int d2r_fused_attention_fwd(int dtype, const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<float>(q, k, v, b, out, B, L, S, H, D, q_bs, q_rs, k_bs, k_rs,
-                         v_bs, v_rs, scale, threshold, inv_keep, seed, site, dropout, st);
+                         v_bs, v_rs, scale, threshold, inv_keep,
+                         seed, site, b0, h0, dropout, st);
   if (dtype == 1) {
     if (S <= 64)
       return launch_bf16_d<64>(D, q, k, v, b, out, B, L, S, H, q_bs, q_rs, k_bs, k_rs, v_bs,
-                               v_rs, scale, threshold, inv_keep, seed, site, dropout, st);
+                               v_rs, scale, threshold, inv_keep,
+                               seed, site, b0, h0, dropout, st);
     return launch_bf16_d<128>(D, q, k, v, b, out, B, L, S, H, q_bs, q_rs, k_bs, k_rs, v_bs,
-                              v_rs, scale, threshold, inv_keep, seed, site, dropout, st);
+                              v_rs, scale, threshold, inv_keep,
+                              seed, site, b0, h0, dropout, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -338,23 +338,24 @@ class DropoutRNG:
     its kernel derives the site's Philox key from the two on the card
     (``ops/kernels/fused_attention.py::site_key``), as the JAX package's
     kernels read their seed from device memory. Writing the buffer reseeds
-    a whole step: an eager one, or a CUDA graph's replay."""
+    a whole step: an eager one, or a CUDA graph's replay.
 
-    def __init__(self, seed: Union[int, torch.Tensor], device=None):
+    ``row0``: the global batch row of this forward's first row (a data rank
+    holds a slice of the step's rows). Every mask is keyed on global
+    coordinates, the batch row, the head, the position, so a mesh draws the
+    one-process step's bits whatever its layout."""
+
+    def __init__(self, seed: Union[int, torch.Tensor], device=None, row0: int = 0):
         self.seed = seed if isinstance(seed, torch.Tensor) else seed_tensor(seed, device)
         self.site = 0
+        self.row0 = row0
 
-    def next_seed(self, model_index: Optional[int] = None) -> DropoutSeed:
-        """The next site's seed. ``model_index``: the site's tensors are
-        this model rank's heads, so its ordinal folds the rank in (bits
-        16 and up); the masks are keyed on the LOCAL head, which would
-        otherwise repeat across the model ranks."""
+    def next_seed(self, h0: int = 0) -> DropoutSeed:
+        """The next site's seed, at this forward's batch row and head
+        ``h0`` (this model rank's first head at a head-split site)."""
         site = self.site
         self.site += 1
-        if site >= 1 << 16:
-            raise ValueError("a forward of more than 65536 dropout sites")
-        return DropoutSeed(self.seed, site if model_index is None
-                           else site | (model_index + 1) << 16)
+        return DropoutSeed(self.seed, site, self.row0, h0)
 
 
 def _replay_draws(rng: DropoutRNG):
@@ -406,31 +407,41 @@ class Dropout(nn.Module):
 
     def forward(self, x: torch.Tensor, rng: Optional[DropoutRNG],
                 seq: Optional[SeqShard] = None) -> torch.Tensor:
-        """``seq``: ``x`` (B, L/n, ...) is a sequence slice, and draws the
-        bits of its elements in the whole (B, L, ...) tensor."""
+        """``x`` (B, L, ...) holds rows ``rng.row0`` on of the step's
+        batch; ``seq``: it is a sequence slice (B, L/n, ...). Either way it
+        draws the bits of its elements in the whole step's tensor."""
         if not self.training or self.rate == 0.0:
             return x
         if rng is None:
             raise ValueError("train-mode dropout needs a DropoutRNG")
-        layout = None
-        if seq is not None:
-            row = math.prod(x.shape[2:])
-            layout = (x.shape[1] * row, seq.length * row, seq.index * x.shape[1] * row)
-        return hidden_dropout(x, self.rate, rng.next_seed(), layout)
+        return hidden_dropout(x, self.rate, rng.next_seed(), slice_layout(x, rng.row0, seq))
+
+
+def slice_layout(x: torch.Tensor, row0: int, seq: Optional[SeqShard]):
+    """``hidden_dropout``'s layout of ``x`` (B, L, ...) within the step's
+    whole tensor: rows from ``row0`` of the batch, and under ``seq`` slice
+    ``seq.index`` of the sequence; None for the whole tensor itself."""
+    if row0 == 0 and seq is None:
+        return None
+    seg = math.prod(x.shape[1:])
+    whole = seg if seq is None else seq.length * seg // x.shape[1]
+    offset = row0 * whole + (0 if seq is None else seq.index * seg)
+    return seg, whole, offset
 
 
 def attention_dropout(module: nn.Module, rate: float, rng: Optional[DropoutRNG],
                       qkv: Optional[QKVDense] = None) -> Tuple[float, Optional[DropoutSeed]]:
     """(rate, seed) for ``dot_product_attention``: the next site of ``rng``
     in train mode at a non-zero rate, else no dropout. Where the model axis
-    splits ``qkv`` by heads, the site folds in the model index
-    (:meth:`DropoutRNG.next_seed`)."""
+    splits ``qkv`` by heads, the seed's head offset is this rank's first
+    head (``module.head_dim`` wide), so the masks are the global heads'."""
     if not module.training or rate == 0.0:
         return 0.0, None
     if rng is None:
         raise ValueError("train-mode attention dropout needs a DropoutRNG")
-    model_index = qkv.mesh.model_index if qkv is not None and qkv.tp else None
-    return rate, rng.next_seed(model_index)
+    h0 = (qkv.mesh.model_index * (qkv.hidden // module.head_dim)
+          if qkv is not None and qkv.tp else 0)
+    return rate, rng.next_seed(h0)
 
 
 class TorchBatchNorm(_Parallel, nn.Module):

@@ -37,7 +37,10 @@ replicated over the stage axis, as in JAX.
 SITES_PER_BLOCK``, ``base`` the ordinal the tower starts at: the Philox key
 of a site is (the step's seed, that ordinal), whichever process runs it,
 so one process and a stage mesh draw the same masks, and every
-(microbatch, block) pair its own. JAX draws per (tick, stage) from its
+(microbatch, block) pair its own. Within a microbatch the bits are keyed on
+the global row: microbatch ``m`` of a step over a data axis is the data
+ranks' m-th microbatches side by side, a rank's rows at its data index
+times their count. JAX draws per (tick, stage) from its
 split keys, which the port's bits cannot match (as with every dropout
 site). ``remat`` rematerialises each block as in the sequential stack.
 Sequence parallelism stays outside a pipelined tower, as in JAX.
@@ -86,7 +89,9 @@ class PipelinedStack:
     def _rng(self, base: Optional[int], rng: Optional[DropoutRNG], m: int, i: int):
         if rng is None:
             return None
-        sub = DropoutRNG(rng.seed)
+        # this data rank's rows of microbatch m start at its share of the
+        # microbatch: the step's microbatch m is the data ranks' side by side
+        sub = DropoutRNG(rng.seed, row0=rng.row0 // self.microbatches)
         sub.site = base + (m * self.num_layers + i) * SITES_PER_BLOCK
         return sub
 

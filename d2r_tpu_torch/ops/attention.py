@@ -6,15 +6,14 @@ All attention of the model goes through :func:`dot_product_attention`, over
 * L, S <= 128 and D <= 128: the fused kernels, K1 forward and K2 backward
   (``ops/kernels/fused_attention.py``). Every site of D2R-base is in this
   band, and the text-side sites of D2R-large (L = S = 64).
-* otherwise, with no attention dropout and D <= 256: the long-context
-  kernel K3 (``ops/kernels/flash_attention.py``), backward through its
-  plain twin as in the JAX package. The vision-side sites of D2R-large
-  (257 tokens: 24 + 1 CLIP-L layers and 4 IMRC cells) take it.
+* otherwise, with no attention dropout: the long-context kernel K3
+  (``ops/kernels/flash_attention.py``) at any D, as the JAX package's,
+  backward through its plain twin as in the JAX package. The vision-side
+  sites of D2R-large (257 tokens: 24 + 1 CLIP-L layers and 4 IMRC cells)
+  take it.
 * with attention dropout outside K1's band: the plain einsum math, as the
   JAX package's XLA path computes it there (no kernel of either package
   takes dropout there). No site of either configuration takes this branch.
-* with no dropout and D above 256: no kernel of the port takes it, so a
-  tensor off the CPU raises (the JAX package's K3 has no limit on D).
 
 On a CUDA tensor the kernels' branches launch the CUDA kernels; on a CPU
 tensor they run the kernels' plain versions. The JAX package's gates were
@@ -28,7 +27,7 @@ from typing import Optional
 
 import torch
 
-from d2r_tpu_torch.ops.kernels.flash_attention import MAX_DIM, flash_attention, supports_flash
+from d2r_tpu_torch.ops.kernels.flash_attention import flash_attention, supports_flash
 from d2r_tpu_torch.ops.kernels.fused_attention import (
     fused_attention_small,
     fused_attention_small_plain,
@@ -60,13 +59,8 @@ def dot_product_attention(
         dropout_rate = 0.0
     if supports_fused_small(q, k):
         return fused_attention_small(q, k, v, key_bias, scale, dropout_rate, dropout_seed)
-    if dropout_rate == 0.0:
-        if supports_flash(q):
-            return flash_attention(q, k, v, key_bias, scale)
-        if q.device.type != "cpu":
-            raise NotImplementedError(
-                f"no kernel of the port takes attention with D={q.shape[-1]} > "
-                f"{MAX_DIM} on {q.device}; see ROADMAP.md Queue 3 (gap: K3 beyond D = 256)")
+    if dropout_rate == 0.0 and supports_flash(q):
+        return flash_attention(q, k, v, key_bias, scale)
     return fused_attention_small_plain(q, k, v, key_bias, scale, dropout_rate,
                                        dropout_seed)
 

@@ -1,8 +1,10 @@
 """Build the port's CUDA sources into shared libraries, loaded with ctypes.
 
 Each ``csrc/*.cu`` file has a plain C interface and no PyTorch headers, so
-``nvcc`` compiles it in seconds. Libraries go to ``build/kernels/`` beside
-the package, at first use, and are rebuilt when their source is newer.
+``nvcc`` compiles it in seconds. Libraries go to ``kernels/`` of the
+port's build cache (``utils/cache.py``: ``$D2R_TORCH_CACHE_DIR``, else
+``build/`` beside the package), at first use, and are rebuilt when their
+source is newer.
 :func:`build_all` starts one ``nvcc`` per source, all at once.
 
 Nothing here runs at import: the CPU tests import every module, and this
@@ -18,9 +20,11 @@ import subprocess
 import threading
 from typing import Dict, List
 
+from d2r_tpu_torch.utils import cache
+
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
+BUILD_DIR = cache.cache_dir("kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -65,7 +69,7 @@ def build_all(names: List[str] = None) -> Dict[str, str]:
     one ``nvcc`` process each, in parallel. Returns each library's ptxas
     report (registers, shared memory, spills); raises if any build fails."""
     names = list(SOURCES) if names is None else names
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    cache.writable(BUILD_DIR)
     procs = {}
     for name in names:
         if not _stale(name):

@@ -12,11 +12,13 @@ so the backward is the same function of the gradient: the mask is drawn
 again, not stored, and a remat recompute draws it from the site alone.
 
 A ``layout`` ``(seg, stride, offset)`` makes the tensor a slice of a
-larger one (a sequence slice under ``seq_shard``): its element e draws the
-bits of element ``(e // seg) * stride + offset + e % seg`` of the whole, so
-the slices' masks are the rows of the whole tensor's mask. ``seg``,
-``stride`` and ``offset`` must be multiples of 4, which keeps each group of
-four elements on one Philox call.
+larger one, the step's whole tensor, of which a process of a mesh holds
+some batch rows (a data rank) and, under ``seq_shard``, a sequence slice:
+its element e draws the bits of element ``(e // seg) * stride + offset + e
+% seg`` of the whole, so the slices' masks are the whole tensor's mask cut
+the same way (``models/layers.py::slice_layout``). ``seg``, ``stride`` and
+``offset`` must be multiples of 4, which keeps each group of four elements
+on one Philox call.
 
 It replaces no TPU kernel (the JAX package draws the mask with
 ``jax.random`` inside its jitted step); the port needs it because a
@@ -51,9 +53,10 @@ def _check_layout(n: int, layout):
     if layout is None:
         return max(n, 1), max(n, 1), 0
     seg, stride, offset = (int(v) for v in layout)
-    if seg % 4 or stride % 4 or offset % 4 or seg < 1 or n % seg or offset + seg > stride:
+    if seg % 4 or stride % 4 or offset % 4 or seg < 1 or n % seg or seg > stride or offset < 0:
         raise ValueError(f"dropout layout {layout} of {n} elements: seg, stride and offset "
-                         f"must be multiples of 4 with seg dividing n and offset + seg <= stride")
+                         f"must be multiples of 4 with seg dividing n, seg <= stride and "
+                         f"offset >= 0")
     return seg, stride, offset
 
 
@@ -100,7 +103,7 @@ def _launch(x: torch.Tensor, rate: float, seed: DropoutSeed, layout=None) -> tor
     x = x.contiguous()
     y = torch.empty_like(x)
     seg, stride, offset = _check_layout(x.numel(), layout)
-    threshold, inv_keep, seed_ptr, site, _ = dropout_launch_args(rate, seed, x.device)
+    threshold, inv_keep, seed_ptr, site, *_ = dropout_launch_args(rate, seed, x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _kernel()(_DTYPE_CODES[x.dtype], x.data_ptr(), y.data_ptr(), x.numel(),

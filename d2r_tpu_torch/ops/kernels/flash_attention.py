@@ -4,7 +4,7 @@ them to the plain twin its backward differentiates.
 
 K3 replaces ``d2r_tpu/ops/kernels/flash_attention.py::_attention_kernel``:
 online-softmax attention over key tiles with an additive (B, S) fp32 key
-bias and no dropout, for any L and S and D <= 256. Its rounding points are
+bias and no dropout, for any L, S and D, as the JAX kernel. Its rounding points are
 the JAX kernel's, not K1's: q is scaled in fp32 before q.k^T (:48) and the
 probabilities stay fp32 into p.V (:65); the output is cast once.
 
@@ -24,9 +24,12 @@ applied in fp32 to the fp32 sum of the raw bf16 products (the JAX kernel
 scales q first: the two differ by fp32 rounding alone), and p enters p.V as
 two bf16 terms, hi = bf16(p) and lo = bf16(p - hi), into one fp32
 accumulator, within one output ulp of fp32 p. In fp32 it runs on the CUDA
-cores, with exactly the rounding above. It reads q, k and v through their
-batch and row strides, so the strided views of the fused QKV projection
-need no copies.
+cores, with exactly the rounding above. Heads wider than 256 (no configuration of
+the repo has one) take a third body on the CUDA cores for both types, with
+the fp32 arithmetic, the head walked in slabs and the output in chunks of
+128 columns a block, so its shared memory and registers do not grow with D.
+It reads q, k and v through their batch and row strides, so the strided
+views of the fused QKV projection need no copies.
 
 :func:`flash_attention` launches the kernel for CUDA tensors and raises for
 what it cannot take; only a tensor on the CPU goes to the plain version.
@@ -45,7 +48,6 @@ import torch
 from d2r_tpu_torch.ops.kernels import build
 from d2r_tpu_torch.ops.kernels.fused_attention import fused_attention_small_plain
 
-MAX_DIM = 256
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -72,9 +74,9 @@ def _check(q, k, v, key_bias):
     if k.shape != (b, s, h, d) or v.shape != k.shape:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}")
-    if min(b, l, s, h, d) < 1 or d > MAX_DIM:
-        raise ValueError(f"flash_attention takes D <= {MAX_DIM} and no empty "
-                         f"axis; got q {tuple(q.shape)}, k {tuple(k.shape)}")
+    if min(b, l, s, h, d) < 1:
+        raise ValueError(f"flash_attention takes no empty axis; got q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention takes float32 or bfloat16 q, k, v of one "
                         f"type; got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -189,5 +191,7 @@ flash_attention.flops = 0
 
 
 def supports_flash(q: torch.Tensor) -> bool:
-    """Shape gate: the kernel takes any L and S, and D <= 256."""
-    return q.shape[-1] <= MAX_DIM
+    """Shape gate: the kernel takes any L, S and D, as the JAX kernel
+    does (the tensor-core body up to D = 256 in bf16, the wide body
+    above)."""
+    return q.shape[-1] >= 1

@@ -24,8 +24,9 @@ that the fused QKV projection yields need no copies. See the sources'
 headers for the grids and the shared-memory layouts.
 
 Dropout bits come from Philox4x32-10 keyed on a 64-bit key, with the
-counter made from (b, h, query row, key column): the mask depends on no grid
-or tile size, the forward and the backward regenerate it without storing
+counter made from (b, h, query row, key column), b and h the GLOBAL batch
+row and head (a launch takes the offsets of its tensors, ``DropoutSeed.b0``
+and ``.h0``): the mask depends on no grid, tile size or process mesh, the forward and the backward regenerate it without storing
 it, and :func:`dropout_keep_mask` computes the same bits with int64 tensor
 ops, so the card's kernels can be held against the plain versions element
 by element. An element is kept iff its 32 bits are >= ``min(int(rate *
@@ -118,10 +119,16 @@ def site_key(seed: int, site: int) -> int:
 class DropoutSeed(NamedTuple):
     """A dropout site's seed read from device memory: ``seed`` a one-element
     int64 tensor holding the step's 64-bit seed (two's complement), on the
-    tensors' device; ``site`` the site's ordinal in the step (uint32)."""
+    tensors' device; ``site`` the site's ordinal in the step (uint32);
+    ``b0`` and ``h0`` the global batch row and head of the attention
+    tensors' (0, 0) (a process of a mesh holds a slice of the step's rows
+    and heads), so that element (b, h, i, j) draws the bits of (b + b0,
+    h + h0, i, j) of the whole step."""
 
     seed: torch.Tensor
     site: int
+    b0: int = 0
+    h0: int = 0
 
 
 def seed_tensor(seed: int, device=None) -> torch.Tensor:
@@ -147,9 +154,9 @@ def _check_dropout(rate: float, seed) -> None:
         return
     if isinstance(seed, DropoutSeed):
         if (seed.seed.dtype != torch.int64 or seed.seed.numel() != 1
-                or not 0 <= int(seed.site) < 2 ** 32):
-            raise ValueError(f"a DropoutSeed holds one int64 and a uint32 site, got "
-                             f"{seed.seed.dtype} x {seed.seed.numel()}, site {seed.site}")
+                or not all(0 <= int(x) < 2 ** 32 for x in seed[1:])):
+            raise ValueError(f"a DropoutSeed holds one int64 and uint32 site and offsets, "
+                             f"got {seed.seed.dtype} x {seed.seed.numel()}, {seed[1:]}")
     elif seed is None or isinstance(seed, torch.Tensor) or not 0 <= int(seed) < 2 ** 64:
         raise ValueError(f"dropout needs an integer key in [0, 2**64) or a DropoutSeed, "
                          f"got {seed!r}")
@@ -165,17 +172,19 @@ def dropout_keep_mask(seed: Union[int, DropoutSeed], b: int, h: int, l: int, s: 
     """The kernels' (B, H, L, S) boolean keep mask, in plain tensor ops.
 
     Element (b, h, i, j) takes word ``j % 4`` of Philox4x32-10 at counter
-    ``(j // 4, i, h, b)`` under key ``(key mod 2**32, key >> 32)``, the key
-    being ``seed`` itself or, for a :class:`DropoutSeed`, its
-    :func:`site_key`."""
+    ``(j // 4, i, h + h0, b + b0)`` under key ``(key mod 2**32, key >> 32)``,
+    the key being ``seed`` itself or, for a :class:`DropoutSeed`, its
+    :func:`site_key`, and ``b0``, ``h0`` the seed's offsets (0 for an
+    int)."""
     _check_dropout(rate, seed)
+    b0, h0 = (seed.b0, seed.h0) if isinstance(seed, DropoutSeed) else (0, 0)
     seed = dropout_key(seed)
     groups = -(-s // 4)
     ar = lambda n: torch.arange(n, dtype=torch.int64, device=device)
     c0 = ar(groups)[None, None, None, :]
     c1 = ar(l)[None, None, :, None]
-    c2 = ar(h)[None, :, None, None]
-    c3 = ar(b)[:, None, None, None]
+    c2 = ar(h)[None, :, None, None] + h0
+    c3 = ar(b)[:, None, None, None] + b0
     shape = (b, h, l, groups)
     words = philox4x32_10([c.expand(shape) for c in (c0, c1, c2, c3)],
                           (seed & _MASK32, seed >> 32))
@@ -290,38 +299,41 @@ def _kernel(name: str):
         if name == "fused_attention_fwd":
             fn = build.load(name).d2r_fused_attention_fwd
             fn.argtypes = [i, p, p, p, p, p, i, i, i, i, i,
-                           ll, ll, ll, ll, ll, ll, f, u32, f, p, u32, i, p]
+                           ll, ll, ll, ll, ll, ll, f, u32, f, p, u32, u32, u32, i, p]
         else:
             fn = build.load(name).d2r_fused_attention_bwd
             fn.argtypes = [i, p, p, p, p, p, p, p, p, p, i, i, i, i, i,
-                           ll, ll, ll, ll, ll, ll, ll, ll, f, u32, f, p, u32, i, p]
+                           ll, ll, ll, ll, ll, ll, ll, ll, f, u32, f, p, u32, u32, u32, i, p]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return _fns[name]
 
 
 def dropout_launch_args(rate: float, seed, device: torch.device):
-    """``(threshold, inv_keep, seed pointer, site, dropout)`` of a kernel
-    launch on ``device``: the seed must be a :class:`DropoutSeed` whose
-    buffer lies there (the kernel reads it when the launch runs)."""
+    """``(threshold, inv_keep, seed pointer, site, b0, h0, dropout)`` of a
+    kernel launch on ``device``: the seed must be a :class:`DropoutSeed`
+    whose buffer lies there (the kernel reads it when the launch runs)."""
     if rate == 0.0:
-        return 0, 1.0, None, 0, 0
+        return 0, 1.0, None, 0, 0, 0, 0
     if not isinstance(seed, DropoutSeed) or seed.seed.device != device:
         raise ValueError(f"on {device} a dropout seed is a DropoutSeed whose buffer is on "
                          f"that device (the kernels read it there), got {seed!r}")
-    return keep_threshold(rate), _inv_keep(rate), seed.seed.data_ptr(), int(seed.site), 1
+    return (keep_threshold(rate), _inv_keep(rate), seed.seed.data_ptr(), int(seed.site),
+            int(seed.b0), int(seed.h0), 1)
 
 
 def _op_seed(rate: float, seed, device: torch.device):
-    """The ``(seed buffer or None, site)`` arguments of a K1/K2 op call:
-    a :class:`DropoutSeed` on ``device`` taken apart, as the op's schema
-    takes it (``Tensor? seed, int site``)."""
+    """The ``(seed buffer or None, site, b0, h0)`` arguments of a K1/K2 op
+    call: a :class:`DropoutSeed` on ``device`` taken apart, as the op's
+    schema takes it (``Tensor? seed, int site, int b0, int h0``)."""
     dropout_launch_args(rate, seed, device)       # raises for an int or another device
-    return (None, 0) if rate == 0.0 else (seed.seed, int(seed.site))
+    return (None, 0, 0, 0) if rate == 0.0 else (seed.seed, *(int(x) for x in seed[1:]))
 
 
-def _op_dropout(rate: float, seed: Optional[torch.Tensor], site: int, device):
-    return dropout_launch_args(rate, None if seed is None else DropoutSeed(seed, site), device)
+def _op_dropout(rate: float, seed: Optional[torch.Tensor], site: int, b0: int, h0: int,
+                device):
+    return dropout_launch_args(
+        rate, None if seed is None else DropoutSeed(seed, site, b0, h0), device)
 
 
 # K1 and K2 as torch.library custom ops in the port's namespace, so that
@@ -333,10 +345,11 @@ def _op_dropout(rate: float, seed: Optional[torch.Tensor], site: int, device):
 @torch.library.custom_op(
     "d2r_torch::fused_attention_fwd", mutates_args=(), device_types="cuda",
     schema="(Tensor q, Tensor k, Tensor v, Tensor? bias, float scale, float rate, "
-           "Tensor? seed, int site) -> Tensor")
-def fused_attention_fwd_op(q, k, v, bias, scale, rate, seed, site):
+           "Tensor? seed, int site, int b0=0, int h0=0) -> Tensor")
+def fused_attention_fwd_op(q, k, v, bias, scale, rate, seed, site, b0=0, h0=0):
     """K1's launch: softmax(q.k^T * scale + bias) with post-softmax dropout
-    at ``rate`` drawn from the seed buffer ``seed`` at ``site``, then p.V."""
+    at ``rate`` drawn from the seed buffer ``seed`` at ``site``, the tensors'
+    (0, 0) at global batch row ``b0`` and head ``h0``, then p.V."""
     _check(q, k, v, bias)
     b, l, h, d = q.shape
     s = k.shape[1]
@@ -348,7 +361,7 @@ def fused_attention_fwd_op(q, k, v, bias, scale, rate, seed, site):
                  None if bias is None else bias.data_ptr(), out.data_ptr(),
                  b, l, s, h, d, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
                  v.stride(0), v.stride(1), float(scale),
-                 *_op_dropout(rate, seed, site, q.device), stream)
+                 *_op_dropout(rate, seed, site, b0, h0, q.device), stream)
     if err != 0:
         raise RuntimeError(f"fused_attention_fwd launch failed: cudaError {err}")
     fused_attention_small.launches += 1
@@ -357,7 +370,7 @@ def fused_attention_fwd_op(q, k, v, bias, scale, rate, seed, site):
 
 
 @fused_attention_fwd_op.register_fake
-def _(q, k, v, bias, scale, rate, seed, site):
+def _(q, k, v, bias, scale, rate, seed, site, b0=0, h0=0):
     _check(q, k, v, bias)
     return q.new_empty(q.shape)
 
@@ -365,8 +378,9 @@ def _(q, k, v, bias, scale, rate, seed, site):
 @torch.library.custom_op(
     "d2r_torch::fused_attention_bwd", mutates_args=(), device_types="cuda",
     schema="(Tensor q, Tensor k, Tensor v, Tensor? bias, Tensor g, float scale, float rate, "
-           "Tensor? seed, int site, bool need_dbias) -> (Tensor, Tensor, Tensor, Tensor)")
-def fused_attention_bwd_op(q, k, v, bias, g, scale, rate, seed, site, need_dbias):
+           "Tensor? seed, int site, bool need_dbias, int b0=0, int h0=0) "
+           "-> (Tensor, Tensor, Tensor, Tensor)")
+def fused_attention_bwd_op(q, k, v, bias, g, scale, rate, seed, site, need_dbias, b0=0, h0=0):
     """K2's launch: (dq, dk, dv, dbias), dbias an empty (0,) tensor unless
     ``need_dbias``. ``bias`` is fp32 and contiguous, ``g`` of q's type and
     readable by its strides."""
@@ -386,7 +400,7 @@ def fused_attention_bwd_op(q, k, v, bias, g, scale, rate, seed, site, need_dbias
                  dbias.data_ptr() if need_dbias else None,
                  b, l, s, h, d, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
                  v.stride(0), v.stride(1), g.stride(0), g.stride(1), float(scale),
-                 *_op_dropout(rate, seed, site, q.device), stream)
+                 *_op_dropout(rate, seed, site, b0, h0, q.device), stream)
     if err != 0:
         raise RuntimeError(f"fused_attention_bwd launch failed: cudaError {err}")
     fused_attention_small_bwd.launches += 1
@@ -395,7 +409,7 @@ def fused_attention_bwd_op(q, k, v, bias, g, scale, rate, seed, site, need_dbias
 
 
 @fused_attention_bwd_op.register_fake
-def _(q, k, v, bias, g, scale, rate, seed, site, need_dbias):
+def _(q, k, v, bias, g, scale, rate, seed, site, need_dbias, b0=0, h0=0):
     b, l, h, d = q.shape
     s = k.shape[1]
     return (q.new_empty((b, l, h, d)), q.new_empty((b, s, h, d)), q.new_empty((b, s, h, d)),
@@ -440,9 +454,10 @@ def fused_attention_small_bwd(
         g = g.contiguous()
         fused_attention_small_bwd.g_copies += 1
     bias = None if key_bias is None else key_bias.to(torch.float32).contiguous()
+    seed, site, b0, h0 = _op_seed(dropout_rate, dropout_seed, q.device)
     dq, dk, dv, dbias = fused_attention_bwd_op(
-        q, k, v, bias, g, float(scale), float(dropout_rate),
-        *_op_seed(dropout_rate, dropout_seed, q.device), bool(need_dbias))
+        q, k, v, bias, g, float(scale), float(dropout_rate), seed, site, bool(need_dbias),
+        b0, h0)
     return dq, dk, dv, (dbias if need_dbias else None)
 
 

@@ -86,7 +86,8 @@ def default_backend(device) -> str:
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None,
-               device="cuda", backend: Optional[str] = None) -> bool:
+               device="cuda", backend: Optional[str] = None,
+               timeout: datetime.timedelta = TIMEOUT) -> bool:
     """Join the process group; the CLI's ``--coordinator_address``,
     ``--num_processes`` and ``--process_id``. Returns True when it created
     the group (the caller then ends it with :func:`shutdown`), False when
@@ -98,7 +99,8 @@ def initialize(coordinator_address: Optional[str] = None,
     (``init_method="env://"``), which must be set. Otherwise all three
     flags are needed: ``init_method="tcp://<coordinator_address>"``.
     ``backend`` (tests, ``chip_smoke.py``; no flag) defaults to
-    :func:`default_backend` of ``device``. Call it before any device use."""
+    :func:`default_backend` of ``device``; ``timeout`` bounds this process's
+    waits in the world group's collectives. Call it before any device use."""
     if coordinator_address is None and num_processes is None:
         if process_id is not None:
             raise ValueError("--process_id needs --coordinator_address and --num_processes")
@@ -112,7 +114,7 @@ def initialize(coordinator_address: Optional[str] = None,
             raise ValueError(f"--num_processes -1 reads the launcher's environment, and "
                              f"{missing} are not set (run under torchrun, or pass "
                              f"--coordinator_address, --num_processes and --process_id)")
-        dist.init_process_group(backend, init_method="env://", timeout=TIMEOUT)
+        dist.init_process_group(backend, init_method="env://", timeout=timeout)
     else:
         if coordinator_address is None or num_processes is None or process_id is None:
             raise ValueError("a multi-process run needs --coordinator_address HOST:PORT, "
@@ -122,7 +124,7 @@ def initialize(coordinator_address: Optional[str] = None,
             raise ValueError(f"--process_id {process_id} outside [0, {num_processes})")
         dist.init_process_group(backend, init_method=f"tcp://{coordinator_address}",
                                 world_size=num_processes, rank=process_id,
-                                timeout=TIMEOUT)
+                                timeout=timeout)
     logger.info("process group up: rank %d of %d (%s)", dist.get_rank(),
                 dist.get_world_size(), backend)
     return True

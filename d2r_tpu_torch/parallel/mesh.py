@@ -43,6 +43,7 @@ rank (JAX keeps its tp rules there and lets GSPMD gather them at use).
 
 from __future__ import annotations
 
+import datetime
 import re
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -52,6 +53,7 @@ from torch import nn
 
 from d2r_tpu_torch.models.layers import Embed, QKVDense
 from d2r_tpu_torch.parallel import distributed
+from d2r_tpu_torch.quant import Int8Weight
 from d2r_tpu_torch.weights import _to_flax, _translate, flax_path
 
 DATA_AXIS = "data"
@@ -143,6 +145,13 @@ class Mesh:
             return self.device
         return torch.device("cpu")
 
+    def model_row(self) -> "Mesh":
+        """This rank's (data, stage) row as a mesh of its own: the model
+        axis and its group alone, no data group. A serving model takes it
+        (``serve.Predictor``): its rows are independent, and the data axis
+        only splits a bucket's rows."""
+        return Mesh(1, self.tp, self.model_index, self.device, model_group=self.model_group)
+
     def barrier(self) -> None:
         if self.world > 1:
             dist.barrier()
@@ -152,13 +161,15 @@ class Mesh:
 
 
 def make_mesh(mesh_shape: Sequence[int] = (-1,),
-              axis_names: Sequence[str] = (DATA_AXIS,), device="cpu") -> Mesh:
+              axis_names: Sequence[str] = (DATA_AXIS,), device="cpu",
+              timeout: Optional[datetime.timedelta] = None) -> Mesh:
     """The mesh of this process's world (one process when there is no
     process group). A single -1 absorbs the world. The axes are a subset of
     ``("data", "stage", "model")`` in that order, JAX's. The product must
     equal the world size: the error names how to start the processes.
     Every process calls this with the same arguments: the groups are made
-    collectively."""
+    collectively. ``timeout`` bounds this process's waits in the groups'
+    collectives (default: the backend's)."""
     if len(mesh_shape) != len(axis_names):
         raise ValueError(f"mesh_shape {tuple(mesh_shape)} and axis names "
                          f"{tuple(axis_names)} differ in length")
@@ -202,7 +213,7 @@ def make_mesh(mesh_shape: Sequence[int] = (-1,),
         }
         for attr, (size, members) in groups.items():
             for ranks in members:
-                g = dist.new_group(ranks) if size > 1 else None
+                g = dist.new_group(ranks, timeout=timeout) if size > 1 else None
                 if rank in ranks:
                     setattr(mesh, attr, g)
     return mesh
@@ -343,12 +354,8 @@ def shard_model(model: nn.Module, mesh: Mesh) -> nn.Module:
     ``Embed.tp`` "vocab"). Under ``fabric_shard`` the fabric stays whole
     (its rows are split instead). Call it on the whole model, built from
     the seed or loaded as one process would, before the optimizer exists.
-    Each split module records its tensors' split Flax axes in ``shards``.
-    Raises on the settings the port refuses across this mesh's processes
-    (``D2RConfig.check_supported``)."""
+    Each split module records its tensors' split Flax axes in ``shards``."""
     cfg = getattr(model, "cfg", None)
-    if cfg is not None:
-        cfg.check_supported(mesh.world)
     for m in model.modules():
         if hasattr(m, "mesh"):
             m.mesh = mesh
@@ -357,7 +364,8 @@ def shard_model(model: nn.Module, mesh: Mesh) -> nn.Module:
     if mesh.tp == 1:
         return model
     whole_fabric = cfg is not None and cfg.fabric_shard
-    for key in [k for k, _ in model.named_parameters()]:
+    int8 = [f"{name}.weight" for name, m in model.named_modules() if isinstance(m, Int8Weight)]
+    for key in [k for k, _ in model.named_parameters()] + int8:
         if whole_fabric and _fabric_keys(model, key):
             continue
         axis = _shard_axis(model, key, mesh.tp)
@@ -365,9 +373,12 @@ def shard_model(model: nn.Module, mesh: Mesh) -> nn.Module:
             continue
         *prefix, name = key.split(".")
         module = model.get_submodule(".".join(prefix))
-        p = getattr(module, name)
-        local = local_slice(module, name, p.detach(), axis, mesh.tp, mesh.model_index)
-        setattr(module, name, nn.Parameter(local, requires_grad=p.requires_grad))
+        if isinstance(module, Int8Weight) and name == "weight":
+            _split_int8(module, axis, mesh)
+        else:
+            p = getattr(module, name)
+            local = local_slice(module, name, p.detach(), axis, mesh.tp, mesh.model_index)
+            setattr(module, name, nn.Parameter(local, requires_grad=p.requires_grad))
         module.shards = {**module.shards, name: axis}
     for m in model.modules():
         if not getattr(m, "shards", None):
@@ -381,6 +392,23 @@ def shard_model(model: nn.Module, mesh: Mesh) -> nn.Module:
             m.tp = "column" if m.shards["weight"] == 1 else "row"
     _check_layout(model)
     return model
+
+
+def _split_int8(module: nn.Module, axis: int, mesh: Mesh) -> None:
+    """A quantized weight (``quant.py``) cut as its dense weight would be:
+    the int8 codes by the same rule, and the per-output-channel scales with
+    them where the output features are split (a QKV or column-parallel
+    weight); a row-parallel weight keeps every scale, taken over the whole
+    input, as the JAX package quantizes before it places."""
+    module.weight_q = local_slice(module, "weight", module.weight_q, axis, mesh.tp,
+                                  mesh.model_index)
+    if isinstance(module, QKVDense) or axis == 1:
+        out_axis = 1 if isinstance(module, QKVDense) else 0
+        k = module.weight_scale.shape[out_axis] // mesh.tp
+        module.weight_scale = module.weight_scale.narrow(
+            out_axis, mesh.model_index * k, k).contiguous().clone()
+    module._qgroups = ((3, module.weight_q.shape[0] // 3, module.weight_q.shape[1])
+                       if isinstance(module, QKVDense) else tuple(module.weight_q.shape))
 
 
 def _sharded(model: nn.Module, key: str):

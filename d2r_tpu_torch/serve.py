@@ -27,11 +27,31 @@ instead and inherits the rest (buckets, padding, chunking, staging, graphs,
 Captures use ``capture_error_mode="thread_local"``: a server builds and
 warms a new predictor on one thread while another thread keeps replaying
 the old one (``server.InferenceService.reload``).
+
+**Over a mesh** (``mesh``, a (data, model) ``parallel.mesh.Mesh`` of one
+process per card; the counterpart of the JAX predictor's ``mesh``): every
+rank of the mesh builds the predictor from the whole model and calls
+``predict``, ``warmup`` and ``latency_stats`` together, with the same
+requests. The model takes its training placements (``shard_model``, after
+``unpipelined`` and ``quantize_model``; the int8 codes and scales follow
+the dense weight's split): the tensor-parallel rules on the model axis,
+whole weights on every data rank. A bucket's rows are split over the data
+axis where the bucket divides it, and every data rank runs the whole
+bucket otherwise, as the JAX predictor's ``_place`` shards or replicates;
+the probabilities are gathered over the data group in rank order (a
+zero-padded sum, ``parallel.distributed``), so every rank returns the same
+answer. Rows are independent, so the model itself sees no data group. With
+no model axis a rank's forward has no collective, and on the card each
+rank replays its own CUDA graph of its rows, the gather running outside
+it; with one, the forward runs eagerly (the model group's collectives run
+over gloo, which a graph cannot capture; a step under NCCL waits for two
+cards, as training's capture does).
 """
 
 from __future__ import annotations
 
 import bisect
+import contextlib
 import functools
 import threading
 import time
@@ -45,6 +65,8 @@ from d2r_tpu_torch.config import D2RConfig, resolve_device, serving_config
 from d2r_tpu_torch.models.layers import Embed, QKVDense, TorchLinear
 from d2r_tpu_torch.models.unimo import unpipelined
 from d2r_tpu_torch.models.vit import PatchConv
+from d2r_tpu_torch.parallel import distributed
+from d2r_tpu_torch.parallel.mesh import Mesh, shard_model
 from d2r_tpu_torch.quant import Int8Weight, quantize_model
 
 
@@ -109,21 +131,31 @@ class _BucketGraph:
 class Predictor:
     """Bucketed batch predictor. Takes ownership of ``model``: it is moved to
     ``device``, its matrix weights quantized when ``quantize="int8"``
-    (``quant.quantize_model``), and the others cast to the config's compute
+    (``quant.quantize_model``), cut to this rank's slices over ``mesh``
+    (see the module docstring), and the others cast to the config's compute
     type."""
 
     def __init__(self, cfg: D2RConfig, model: nn.Module,
                  batch_buckets: Sequence[int] = (1, 8, 32),
                  seq_buckets: Optional[Sequence[int]] = None,
-                 device="cuda", quantize: Optional[str] = None):
+                 device="cuda", quantize: Optional[str] = None,
+                 mesh: Optional[Mesh] = None):
         self.device = resolve_device(device)
         # a pipelined model serves unpipelined, as the JAX package's does
         # (d2r_tpu/serve.py:41-55): a bucket of 1 divides no microbatches
         self.cfg = cfg = serving_config(cfg)
-        model = unpipelined(model).eval().to(self.device)
+        model = unpipelined(model).eval()
         if quantize:
             quantize_model(model, quantize)
-        self.model = compute_cast(model, cfg.dtype)
+        self.mesh = mesh if mesh is not None and mesh.world > 1 else None
+        if self.mesh is not None:
+            if self.mesh.pp > 1:
+                raise ValueError("serving runs unpipelined: a mesh of (data, model) axes, "
+                                 f"not {self.mesh.shape}")
+            model = shard_model(model, self.mesh.model_row())
+        self.model = compute_cast(model.to(self.device), cfg.dtype)
+        # CUDA graphs wherever the forward holds no collective
+        self._graphs = self.device.type == "cuda" and (self.mesh is None or self.mesh.tp == 1)
         self.batch_buckets = sorted(batch_buckets)
         seq_buckets = sorted(seq_buckets or [cfg.max_seq])
         if len(seq_buckets) != 1:
@@ -217,12 +249,46 @@ class Predictor:
             torch.cuda.current_stream().synchronize()
         return g.probs_host.numpy()[:n].copy()
 
+    def _rows(self, b: int):
+        """(rows this rank runs, the first one's index) of a bucket of
+        ``b`` rows: its share where the data axis divides ``b``, else all."""
+        dp = 1 if self.mesh is None else self.mesh.dp
+        if dp > 1 and b % dp == 0:
+            return b // dp, self.mesh.data_index * (b // dp)
+        return b, 0
+
+    @contextlib.contextmanager
+    def staged(self, arrays: Sequence[np.ndarray], b: int):
+        """Hold the predictor, stage this rank's rows of ``arrays`` (at
+        most ``b`` rows) as a bucket of ``b`` on the device once, and yield
+        a function that runs the bucket's forward on them (a graph replay,
+        or the eager forward) and returns the bucket's (b, classes) fp32
+        probabilities, gathered over the data group."""
+        k, r0 = self._rows(b)
+        local = [x[r0:r0 + k] for x in arrays]
+        with self._lock:
+            if self._graphs:
+                g = self.graph(k, local[3].dtype)
+                self._stage(g, local)
+                run = lambda: self._replay(g, k)
+            else:
+                args = self._padded(local, k)
+                run = lambda: self._forward(*args).cpu().numpy()
+            yield run if k == b else (lambda: self._gather(run()))
+
+    def _gather(self, probs: np.ndarray) -> np.ndarray:
+        """The data ranks' rows of a bucket joined in rank order, on every
+        rank."""
+        t = torch.from_numpy(probs).to(self.mesh.collective_device)
+        return distributed._gather(t, self.mesh.data_group, 0).cpu().numpy()
+
     def predict(self, input_ids: np.ndarray, attention_mask: np.ndarray,
                 token_type_ids: np.ndarray, pixel_values: np.ndarray
                 ) -> Dict[str, np.ndarray]:
         """Pad to the nearest bucket, run, strip padding. Requests above the
         largest bucket are chunked; sequences longer than the bucket raise
-        (truncating would change predictions silently)."""
+        (truncating would change predictions silently). Over a mesh every
+        rank calls it with the same request and gets the whole answer."""
         n, l = input_ids.shape
         if l > self.seq_len:
             raise ValueError(
@@ -234,15 +300,9 @@ class Predictor:
                                  token_type_ids[i:i + max_b], pixel_values[i:i + max_b])
                     for i in range(0, n, max_b)]
             return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
-        b = self._bucket(n)
         arrays = (input_ids, attention_mask, token_type_ids, pixel_values)
-        if self.device.type == "cuda":
-            with self._lock:
-                g = self.graph(b, pixel_values.dtype)
-                self._stage(g, arrays)
-                probs = self._replay(g, n)
-        else:
-            probs = self._forward(*self._padded(arrays, b))[:n].numpy()
+        with self.staged(arrays, self._bucket(n)) as run:
+            probs = run()[:n]
         return {"label": probs.argmax(-1), "probs": probs}
 
     def _padded(self, arrays: Sequence[np.ndarray], b: int) -> List[torch.Tensor]:
@@ -256,13 +316,14 @@ class Predictor:
         return out
 
     def warmup(self, pixel_dtype=np.uint8) -> None:
-        """Prepare every bucket before serving: on a CUDA device, capture its
-        graph for pixels of ``pixel_dtype`` (the dtype requests will carry);
-        on the CPU, run it once."""
+        """Prepare every bucket before serving: where it replays a CUDA
+        graph, capture it for pixels of ``pixel_dtype`` (the dtype requests
+        will carry); elsewhere (the CPU, a model axis), run it once. Over a
+        mesh every rank calls it together."""
         for b in self.batch_buckets:
-            if self.device.type == "cuda":
+            if self._graphs:
                 with self._lock:
-                    self.graph(b, pixel_dtype)
+                    self.graph(self._rows(b)[0], pixel_dtype)
             else:
                 vc = self.cfg.vision_config()
                 l = self.seq_len
@@ -288,10 +349,11 @@ def latency_stats(predictor: Predictor, batch: Dict[str, np.ndarray],
     """Steady-state request latency (seconds): mean / p50 / p95.
 
     ``device_resident=True`` stages the padded inputs on the device once and
-    times only the forward (on a CUDA device, the graph's replay) plus the
-    download of the probabilities: the model-side latency. The default
-    times the whole ``predict``, padding and host-to-device copies
-    included."""
+    times only the forward (on a CUDA device, the graph's replay where it
+    has one) plus the download of the probabilities (and, over a mesh, their
+    gather): the model-side latency. The default times the whole
+    ``predict``, padding and host-to-device copies included. Over a mesh
+    every rank calls it together."""
     arrays = [batch[k] for k in ("input_ids", "attention_mask", "token_type_ids",
                                  "pixel_values")]
     n = arrays[0].shape[0]
@@ -300,15 +362,8 @@ def latency_stats(predictor: Predictor, batch: Dict[str, np.ndarray],
     elif n > predictor.batch_buckets[-1]:
         raise ValueError(f"device_resident timing takes one bucket; got {n} rows")
     else:
-        b = predictor._bucket(n)
-        with predictor._lock:   # the staged buffers stay put while timed
-            if predictor.device.type == "cuda":
-                g = predictor.graph(b, arrays[3].dtype)
-                predictor._stage(g, arrays)
-                times = _times(lambda: predictor._replay(g, n), iters, warmup)
-            else:
-                args = predictor._padded(arrays, b)
-                times = _times(lambda: predictor._forward(*args)[:n].numpy(), iters, warmup)
+        with predictor.staged(arrays, predictor._bucket(n)) as run:
+            times = _times(run, iters, warmup)
     xs = sorted(times)
     return {
         "mean": sum(xs) / len(xs),

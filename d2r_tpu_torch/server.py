@@ -37,16 +37,36 @@ Endpoints:
 
 Run it as ``python -m d2r_tpu_torch.server --load_path <best_model>``
 (``--device cpu`` for the CPU).
+
+**Over a mesh** (``--dp``/``--tp``, the JAX server's flags): the JAX server
+is one process over several chips; the port runs one process a card, so
+it starts ``dp x tp`` processes itself, this one as rank 0 and the others
+as followers (``python -m d2r_tpu_torch.server`` again, told their rank by
+``FOLLOWER_ENV``), each on card ``rank % device_count``, joined under NCCL
+where every rank has a card of its own and gloo otherwise. Every rank
+builds the same mesh ``Predictor`` (``serve.py``). Rank 0 alone runs the
+HTTP service and its ``MicroBatcher``; each flush it broadcasts to the
+followers (the row count, the pixel dtype and the four arrays) before its
+own forward, and ``/reload`` broadcasts the new path, after which every
+rank rebuilds (flushes wait for the reload on a mesh: the ranks must run
+their collectives in one order). Shutdown broadcasts the end of the
+followers' loop. Rank 0's collectives wait at most :data:`SERVE_TIMEOUT`,
+so a follower that dies or hangs makes its flushes fail with an error,
+never hang.
 """
 
 from __future__ import annotations
 
+import argparse
 import base64
 import concurrent.futures as cf
 import dataclasses
+import datetime
 import json
 import os
 import queue
+import subprocess
+import sys
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -296,6 +316,8 @@ class InferenceService:
         self.label_names = list(label_names) if label_names else None
         self.predictor_factory = predictor_factory
         self._reload_lock = threading.Lock()
+        # over a mesh, rank 0's broadcasts to the followers (build_service)
+        self.channel = None
         self.stats = ServiceStats()
         self.batcher = MicroBatcher(
             self._run_batch,
@@ -421,7 +443,10 @@ class InferenceService:
         return results
 
     def close(self):
+        """Stop the batcher and, over a mesh, end the followers."""
         self.batcher.close()
+        if self.channel is not None:
+            self.channel.close()
 
 
 # Request-size limits: one hostile (or fat-fingered) request must not OOM
@@ -671,9 +696,11 @@ def build_arg_parser():
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--dp", type=int, default=1,
-                    help="data-parallel serving degree (not ported: 1 only)")
+                    help="shard request batches over this many processes, one a "
+                         "card (data axis); 1 = one process")
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel serving degree (not ported: 1 only)")
+                    help="tensor-parallel degree for the tower weights (model "
+                         "axis); composes with --dp on dp*tp processes")
     ap.add_argument("--compute_dtype", default=None)
     ap.add_argument("--fallback_image", default=None)
     ap.add_argument("--quantize", default=None, choices=["int8"],
@@ -688,7 +715,41 @@ def build_service(args):
     it in an ``InferenceService`` whose ``/reload`` reruns the same build,
     and bind the HTTP server. Returns ``(service, httpd)``; the caller runs
     ``httpd.serve_forever()`` and, at the end, ``httpd.shutdown()``,
-    ``httpd.server_close()`` and ``service.close()``."""
+    ``httpd.server_close()`` and ``service.close()``. With ``--dp``/``--tp``
+    it starts the follower processes and joins them as rank 0 first; the
+    service's ``close`` ends them."""
+    mesh = channel = None
+    if args.dp * args.tp > 1:
+        mesh, channel = _start_mesh(args)
+    try:
+        predictor, tokenizer, build_predictor = _predictor_pipeline(args, mesh)
+        factory = build_predictor
+        if channel is not None:
+            predictor = _Broadcasting(predictor, channel)
+            factory = lambda path: _Broadcasting(channel.reload(path, build_predictor), channel)
+        service = InferenceService(predictor, tokenizer,
+                                   fallback_image=args.fallback_image,
+                                   max_wait_ms=args.max_wait_ms,
+                                   probe_ms=args.probe_ms,
+                                   predictor_factory=factory)
+    except BaseException:
+        if channel is not None:
+            channel.close()
+        raise
+    service.channel = channel
+    try:
+        httpd = make_server(service, args.host, args.port)
+    except OSError:
+        service.close()
+        raise
+    return service, httpd
+
+
+def _predictor_pipeline(args, mesh=None, rank=0):
+    """(the first predictor, the tokenizer, the build function): the
+    config resolved, the predictor restored, quantized, placed on ``mesh``
+    and warmed; the build function is also the POST /reload factory. Every
+    rank of a mesh runs it alike."""
     import numpy as np
 
     from d2r_tpu_torch.config import resolve_device
@@ -696,11 +757,7 @@ def build_service(args):
     from d2r_tpu_torch.serve import Predictor
     from d2r_tpu_torch.train.checkpoint import check_checkpoint_geometry, restore_model
 
-    if args.dp * args.tp > 1:
-        raise NotImplementedError(
-            f"multi-chip serving (--dp {args.dp}, --tp {args.tp}) is not ported "
-            "yet (ROADMAP.md Queue 1 item 9b)")
-    device = resolve_device(args.device)
+    device = resolve_device(args.device) if mesh is None else mesh.device
     cfg = resolve_serve_config(
         args.load_path, config_json=args.config_json,
         bert_name=args.bert_name, vit_name=args.vit_name,
@@ -716,29 +773,188 @@ def build_service(args):
         config.json)."""
         check_checkpoint_geometry(load_path, cfg)
         pred = Predictor(cfg, restore_model(load_path, cfg, device),
-                         batch_buckets=buckets, device=device, quantize=args.quantize)
+                         batch_buckets=buckets, device=device, quantize=args.quantize,
+                         mesh=mesh)
         if not args.no_warmup:
-            print("warming up every batch bucket (a CUDA graph each on the card)...", flush=True)
+            if rank == 0:
+                print("warming up every batch bucket (a CUDA graph each on the card, "
+                      "eager over a model axis)...", flush=True)
             pred.warmup(pixel_dtype=np.uint8)
         return pred
 
-    predictor = build_predictor(args.load_path)
-    service = InferenceService(predictor, tokenizer,
-                               fallback_image=args.fallback_image,
-                               max_wait_ms=args.max_wait_ms,
-                               probe_ms=args.probe_ms,
-                               predictor_factory=build_predictor)
+    return build_predictor(args.load_path), tokenizer, build_predictor
+
+
+# ---- serving over a mesh ---------------------------------------------------
+
+# the environment variable that makes ``python -m d2r_tpu_torch.server`` a
+# follower rank: JSON {"rank", "world", "port", "args"}
+FOLLOWER_ENV = "D2R_SERVE_FOLLOWER"
+# the longest rank 0 waits in a collective of the mesh
+SERVE_TIMEOUT = datetime.timedelta(seconds=120)
+# a follower waits for rank 0's next broadcast without limit (an idle
+# service sends nothing); rank 0's end closes the connection
+_IDLE = datetime.timedelta(days=365)
+_PREDICT, _RELOAD, _STOP = 1, 2, 3
+_PIXELS = (np.uint8, np.float32)
+
+
+def _join(args, rank: int, world: int, port: int):
+    """Join the serving mesh as ``rank``: the process group (NCCL where
+    every rank has a card of its own, else gloo), the (data, model) mesh,
+    and the gloo group of the broadcasts. Returns (mesh, control group)."""
+    import torch
+    import torch.distributed as dist
+
+    from d2r_tpu_torch.config import resolve_device
+    from d2r_tpu_torch.parallel import distributed
+    from d2r_tpu_torch.parallel.mesh import make_mesh
+
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        device = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    own_cards = device.type == "cuda" and torch.cuda.device_count() >= world
+    timeout = SERVE_TIMEOUT if rank == 0 else _IDLE
+    distributed.initialize(f"127.0.0.1:{port}", world, rank, device=device,
+                           backend=distributed.default_backend(device) if own_cards
+                           else "gloo", timeout=timeout)
+    shape, axes = (((args.dp, args.tp), ("data", "model")) if args.tp > 1
+                   else ((args.dp,), ("data",)))
+    mesh = make_mesh(shape, axes, device, timeout=SERVE_TIMEOUT)
+    return mesh, dist.new_group(backend="gloo", timeout=timeout)
+
+
+def _start_mesh(args):
+    """Start the ``dp x tp - 1`` followers and join them as rank 0.
+    Returns (mesh, channel)."""
+    from d2r_tpu_torch.parallel.launch import free_port, rank_env
+    world, port = args.dp * args.tp, free_port()
+    procs = []
+    for rank in range(1, world):
+        env = rank_env(rank, world, port)
+        env[FOLLOWER_ENV] = json.dumps({"rank": rank, "world": world, "port": port,
+                                        "args": vars(args)})
+        procs.append(subprocess.Popen([sys.executable, "-m", "d2r_tpu_torch.server"],
+                                      env=env))
     try:
-        httpd = make_server(service, args.host, args.port)
-    except OSError:
-        service.close()
+        mesh, group = _join(args, 0, world, port)
+    except BaseException:
+        for p in procs:
+            p.kill()
         raise
-    return service, httpd
+    print(f"serving over mesh {mesh.shape}: rank 0 and followers "
+          f"{[p.pid for p in procs]}", flush=True)
+    return mesh, MeshChannel(group, procs)
+
+
+def _bcast(t, group):
+    import torch.distributed as dist
+    dist.broadcast(t, 0, group=group)
+    return t
+
+
+class MeshChannel:
+    """Rank 0's broadcasts to the followers, over a gloo group. Each
+    message is a header (op, rows, pixel dtype) and its payload; one lock
+    keeps a message and the forward or rebuild that follows it together,
+    so every rank runs its collectives in one order."""
+
+    def __init__(self, group, procs):
+        self.group, self.procs = group, procs
+        self._lock = threading.Lock()
+        self.closed = False
+
+    def _header(self, op: int, n: int = 0, pixel: int = 0) -> None:
+        import torch
+        _bcast(torch.tensor([op, n, pixel], dtype=torch.int64), self.group)
+
+    def predict(self, predictor, arrays: Sequence[np.ndarray]):
+        import torch
+        with self._lock:
+            self._header(_PREDICT, arrays[0].shape[0], _PIXELS.index(arrays[3].dtype.type))
+            for x in arrays:
+                _bcast(torch.from_numpy(np.ascontiguousarray(x)), self.group)
+            return predictor.predict(*arrays)
+
+    def reload(self, load_path: str, build: Callable):
+        import torch
+        with self._lock:
+            path = np.frombuffer(load_path.encode(), np.uint8).copy()
+            self._header(_RELOAD, path.size)
+            _bcast(torch.from_numpy(path), self.group)
+            return build(load_path)
+
+    def close(self) -> None:
+        """End the followers' loop and the process group; wait for the
+        followers to exit."""
+        import torch.distributed as dist
+        if self.closed:
+            return
+        self.closed = True
+        try:
+            with self._lock:
+                self._header(_STOP)
+        finally:
+            dist.destroy_process_group()
+            for p in self.procs:
+                try:
+                    p.wait(timeout=60)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait()
+
+
+class _Broadcasting:
+    """Rank 0's predictor over a mesh: ``predict`` goes through the
+    channel, which broadcasts the request first; the rest is the
+    predictor's."""
+
+    def __init__(self, predictor, channel: MeshChannel):
+        self._predictor, self._channel = predictor, channel
+
+    def __getattr__(self, name):
+        return getattr(self._predictor, name)
+
+    def predict(self, *arrays):
+        return self._channel.predict(self._predictor, arrays)
+
+
+def follow(args, rank: int, world: int, port: int) -> None:
+    """A follower rank: join the mesh, build the predictor, then run what
+    rank 0 broadcasts (a forward, a rebuild) until it says stop."""
+    import torch
+    import torch.distributed as dist
+
+    mesh, group = _join(args, rank, world, port)
+    try:
+        predictor, _, build_predictor = _predictor_pipeline(args, mesh, rank)
+        seq = predictor.seq_len
+        vc = predictor.cfg.vision_config()
+        while True:
+            op, n, pixel = _bcast(torch.zeros(3, dtype=torch.int64), group).tolist()
+            if op == _STOP:
+                return
+            if op == _RELOAD:
+                path = _bcast(torch.zeros(n, dtype=torch.uint8), group).numpy()
+                predictor = build_predictor(path.tobytes().decode())
+                continue
+            shapes = [(n, seq)] * 3 + [(n, vc.num_channels, vc.image_size, vc.image_size)]
+            dtypes = [np.int32] * 3 + [_PIXELS[pixel]]
+            arrays = [_bcast(torch.from_numpy(np.zeros(s, dt)), group).numpy()
+                      for s, dt in zip(shapes, dtypes)]
+            predictor.predict(*arrays)
+    finally:
+        dist.destroy_process_group()
 
 
 def main(argv=None):
     """`python -m d2r_tpu_torch.server`: load a trained checkpoint and serve
     HTTP predictions."""
+    if os.environ.get(FOLLOWER_ENV):
+        spec = json.loads(os.environ[FOLLOWER_ENV])
+        follow(argparse.Namespace(**spec["args"]), spec["rank"], spec["world"], spec["port"])
+        return
     args = build_arg_parser().parse_args(argv)
     service, httpd = build_service(args)
     predictor = service.predictor

@@ -74,12 +74,16 @@ are reduced over the data group only), which keeps the replicas equal to
 the bit (:func:`_reduce_gradients`). No ``DistributedDataParallel`` wrapper: one
 explicit reduction a step covers the leaves that get no gradient (CMA's
 unread ``fc_1``/``fc_2`` at ``alpha != 0``; AdamW still decays them) and
-frozen towers alike, and the state dict keeps its keys. The dropout seed
-of a step folds in the rank's data index when the data axis is larger than
-1, so data ranks draw different masks, and the model ranks of a data row
-the same ones for their replicated activations; so do the stage ranks (a
-pipelined tower's blocks draw per (microbatch, block),
-``models/pipeline.py``).
+frozen towers alike, and the state dict keeps its keys. Every rank takes
+the step's seed as it is: each dropout site keys its bits on the global
+batch row (the rank's rows start at ``data_index`` x its row count), head
+and position (:class:`~d2r_tpu_torch.models.layers.DropoutRNG`), so a mesh
+step draws the one-process step's masks, under either ``prng_impl``. With
+microbatches (accumulation, or a pipelined tower's ``models/pipeline.py``)
+microbatch ``m`` of the step is the data ranks' m-th microbatches side by
+side: the mesh step equals the one-process step whose microbatch ``m``
+holds them in rank order (the batch itself when ``dp`` is 1 or there is one
+microbatch).
 """
 
 from __future__ import annotations
@@ -160,14 +164,10 @@ def create_train_state(cfg: D2RConfig, total_steps: int = 1000, device="cuda",
 
 
 def _step_seed(state: TrainState, dropout_seed: int, microbatch: Optional[int] = None) -> int:
-    """The dropout seed of this step (and microbatch), with the rank's data
-    index folded in under a data axis."""
+    """The dropout seed of this step (and microbatch), the same on every
+    rank of a mesh."""
     seed = fold_in(dropout_seed, state.step)
-    if microbatch is not None:
-        seed = fold_in(seed, microbatch)
-    if state.mesh is not None and state.mesh.dp > 1:
-        seed = fold_in(seed, state.mesh.data_index)
-    return seed
+    return seed if microbatch is None else fold_in(seed, microbatch)
 
 
 def _zero_grads(model: nn.Module) -> None:
@@ -177,24 +177,24 @@ def _zero_grads(model: nn.Module) -> None:
         torch._foreach_zero_(grads)
 
 
-def _fb(model: nn.Module, inputs: Mapping[str, torch.Tensor], seed: torch.Tensor):
+def _fb(model: nn.Module, inputs: Mapping[str, torch.Tensor], seed: torch.Tensor,
+        mesh: Optional[Mesh] = None):
     """One train-mode forward and backward drawing dropout from the seed
-    buffer ``seed``; gradients add into ``.grad``. Returns the detached loss
-    and aux."""
+    buffer ``seed`` (at the global rows of this data rank of ``mesh``);
+    gradients add into ``.grad``. Returns the detached loss and aux."""
     model.train()
-    loss, _, aux = model(**inputs, rng=DropoutRNG(seed))
+    row0 = 0 if mesh is None else mesh.data_index * inputs["input_ids"].shape[0]
+    loss, _, aux = model(**inputs, rng=DropoutRNG(seed, row0=row0))
     loss.backward()
     return loss.detach(), {k: v.detach() for k, v in aux.items()}
 
 
 def _forward_backward(model: nn.Module, batch: Mapping, seed: int,
                       mesh: Optional[Mesh] = None):
-    """:func:`_fb` on a host batch with the int ``seed`` (the data index
-    folded in under a data axis): the eager forward and backward."""
-    if mesh is not None and mesh.dp > 1:
-        seed = fold_in(seed, mesh.data_index)
+    """:func:`_fb` on a host batch with the int ``seed``: the eager forward
+    and backward."""
     dev = _device(model)
-    return _fb(model, _model_inputs(batch, dev), seed_tensor(seed, dev))
+    return _fb(model, _model_inputs(batch, dev), seed_tensor(seed, dev), mesh)
 
 
 def _check_finite(state: TrainState, loss: torch.Tensor) -> None:
@@ -279,7 +279,8 @@ def _write_seed(state: TrainState, seed: int) -> None:
 def _eager_step(state: TrainState, batch: Mapping, dropout_seed: int, debug_nans: bool):
     _zero_grads(state.model)
     _write_seed(state, _step_seed(state, dropout_seed))
-    loss, aux = _fb(state.model, _model_inputs(batch, state.seed.device), state.seed)
+    loss, aux = _fb(state.model, _model_inputs(batch, state.seed.device), state.seed,
+                    state.mesh)
     _reduce_gradients(state)
     if debug_nans:
         _check_finite(state, loss)
@@ -294,7 +295,7 @@ def _eager_accum(state: TrainState, micro: List[Mapping], dropout_seed: int,
     total = None
     for i, batch in enumerate(micro):
         _write_seed(state, _step_seed(state, dropout_seed, i))
-        loss, _ = _fb(model, _model_inputs(batch, state.seed.device), state.seed)
+        loss, _ = _fb(model, _model_inputs(batch, state.seed.device), state.seed, state.mesh)
         total = loss.float() if total is None else total + loss.float()
     _reduce_gradients(state)
     _divide_grads(model, len(micro))

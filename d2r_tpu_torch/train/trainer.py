@@ -39,9 +39,9 @@ best model once its writes are awaited before the test reload).
 each resume point and when training ends. ``debug_nans`` checks every
 step's loss and gradients (``train/state.py``). ``prng_impl`` is accepted
 under both of the JAX package's names: the port draws Philox bits either
-way, and in one process threefry's promise of sharding-stable bits holds
-trivially. Across processes the masks depend on the mesh, so threefry2x32
-is refused there.
+way, keyed on global coordinates, so threefry's promise of sharding-stable
+bits holds in one process and across many (``models/layers.py::
+DropoutRNG``).
 
 Across processes (``mesh``, or the config's ``mesh_shape`` over the process
 group, ``parallel/``): every rank runs this loop on its data row's slice of
@@ -80,6 +80,7 @@ from d2r_tpu_torch.train.state import (
     make_multi_step,
     make_train_step,
 )
+from d2r_tpu_torch.utils.profiling import Trace
 
 
 class _DispatchTimer:
@@ -139,7 +140,7 @@ class Trainer:
         self.device = resolve_device(device)
         self.mesh = mesh if mesh is not None else mesh_for(cfg, self.device)
         # a model given was built without this cfg's check
-        cfg.check_supported(self.mesh.world)
+        cfg.check_supported()
         self.chief = self.mesh.rank == 0
         self.logger = logger or logging.getLogger(__name__)
         if not self.chief:
@@ -261,21 +262,14 @@ class Trainer:
             warm = WARMUP_STEPS + 1 if captures(self.state) else 0
             if (not after and not profile_state["wrote"] and profile_state["count"] >= 1
                     and profile_state["steps"] >= warm):
-                acts = [torch.profiler.ProfilerActivity.CPU]
-                if self.device.type == "cuda":
-                    acts.append(torch.profiler.ProfilerActivity.CUDA)
-                profile_state["prof"] = torch.profiler.profile(activities=acts)
+                profile_state["prof"] = Trace(cfg.profile_dir, self.device.type == "cuda")
                 profile_state["prof"].start()
             elif after:
                 profile_state["count"] += 1
                 profile_state["steps"] = self.step - profile_state["from"]
                 prof = profile_state["prof"]
                 if prof is not None:
-                    if self.device.type == "cuda":
-                        torch.cuda.synchronize()
                     prof.stop()
-                    os.makedirs(cfg.profile_dir, exist_ok=True)
-                    prof.export_chrome_trace(os.path.join(cfg.profile_dir, "trace.json"))
                     profile_state["prof"], profile_state["wrote"] = None, True
                     self.logger.info("Wrote profile trace to %s", cfg.profile_dir)
 

@@ -51,7 +51,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from d2r_tpu_torch.weights import unstack_tower_layers
+from d2r_tpu_torch.weights import unpipeline_tower_layers, unstack_tower_layers
 
 NUM_CELLS = 6  # hidden constant, ref: modeling_unimo.py:781-782
 
@@ -265,14 +265,9 @@ def _block_fusion(s: _Sink, key: str, tree: Dict[str, Any]) -> None:
 
 
 def _canonical_params(params: Dict[str, Any]) -> Dict[str, Any]:
-    """Undo the scan_layers relayout so the tower layers are back at the
-    per-layer {'layer_i': ...} naming the exporter walks. (The port has no
-    pipeline stages, so no tree of it has their layout.)"""
-    text = params["model"]["encoder_text_layers"]
-    if any(k.startswith(("stage_", "layers_pipelined")) for k in text):
-        raise ValueError("a pipelined tower layout: the port has no pipeline stages "
-                         "(ROADMAP.md Queue 1 item 9b)")
-    return unstack_tower_layers(params)
+    """Undo the scan_layers and pipeline relayouts so the tower layers are
+    back at the per-layer {'layer_i': ...} naming the exporter walks."""
+    return unstack_tower_layers(unpipeline_tower_layers(params))
 
 
 def reference_state_dict(variables: Dict[str, Any]) -> Dict[str, np.ndarray]:

@@ -42,7 +42,7 @@ with (S, N/S, ...) leaves, the scanned stack reshaped
 from __future__ import annotations
 
 from collections.abc import Mapping
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, Tuple, Union
 
 import numpy as np
 import torch
@@ -257,10 +257,13 @@ def load_jax_variables(model: nn.Module, variables: Mapping) -> nn.Module:
     return model
 
 
-def from_jax_variables(cfg: D2RConfig, variables: Mapping) -> D2RClassifier:
+def from_jax_variables(cfg: Union[D2RConfig, nn.Module], variables: Mapping) -> nn.Module:
     """A port ``D2RClassifier`` on the CPU, in fp32 and eval mode, holding the
-    weights of the JAX package's ``D2RClassifier(cfg)`` variables."""
-    return load_jax_variables(D2RClassifier(cfg), variables).eval()
+    weights of the JAX package's ``D2RClassifier(cfg)`` variables; given a
+    module instead of a config (one of ``models/extras.py``, say), that
+    module holding the variables of its Flax counterpart."""
+    model = cfg if isinstance(cfg, nn.Module) else D2RClassifier(cfg)
+    return load_jax_variables(model, variables).eval()
 
 
 def _to_flax(module: nn.Module, name: str, t: np.ndarray):

@@ -22,6 +22,16 @@ from d2r_tpu.ops.kernels.fused_attention import fused_attention_small as jfused
 from d2r_tpu_torch.ops import attention as tattn
 from d2r_tpu_torch.ops.kernels import fused_attention as tfa
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: beside the suite's other workers torch's
+    default threads contend, and the tiny steps run many times slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 ATOL, RTOL = 2e-5, 1e-4
 
 # name: (B, L, S, H, D, key bias); odd batches and lengths

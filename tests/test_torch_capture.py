@@ -35,6 +35,16 @@ from d2r_tpu_torch.ops.kernels import fused_attention as tfa
 from d2r_tpu_torch.train import checkpoint as tckpt
 from d2r_tpu_torch.train.state import create_train_state, make_train_step
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: beside the suite's other workers torch's
+    default threads contend, and the tiny steps run many times slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 M32, M64 = (1 << 32) - 1, (1 << 64) - 1
 
 
@@ -114,10 +124,16 @@ def test_hidden_dropout_is_the_flat_philox_bits_and_its_own_backward():
 
 
 def test_dropout_rng_hands_out_sites_in_order_and_folds_the_model_index():
-    rng = DropoutRNG(11, "cpu")
-    a, b = rng.next_seed(), rng.next_seed(model_index=1)
-    assert (a.site, b.site) == (0, 1 | 2 << 16) and a.seed is b.seed
+    """Sites in order; a model rank's heads enter as the head offset ``h0``
+    and a data rank's rows as ``row0``, not folded into the ordinal, so the
+    masks are keyed on global coordinates."""
+    rng = DropoutRNG(11, "cpu", row0=6)
+    a, b = rng.next_seed(), rng.next_seed(h0=2)
+    assert (a.site, b.site) == (0, 1) and a.seed is b.seed
+    assert (a.b0, a.h0, b.b0, b.h0) == (6, 0, 6, 2)
     assert int(rng.seed) == 11 and rng.site == 2
+    whole = tfa.dropout_keep_mask(tfa.DropoutSeed(rng.seed, 1), 8, 4, 5, 9, 0.3)
+    assert torch.equal(tfa.dropout_keep_mask(b, 2, 2, 5, 9, 0.3), whole[6:, 2:])
 
 
 def _np_adamw(p, g, mu, nu, lr, count, hp, sch, bf16_mu):

@@ -471,14 +471,19 @@ def test_cuda_k3_tile_edges(cuda, dtype, tol):
 
 
 @pytest.mark.cuda
-def test_cuda_dispatch_raises_for_heads_wider_than_k3(cuda):
-    """D above 256 without dropout: no kernel takes it, and the card runs
-    no plain version in its place."""
-    x = torch.randn(1, 300, 1, 264, device=cuda)
+@pytest.mark.parametrize("d", [264, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_dispatch_raises_for_heads_wider_than_k3(cuda, d, dtype):
+    """D above 256 without dropout: the dispatch launches K3 (its wide
+    body), one launch, equal to the plain version within K3's tolerances
+    (fp32 1e-5; bf16 4e-3 of max(1, max |ref|))."""
+    x = torch.randn(1, 300, 1, d, device=cuda).to(dtype)
     before = tfl.flash_attention.launches
-    with pytest.raises(NotImplementedError, match="no kernel of the port"):
-        tattn.dot_product_attention(x, x, x)
-    assert tfl.flash_attention.launches == before
+    out = tattn.dot_product_attention(x, x, x)
+    assert tfl.flash_attention.launches == before + 1
+    ref = tfl.flash_attention_plain(x, x, x, None, d ** -0.5)
+    tol = 1e-5 if dtype == torch.float32 else 4e-3 * max(1.0, ref.float().abs().max().item())
+    assert (out.float() - ref.float()).abs().max().item() <= tol
 
 
 @pytest.mark.cuda

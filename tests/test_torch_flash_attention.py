@@ -26,6 +26,16 @@ from d2r_tpu_torch.ops import attention as tattn
 from d2r_tpu_torch.ops.kernels import flash_attention as tfl
 from d2r_tpu_torch.ops.kernels import fused_attention as tfa
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: beside the suite's other workers torch's
+    default threads contend, and the tiny steps run many times slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 # (B, H, L, S, D)
 SHAPES = [(1, 2, 257, 257, 64), (1, 1, 200, 333, 8), (2, 2, 64, 300, 16)]
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -221,8 +231,8 @@ def _counting(monkeypatch, module, name):
 @pytest.mark.parametrize("l,s,d", [(257, 257, 16), (64, 200, 16), (200, 64, 16),
                                    (8, 8, 136), (300, 300, 256)])
 def test_dispatch_sends_long_sites_without_dropout_to_k3(monkeypatch, l, s, d):
-    """Outside K1's band (L or S above 128, or D above 128), no dropout and
-    D <= 256: K3's function, which on the CPU runs its plain version."""
+    """Outside K1's band (L or S above 128, or D above 128) and no dropout:
+    K3's function, which on the CPU runs its plain version."""
     rng = np.random.default_rng(l + s + d)
     q = torch.from_numpy(rng.standard_normal((1, l, 2, d)).astype(np.float32))
     k = torch.from_numpy(rng.standard_normal((1, s, 2, d)).astype(np.float32))
@@ -251,18 +261,25 @@ def test_k3_refuses_devices_without_a_kernel():
     q = torch.empty(1, 200, 2, 8, device="meta")
     with pytest.raises(ValueError, match="no kernel for device"):
         tattn.dot_product_attention(q, q, q)
-    assert tfl.supports_flash(torch.empty(1, 4, 1, 256))
-    assert not tfl.supports_flash(torch.empty(1, 4, 1, 264))
+    for d in (1, 256, 264, 512):     # K3 takes any head width, as JAX's does
+        assert tfl.supports_flash(torch.empty(1, 4, 1, d))
 
 
-def test_heads_wider_than_k3_raise_off_the_cpu_and_run_plain_on_it():
-    """D above 256 without dropout: no kernel of the port takes it, so a
-    tensor off the CPU raises instead of running the plain math there."""
-    with pytest.raises(NotImplementedError, match="no kernel of the port"):
-        wide = torch.empty(1, 300, 1, 264, device="meta")
+@pytest.mark.parametrize("d", [264, 512])
+def test_heads_wider_than_k3_raise_off_the_cpu_and_run_plain_on_it(monkeypatch, d):
+    """D above 256 without dropout (the wide body of the kernel on the
+    card): K3's plain twin on the CPU, equal to the JAX kernel within fp32
+    atol 2e-5; off the CPU the site reaches K3's wrapper (a device with no
+    kernel raises there, where the CUDA launch would run on the card)."""
+    with pytest.raises(ValueError, match="flash_attention: no kernel for device meta"):
+        wide = torch.empty(1, 300, 1, d, device="meta")
         tattn.dot_product_attention(wide, wide, wide)
-    x = torch.from_numpy(np.random.default_rng(1).standard_normal((1, 8, 1, 264))
-                         .astype(np.float32))
-    torch.testing.assert_close(tattn.dot_product_attention(x, x, x),
-                               tfa.fused_attention_small_plain(x, x, x, None, 264 ** -0.5),
-                               atol=0, rtol=0)
+    q, k, v, bias = _inputs(1, 2, 9, 13, d, True, seed=d)
+    calls = _counting(monkeypatch, tfl, "flash_attention_plain")
+    out = tattn.dot_product_attention(_port(q, torch.float32), _port(k, torch.float32),
+                                      _port(v, torch.float32),
+                                      key_bias=torch.from_numpy(bias))
+    assert len(calls) == 1 and out.shape == (1, 9, 2, d)
+    ref = flash_attention_forward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                  jnp.asarray(bias), d ** -0.5, interpret=True)
+    np.testing.assert_allclose(out.numpy().transpose(0, 2, 1, 3), np.asarray(ref), atol=2e-5)

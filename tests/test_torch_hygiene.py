@@ -116,10 +116,21 @@ def test_serving_entry_points_default_to_cuda_and_refuse_a_missing_gpu(entry):
 
 
 @pytest.mark.parametrize("flag", ["--dp", "--tp"])
-def test_multi_chip_serving_flags_are_refused(flag):
-    from d2r_tpu_torch import server
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 9b"):
-        server.main(SERVING_ENTRY_POINTS["server"] + ["--device", "cpu", flag, "2"])
+def test_multi_chip_serving_flags_are_refused(flag, tmp_path):
+    """Each of the JAX server's mesh flags serves: ``python -m
+    d2r_tpu_torch.server <flag> 2`` on the CPU starts one follower, answers
+    as one process does (atol 1e-5), and Ctrl-C ends both ranks cleanly."""
+    from tests.test_torch_serve import tiny_checkpoint
+    from tests.test_torch_serve_mesh import ServerProcess, one_process_service, same_answers
+    load = tiny_checkpoint(tmp_path)
+    svc = one_process_service(load)
+    proc = ServerProcess(["--load_path", load, flag, "2"])
+    try:
+        assert len(proc.followers) == 1
+        same_answers(proc.url, svc)
+    finally:
+        svc.close()
+        assert proc.stop() == 0
 
 
 BROAD = {"Exception", "BaseException", "RuntimeError"}
@@ -183,6 +194,21 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build._nvcc()
+
+
+def test_console_scripts_name_the_port_s_four_entry_points():
+    """``pyproject.toml`` declares a ``d2r-torch-*`` script beside each of
+    the JAX package's four, each naming a callable of the port."""
+    import importlib
+    import tomllib
+    scripts = tomllib.loads((REPO / "pyproject.toml").read_text())["project"]["scripts"]
+    jax_names = {k for k, v in scripts.items() if v.startswith("d2r_tpu.")}
+    port = {k: v for k, v in scripts.items() if v.startswith("d2r_tpu_torch.")}
+    assert len(jax_names) == 4 and set(port) == {k.replace("d2r-", "d2r-torch-")
+                                                 for k in jax_names}
+    for target in port.values():
+        module, name = target.split(":")
+        assert callable(getattr(importlib.import_module(module), name)), target
 
 
 def test_chip_smoke_fails_without_a_gpu():

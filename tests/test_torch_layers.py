@@ -23,6 +23,16 @@ from d2r_tpu_torch.ops import norms as tnorms
 from d2r_tpu_torch.weights import load_jax_variables
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: beside the suite's other workers torch's
+    default threads contend, and the tiny steps run many times slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _x(*shape, seed=0, scale=1.0):
     return (np.random.default_rng(seed).standard_normal(shape) * scale).astype(np.float32)
 

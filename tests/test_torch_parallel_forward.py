@@ -156,6 +156,22 @@ def test_dropout_seeds_differ_across_model_ranks_at_head_sharded_sites():
         assert 0.8 < float(masks[0].float().mean()) < 1.0
 
 
+def test_dropout_masks_are_the_one_process_masks_at_global_coordinates():
+    """Every rank takes the step's seed as it is, its rows and heads as the
+    seed's offsets (data index x 4 rows, model index x 2 heads at the
+    head-split BERT sites): its K1 masks are the one-process mask of the
+    whole (8, 4) batch and heads, cut to its rows and heads."""
+    runs = dropout_run()
+    for r in runs:
+        for (seed, heads, rate), first in zip(_bert_calls(r), _bert_calls(runs[0])):
+            assert heads == 2 and int(seed.seed) == int(first[0].seed)
+            assert (seed.site, seed.b0, seed.h0) == (first[0].site, 4 * r["data_index"],
+                                                      2 * r["model_index"])
+            whole = dropout_keep_mask(seed._replace(b0=0, h0=0), 8, 4, 16, 16, rate, "cpu")
+            got = dropout_keep_mask(seed, 4, 2, 16, 16, rate, "cpu")
+            assert torch.equal(got, whole[seed.b0:seed.b0 + 4, seed.h0:seed.h0 + 2])
+
+
 def test_replicated_activations_are_bit_equal_across_model_ranks():
     runs = dropout_run()
     for d in range(2):

@@ -11,9 +11,8 @@ The tests of this file: ``allgather_1d`` with unequal lengths; the launch
 helpers; the CLI as two gloo processes from the JAX package's flags
 (``--coordinator_address``, ``--num_processes 2``, ``--process_id``) against
 one process, and ``--num_processes -1`` from a launcher's environment. The
-CLI runs take a dropout-0 text preset, registered in each process, so that
-one process and two see the same arithmetic: with dropout on, the data
-ranks draw masks of their own by design (``train/state.py``).
+CLI runs take a dropout-0 text preset, registered in each process (the
+mesh steps with dropout on are ``test_torch_parallel_step.py``'s).
 """
 
 import dataclasses
@@ -45,6 +44,13 @@ STEP_VARIANTS = {
     "multi_step": dict(steps_per_dispatch=2), "remat": dict(remat=True),
     "sentic": dict(use_sentic_graph=True), "alpha": dict(alpha=0.5),
     "int8_all": dict(quant_train="int8_all"),
+    # tiny-bert's dropout (0.1 on the hidden states and the attention
+    # probabilities), keyed on global coordinates: under either prng_impl,
+    # and with accumulation, whose microbatch m is the data ranks' m-th
+    # microbatches side by side (here the m-th global batch)
+    "dropout": dict(bert_name="tiny-bert"),
+    "dropout_threefry": dict(bert_name="tiny-bert", prng_impl="threefry2x32"),
+    "dropout_accum": dict(bert_name="tiny-bert", grad_accum_steps=2),
 }
 
 
@@ -63,8 +69,9 @@ def mesh_axes(shape):
 
 
 def step_config(variant, **overrides):
-    return tconfig.tiny_test_config(batch_size=BATCH, bert_name=NODROP, warmup_ratio=0.0,
-                                    **{**STEP_VARIANTS[variant], **overrides})
+    return tconfig.tiny_test_config(**{"batch_size": BATCH, "bert_name": NODROP,
+                                       "warmup_ratio": 0.0, **STEP_VARIANTS[variant],
+                                       **overrides})
 
 
 def global_batch(cfg, seed, valid=None):
@@ -135,7 +142,7 @@ def run_step(variant, mesh=None):
     batches = [local_rows(global_batch(cfg, s, valid), mesh)
                for s, valid in ((1, None), (2, PADDED))]
     stacked = {k: np.stack([b[k] for b in batches]) for k in batches[0]}
-    if variant == "grad_accum":
+    if variant in ("grad_accum", "dropout_accum"):
         state, m = make_accum_step(2)(state, stacked, 5)
         losses = [float(m["loss"])]
     elif variant == "multi_step":
@@ -519,3 +526,30 @@ def test_cli_num_processes_minus_one_reads_the_launcher_environment(tmp_path, mo
     assert not dist.is_initialized()
     assert (tmp_path / "out" / "best_model" / "model.pth").exists()
 
+
+
+def serve_rank(rank, world, shape, tree, requests, buckets, quantize=(None,)):
+    """A mesh ``Predictor`` (``serve.py``) over ``shape`` holding the Flax
+    tree ``tree`` at ``tiny_test_config()``, on the CPU, for each mode of
+    ``quantize``: warmed up, then each request predicted, then
+    ``latency_stats`` both ways (every rank calls each together). Returns
+    the probabilities of each request by mode, and the model's QKV width
+    on this rank."""
+    from d2r_tpu_torch.serve import Predictor, latency_stats
+    from d2r_tpu_torch.weights import from_jax_variables
+    mesh = make_mesh(shape, mesh_axes(shape))
+    cfg = tconfig.tiny_test_config()
+    probs = {}
+    for mode in quantize:
+        pred = Predictor(cfg, from_jax_variables(cfg, tree), batch_buckets=buckets,
+                         device="cpu", quantize=mode, mesh=mesh)
+        pred.warmup()
+        probs[mode] = [pred.predict(*r)["probs"] for r in requests]
+        for resident in (False, True):
+            stats = latency_stats(pred, dict(zip(("input_ids", "attention_mask",
+                                                  "token_type_ids", "pixel_values"),
+                                                 requests[0])),
+                                  iters=2, warmup=1, device_resident=resident)
+            assert 0 < stats["p50"] <= stats["p95"], stats
+    qkv = pred.model.model.encoder_text_layers.layer_0.attention_self.qkv
+    return {"probs": probs, "qkv_hidden": qkv.hidden}

@@ -11,8 +11,11 @@ package's ``tests/test_tp_semantics.py:137-141``), its losses within rtol
 column, and, under (2, 2), the tensors that the model axis leaves whole are
 bit-equal across the model ranks. Each of accumulation over two
 microbatches, a dispatch of two steps, ``remat``, the SenticNet graph, CCR
-(``alpha`` 0.5, whose unread ``fc_1``/``fc_2`` get no gradient) and
-``quant_train="int8_all"`` (data axis only) is a case of its own.
+(``alpha`` 0.5, whose unread ``fc_1``/``fc_2`` get no gradient),
+``quant_train="int8_all"`` (data axis only) and dropout on (tiny-bert's
+0.1) under ``prng_impl`` rbg and threefry2x32 and with accumulation is a
+case of its own: the masks are keyed on global coordinates, so the mesh
+draws one process's.
 
 Checkpoints: a (2, 2) step saved with ``save_checkpoint`` (rank 0 writes
 the whole tensors) holds one process's keys and shapes; it restores into a

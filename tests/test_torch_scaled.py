@@ -9,6 +9,7 @@ width 64, PAD id 1, a 66-row position table, one token type, eps 1e-5) and
 a vision preset of 257 tokens (224/14, width 64, 2 layers, 4 heads),
 registered in both packages by this file. One random Flax tree (shapes
 from ``jax.eval_shape``, values from seeded numpy) loads into both.
+
 Tolerances: embeddings atol 1e-6 (the same fp32 lookups and LayerNorm);
 the whole model 1e-4 on logits and js_loss, as ``tests/test_torch_model.py``.
 """
@@ -29,6 +30,16 @@ from d2r_tpu_torch.models.bert import BertEmbeddings
 from d2r_tpu_torch.ops.kernels import flash_attention as tfl
 from d2r_tpu_torch.ops.kernels import fused_attention as tfa
 from d2r_tpu_torch.weights import from_jax_variables, load_jax_variables, to_jax_variables
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: beside the suite's other workers torch's
+    default threads contend, and the tiny steps run many times slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 VISION_257 = "tiny-vit-257"
 INPUTS = ("input_ids", "attention_mask", "token_type_ids", "labels", "pixel_values")

@@ -617,7 +617,7 @@ def test_the_trainer_refuses_what_the_cli_refuses(override):
                                        else dict(mesh_shape=(2, 2),
                                                  mesh_axis_names=("data", "model"))))
             acting_cfg = tconfig.tiny_test_config(save_path=None, **acting)
-            acting_cfg.check_supported(world=4)
+            acting_cfg.check_supported()
             if field == "pipeline_microbatches":
                 Trainer(train_data=[_tiny_batch(acting_cfg)], cfg=acting_cfg, device="cpu")
             continue

@@ -1,6 +1,6 @@
 """The trainer extras the port once refused, on the CPU: ``--dry_run``,
-``--async_checkpoint``, ``--debug_nans`` and ``--prng_impl``, and the
-refusal left (threefry's bits across processes).
+``--async_checkpoint``, ``--debug_nans`` and ``--prng_impl`` (threefry's
+bits across processes too: nothing parallel is refused).
 
 - ``--dry_run`` at tiny width prints one JSON line with the JAX CLI's key
   set, and its ``params`` equals what JAX's ``_dry_run`` prints for the same
@@ -250,8 +250,8 @@ def test_prng_impl_names_give_the_same_bits(accum):
 
 
 def test_only_the_parallel_settings_are_refused():
-    """What stays refused is the next parallel slice's: threefry's bits
-    across processes. The settings this test once refused run now:
+    """Nothing parallel stays refused: threefry's bits across processes
+    are accepted, as every other setting this test once refused:
     pipeline stages (and their microbatches) train a step in this process;
     the two layout hints and int8 training under a model axis pass the
     check and cut a (2, 2) model (their mesh runs are
@@ -264,13 +264,13 @@ def test_only_the_parallel_settings_are_refused():
     tconfig.tiny_test_config(**mesh).check_supported()
     layout = dict(seq_shard=True, fabric_shard=True, pipeline_microbatches=2)
     tconfig.tiny_test_config(**layout).check_supported()
-    tconfig.tiny_test_config(mesh_shape=(4,), **layout).check_supported(world=4)
+    tconfig.tiny_test_config(mesh_shape=(4,), **layout).check_supported()
     tconfig.tiny_test_config(**layout, **mesh).check_supported()
     for runs in (dict(quant_train="int8", **mesh), dict(pipeline_stages=2),
                  dict(seq_shard=True, **mesh), dict(fabric_shard=True, **mesh),
                  dict(pipeline_microbatches=2, pipeline_stages=2)):
         cfg = tconfig.tiny_test_config(**runs)
-        cfg.check_supported(world=4)
+        cfg.check_supported()
         if cfg.model_axis_size() > 1:
             model = shard_model(build_model(cfg, device="cpu"), Mesh(2, 2, 0, "cpu"))
             assert model.model.encoder_text_layers.layer_0.output_dense.tp == "row"
@@ -283,10 +283,10 @@ def test_only_the_parallel_settings_are_refused():
                              prng_impl="threefry2x32").check_supported()
     with pytest.raises(NotImplementedError, match="prng_impl='unsafe_rbg'"):
         tconfig.tiny_test_config(prng_impl="unsafe_rbg").check_supported()
-    # threefry's sharding-stable bits: one process only, whatever the mesh
+    # threefry's sharding-stable bits: the port keys every mask on global
+    # coordinates, so both names are accepted at any world (the mesh steps
+    # with dropout on are tests/test_torch_parallel_step.py's)
     tconfig.tiny_test_config(prng_impl="threefry2x32", **mesh).check_supported()
-    with pytest.raises(NotImplementedError,
-                       match="prng_impl='threefry2x32' across 2 processes.*Queue 1 item 9b"):
-        tconfig.tiny_test_config(prng_impl="threefry2x32").check_supported(world=2)
-    tconfig.tiny_test_config(prng_impl="rbg").check_supported(world=2)
+    tconfig.tiny_test_config(prng_impl="threefry2x32", mesh_shape=(2,)).check_supported()
+    tconfig.tiny_test_config(prng_impl="rbg", mesh_shape=(2,)).check_supported()
     assert jconfig.D2RConfig().prng_impl in tconfig.PRNG_IMPLS
