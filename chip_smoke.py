@@ -72,9 +72,10 @@ Phases; any failure exits non-zero without the final ``ok`` line:
    parameter and every BatchNorm running buffer has moved, and the PAD
    embedding row got an exactly zero gradient (AdamW's decoupled weight
    decay still shrinks it, as in the reference). Then torch.profiler
-   traces of 3 replayed steps (34 K1, 34 K2 and 1 AdamW kernel a step; no
-   ``_foreach`` pass but the gradients' zeroing), 3 replays whose host code
-   runs under ``torch.cuda.set_sync_debug_mode("error")``, 3 eager steps
+   traces of 3 replayed steps (34 K1, 34 K2 and 1 AdamW kernel a step,
+   the hidden-dropout kernel as often as an eager step launches it, each
+   one's device ms; no ``_foreach`` pass but the gradients' zeroing), 3
+   replays whose host code runs under ``torch.cuda.set_sync_debug_mode("error")``, 3 eager steps
    of the same state (timed) and one traced; then ``replay_checks``: from
    the same initial weights, 5 steps (2 eager, 3 replayed) against 5
    eager ones, dropout off and on: losses within 1e-4 and parameters
@@ -334,12 +335,15 @@ reference checkpoint's key count.
 
 Between phases 3 and 4, ``step_kernels``: the AdamW kernel against its
 16-pass plain twin, bit for bit, fp32 and bf16 first moments, 3 steps
-through a fractional warmup, on odd sizes (1, 3, 1023, 2^25 + 7) and on
+through a fractional warmup, on odd sizes (1, 3, 1023, 2^25 + 7), on a
+list cut from one flat buffer at 4-byte offsets (the scalar body) and on
 D2R-base's 400,186,367-element parameter list, timed there beside
 ``torch.optim.AdamW(fused=True)`` and the bytes bound; the hidden-dropout
-kernel against its plain version at a BERT hidden state (64, 64, 768),
-bf16 and fp32, and an odd shape, forward and backward bit for bit, timed
-beside ``F.dropout``; then the sliced hidden dropout (a sequence half,
+kernel against its plain version at a BERT hidden state (64, 64, 768) and
+D2R-large's (16, 64, 1024), bf16 and fp32, and an odd shape, forward and
+backward bit for bit, timed beside ``F.dropout``; on views 2-8 bytes off
+16-byte alignment, at ragged sizes and under a layout whose seg is 4 mod
+8; then the sliced hidden dropout (a sequence half,
 a data rank's batch half, both) equal to the whole tensor's elements; then
 one forward of each module of ``models/extras.py`` and each loss of
 ``ops/losses_extra.py``, card against CPU in fp32 (:data:`EXTRAS_TOL`).
@@ -1138,8 +1142,20 @@ ADAMW_BYTES = {"float32": 28, "bfloat16": 24}
 # about 20 fp32 operations an element (the moments, the bias-corrected
 # quotient, the decay and the step)
 ADAMW_OPS = 20
-# the hidden dropout: a BERT-base hidden state at training batch 64
+# the AdamW kernel's flat-buffer list: every stream's tensors cut end to
+# end from one buffer, so most start 4, 8 or 12 bytes off 16-byte alignment
+# (the scalar body), numel % 4 in {1, 2, 3}
+ADAMW_FLAT_SIZES = (1, 6, 7, 1025, 4098, 65539, (1 << 20) + 3)
+# the hidden dropout: a BERT-base hidden state at training batch 64, and
+# D2R-large's (RoBERTa-large at its training batch 16)
 DROPOUT_SHAPE = (TRAIN_BATCH, 64, 768)
+DROPOUT_LARGE_SHAPE = (16, 64, 1024)
+# its adversarial inputs: views whose data pointer is this many bytes off
+# 16-byte alignment (bf16 also 2), sizes with n % 16 in {1, 4, 7, 12}, and
+# a slice layout whose seg is 4 mod 8 (each thread's two groups in two rows)
+DROPOUT_OFFSETS = {"bfloat16": (2, 4, 8), "float32": (4, 8)}
+DROPOUT_RAGGED = tuple(16 * 4099 + r for r in (1, 4, 7, 12))
+DROPOUT_SEG4 = (12, 24, 12)
 
 
 def phase_step_kernels(report):
@@ -1147,17 +1163,21 @@ def phase_step_kernels(report):
     twins on the card. The AdamW kernel (``ops/kernels/adamw.py``), three
     steps through a fractional warmup (1.5 of 4 steps) with the count and
     the schedule on the card, bit for bit against the 16-pass twin, fp32 and
-    bf16 first moments: on two lr groups of :data:`ADAMW_SIZES`, then on
-    D2R-base's own parameter list (its 4 groups, 400,186,367 elements,
-    random values). Times on D2R-base's list (fp32 moments; bf16 too):
-    the kernel (with the count's increment), the twin, and
-    ``torch.optim.AdamW(fused=True)`` on the same tensors (another
-    operation order: the decay before the Adam update), against the bytes
-    bound. The hidden-dropout kernel (``ops/kernels/dropout.py``) at
-    :data:`DROPOUT_SHAPE` in bf16 and fp32 and at an odd shape, forward and
-    backward, bit for bit against its plain version; its time against the
-    bound and ``F.dropout``'s (another mask). None of these launches
-    counts."""
+    bf16 first moments: on two lr groups of :data:`ADAMW_SIZES`, on two of
+    :data:`ADAMW_FLAT_SIZES` cut from flat buffers, then on D2R-base's own
+    parameter list (its 4 groups, 400,186,367 elements, random values).
+    Times on D2R-base's list (fp32 and bf16 moments): the kernel (with the
+    count's increment), the twin, and ``torch.optim.AdamW(fused=True)`` on
+    the same tensors (fp32; another operation order: the decay before the
+    Adam update), against the bytes bound. The hidden-dropout kernel
+    (``ops/kernels/dropout.py``) at :data:`DROPOUT_SHAPE` and
+    :data:`DROPOUT_LARGE_SHAPE` in bf16 and fp32 and at an odd shape,
+    forward and backward, bit for bit against its plain version, timed at
+    both shapes in bf16 and the first in fp32 against the bound and
+    ``F.dropout``'s (another mask); then on views off alignment
+    (:data:`DROPOUT_OFFSETS`), at :data:`DROPOUT_RAGGED` sizes, under the
+    layout :data:`DROPOUT_SEG4` and on the training site's slices. None of
+    these launches counts."""
     import torch
     import torch.nn.functional as F
     from torch import nn
@@ -1184,6 +1204,19 @@ def phase_step_kernels(report):
                  [(rnd(sh) * 0.1).to(mu_dtype) for sh in shapes],
                  [rnd(sh).square_() * 0.01 for sh in shapes], lr) for shapes, lr in spec]
 
+    def make_flat(spec, mu_dtype, seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        sizes = [n for shapes, _ in spec for (n,) in shapes]
+        rnd = lambda: torch.randn(sum(sizes), generator=g, device="cuda")
+        flats = [rnd(), rnd(), (rnd() * 0.1).to(mu_dtype), rnd().square_() * 0.01]
+        starts = [sum(sizes[:i]) for i in range(len(sizes))]
+        views = [[f[a:a + n] for a, n in zip(starts, sizes)] for f in flats]
+        groups, i = [], 0
+        for shapes, lr in spec:
+            groups.append((*(v[i:i + len(shapes)] for v in views), lr))
+            i += len(shapes)
+        return groups
+
     def copy(groups):
         return [tuple([t.clone() for t in x] if isinstance(x, list) else x for x in grp)
                 for grp in groups]
@@ -1195,12 +1228,16 @@ def phase_step_kernels(report):
     del model
     base_spec = [(shapes, 5e-2 if g == "fc" else 3e-5) for g, shapes in by_group.items() if shapes]
     odd_spec = [([(n,) for n in ADAMW_SIZES[::2]], 1e-3), ([(n,) for n in ADAMW_SIZES[1::2]], 5e-2)]
+    flat_spec = [([(n,) for n in ADAMW_FLAT_SIZES[::2]], 1e-3),
+                 ([(n,) for n in ADAMW_FLAT_SIZES[1::2]], 5e-2)]
     n_base = sum(math.prod(sh) for shapes, _ in base_spec for sh in shapes)
     adamw_row = None
-    for table, spec in (("odd_sizes", odd_spec), ("d2r_base", base_spec)):
+    for table, spec in (("odd_sizes", odd_spec), ("flat_odd_offsets", flat_spec),
+                        ("d2r_base", base_spec)):
         for mu_name in ("float32", "bfloat16"):
             mu_dtype = getattr(torch, mu_name)
-            kernel_groups = make(spec, mu_dtype, seed=1)
+            kernel_groups = (make_flat if table == "flat_odd_offsets" else make)(
+                spec, mu_dtype, seed=1)
             twin_groups = copy(kernel_groups)
             ck, ct = torch.zeros((), device="cuda"), torch.zeros((), device="cuda")
             tab = None
@@ -1218,7 +1255,9 @@ def phase_step_kernels(report):
                         elements += x.numel()
             row = {"table": table, "mu": mu_name, "tensors": sum(len(g[0]) for g in kernel_groups),
                    "parameters": sum(x.numel() for g in kernel_groups for x in g[0]),
-                   "blocks": tab.n_blocks, "steps": 3, "count": [float(ck), float(ct)],
+                   "blocks": tab.blocks, "chunks": tab.n_chunks,
+                   "scalar_elements": tab.scalar_elements, "steps": 3,
+                   "count": [float(ck), float(ct)],
                    "max_abs_err": err, "elements_differing": differing,
                    "elements_compared": elements}
             if table == "d2r_base":
@@ -1245,7 +1284,8 @@ def phase_step_kernels(report):
                     adamw_row = row
             result["adamw"].append(row)
             log(f"[step kernels] AdamW {table} ({row['parameters']} elements, {row['blocks']} "
-                f"blocks), mu {mu_name}, 3 steps: kernel against twin max abs err {err}, "
+                f"blocks, {row['chunks']} chunks, {row['scalar_elements']} elements on the "
+                f"scalar body), mu {mu_name}, 3 steps: kernel against twin max abs err {err}, "
                 f"{differing} of {elements} elements differing; count {row['count']}"
                 + (f"; kernel {row['kernel_ms'] * 1e3:.1f} us back to back, "
                    f"{row['device_ms'] * 1e3:.1f} us alone, twin {row['plain_ms'] * 1e3:.1f} "
@@ -1259,23 +1299,31 @@ def phase_step_kernels(report):
 
     dropout_row = None
     g = torch.Generator(device="cuda").manual_seed(3)
-    for shape in (DROPOUT_SHAPE, (3, 5, 7)):
+
+    def dropout_check(x, gy, seed, layout=None):
+        """The kernel forward (on ``x``, a leaf) and backward (on ``gy``)
+        against the plain version: (y, max abs err, equal)."""
+        y = tdrop.hidden_dropout(x, 0.1, seed, layout)
+        y.backward(gy)
+        ref = tdrop.hidden_dropout_plain(x.detach(), 0.1, seed, layout)
+        ref_g = tdrop.hidden_dropout_plain(gy, 0.1, seed, layout)
+        torch.cuda.synchronize()
+        err = max((y.detach().float() - ref.float()).abs().max().item(),
+                  (x.grad.float() - ref_g.float()).abs().max().item())
+        return y.detach(), err, bool(torch.equal(y.detach(), ref) and torch.equal(x.grad, ref_g))
+
+    timed = {(DROPOUT_SHAPE, "bfloat16"), (DROPOUT_SHAPE, "float32"),
+             (DROPOUT_LARGE_SHAPE, "bfloat16")}
+    for shape in (DROPOUT_SHAPE, DROPOUT_LARGE_SHAPE, (3, 5, 7)):
         for dtype_name in ("bfloat16", "float32"):
             dtype = getattr(torch, dtype_name)
             x = torch.randn(shape, generator=g, device="cuda").to(dtype).requires_grad_()
             seed = device_seed(2 ** 63 + 99, site=7)
-            y = tdrop.hidden_dropout(x, 0.1, seed)
             gy = torch.randn(shape, generator=g, device="cuda").to(dtype)
-            y.backward(gy)
-            ref = tdrop.hidden_dropout_plain(x.detach(), 0.1, seed)
-            ref_g = tdrop.hidden_dropout_plain(gy, 0.1, seed)
-            torch.cuda.synchronize()
-            err = max((y.detach().float() - ref.float()).abs().max().item(),
-                      (x.grad.float() - ref_g.float()).abs().max().item())
+            y, err, equal = dropout_check(x, gy, seed)
             row = {"shape": list(shape), "dtype": dtype_name, "max_abs_err": err,
-                   "keep_share": (ref != 0).float().mean().item(),
-                   "equal": bool(torch.equal(y.detach(), ref) and torch.equal(x.grad, ref_g))}
-            if shape == DROPOUT_SHAPE and dtype_name == "bfloat16":
+                   "keep_share": (y != 0).float().mean().item(), "equal": equal}
+            if (shape, dtype_name) in timed:
                 xd = x.detach()
                 n, size = xd.numel(), xd.element_size()
                 row["kernel_ms"] = cuda_time_ms(lambda: tdrop.hidden_dropout(xd, 0.1, seed))
@@ -1290,17 +1338,53 @@ def phase_step_kernels(report):
                 t_bytes, t_ops = 2 * n * size / HBM_BYTES_PER_S, 25 * n / PEAK_OPS["float32"]
                 row["bound_ms"] = max(t_bytes, t_ops) * 1e3
                 row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-                dropout_row = row
+                if shape == DROPOUT_SHAPE and dtype_name == "bfloat16":
+                    dropout_row = row
             result["dropout"].append(row)
             log(f"[step kernels] hidden dropout {shape} {dtype_name}: forward and backward "
                 f"against the plain version max abs err {err}, equal {row['equal']}, keep "
                 f"share {row['keep_share']:.4f}" + (
                     f"; kernel {row['kernel_ms'] * 1e3:.1f} us back to back, "
-                    f"{row['device_ms'] * 1e3:.1f} us alone, plain {row['plain_ms'] * 1e3:.1f} "
-                    f"us, F.dropout {row['library_ms'] * 1e3:.1f} us, bound "
+                    f"{row['device_ms'] * 1e3:.2f} us alone, plain {row['plain_ms'] * 1e3:.1f} "
+                    f"us, F.dropout {row['library_ms'] * 1e3:.1f} us back to back, "
+                    f"{row['library_device_ms'] * 1e3:.2f} us alone, bound "
                     f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']})"
                     if "kernel_ms" in row else ""))
             assert row["equal"], row
+    # the adversarial inputs: views off 16-byte alignment (x and the
+    # gradient), ragged sizes (the scalar tail), and a layout with seg 4 mod
+    # 8 whose outputs are also the whole tensor's
+    for dtype_name, offsets in DROPOUT_OFFSETS.items():
+        dtype = getattr(torch, dtype_name)
+        size = torch.empty((), dtype=dtype).element_size()
+        seed = device_seed(2 ** 33 + 17, site=5)
+        cases = []
+        for off in offsets:
+            flat = torch.randn(2, 8 * 64 * 768 + 16, generator=g, device="cuda").to(dtype)
+            x, gy = (f[off // size:off // size + 8 * 64 * 768].view(8, 64, 768) for f in flat)
+            cases.append((f"{off} bytes off", x.detach().requires_grad_(), gy, None))
+        for n in DROPOUT_RAGGED:
+            x, gy = torch.randn(2, n, generator=g, device="cuda").to(dtype)
+            cases.append((f"n % 16 = {n % 16}", x.clone().requires_grad_(), gy, None))
+        seg, whole_w, offset = DROPOUT_SEG4
+        whole_x = torch.randn(5001, whole_w, generator=g, device="cuda").to(dtype)
+        part = whole_x[:, offset:offset + seg].contiguous()
+        cases.append((f"layout {DROPOUT_SEG4}", part.clone().requires_grad_(),
+                      torch.randn(part.shape, generator=g, device="cuda").to(dtype),
+                      DROPOUT_SEG4))
+        whole_y = tdrop.hidden_dropout(whole_x, 0.1, seed)
+        for name, x, gy, layout in cases:
+            y, err, equal = dropout_check(x, gy, seed, layout)
+            row = {"case": name, "dtype": dtype_name, "shape": list(x.shape),
+                   "x_address_mod_16": x.data_ptr() % 16, "max_abs_err": err, "equal": equal}
+            if layout is not None:
+                row["equal_to_whole"] = bool(torch.equal(y, whole_y[:, offset:offset + seg]))
+            result["dropout"].append(row)
+            log(f"[step kernels] hidden dropout {dtype_name}, {name} {tuple(x.shape)} (x at "
+                f"{row['x_address_mod_16']} mod 16): equal to the plain version {equal}"
+                + (f", to the whole tensor's elements {row['equal_to_whole']}"
+                   if layout is not None else ""))
+            assert equal and row.get("equal_to_whole", True), row
     # a rank's slice of the training site: a sequence half (seq_shard, tp =
     # 2), a data rank's batch half (dp = 2), and both: the kernel on each
     # draws its elements' bits of the whole tensor's mask, forward and
@@ -1658,6 +1742,7 @@ def device_profile(fn, n, unit):
     k1 = sum(v for k, v in by_name.items() if "fused_attention_fwd" in k)
     k2 = sum(v for k, v in by_name.items() if "fused_attention_bwd" in k)
     k3 = sum(v for k, v in by_name.items() if "flash_attention_fwd" in k)
+    ms = lambda key: sum(v for k, v in by_name.items() if key in k) / n / 1e3
     return {f"{unit}s": n, f"kernels_per_{unit}": len(spans) / n,
             f"window_ms_per_{unit}": window / n / 1e3,
             f"device_busy_ms_per_{unit}": busy / n / 1e3,
@@ -1667,6 +1752,10 @@ def device_profile(fn, n, unit):
             f"k1_kernels_per_{unit}": count("fused_attention_fwd"),
             f"k2_kernels_per_{unit}": count("fused_attention_bwd"),
             f"k3_kernels_per_{unit}": count("flash_attention_fwd"),
+            f"adamw_kernels_per_{unit}": count("adamw_kernel"),
+            f"adamw_ms_per_{unit}": ms("adamw_kernel"),
+            f"dropout_kernels_per_{unit}": count("hidden_dropout_kernel"),
+            f"dropout_ms_per_{unit}": ms("hidden_dropout_kernel"),
             # full names: two kernels may share a long prefix
             f"top_kernels_ms_per_{unit}": {k: v / n / 1e3 for k, v in top},
             f"kernel_calls_per_{unit}": {k: c / n for k, c in calls.items()}}
@@ -1837,11 +1926,14 @@ def phase_train(report, key="base"):
     # the replays as the card sees them (traced again while a count is off
     # in a trace that lost kernel events, as phase 4 does), and their host
     # code with no sync
-    want = {"k1": spec["k1"], "k2": spec["k1"], "k3": spec["k3"], "adamw": 1}
+    # the hidden-dropout kernel at every site a step, forward and backward,
+    # as the eager steps launched it
+    assert launches["dropout"] % host_calls(steps) == 0, launches
+    want = {"k1": spec["k1"], "k2": spec["k1"], "k3": spec["k3"], "adamw": 1,
+            "dropout": launches["dropout"] // host_calls(steps)}
     for attempt in range(TRACE_ATTEMPTS):
         out["profile"] = prof = device_profile(lambda: step(state, batch, 1), 3, "step")
         names = prof.get("kernel_calls_per_step", {})
-        prof["adamw_kernels_per_step"] = sum(v for k, v in names.items() if "adamw_kernel" in k)
         log(f"[profile{spec['tag']}] replayed train step: " + json.dumps(brief(prof)))
         wrong = [n for n in want if prof.get(f"{n}_kernels_per_step") != want[n]]
         # three replays of one graph launch the same kernels: a count that

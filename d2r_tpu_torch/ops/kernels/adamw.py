@@ -32,8 +32,14 @@ import torch
 
 from d2r_tpu_torch.ops.kernels import build
 
-# elements a block of the kernel takes from one tensor
-CHUNK = 1 << 14
+# the kernel's persistent grid: blocks an SM (csrc/adamw.cu kBlocksPerSM)
+BLOCKS_PER_SM = 2
+# elements a chunk: the unit a block of the grid claims at a time, one
+# load batch of its 256 threads x 4 vectors x 4 elements
+CHUNK = 1 << 12
+# the kernel's 16-byte body: p, g, nu and fp32 mu aligned to 16 bytes, bf16
+# mu to 8 (four elements); a chunk starts at a multiple of VECTOR elements
+VECTOR = 4
 # elements a chunk of the twin's passes: its temporaries (five of a chunk's
 # size at most, 640 MB) stay far below the moments' own bytes at D2R-large
 PLAIN_CHUNK = 1 << 25
@@ -151,26 +157,45 @@ def _update(params, grads, mus, nus, hp: Hyper, c1, c2, neg_lr) -> None:
 
 
 class Table:
-    """The kernel's device table for one set of (p, g, mu, nu) addresses:
-    six int64 words a tensor (four pointers, numel, group) and a block map
-    of (tensor, first element) pairs, :data:`CHUNK` elements a block, in one
-    int64 tensor; and the groups' base lrs in fp32. ``key`` is the tuple of
-    addresses it was built for."""
+    """The kernel's device table for one set of (p, g, mu, nu) addresses,
+    in one int64 tensor ``data``:
 
-    def __init__(self, groups, key: tuple, device: torch.device):
-        rows, blocks = [], []
+    - a row of seven words a tensor: the four pointers, numel, group and
+      the vector end (the elements from 0 that take the 16-byte body:
+      ``numel - numel % 4``, or 0 where a pointer is not aligned for it;
+      the rest takes the scalar body);
+    - from ``chunks_at``, ``n_chunks`` (tensor row, first element, elements)
+      triples: every tensor cut into chunks of at most :data:`CHUNK` elements,
+      starting at multiples of 4, the largest first (the last claims, which
+      end the kernel, are the smallest);
+    - at ``next_at``, the counter from which the kernel's persistent grid of
+      ``blocks`` blocks claims chunks beyond its first ``blocks``; the
+      launch's tick resets it to 0.
+
+    Also the groups' base lrs in fp32 (``base_lr``); ``key`` is the tuple of
+    addresses it was built for; ``scalar_elements`` counts the elements
+    that take the scalar body."""
+
+    def __init__(self, groups, key: tuple, device: torch.device, blocks: int):
+        rows, chunks = [], []
         for gi, (params, grads, mus, nus, _) in enumerate(groups):
             for p, g, mu, nu in zip(params, grads, mus, nus):
-                t = len(rows)
-                rows.append((p.data_ptr(), g.data_ptr(), mu.data_ptr(), nu.data_ptr(),
-                             p.numel(), gi))
-                blocks.extend((t, s) for s in range(0, p.numel(), CHUNK))
-        words = np.array([w for r in rows for w in r] + [w for b in blocks for w in b],
+                n = p.numel()
+                aligned = (all(x.data_ptr() % 16 == 0 for x in (p, g, nu))
+                           and mu.data_ptr() % (VECTOR * mu.element_size()) == 0)
+                chunks.extend((len(rows), s, min(CHUNK, n - s)) for s in range(0, n, CHUNK))
+                rows.append((p.data_ptr(), g.data_ptr(), mu.data_ptr(), nu.data_ptr(), n, gi,
+                             n - n % VECTOR if aligned else 0))
+        chunks.sort(key=lambda c: -c[2])
+        words = np.array([w for r in rows for w in r] + [w for c in chunks for w in c] + [0],
                          dtype=np.uint64).view(np.int64)
         self.data = torch.from_numpy(words).to(device)
-        self.blocks_at = len(rows) * 6
-        self.n_blocks = len(blocks)
+        self.chunks_at = 7 * len(rows)
+        self.n_chunks = len(chunks)
+        self.next_at = self.chunks_at + 3 * len(chunks)
+        self.blocks = blocks
         self.elements = sum(r[4] for r in rows)
+        self.scalar_elements = sum(r[4] - r[6] for r in rows)
         self.base_lr = torch.tensor([_f32(g[4]) for g in groups], dtype=torch.float32,
                                     device=device)
         self.key = key
@@ -209,11 +234,17 @@ def _kernel():
     if not _fn:
         fn = build.load("adamw").d2r_adamw
         p, f = ctypes.c_void_p, ctypes.c_float
-        fn.argtypes = [ctypes.c_int, p, p, ctypes.c_int, ctypes.c_longlong, p, p,
-                       f, f, f, f, f, f, f, f, f, f, f, p]
+        fn.argtypes = [ctypes.c_int, p, p, ctypes.c_longlong, p, ctypes.c_int, ctypes.c_int,
+                       p, p, f, f, f, f, f, f, f, f, f, f, f, p]
         fn.restype = ctypes.c_int
         _fn.append(fn)
     return _fn[0]
+
+
+def grid(device: torch.device) -> int:
+    """The kernel's persistent grid on ``device``: :data:`BLOCKS_PER_SM`
+    blocks on each SM."""
+    return torch.cuda.get_device_properties(device).multi_processor_count * BLOCKS_PER_SM
 
 
 def adamw_update(groups, count: torch.Tensor, hp: Hyper, sch: Schedule,
@@ -231,12 +262,13 @@ def adamw_update(groups, count: torch.Tensor, hp: Hyper, sch: Schedule,
     key = table_key(groups)
     if table is None or table.key != key:
         _check(groups, count)
-        table = Table(groups, key, count.device)
+        table = Table(groups, key, count.device, grid(count.device))
     mu_bf16 = next(m for _, _, mus, _, _ in groups for m in mus).dtype == torch.bfloat16
     base = table.data.data_ptr()
     with torch.cuda.device(count.device):
         stream = torch.cuda.current_stream(count.device).cuda_stream
-        err = _kernel()(int(mu_bf16), base, base + 8 * table.blocks_at, table.n_blocks, CHUNK,
+        err = _kernel()(int(mu_bf16), base, base + 8 * table.chunks_at, table.n_chunks,
+                        base + 8 * table.next_at, table.blocks, len(groups),
                         table.base_lr.data_ptr(), count.data_ptr(), hp.b1, hp.b2, hp.omb1,
                         hp.omb2, hp.b1_low, hp.eps, hp.wd, sch.warmup, sch.warm_div,
                         sch.total, sch.decay_div, stream)

@@ -200,24 +200,44 @@ def test_adamw_twin_is_the_kernels_arithmetic(mu_dtype):
             assert nu.numpy().tobytes() == rv.tobytes()
 
 
-def test_adamw_table_lists_every_tensor_and_chunk():
-    sizes = (1, tadamw.CHUNK, tadamw.CHUNK + 1, 3)
-    ts = [[torch.zeros(n) for n in sizes] for _ in range(4)]
-    groups = [(ts[0][:2], ts[1][:2], ts[2][:2], ts[3][:2], 1e-3),
-              (ts[0][2:], ts[1][2:], ts[2][2:], ts[3][2:], 5e-2)]
-    table = tadamw.Table(groups, tadamw.table_key(groups), torch.device("cpu"))
+@pytest.mark.parametrize("mu_dtype", [torch.float32, torch.bfloat16])
+def test_adamw_table_lists_every_tensor_and_chunk(mu_dtype):
+    """The kernel's table: a row a tensor (pointers, numel, group, the
+    elements from 0 that take the 16-byte body), every element in exactly
+    one chunk, each starting at a multiple of 4, the largest first, and the
+    claim counter at 0; a tensor cut from a flat buffer off alignment takes
+    the scalar body whole, a ragged one its last numel % 4 elements. bf16
+    first moments need 8-byte alignment, fp32 ones 16."""
+    chunk = tadamw.CHUNK
+    sizes = (1, 3 * chunk, 3 * chunk + 1, 3, 4099, 64)
+    ts = [[torch.zeros(n, dtype=mu_dtype if k == 2 else torch.float32) for n in sizes]
+          for k in range(4)]
+    ts[0][4] = torch.zeros(4099 + 1)[1:]                                 # p 4 bytes off
+    ts[2][5] = torch.zeros(68, dtype=mu_dtype)[2 if mu_dtype == torch.float32 else 4:]
+    groups = [(ts[0][:3], ts[1][:3], ts[2][:3], ts[3][:3], 1e-3),
+              (ts[0][3:], ts[1][3:], ts[2][3:], ts[3][3:], 5e-2)]
+    table = tadamw.Table(groups, tadamw.table_key(groups), torch.device("cpu"), 5)
     words = table.data.numpy()
-    rows = words[:table.blocks_at].reshape(-1, 6)
+    rows = words[:table.chunks_at].reshape(-1, 7)
     assert [tuple(r[:4]) for r in rows] == [tuple(t.data_ptr() for t in x)
                                             for x in zip(*ts)]
-    assert list(rows[:, 4]) == list(sizes) and list(rows[:, 5]) == [0, 0, 1, 1]
-    blocks = words[table.blocks_at:].reshape(-1, 2)
-    assert table.n_blocks == len(blocks) == 1 + 1 + 2 + 1
-    covered = {t: sum(min(tadamw.CHUNK, sizes[t] - s) for tt, s in blocks if tt == t)
-               for t in range(4)}
-    assert covered == dict(enumerate(sizes)) and table.elements == sum(sizes)
-    assert table.base_lr.dtype == torch.float32 and table.base_lr.tolist() == [
-        float(np.float32(1e-3)), float(np.float32(5e-2))]
+    assert list(rows[:, 4]) == list(sizes) and list(rows[:, 5]) == [0, 0, 0, 1, 1, 1]
+    # ragged tensors stop their vectors at numel - numel % 4; the p view 4
+    # bytes off, and the fp32 mu view 8 bytes off, take no vectors
+    mu_vector = 64 if mu_dtype == torch.bfloat16 else 0
+    assert list(rows[:, 6]) == [0, 3 * chunk, 3 * chunk, 0, 0, mu_vector]
+    assert table.scalar_elements == 1 + 1 + 3 + 4099 + (64 - mu_vector)
+    chunks = words[table.chunks_at:table.next_at].reshape(-1, 3)
+    assert len(chunks) == table.n_chunks == sum(-(-n // chunk) for n in sizes)
+    assert all(start % 4 == 0 and 0 < n <= chunk for _, start, n in chunks)
+    assert list(chunks[:, 2]) == sorted(chunks[:, 2], reverse=True)
+    hits = [np.zeros(n, dtype=np.int64) for n in sizes]
+    for t, start, n in chunks:
+        hits[t][start:start + n] += 1
+    assert all((h == 1).all() for h in hits) and table.elements == sum(sizes)
+    assert table.next_at == len(words) - 1 and words[table.next_at] == 0
+    assert table.blocks == 5 and table.base_lr.dtype == torch.float32
+    assert table.base_lr.tolist() == [float(np.float32(1e-3)), float(np.float32(5e-2))]
 
 
 def _batch(cfg, seed):

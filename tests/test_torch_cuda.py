@@ -560,11 +560,12 @@ def _adamw_groups(device, sizes, mu_dtype, seed):
 @pytest.mark.parametrize("mu_dtype", [torch.float32, torch.bfloat16])
 def test_cuda_adamw_kernel_equals_its_twin(cuda, mu_dtype):
     """The AdamW kernel against its plain twin on the same tensors, bit for
-    bit: odd sizes (one element, three, 1023, one chunk plus one, 2^25 + 7)
-    in two lr groups, three steps through a fractional warmup (1.5 of 4
-    steps), with the count and the schedule on the card."""
+    bit: odd sizes (one element, three, 1023, 2^14 + 1, 2^25 + 7: a
+    tensor over many blocks of the persistent grid) in two lr groups, three
+    steps through a fractional warmup (1.5 of 4 steps), with the count and
+    the schedule on the card."""
     from d2r_tpu_torch.ops.kernels import adamw
-    sizes = (1, 3, 1023, adamw.CHUNK + 1, (1 << 25) + 7)
+    sizes = (1, 3, 1023, (1 << 14) + 1, (1 << 25) + 7)
     hp, sch = adamw.hyper((0.9, 0.999), 1e-8, 1e-2), adamw.schedule(1.5, 4)
     kernel_groups = _adamw_groups(cuda, sizes, mu_dtype, seed=0)
     twin_groups = [tuple([t.clone() for t in x] if isinstance(x, list) else x for x in grp)
@@ -601,6 +602,71 @@ def test_cuda_hidden_dropout_equals_plain(cuda, dtype):
         assert torch.equal(x.grad, tdrop.hidden_dropout_plain(torch.ones_like(x), 0.1, seed))
         other = tdrop.hidden_dropout(x.detach(), 0.1, seed._replace(site=5))
         assert not torch.equal(other, y.detach())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mu_dtype", [torch.float32, torch.bfloat16])
+def test_cuda_adamw_kernel_on_a_flat_buffer_at_odd_offsets(cuda, mu_dtype):
+    """Every stream's tensors cut end to end from one flat buffer (4-byte
+    offsets, numel % 4 in {1, 2, 3}): the kernel's scalar body for the
+    tensors off alignment and the ragged ends, bit for bit against the twin
+    after three steps through the fractional warmup."""
+    from d2r_tpu_torch.ops.kernels import adamw
+    sizes = (1, 6, 7, 1025, 4098, 65539, (1 << 18) + 3)
+    hp, sch = adamw.hyper((0.9, 0.999), 1e-8, 1e-2), adamw.schedule(1.5, 4)
+    g = torch.Generator(device="cpu").manual_seed(1)
+    flats = [torch.randn(sum(sizes), generator=g) for _ in range(4)]
+    flats = [flats[0], flats[1], (flats[2] * 0.1).to(mu_dtype), flats[3] ** 2 * 0.01]
+    starts = [sum(sizes[:i]) for i in range(len(sizes))]
+    views = [[f.to(cuda)[a:a + n] for a, n in zip(starts, sizes)] for f in flats]
+    assert any(v.data_ptr() % 16 for v in views[0])
+    kernel_groups = [tuple(v[::2] for v in views) + (1e-3,),
+                     tuple(v[1::2] for v in views) + (5e-2,)]
+    twin_groups = [tuple([t.clone() for t in x] if isinstance(x, list) else x for x in grp)
+                   for grp in kernel_groups]
+    count_k, count_t = torch.zeros((), device=cuda), torch.zeros((), device=cuda)
+    table = None
+    for _ in range(3):
+        table = adamw.adamw_update(kernel_groups, count_k, hp, sch, table)
+        adamw.adamw_plain(twin_groups, count_t, hp, sch)
+    torch.cuda.synchronize()
+    assert table.scalar_elements > 0
+    assert float(count_k) == float(count_t) == 3.0
+    for got, want in zip(kernel_groups, twin_groups):
+        for a, b in zip(got[:4], want[:4]):
+            for x, y in zip(a, b):
+                assert torch.equal(x, y), (x.numel(), x.data_ptr() % 16, x.dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_hidden_dropout_adversarial_inputs(cuda, dtype):
+    """The hidden-dropout kernel bit for bit against its plain version,
+    forward and backward, on views 2 (bf16), 4 and 8 bytes off 16-byte
+    alignment, at sizes with n % 16 in {1, 4, 7, 12}, and under a slice
+    layout whose seg is 4 mod 8 (a thread's two Philox groups in two rows),
+    whose outputs are also the whole tensor's."""
+    from d2r_tpu_torch.ops.kernels import dropout as tdrop
+    seed = _seed(cuda, 2 ** 33 + 17, site=5)
+    size = torch.empty((), dtype=dtype).element_size()
+    cases = []
+    for off in ((2, 4, 8) if dtype == torch.bfloat16 else (4, 8)):
+        flat = torch.randn(2, 4 * 64 * 768 + 16, device=cuda).to(dtype)
+        x, g = (f[off // size:off // size + 4 * 64 * 768].view(4, 64, 768) for f in flat)
+        assert x.data_ptr() % 16 == off
+        cases.append((x.detach().requires_grad_(), g, None))
+    for r in (1, 4, 7, 12):
+        x, g = torch.randn(2, 16 * 1001 + r, device=cuda).to(dtype)
+        cases.append((x.clone().requires_grad_(), g, None))
+    whole = torch.randn(301, 24, device=cuda).to(dtype)
+    part = whole[:, 12:].contiguous()
+    cases.append((part.clone().requires_grad_(), torch.randn_like(part), (12, 24, 12)))
+    for x, g, layout in cases:
+        y = tdrop.hidden_dropout(x, 0.1, seed, layout)
+        y.backward(g)
+        assert torch.equal(y.detach(), tdrop.hidden_dropout_plain(x.detach(), 0.1, seed, layout))
+        assert torch.equal(x.grad, tdrop.hidden_dropout_plain(g, 0.1, seed, layout))
+    assert torch.equal(y.detach(), tdrop.hidden_dropout(whole, 0.1, seed)[:, 12:])
 
 
 def _step_config(dropout: bool, **kw):
