@@ -26,7 +26,13 @@ Phases; any failure exits non-zero without the final ``ok`` line:
    fp32 and bf16, errors only. Then K1 and K2 with dropout on rows 4: and
    heads 6: of a (8, 64, 12, 64) site, the slice's global offsets in its
    seed (``DropoutSeed.b0``/``.h0``, as a mesh rank passes them): out, dq,
-   dk and dv equal the whole launch's rows and heads bit for bit.
+   dk and dv equal the whole launch's rows and heads bit for bit. Then
+   the W8A16 kernel of int8 serving against its plain version at
+   D2R-base's sites (:data:`W8A16_SITES`: FFN in and out, the QKV with one
+   scale a hidden unit, the patch conv) at the rows of buckets 1, 8 and
+   32, and an odd shape, bf16 and fp32 (:data:`W8A16_TOL`), timed in bf16
+   beside ``F.linear`` on the bf16 weight and the plain path, back to back
+   and on the card alone, with its bound.
 3. K3 against its plain version the same way, at D2R-large's vision-site
    geometry (B=32, L=S=257, H=16, D=64, strided QKV views, no bias), three
    off-path shapes (L=200, S=333, D=48, B=4, H=8 with a padding bias;
@@ -58,7 +64,16 @@ Phases; any failure exits non-zero without the final ``ok`` line:
    eager beside replay, ``latency_stats`` at bucket 8, and torch.profiler
    traces of 3 eager and 3 replayed forwards at buckets 1 and 32: kernels
    per forward (34 K1 kernels by name in each, K3 none), device busy time
-   and idle share, K1's and K3's share, the top kernels.
+   and idle share, K1's and K3's share, the top kernels. Then weight-only
+   int8 serving (``int8_serving``): the same seeded model behind
+   ``Predictor(quantize="int8")``, each of its 449 quantized modules one
+   W8A16 product (2 host calls a module a bucket at warmup), at every
+   bucket its replay equal to its eager forward bit for bit and within
+   ``QUANT_LOGITS_TOL`` of the eager forward through the W8A16 plain
+   version (labels equal), its replay ms beside the bf16 one's in turns,
+   and a trace of the bucket-1 replay: one W8A16 kernel a module and no
+   more elementwise kernels than the bf16 replay has (no pass over a
+   weight).
 5. The same model in fp32 (TF32 off), batch 2, on the CPU through the plain
    path and on the card through the kernel: logits within 1e-3.
 6. Training at full width, ``bench.py``'s recipe: the same D2R-base, batch
@@ -204,8 +219,13 @@ operations at the type's peak).
    with the graph (the GCN's weight and bias among the leaves). Then the
    CLI at ``run.sh``'s recipe with ``--use_sentic_graph`` for one epoch on
    phase 12's 512 posts, with the loader's wait a step.
-18. int8 quantized training: ``quant_dot`` card against CPU on the same
-   operands at a BERT FFN product and at an odd shape that takes the
+18. int8 quantized training: first the quantize kernels (by rows, in one
+   launch and as amax + codes; by columns, codes transposed) and the
+   rescale kernel against their plain versions at :data:`QDOT_SHAPES`,
+   fp32 and bf16, bit for bit, at the FFN shape inside a captured graph
+   too, with their times beside the plain versions' and their bounds;
+   then ``quant_dot`` card against CPU on the same operands at a BERT FFN
+   product and at an odd shape that takes the
    padding to ``_int_mm``'s shapes (:data:`QDOT_SHAPES`), fp32 and bf16:
    the forward bit for bit, the backwards in fp32 within
    :data:`QDOT_BWD_TOL`; the FFN product's time beside a bf16 ``F.linear``
@@ -322,8 +342,9 @@ again with ``--quantize int8`` at ``EXPORT_INT8_BUCKETS``, D2R-large at
 ``EXPORT_LARGE_BUCKETS`` through ``export_predictor``, and ``--format
 torch``. ``serve_export`` waits for it, then ``load_exported`` with the
 checkpoint's model: each bucket's program holds 34 K1 op nodes
-(``d2r_torch::fused_attention_fwd``; D2R-large 29 and 29 K3) and no
-einsum of the plain attention, its warm-up calls K1 2 x 34 times (the
+(``d2r_torch::fused_attention_fwd``; D2R-large 29 and 29 K3; an int8
+program also one ``d2r_torch::w8a16_linear`` node a quantized module) and
+no einsum of the plain attention, its warm-up calls K1 2 x 34 times (the
 eager forward and the capture through the program), its replayed
 probabilities equal ``Predictor``'s on the same rows (atol 1e-6, labels
 equal; int8 within ``QUANT_LOGITS_TOL``; the difference is printed), and
@@ -348,8 +369,9 @@ a data rank's batch half, both) equal to the whole tensor's elements; then
 one forward of each module of ``models/extras.py`` and each loss of
 ``ops/losses_extra.py``, card against CPU in fp32 (:data:`EXTRAS_TOL`).
 
-It prints one ``kernels`` JSON line (K1, K2, K3, the AdamW kernel and the
-hidden-dropout kernel; ``launches`` counts the
+It prints one ``kernels`` JSON line (K1, K2, K3, the AdamW kernel, the
+hidden-dropout kernel, W8A16 and the quantize-rows, quantize-columns and
+rescale kernels; ``launches`` counts the
 wrappers' host calls in the serving and training runs of both
 configurations, the HTTP phase, phases 14-15, the main-path runs of
 phases 17-19 (not their card-against-CPU checks) and the bf16 steps of
@@ -358,7 +380,8 @@ every rank of phases 20-21 and 23, the CLI runs of phase 22 and the
 counting once and a replay not at all; ``ms``, ``plain_ms`` and
 ``library_ms`` back to back from the host, ``device_ms`` and
 ``library_device_ms`` the card alone), the card line, and last
-``{"ok": true, "device": {...}}``. The full report also goes to
+``{"ok": true, "device": {...}}``; the log's ``[total]`` line gives the
+whole run's seconds. The full report also goes to
 ``chiprun_out/chip_smoke.json``.
 """
 
@@ -441,6 +464,20 @@ K1_EDGES = (("d40", 4, 64, 64, 6, 40, True, 0), ("l7_s128", 4, 7, 128, 4, 64, Tr
 # with rows, seven more with keys only), the largest tile and shared memory
 # (128 by 128 by 128), dbias wherever there is a bias
 K2_EDGES = K1_EDGES
+# W8A16 (int8 serving's product) at D2R-base's sites, (name, rows a post,
+# N, K, scale period): the BERT FFN in and out and the QKV (one scale a
+# hidden unit, shared by q, k and v) at 64 rows a post, the patch conv's
+# 49 patches of 3,072 pixels; at the rows of buckets 1, 8 and 32 (each of
+# the kernel's bodies), bf16 and fp32; then an odd shape that 16-byte copies cannot stage. The sums run in
+# another order than the library GEMM's, so an output is within fp32
+# summation noise of the plain path's before its one rounding: bf16 within
+# 1e-2 of max(1, max |plain|) (one bf16 ulp of the largest outputs, 2^-8 of
+# their size, twice over), fp32 within 1e-5
+W8A16_SITES = (("ffn_in", 64, 3072, 768, 3072), ("ffn_out", 64, 768, 3072, 768),
+               ("qkv", 64, 2304, 768, 768), ("patch_conv", 49, 768, 3072, 768))
+W8A16_BUCKETS = (1, 8, 32)
+W8A16_ODD = ("odd", 5, 3, 37, 3)
+W8A16_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 # The training entry point (phase 12): run.sh's recipe (MVSA-Single:
 # batch 64, max_seq 64, DR_step 4, JS weights 0.9 / 0.3, lr 1e-5, warmup
 # 0.2) in bf16, on a fabricated dataset of 512 posts with 256-pixel JPEGs,
@@ -492,11 +529,14 @@ QDOT_BWD_TOL = 1e-5
 # epoch on a small fabricated dataset (two train steps, one dev and one
 # test batch of 64 each)
 EXTRAS_DATA = {"n": 128, "image_size": 256, "corrupt_every": 50}
-# --prng_impl threefry2x32 against rbg through the CLI: two CLI runs on the
-# card need not repeat bit for bit (the best models of two rbg runs differed
-# by up to 1.86e-9 on an H100; ROADMAP.md Queue 3), so their losses are held
-# within 1e-6 of max(1, |loss|)
-PRNG_RUN_TOL = 1e-6
+# --prng_impl threefry2x32 against rbg through the CLI: the two names draw
+# the same bits, and two CLI runs on the card repeat bit for bit since the
+# token-type table's gradient is summed in a fixed order
+# (``models/layers.py::_SmallTableLookup``; before, the library's atomics
+# left the best models of two runs up to 1.86e-9 apart, and
+# ``bisect_cli_runs.py`` found that gradient at the first step to be where
+# they parted), so their losses and best models are held equal
+PRNG_RUN_TOL = 0.0
 # the CLI's configurations of phases 17-19 beside the recipe's defaults
 EXTRAS_RUNS = (("int8", ["--quant_train", "int8"]),
                ("int8_all", ["--quant_train", "int8_all"]),
@@ -756,8 +796,74 @@ def phase_kernels(report):
     report["k2_sites"] = k2_checks(failures)
     report["dropout_identity"] = dropout_identity(failures)
     report["dropout_offsets"] = offset_checks(failures)
+    report["w8a16_sites"] = w8a16_checks(failures)
     if failures:
         raise AssertionError("; ".join(failures))
+
+
+def w8a16_bound(m, n, k, period, dtype_name):
+    """The least time of an (M, N, K) W8A16 product with a bias: the int8
+    codes, scales, x, bias and output moved once at 3.35 TB/s, against 2 M N
+    K operations at the type's peak."""
+    item = 4 if dtype_name == "float32" else 2
+    nbytes = n * k + 4 * period + (m * k + n + m * n) * item
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * m * n * k / PEAK_OPS[dtype_name]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def w8a16_checks(failures):
+    """The W8A16 kernel against its plain version (the dequantized weight,
+    then ``F.linear``) at :data:`W8A16_SITES` for the rows of
+    :data:`W8A16_BUCKETS` and at :data:`W8A16_ODD`, bf16 and fp32 (TF32
+    off): the error over max(1, max |plain|) within :data:`W8A16_TOL` and
+    the share of outputs that differ at all. In bf16, times beside the two
+    library references, ``F.linear`` on the bf16 weight (what bf16 serving
+    runs) and the plain path, back to back and on the card alone, and the
+    bound."""
+    import torch
+    import torch.nn.functional as F
+    from d2r_tpu_torch.ops.kernels import w8a16
+    rows = []
+    cases = [(site, b, rows_a_post * b, n, k, period)
+             for b in W8A16_BUCKETS for site, rows_a_post, n, k, period in W8A16_SITES]
+    cases.append((W8A16_ODD[0], 1, *W8A16_ODD[1:]))
+    for dtype_name in ("bfloat16", "float32"):
+        dtype = getattr(torch, dtype_name)
+        for i, (site, b, m, n, k, period) in enumerate(cases):
+            g = torch.Generator(device="cuda").manual_seed(300 + i)
+            x = torch.randn((m, k), generator=g, device="cuda").to(dtype)
+            q = torch.randint(-127, 128, (n, k), generator=g, device="cuda").to(torch.int8)
+            scale = torch.rand((period,), generator=g, device="cuda") * 2e-3 + 1e-4
+            bias = torch.randn((n,), generator=g, device="cuda").to(dtype)
+            out = w8a16.w8a16_linear(x, q, scale, period, bias)
+            torch.cuda.synchronize()
+            ref = w8a16.w8a16_linear_plain(x, q, scale, period, bias)
+            err = ((out.float() - ref.float()).abs().max()
+                   / ref.float().abs().max().clamp_min(1.0)).item()
+            r = {"site": site, "bucket": b, "dtype": dtype_name, "M": m, "N": n, "K": k,
+                 "period": period, "tiling": list(w8a16.tiling(m, n, k, dtype)),
+                 "max_abs_err": (out.float() - ref.float()).abs().max().item(),
+                 "err_over_max": err, "differing_share": (out != ref).float().mean().item()}
+            if not (err <= W8A16_TOL[dtype_name] and torch.isfinite(out).all().item()):
+                failures.append(f"W8A16 {site} b{b} {dtype_name}: error over max {err}")
+            if dtype_name == "bfloat16":
+                weight = w8a16.dequantize(q, scale, period, dtype)
+                kernel = lambda: w8a16.w8a16_linear(x, q, scale, period, bias)
+                library = lambda: F.linear(x, weight, bias)
+                plain = lambda: w8a16.w8a16_linear_plain(x, q, scale, period, bias)
+                r["bound_ms"], r["bound_by"] = w8a16_bound(m, n, k, period, dtype_name)
+                r.update({"ms": cuda_time_ms(kernel), "plain_ms": cuda_time_ms(plain),
+                          "library_ms": cuda_time_ms(library),
+                          "plain_device_ms": device_time_ms(plain),
+                          **device_times(kernel, library)})
+            rows.append(r)
+            log(f"[W8A16] {site:10s} b{b:<2d} {dtype_name:8s} {m}x{k} -> {n} (period {period}, "
+                f"tiling {r['tiling']}): err / max {err:.3g}, differing {r['differing_share']:.4f}"
+                + (f"; kernel {r['ms'] * 1e3:.2f} us, plain {r['plain_ms'] * 1e3:.2f} us, "
+                   f"F.linear bf16 {r['library_ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.2f}"
+                   f" us ({r['bound_by']}){device_note(r)}, plain alone "
+                   f"{r['plain_device_ms'] * 1e3:.2f} us" if "ms" in r else ""))
+    return rows
 
 
 def k1_edge_checks(failures):
@@ -1511,15 +1617,20 @@ def make_requests(cfg, seed=0):
 
 def counters():
     """The launch counters of the kernels a forward or a train step
-    launches: the attention kernels K1-K3, the hidden-dropout kernel and
-    the AdamW kernel."""
+    launches: the attention kernels K1-K3, the hidden-dropout kernel, the
+    AdamW kernel, int8 serving's W8A16 product and int8 training's quantize
+    and rescale passes."""
     from d2r_tpu_torch.ops.kernels import adamw
     from d2r_tpu_torch.ops.kernels import dropout
     from d2r_tpu_torch.ops.kernels import flash_attention as fl
     from d2r_tpu_torch.ops.kernels import fused_attention as fa
+    from d2r_tpu_torch.ops.kernels import quantize as qk
+    from d2r_tpu_torch.ops.kernels import w8a16
     return {"k1": fa.fused_attention_small, "k2": fa.fused_attention_small_bwd,
             "k3": fl.flash_attention, "dropout": dropout.hidden_dropout,
-            "adamw": adamw.adamw_update}
+            "adamw": adamw.adamw_update, "w8a16": w8a16.w8a16_linear,
+            "quantize_rows": qk.quantize_rows, "quantize_cols": qk.quantize_cols,
+            "rescale": qk.rescale}
 
 
 def zero_counts():
@@ -1702,7 +1813,128 @@ def phase_main_path(report, key="base"):
                     f"trace, expected {spec[name]}")
     bad = [b for b in BUCKETS if not equal[b]["bit_equal"]]
     assert not bad, f"replay differs from eager at buckets {bad}: {equal}"
+    if key == "base":
+        result["int8"], counts = int8_serving(pred, requests)
+        launches = {n: launches[n] + counts[n] for n in launches}
     return launches
+
+
+class plain_int8:
+    """Within it, every quantized module's product is the W8A16 plain
+    version (the dequantized weight, then ``F.linear``) on the card too: the
+    reference the kernel is held to, never the port's path."""
+
+    def __enter__(self):
+        from d2r_tpu_torch import quant
+        from d2r_tpu_torch.ops.kernels import w8a16
+        self.kernel = quant.Int8Weight._dense
+
+        def plain(module, x, bias):
+            q = module.weight_q.view(module.weight_q.shape[0], -1)
+            scale = module.weight_scale.reshape(-1)
+            x2d = x.reshape(-1, x.shape[-1])
+            y = w8a16.w8a16_linear_plain(x2d, q, scale, scale.numel(), bias)
+            return y.view(*x.shape[:-1], q.shape[0])
+
+        quant.Int8Weight._dense = plain
+
+    def __exit__(self, *exc):
+        from d2r_tpu_torch import quant
+        quant.Int8Weight._dense = self.kernel
+
+
+def elementwise_kernels(prof):
+    """Elementwise kernels a forward in a profile (casts, copies, products)."""
+    return sum(c for name, c in prof.get("kernel_calls_per_forward", {}).items()
+               if "elementwise" in name)
+
+
+def int8_serving(bf16_pred, requests):
+    """Weight-only int8 serving beside the bf16 ``Predictor`` of phase 4: the
+    same seeded model quantized (``Predictor(quantize="int8")``), warmed up
+    at every bucket (2 W8A16 host calls a quantized module a bucket: the
+    eager forward and the capture); at each bucket its replay against its
+    eager forward on the same buffers (bit for bit) and against the eager
+    forward through the W8A16 plain version (within
+    :data:`QUANT_LOGITS_TOL`, labels equal wherever the plain top
+    probability leads by more than twice that), its replay ms beside the
+    bf16 one's (in turns: bf16, int8, int8, bf16), and the bf16 model's
+    labels for the record; a profile of the bucket-1 replay: one W8A16
+    kernel a quantized module and no more elementwise kernels than the bf16
+    replay's (each plain-path product adds two over its weight). Returns
+    (the result, the launch counts of the warmup)."""
+    import numpy as np
+    from d2r_tpu_torch.models.unimo import build_model
+    from d2r_tpu_torch.quant import Int8Weight
+    from d2r_tpu_torch.serve import Predictor
+    cfg = bf16_pred.cfg
+    t0 = time.perf_counter()
+    pred = Predictor(cfg, build_model(cfg, device="cuda", seed=0), batch_buckets=BUCKETS,
+                     device="cuda", quantize="int8")
+    modules = sum(isinstance(m, Int8Weight) for m in pred.model.modules())
+    zero_counts()
+    pred.warmup()
+    counts = read_counts()
+    log(f"[main int8] {modules} quantized modules; built and warmed up in "
+        f"{time.perf_counter() - t0:.1f} s; W8A16 host calls {counts['w8a16']}")
+    assert counts["w8a16"] == 2 * modules * len(BUCKETS), (counts, modules)
+    assert counts["k1"] == 2 * MODELS["base"]["k1"] * len(BUCKETS), counts
+    result = {"modules": modules, "warmup_launches": counts, "buckets": {}}
+    ids, mask, tt, pixels = requests[-1]
+    for b in BUCKETS:
+        rows = (ids[:b], mask[:b], tt[:b], pixels[:b])
+        g, g16 = pred.graph(b), bf16_pred.graph(b)
+        pred._stage(g, rows)
+        replayed = pred._replay(g, b)
+        eager = pred._forward(*g.inputs).cpu().numpy()
+        with plain_int8():
+            plain = pred._forward(*g.inputs).cpu().numpy()
+        bf16_pred._stage(g16, rows)
+        dense = bf16_pred._replay(g16, b)
+        top2 = np.sort(plain, axis=-1)[:, -2:]
+        clear = (top2[:, 1] - top2[:, 0]) > 2 * QUANT_LOGITS_TOL
+        same = plain.argmax(-1) == replayed.argmax(-1)
+        ms = {"bf16": [replay_ms(g16.graph)], "int8": [replay_ms(g.graph)]}
+        ms["int8"].append(replay_ms(g.graph))
+        ms["bf16"].append(replay_ms(g16.graph))
+        r = result["buckets"][b] = {
+            "replay_bit_equal_eager": bool(np.array_equal(replayed, eager)),
+            "max_abs_diff_plain": float(np.abs(replayed - plain).max()),
+            "labels_equal_plain": bool(same[clear].all()), "labels_excused": int((~clear).sum()),
+            "labels_as_bf16_share": float((dense.argmax(-1) == replayed.argmax(-1)).mean()),
+            "max_abs_diff_bf16": float(np.abs(dense - replayed).max()),
+            "replay_ms": ms, "int8_ms": float(np.median(ms["int8"])),
+            "bf16_ms": float(np.median(ms["bf16"]))}
+        r["ratio"] = r["int8_ms"] / r["bf16_ms"]
+        log(f"[main int8] bucket {b:2d}: replay {'==' if r['replay_bit_equal_eager'] else '!='} "
+            f"eager; against the plain W8A16 forward max abs diff {r['max_abs_diff_plain']:.3g}, "
+            f"labels {'equal' if r['labels_equal_plain'] else 'DIFFER'} ({r['labels_excused']} "
+            f"within 2 x tol excused); as bf16's labels {r['labels_as_bf16_share']:.3f} (max "
+            f"abs diff {r['max_abs_diff_bf16']:.3g}); replay int8 {ms['int8']} ms, bf16 "
+            f"{ms['bf16']} ms (in turns): {r['ratio']:.3f}x")
+        assert r["replay_bit_equal_eager"], (b, r)
+        assert r["max_abs_diff_plain"] <= QUANT_LOGITS_TOL and r["labels_equal_plain"], (b, r)
+    prof = device_profile(pred.graph(1).graph.replay, 3, "forward")
+    prof16 = device_profile(bf16_pred.graph(1).graph.replay, 3, "forward")
+    calls = prof.get("kernel_calls_per_forward", {})
+    result["profile_replay_b1"] = {
+        **brief(prof), "w8a16_kernels_per_forward":
+        sum(c for n, c in calls.items() if "w8a16_" in n),
+        "elementwise_kernels_per_forward": elementwise_kernels(prof),
+        "bf16_elementwise_kernels_per_forward": elementwise_kernels(prof16),
+        "bf16_kernels_per_forward": prof16.get("kernels_per_forward"),
+        "bf16_device_busy_ms_per_forward": prof16.get("device_busy_ms_per_forward")}
+    p = result["profile_replay_b1"]
+    log(f"[main int8] bucket 1 replay traced: {p.get('kernels_per_forward')} kernels "
+        f"({p['w8a16_kernels_per_forward']} W8A16, {p['elementwise_kernels_per_forward']} "
+        f"elementwise; bf16: "
+        f"{p['bf16_kernels_per_forward']} kernels, {p['bf16_elementwise_kernels_per_forward']} "
+        f"elementwise), busy {p.get('device_busy_ms_per_forward')} ms (bf16 "
+        f"{p['bf16_device_busy_ms_per_forward']})")
+    assert p["w8a16_kernels_per_forward"] == modules, p
+    assert p["elementwise_kernels_per_forward"] <= p["bf16_elementwise_kernels_per_forward"] + 2, p
+    del pred
+    return result, counts
 
 
 def busy_time(spans):
@@ -2792,10 +3024,24 @@ def phase_serve_http(report):
         want = 2 * MODELS["base"]["k1"] * len(BUCKETS) * 3
         log(f"[serve_http] K1 host calls {launches['k1']} (3 builds of {len(BUCKETS)} "
             f"buckets, eager + capture), K3 {launches['k3']}")
-        assert launches == {**no_counts(), "k1": want}, launches
+        # the int8 service's build: two W8A16 host calls a quantized module
+        # a bucket
+        w8 = 2 * int8_modules(cfg) * len(BUCKETS)
+        assert launches == {**no_counts(), "k1": want, "w8a16": w8}, launches
         return launches
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+def int8_modules(cfg):
+    """The modules ``quant.quantize_model`` quantizes in ``cfg``'s model:
+    one W8A16 product each a forward."""
+    import torch
+    from d2r_tpu_torch.models.unimo import D2RClassifier
+    from d2r_tpu_torch.quant import _INT8
+    with torch.device("meta"):
+        model = D2RClassifier(cfg)
+    return sum(type(m) in _INT8 for m in model.modules())
 
 
 EXPORT_ROOT = os.path.join("build", "chip_smoke_serve_export")
@@ -2883,12 +3129,13 @@ def phase_export_start(report):
 
 def op_nodes(program):
     """Nodes of an exported program by target: the custom ops K1
-    (``d2r_torch::fused_attention_fwd``) and K3, and einsums with the plain
-    attention's equations."""
+    (``d2r_torch::fused_attention_fwd``), K3 and W8A16, and einsums with the
+    plain attention's equations."""
     import torch
     targets = {torch.ops.d2r_torch.fused_attention_fwd.default: "k1",
-               torch.ops.d2r_torch.flash_attention_fwd.default: "k3"}
-    out = {"k1": 0, "k3": 0, "plain_attention_einsums": 0, "nodes": 0}
+               torch.ops.d2r_torch.flash_attention_fwd.default: "k3",
+               torch.ops.d2r_torch.w8a16_linear.default: "w8a16"}
+    out = {"k1": 0, "k3": 0, "w8a16": 0, "plain_attention_einsums": 0, "nodes": 0}
     for n in program.graph.nodes:
         out["nodes"] += 1
         if n.op != "call_function":
@@ -2927,7 +3174,10 @@ def export_run(tag, out, live, model, rows, spec, tol, exported, trace=True):
     with ``trace``, a traced replay at the first and last bucket."""
     import numpy as np
     from d2r_tpu_torch.export import load_exported
+    from d2r_tpu_torch.quant import Int8Weight
     pred = load_exported(out, model)
+    # an int8 program holds the W8A16 op once a quantized module
+    w8a16_nodes = sum(isinstance(m, Int8Weight) for m in live.model.modules())
     result = {}
     for b in pred.batch_buckets:
         r = result[b] = dict(exported[b])
@@ -2952,7 +3202,8 @@ def export_run(tag, out, live, model, rows, spec, tol, exported, trace=True):
             prof = device_profile(g.graph.replay, 3, "forward")
             r["traced_replay"] = {k: prof.get(f"{k}_kernels_per_forward") for k in ("k1", "k3")}
         log(f"[export{spec['tag']}] {tag} bucket {b:2d}: {r['nodes']['k1']} K1 and "
-            f"{r['nodes']['k3']} K3 op nodes of {r['nodes']['nodes']}, plain attention "
+            f"{r['nodes']['k3']} K3 and {r['nodes']['w8a16']} W8A16 op nodes of "
+            f"{r['nodes']['nodes']}, plain attention "
             f"einsums {r['nodes']['plain_attention_einsums']}; trace {r['trace_s']:.1f} s, save "
             f"{r['save_s']:.1f} s, {r['bytes']} bytes, load {r['load_s']:.1f} s, warmup "
             f"{r['warmup_s']:.1f} s (host calls {r['host_calls']}); "
@@ -2962,6 +3213,7 @@ def export_run(tag, out, live, model, rows, spec, tol, exported, trace=True):
             + (f"; traced replay {r['traced_replay']}" if "traced_replay" in r else ""))
         assert r["labels_equal"] and r["max_abs_diff"] <= tol, (tag, b, r)
         assert r["nodes"]["k1"] == spec["k1"] and r["nodes"]["k3"] == spec["k3"], r["nodes"]
+        assert r["nodes"]["w8a16"] == w8a16_nodes, (r["nodes"], w8a16_nodes)
         assert r["nodes"]["plain_attention_einsums"] == 0, r["nodes"]
         assert r["host_calls"] == {"k1": 2 * spec["k1"], "k2": 0, "k3": 2 * spec["k3"]}, r
         if "traced_replay" in r:
@@ -3660,6 +3912,106 @@ def op_profile(fn):
             "top_ops_ms": {k: v / 1e3 for k, v in sorted(by_op.items(), key=lambda kv: -kv[1])[:10]}}
 
 
+def quantize_checks():
+    """The quantize and rescale kernels against their plain versions at
+    :data:`QDOT_SHAPES` (x (M, K), w (N, K), g (M, N)), fp32 and bf16, bit
+    for bit: by rows (one launch, and amax + codes as under a group) x, w
+    and g; by columns (codes transposed) x, w and g; the rescale of
+    ``int_mm``'s product in the forward's order (rows, then columns) and
+    the dW order, into fp32 and the input's type; at the FFN shape in bf16
+    again inside a captured graph. Then each kernel's time at the FFN shape
+    in bf16 beside its plain version and its bound (bytes: the input read
+    once, the codes, scales or output written once); no single PyTorch call
+    computes either, so they have no library time."""
+    import torch
+    from d2r_tpu_torch.ops import qdot
+    from d2r_tpu_torch.ops.kernels import quantize as qk
+
+    def run(x, w, gout, dtype):
+        out = {}
+        for name, t in (("x", x), ("w", w), ("g", gout)):
+            out[f"rows_{name}"] = qk.quantize_rows(t)
+            out[f"rows2_{name}"] = qk.quantize_rows(t, qk.row_amax(t))
+            out[f"cols_{name}"] = qk.quantize_cols(t, qk.col_amax(t))
+        (qx, sx), (qw, sw) = out["rows_x"], out["rows_w"]
+        y = qdot.int_mm(qx, qw)
+        out["rescale"] = tuple(qk.rescale(y, sx, sw.t(), t) for t in (torch.float32, dtype))
+        (cx, csx), (cg, csg) = out["cols_x"], out["cols_g"]
+        out["rescale_dw"] = (qk.rescale(qdot.int_mm(cg, cx), csx, csg.t(), dtype),)
+        return out
+
+    def plain(x, w, gout, dtype):
+        out = {}
+        for name, t in (("x", x), ("w", w), ("g", gout)):
+            out[f"rows_{name}"] = out[f"rows2_{name}"] = qk.quantize_rows_plain(t)
+            out[f"cols_{name}"] = qk.quantize_cols_plain(t, qk.col_amax_plain(t))
+        (qx, sx), (qw, sw) = out["rows_x"], out["rows_w"]
+        y = qdot.int_mm(qx, qw)
+        out["rescale"] = tuple(qk.rescale_plain(y, sx, sw.t(), t) for t in (torch.float32, dtype))
+        (cx, csx), (cg, csg) = out["cols_x"], out["cols_g"]
+        out["rescale_dw"] = (qk.rescale_plain(qdot.int_mm(cg, cx), csx, csg.t(), dtype),)
+        return out
+
+    checks, bad = [], []
+    for name, m, k, n in QDOT_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(m + k + n + 1)
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w, gout = (torch.randn(sh, generator=g, device="cuda").to(dtype) * 3
+                          for sh in ((m, k), (n, k), (m, n)))
+            x[0] = 0    # an all-zero row
+            want = plain(x, w, gout, dtype)
+            runs = {"eager": run(x, w, gout, dtype)}
+            if name == QDOT_SHAPES[0][0] and dtype == torch.bfloat16:
+                side = torch.cuda.Stream()
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side):
+                    run(x, w, gout, dtype)
+                torch.cuda.current_stream().wait_stream(side)
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    runs["captured"] = run(x, w, gout, dtype)
+                graph.replay()
+            torch.cuda.synchronize()
+            for how, got in runs.items():
+                unequal = [key for key in want
+                           if not all(torch.equal(a, b) for a, b in zip(got[key], want[key]))]
+                checks.append({"shape": name, "dtype": str(dtype)[6:], "run": how,
+                               "outputs": len(want), "unequal": unequal})
+                log(f"[int8] quantize / rescale kernels {name} {str(dtype)[6:]} {how}: "
+                    f"{len(want) - len(unequal)} of {len(want)} outputs == plain"
+                    + (f"; DIFFER: {unequal}" if unequal else ""))
+                bad += [f"{name} {dtype} {how} {key}" for key in unequal]
+    assert not bad, f"quantize / rescale kernels differ from their plain versions: {bad}"
+
+    _, m, k, n = QDOT_SHAPES[0]
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((m, k), generator=g, device="cuda").bfloat16()
+    w = torch.randn((n, k), generator=g, device="cuda").bfloat16()
+    qx, sx = qk.quantize_rows(x)
+    qw, sw = qk.quantize_rows(w)
+    y = qdot.int_mm(qx, qw)
+    bound = lambda nbytes: {"bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+                            "library_ms": None, "library_device_ms": None}
+    timed = {
+        "quantize_rows": (lambda: qk.quantize_rows(x), lambda: qk.quantize_rows_plain(x),
+                          bound(m * k * 3 + 4 * m), f"x ({m}, {k}) bf16"),
+        "quantize_cols": (lambda: qk.quantize_cols(x, qk.col_amax(x)),
+                          lambda: qk.quantize_cols_plain(x, qk.col_amax_plain(x)),
+                          bound(m * k * 3 + 4 * k), f"x ({m}, {k}) bf16, codes (K, M)"),
+        "rescale": (lambda: qk.rescale(y, sx, sw.t(), torch.bfloat16),
+                    lambda: qk.rescale_plain(y, sx, sw.t(), torch.bfloat16),
+                    bound(m * n * 6 + 4 * (m + n)), f"y ({m}, {n}) int32 -> bf16")}
+    rows = {}
+    for name, (kernel, plain_fn, r, what) in timed.items():
+        r = rows[name] = {**r, "site": what, "ms": cuda_time_ms(kernel),
+                          "plain_ms": cuda_time_ms(plain_fn), "device_ms": device_time_ms(kernel),
+                          "plain_device_ms": device_time_ms(plain_fn), "max_abs_err": 0.0}
+        log(f"[int8] {name} kernel, {what}: {r['ms'] * 1e3:.2f} us back to back, "
+            f"{r['device_ms'] * 1e3:.2f} us alone; plain {r['plain_ms'] * 1e3:.2f} / "
+            f"{r['plain_device_ms'] * 1e3:.2f} us; bound {r['bound_ms'] * 1e3:.2f} us (bytes)")
+    return {"checks": checks, "timed": rows}
+
+
 def phase_int8(report):
     """int8 quantized training at full width: ``quant_dot`` card against CPU
     on the same operands (:data:`QDOT_SHAPES`; the forward bit for bit in
@@ -3706,16 +4058,19 @@ def phase_int8(report):
                 assert row["forward_bit_equal"], row
                 if dtype == torch.float32:
                     assert row["backward_max_err_over_max"] <= QDOT_BWD_TOL, row
+    result["kernels"] = quantize_checks()
     _, m, k, n = QDOT_SHAPES[0]
     g = torch.Generator(device="cuda").manual_seed(0)
     x = torch.randn((m, k), generator=g, device="cuda").bfloat16()
     w = torch.randn((n, k), generator=g, device="cuda").bfloat16()
-    qx, qw = qdot._quantize(x, -1)[0], qdot._quantize(w, 1)[0]
+    qx, qw = qdot.quantize_rows(x)[0], qdot.quantize_rows(w)[0]
     times = {"quant_dot_ms": cuda_time_ms(lambda: qdot.quant_dot(x, w)),
              "bf16_linear_ms": cuda_time_ms(lambda: F.linear(x, w)),
              "int_mm_ms": cuda_time_ms(lambda: qdot.int_mm(qx, qw)),
-             "quantize_x_ms": cuda_time_ms(lambda: qdot._quantize(x, -1))}
+             "quantize_x_ms": cuda_time_ms(lambda: qdot.quantize_rows(x))}
     times.update({f"{k}_device": device_time_ms(fn) for k, fn in (
+        ("quant_dot_ms", lambda: qdot.quant_dot(x, w)),
+        ("quantize_x_ms", lambda: qdot.quantize_rows(x)),
         ("int_mm_ms", lambda: qdot.int_mm(qx, qw)), ("bf16_linear_ms", lambda: F.linear(x, w)))})
     result["ffn_times"] = times
     log(f"[int8] FFN product {m}x{k} . {k}x{n}, bf16 in: " + ", ".join(
@@ -3848,9 +4203,8 @@ def phase_extras(report):
         # --async_checkpoint: the best model, written by the save thread at the
         # end of the epoch, equals the resume slot written synchronously right
         # after from the same state; the test pass after its reload equals a
-        # restore probe of the file. Two runs are compared too, for the record:
-        # training on the card need not repeat bit for bit (cuBLAS and atomic
-        # reductions), so the runs' master weights may differ by an ulp
+        # restore probe of the file. The two runs are compared too, for the
+        # record (two runs repeat bit for bit: PRNG_RUN_TOL)
         sync = run("sync", ["--auto_resume"])
         asyn = run("async", ["--auto_resume", "--async_checkpoint"])
         asyn["best_vs_resume_slot_max_abs_diff"] = diff(
@@ -3871,10 +4225,10 @@ def phase_extras(report):
         assert asyn["best_vs_resume_slot_max_abs_diff"] == 0.0
         assert probe["loss"] == asyn["test_loss"], (probe["loss"], asyn["test_loss"])
         shutil.rmtree(os.path.join(root, "async"))
-        # --prng_impl threefry2x32: the rbg run's losses within PRNG_RUN_TOL
-        # (two runs need not repeat bit for bit, above); other dropout bits
-        # would move the first step's loss by far more. The names' bit
-        # equality within one process is the CPU tests'.
+        # --prng_impl threefry2x32: the rbg run's losses and best model bit
+        # for bit (PRNG_RUN_TOL); other dropout bits would move the first
+        # step's loss by far more. The names' bit equality within one
+        # process is the CPU tests' too.
         three = run("threefry2x32", ["--prng_impl", "threefry2x32"])
         three["best_model_vs_rbg_run_max_abs_diff"] = diff(
             load("threefry2x32", "best_model", "model.pth"), load("sync", "best_model", "model.pth"))
@@ -3888,7 +4242,8 @@ def phase_extras(report):
             f"bound {PRNG_RUN_TOL}); best model max abs diff "
             f"{three['best_model_vs_rbg_run_max_abs_diff']!r}")
         assert (len(three["train_losses"]) == len(sync["train_losses"])
-                and three["loss_max_rel_diff_vs_rbg_run"] <= PRNG_RUN_TOL), \
+                and three["loss_max_rel_diff_vs_rbg_run"] <= PRNG_RUN_TOL
+                and three["best_model_vs_rbg_run_max_abs_diff"] <= PRNG_RUN_TOL), \
             "threefry2x32 trained otherwise than rbg"
         for name in ("sync", "threefry2x32", "async_probe"):
             shutil.rmtree(os.path.join(root, name), ignore_errors=True)
@@ -5045,6 +5400,7 @@ def main():
         return 2
     import d2r_tpu_torch  # noqa: F401  (fails when run outside the repo)
 
+    t_start = time.perf_counter()
     report = {"card": card_line()}
     log(f"[card] {report['card']}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     paths = {}   # launch counts of each path's run, by phase
@@ -5096,6 +5452,8 @@ def main():
         if proc.poll() is None:
             proc.kill()
             proc.wait()
+    report["total_s"] = time.perf_counter() - t_start
+    log(f"[total] every phase in {report['total_s']:.1f} s")
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
@@ -5120,6 +5478,12 @@ def main():
                  report["k1_sites"] + report["k1_edges"] + report["k1_dropout"])
     launches = {n: sum(c.get(n, 0) for c in paths.values()) for n in counters()}
     step_kernels = report["step_kernels"]["kernels_line"]
+    # W8A16 at the FFN-in site of bucket 1 in bf16; the quantize and rescale
+    # kernels at the FFN shape in bf16 (their outputs equal the plain
+    # versions' bit for bit in every check, so their error is 0)
+    w8 = next(r for r in report["w8a16_sites"]
+              if (r["site"], r["bucket"], r["dtype"]) == ("ffn_in", 1, "bfloat16"))
+    quant_timed = report["int8"]["kernels"]["timed"]
     row = lambda r: {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                        "device_ms", "library_device_ms")}
     print(json.dumps({"kernels": [
@@ -5148,7 +5512,17 @@ def main():
                      " no pl.pallas_call)",
          "launches": launches["dropout"],
          "max_abs_err": max(r["max_abs_err"] for r in report["step_kernels"]["dropout"]),
-         **row({**step_kernels["dropout"], "ms": step_kernels["dropout"]["kernel_ms"]})}]}))
+         **row({**step_kernels["dropout"], "ms": step_kernels["dropout"]["kernel_ms"]})},
+        {"name": "w8a16_linear", "route": "cuda", "source": "d2r_tpu_torch/csrc/w8a16_linear.cu",
+         "replaces": "none: d2r_tpu/quant.py:37,91 (QuantLeaf.dequant, which XLA fuses into"
+                     " the consuming dot; no pl.pallas_call)",
+         "launches": launches["w8a16"],
+         "max_abs_err": max(r["max_abs_err"] for r in report["w8a16_sites"]), **row(w8)},
+        *({"name": name, "route": "cuda", "source": "d2r_tpu_torch/csrc/quantize.cu",
+           "replaces": "none: d2r_tpu/ops/qdot.py:58,70 (_quantize and _int8_matmul's rescale,"
+                       " XLA fusions around lax.dot_general; no pl.pallas_call)",
+           "launches": launches[name], "max_abs_err": quant_timed[name]["max_abs_err"],
+           **row(quant_timed[name])} for name in ("quantize_rows", "quantize_cols", "rescale"))]}))
     print(report["card"])
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -20,8 +20,10 @@ Artifact layout (``export_predictor`` writes, ``load_exported`` reads)::
 Notes:
   * A ``cuda`` program is exported on the card. Its attention sites are the
     kernels' ``torch.library`` custom ops (``d2r_torch::fused_attention_fwd``
-    for K1, ``d2r_torch::flash_attention_fwd`` for K3), one node a site, so
-    the loaded program launches the port's kernels. A ``cpu`` program bakes
+    for K1, ``d2r_torch::flash_attention_fwd`` for K3), one node a site, and
+    under ``--quantize int8`` each quantized product is the W8A16 op
+    (``d2r_torch::w8a16_linear``), so the loaded program launches the port's
+    kernels. A ``cpu`` program bakes
     the plain einsum attention in, as the JAX package's CPU-host export
     bakes the XLA path; a loader on the card refuses it rather than run it
     and bypass the kernels unseen. ``platforms=("cpu", "cuda")`` writes one
@@ -56,7 +58,7 @@ from torch import nn
 
 from d2r_tpu_torch.config import D2RConfig, load_config_json, resolve_device, save_config_json
 # the custom ops must be registered before torch.export.load reads a program
-from d2r_tpu_torch.ops.kernels import flash_attention, fused_attention  # noqa: F401
+from d2r_tpu_torch.ops.kernels import flash_attention, fused_attention, w8a16  # noqa: F401
 from d2r_tpu_torch.serve import Predictor, bucket_probs
 
 logger = logging.getLogger(__name__)

@@ -133,6 +133,11 @@ class _Parallel:
             return self.rows_group
         return None if self.mesh is None else self.mesh.data_group
 
+    def _dense(self, x: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+        """``x . weight^T (+ bias)`` in the compute type; a quantized module
+        (``quant.py``) takes the W8A16 product instead."""
+        return F.linear(x, self.weight.to(self.dtype), bias)
+
     def _quant_groups(self) -> dict:
         """``quant_dot``'s groups: the rows' group, and the model group
         with the side it splits."""
@@ -219,8 +224,7 @@ class TorchLinear(_Parallel, nn.Module):
             # the partial products summed (the quantized product sums its
             # int32 ones), then the bias once
             if self.quant == "none":
-                y = reduce_from(F.linear(x.to(self.dtype), self.weight.to(self.dtype)),
-                                self._model_group())
+                y = reduce_from(self._dense(x.to(self.dtype), None), self._model_group())
             else:
                 y = self._product(x)
             y = _seq_output(y, seq)
@@ -228,7 +232,7 @@ class TorchLinear(_Parallel, nn.Module):
         if self.tp == "column" or seq is not None:
             x = _column_input(self, x, seq)
         if self.quant == "none":
-            return F.linear(x.to(self.dtype), self.weight.to(self.dtype), bias)
+            return self._dense(x.to(self.dtype), bias)
         y = self._product(x)
         return y if bias is None else y + bias
 
@@ -259,8 +263,7 @@ class QKVDense(_Parallel, nn.Module):
     def forward(self, x: torch.Tensor, seq: Optional[SeqShard] = None):
         x = _column_input(self, x, seq)
         if self.quant == "none":
-            y = F.linear(x.to(self.dtype), self.weight.to(self.dtype),
-                         self.bias.to(self.dtype))
+            y = self._dense(x.to(self.dtype), self.bias.to(self.dtype))
         else:
             y = (quant_dot(x.to(self.dtype), self.weight.to(self.dtype), self.quant,
                            **self._quant_groups()).to(self.dtype) + self.bias.to(self.dtype))
@@ -303,6 +306,35 @@ class LayerNorm(nn.Module):
         return y.to(self.dtype)
 
 
+# tables of at most this many rows (BERT's token types) take
+# :class:`_SmallTableLookup` on the card
+SMALL_TABLE_ROWS = 16
+
+
+class _SmallTableLookup(torch.autograd.Function):
+    """``F.embedding`` whose table gradient is summed without atomics: row v
+    is the sum over the positions that look it up, one reduction a row
+    (fixed order). The library's CUDA backward accumulates with atomics in
+    no fixed order; where thousands of positions share a row (every token of
+    a batch reads token type 0) two runs then part in the last bits of that
+    row's gradient (``bisect_cli_runs.py``)."""
+
+    @staticmethod
+    def forward(ctx, ids, weight):
+        ctx.save_for_backward(ids)
+        ctx.rows = weight.shape[0]
+        return F.embedding(ids, weight)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        flat = ids.reshape(-1, 1)
+        g2d = g.reshape(-1, g.shape[-1])
+        zero = g2d.new_zeros(())
+        grad = torch.stack([torch.where(flat == v, g2d, zero).sum(0) for v in range(ctx.rows)])
+        return None, grad
+
+
 class Embed(_Parallel, nn.Module):
     """Lookup table returning the compute type. ``tp`` "vocab": this rank
     holds rows ``[i*n, (i+1)*n)`` of the table at model index i; other ids
@@ -320,6 +352,8 @@ class Embed(_Parallel, nn.Module):
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         if self.tp != "vocab":
+            if self.weight.is_cuda and self.weight.shape[0] <= SMALL_TABLE_ROWS:
+                return _SmallTableLookup.apply(ids.long(), self.weight).to(self.dtype)
             return F.embedding(ids.long(), self.weight).to(self.dtype)
         n = self.weight.shape[0]
         local = ids.long() - self.mesh.model_index * n

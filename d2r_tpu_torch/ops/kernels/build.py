@@ -33,7 +33,9 @@ SOURCES = {"fused_attention_fwd": "fused_attention_fwd.cu",
            "fused_attention_bwd": "fused_attention_bwd.cu",
            "flash_attention_fwd": "flash_attention_fwd.cu",
            "dropout": "dropout.cu",
-           "adamw": "adamw.cu"}
+           "adamw": "adamw.cu",
+           "w8a16_linear": "w8a16_linear.cu",
+           "quantize": "quantize.cu"}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -16,7 +16,7 @@ The arithmetic is the JAX package's, step for step, so both give the same
 bits: the operands are cast to the compute type first, amax is taken in
 that type, the scale is ``where(amax > 0, amax, 1) / 127`` in fp32, codes
 are ``clip(round_half_even(x / scale), -127, 127)``, and the result is
-``y.float() * sx * sw``.
+``(y.float() * sx) * sw`` rounded to the output's type.
 
 The int32 product is ``torch._int_mm``: the JAX package computes it with
 ``lax.dot_general`` outside any Pallas kernel, so this is a library GEMM,
@@ -25,7 +25,19 @@ product only with M > 16 and K, N multiples of 8, the first operand
 row-major and the second column-major; :func:`int_mm` zero-pads every
 product to such a shape (exact in integer arithmetic) on both devices, so
 a shape the library refuses never reaches it and none is routed to a float
-product instead. The quantize passes are plain PyTorch, as in JAX.
+product instead. The quantize and rescale passes around it, which XLA fuses
+into the dots in the JAX package, are hand-written kernels on the card
+(``ops/kernels/quantize.py``): one launch quantizes a tensor by rows, two
+by columns (the amax over every row, then the codes, written transposed in
+the layout ``_int_mm`` takes), and one rescales the int32 product into the
+output's type. On the CPU they are their plain versions.
+
+``int8``'s weight gradient is the unquantized product's, as in JAX: for
+bf16 operands a bf16 product with fp32 accumulation rounded once to the
+weight's type (JAX's ``preferred_element_type=jnp.float32`` dot); on the
+card ``torch.mm(..., out_dtype=torch.float32)``, on the CPU (which has no
+such kernel) the same exact products through an fp32 upcast. fp32 operands
+keep the fp32 product.
 
 The mode is not a module global here: ``D2RModel`` sets it on each of its
 ``TorchLinear`` and ``QKVDense`` modules at construction
@@ -55,6 +67,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from d2r_tpu_torch.ops.kernels import quantize as qk
 from d2r_tpu_torch.parallel.distributed import all_reduce_max, sum_over
 
 MODES = ("none", "int8", "int8_all")
@@ -78,17 +91,20 @@ def set_quant_mode(module: torch.nn.Module, mode: str) -> torch.nn.Module:
     return module
 
 
-def _quantize(x: torch.Tensor, dim: int, group=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Symmetric int8 codes of ``x`` over ``dim`` and their fp32 scale (kept
-    as a size-1 dim), the amax taken over ``group`` too. An all-zero slice
-    gets scale 1/127 and codes 0."""
-    amax = all_reduce_max(x.abs().amax(dim=dim, keepdim=True).float(), group)
-    # a tensor divisor: CUDA divides by a host scalar as a product with its
-    # reciprocal, which can be one ulp off the quotient that JAX and the CPU
-    # compute, and would move the codes
-    scale = torch.where(amax > 0, amax, torch.ones_like(amax)) / torch.full_like(amax, 127.0)
-    q = torch.clamp(torch.round(x.float() / scale), -127, 127)
-    return q.to(torch.int8), scale
+def quantize_rows(x2d: torch.Tensor, group=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 codes (R, K) of each row of ``x2d`` and their fp32
+    scales (R, 1), the amax taken over ``group`` too. An all-zero row gets
+    scale 1/127 and codes 0."""
+    if group is None:
+        return qk.quantize_rows(x2d)
+    return qk.quantize_rows(x2d, all_reduce_max(qk.row_amax(x2d), group))
+
+
+def quantize_cols(x2d: torch.Tensor, group=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The codes of each column of ``x2d`` (R, C) over its rows, transposed
+    (C, R), and their fp32 scales (1, C), the amax taken over ``group``
+    too."""
+    return qk.quantize_cols(x2d, all_reduce_max(qk.col_amax(x2d), group))
 
 
 def _round_up(n: int, k: int) -> int:
@@ -113,12 +129,12 @@ def int_mm(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
 
 def _int8_matmul(x: torch.Tensor, w: torch.Tensor, group=None) -> torch.Tensor:
     """``x (..., K) @ w.T`` for ``w`` (N, K), quantized: x per row over K, w
-    per output row over K. fp32 (..., N). ``group``: the model ranks whose
-    slices of K make the whole contraction."""
-    qx, sx = _quantize(x, -1, group)                # sx (..., 1)
-    qw, sw = _quantize(w, 1, group)                 # sw (N, 1)
-    y = sum_over(int_mm(qx.reshape(-1, x.shape[-1]), qw), group)
-    return y.reshape(*x.shape[:-1], w.shape[0]).float() * sx * sw[:, 0]
+    per output row over K. (..., N) in x's type. ``group``: the model ranks
+    whose slices of K make the whole contraction."""
+    qx, sx = quantize_rows(x.reshape(-1, x.shape[-1]), group)     # sx (M, 1)
+    qw, sw = quantize_rows(w, group)                              # sw (N, 1)
+    y = qk.rescale(sum_over(int_mm(qx, qw), group), sx, sw.t(), x.dtype)
+    return y.view(*x.shape[:-1], w.shape[0])
 
 
 class QuantDot(torch.autograd.Function):
@@ -130,7 +146,7 @@ class QuantDot(torch.autograd.Function):
         ctx.save_for_backward(x, w)
         ctx.mode, ctx.group = mode, group
         ctx.column = model_group if split == "column" else None
-        return _int8_matmul(x, w, model_group if split == "row" else None).to(x.dtype)
+        return _int8_matmul(x, w, model_group if split == "row" else None)
 
     @staticmethod
     def backward(ctx, g):
@@ -139,15 +155,21 @@ class QuantDot(torch.autograd.Function):
         g2d = g.reshape(-1, g.shape[-1])
         if ctx.mode == "int8_all":
             # dx[..., k] = sum_n g[..., n] w[n, k]: contract N, per-k scales of w
-            dx = _int8_matmul(g, w.t(), ctx.column)
+            qg, sg = quantize_rows(g2d, ctx.column)       # sg (M, 1)
+            qw, sw = quantize_cols(w, ctx.column)         # (K, N), sw (1, K)
+            dx = qk.rescale(sum_over(int_mm(qg, qw), ctx.column), sg, sw, x.dtype)
+            dx = dx.view(x.shape)
             # dW[n, k] = sum_m g[m, n] x[m, k]: contract the rows
-            qx, sx = _quantize(x2d, 0, ctx.group)   # sx (1, K)
-            qg, sg = _quantize(g2d, 0, ctx.group)   # sg (1, N)
-            dw = int_mm(qg.t(), qx.t()).float() * sx * sg.t()
+            qx, sx = quantize_cols(x2d, ctx.group)        # (K, M), sx (1, K)
+            qg, sg = quantize_cols(g2d, ctx.group)        # (N, M), sg (1, N)
+            dw = qk.rescale(int_mm(qg, qx), sx, sg.t(), w.dtype)
         else:
             # the unquantized product's backward on the saved operands
             dx = sum_over(torch.matmul(g, w), ctx.column)
-            dw = torch.matmul(g2d.t().float(), x2d.float())
+            if g2d.is_cuda and g2d.dtype == torch.bfloat16:
+                dw = torch.mm(g2d.t(), x2d, out_dtype=torch.float32)
+            else:
+                dw = torch.matmul(g2d.t().float(), x2d.float())
         return dx.to(x.dtype), dw.to(w.dtype), None, None, None, None
 
 

@@ -407,8 +407,6 @@ def _split_int8(module: nn.Module, axis: int, mesh: Mesh) -> None:
         k = module.weight_scale.shape[out_axis] // mesh.tp
         module.weight_scale = module.weight_scale.narrow(
             out_axis, mesh.model_index * k, k).contiguous().clone()
-    module._qgroups = ((3, module.weight_q.shape[0] // 3, module.weight_q.shape[1])
-                       if isinstance(module, QKVDense) else tuple(module.weight_q.shape))
 
 
 def _sharded(model: nn.Module, key: str):

@@ -14,10 +14,14 @@ port's weights put them first, so the scale covers every axis but the
 first. ``QKVDense``'s Flax kernel is (in, 3, hidden): one scale per hidden
 unit, shared by q, k and v.
 
-This is plain PyTorch. In the JAX package XLA fuses the multiply into the
-consuming product, so only the int8 bytes are read; here each forward
-materialises the dequantized weight in the compute type before its
-product, so the weight bytes a forward reads do not shrink.
+On the card each quantized module's product is the W8A16 kernel
+(``ops/kernels/w8a16.py``): it reads the int8 codes and scales, builds
+each weight element in the compute type on chip, bit for bit the value
+above, and never writes a dequantized weight, as XLA fuses the dequantize
+into the consuming product in the JAX package. The patch conv is that
+product over the patch matrix (stride = kernel, so the patches are a
+permute of the pixels). On the CPU the product is the plain version: the
+dequantized weight, then ``F.linear``.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from torch import nn
 
 from d2r_tpu_torch.models.layers import QKVDense, TorchLinear
 from d2r_tpu_torch.models.vit import PatchConv
+from d2r_tpu_torch.ops.kernels.w8a16 import dequantize, w8a16_linear
 
 
 def quantize_array(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -45,15 +50,21 @@ def quantize_array(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 class Int8Weight:
-    """Mixin of a quantized module: ``weight`` is computed from the buffers
-    ``weight_q`` (int8) and ``weight_scale`` (fp32), which broadcast
-    against each other in the shape ``_qgroups``, in the module's compute
-    type."""
+    """Mixin of a quantized module: the buffers ``weight_q`` (int8, the
+    weight's shape) and ``weight_scale`` (fp32, one value a group of output
+    channels: ``weight_scale.numel()`` of them, output channel n taking
+    value ``n % numel``). ``weight`` is the dequantized weight in the
+    module's compute type (the plain path); the module's product is the
+    W8A16 one, which never builds it."""
 
     @property
     def weight(self) -> torch.Tensor:
-        q = self.weight_q.view(self._qgroups).to(self.dtype)
-        return (q * self.weight_scale.to(self.dtype)).view(self.weight_q.shape)
+        return dequantize(self.weight_q, self.weight_scale, self.weight_scale.numel(),
+                          self.dtype)
+
+    def _dense(self, x: torch.Tensor, bias) -> torch.Tensor:
+        q = self.weight_q.view(self.weight_q.shape[0], -1)
+        return w8a16_linear(x, q, self.weight_scale, self.weight_scale.numel(), bias)
 
 
 class Int8TorchLinear(Int8Weight, TorchLinear):
@@ -65,7 +76,17 @@ class Int8QKVDense(Int8Weight, QKVDense):
 
 
 class Int8PatchConv(Int8Weight, PatchConv):
-    pass
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The conv as the W8A16 product over the patch matrix: (B, C, H, W)
+        -> (B, out, H / p, W / p), each patch flattened in the weight's
+        (C, p, p) order."""
+        b, c, hh, ww = x.shape
+        p = self.patch
+        h, w = hh // p, ww // p
+        patches = (x[:, :, :h * p, :w * p].to(self.dtype).reshape(b, c, h, p, w, p)
+                   .permute(0, 2, 4, 1, 3, 5).reshape(b * h * w, c * p * p))
+        y = self._dense(patches, None)
+        return y.view(b, h, w, -1).permute(0, 3, 1, 2)
 
 
 _INT8 = {TorchLinear: Int8TorchLinear, QKVDense: Int8QKVDense, PatchConv: Int8PatchConv}
@@ -75,16 +96,13 @@ def _quantize_module(m: nn.Module) -> None:
     w = m.weight.detach()
     if isinstance(m, QKVDense):
         # (3h, in) rows are [q | k | v]: group as (h, 3, in) for the scale
-        groups = (3, m.hidden, w.shape[1])
-        q, scale = quantize_array(w.view(groups).transpose(0, 1))
+        q, scale = quantize_array(w.view(3, m.hidden, w.shape[1]).transpose(0, 1))
         q, scale = q.transpose(0, 1), scale.view(1, m.hidden, 1)
     else:
-        groups = tuple(w.shape)
         q, scale = quantize_array(w)
     del m.weight
     m.register_buffer("weight_q", q.reshape(w.shape).contiguous())
     m.register_buffer("weight_scale", scale.contiguous())
-    m._qgroups = groups
     m.__class__ = _INT8[type(m)]
 
 

@@ -974,3 +974,224 @@ def test_cuda_quant_dot_under_two_gloo_ranks_is_one_process_s_bits(cuda, dtype):
         for mode, sides in r.items():
             for side, checks in sides.items():
                 assert all(checks), (mode, side, checks)
+
+
+# (M, N, K, period, bias): W8A16 at D2R-base's serving sites (bucket 1's 64
+# BERT rows: FFN in and out, the QKV with one scale a hidden unit; the patch
+# conv's 49 patches), bucket 32's FFN (the 128 x 128 tiling), an odd shape
+# that 16-byte copies cannot stage, one row and eight (the warp-a-column
+# body), a ragged grid, and bucket 8's FFN out (128 x 256 wgmma tiles split
+# over K) and a 128 x 128 wgmma grid
+W8A16_CASES = ((64, 3072, 768, 3072, True), (64, 768, 3072, 768, True),
+               (64, 2304, 768, 768, True), (49, 768, 3072, 768, False),
+               (2048, 3072, 768, 3072, True), (5, 3, 37, 3, True), (1, 768, 768, 768, True),
+               (8, 6, 768, 6, True), (300, 77, 200, 77, False), (512, 768, 3072, 768, True),
+               (2048, 768, 768, 768, True))
+W8A16_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+def _w8a16_inputs(cuda, m, n, k, period, with_bias, dtype, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((m, k), generator=g, device=cuda).to(dtype)
+    q = torch.randint(-127, 128, (n, k), generator=g, device=cuda).to(torch.int8)
+    scale = torch.rand((period,), generator=g, device=cuda) * 0.02 + 1e-3
+    bias = torch.randn((n,), generator=g, device=cuda).to(dtype) if with_bias else None
+    return x, q, scale, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_w8a16_matches_plain(cuda, dtype):
+    """The W8A16 kernel against its plain version (the dequantized weight,
+    then ``F.linear``) at the serving sites, within 1e-5 (fp32) / 1e-2
+    (bf16) of max(1, max |ref|): the sums run in another order, and bf16
+    rounds once at the end. A view of x with a row stride gives the
+    contiguous input's bits; so does one off 16-byte alignment, except where
+    the shape takes a TMA (wgmma) body, which hands such a view to the 64 x
+    64 body: that sums in another order, within the same tolerance."""
+    from d2r_tpu_torch.ops.kernels import w8a16
+    for m, n, k, period, with_bias in W8A16_CASES:
+        x, q, scale, bias = _w8a16_inputs(cuda, m, n, k, period, with_bias, dtype)
+        before = w8a16.w8a16_linear.launches
+        out = w8a16.w8a16_linear(x, q, scale, period, bias)
+        torch.cuda.synchronize()
+        assert w8a16.w8a16_linear.launches == before + 1
+        ref = w8a16.w8a16_linear_plain(x, q, scale, period, bias)
+        assert out.shape == ref.shape and out.dtype == dtype
+        tol = W8A16_TOL[dtype] * max(1.0, ref.float().abs().max().item())
+        err = (out.float() - ref.float()).abs().max().item()
+        assert err <= tol, (m, n, k, err)
+        wide = torch.zeros((m, k + 8), dtype=dtype, device=cuda)
+        wide[:, :k] = x
+        assert torch.equal(w8a16.w8a16_linear(wide[:, :k], q, scale, period, bias), out)
+        off = torch.zeros(m * k + 1, dtype=dtype, device=cuda)
+        off[1:] = x.reshape(-1)
+        got = w8a16.w8a16_linear(off[1:].view(m, k), q, scale, period, bias)
+        if w8a16.tiling(m, n, k, dtype)[0] in (1, 3):
+            assert (got.float() - ref.float()).abs().max().item() <= tol, (m, n, k)
+        else:
+            assert torch.equal(got, out), (m, n, k)
+
+
+@pytest.mark.cuda
+def test_cuda_w8a16_captured_equals_eager_and_raises_instead_of_falling_back(cuda):
+    """A captured W8A16 launch replays the eager launch's bits (split-K
+    included); fp16, a CPU scale and a period that does not divide N
+    raise."""
+    from d2r_tpu_torch.ops.kernels import w8a16
+    x, q, scale, bias = _w8a16_inputs(cuda, 64, 768, 3072, 768, True, torch.bfloat16)
+    assert w8a16.tiling(64, 768, 3072, torch.bfloat16)[1] > 1
+    eager = w8a16.w8a16_linear(x, q, scale, 768, bias)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        w8a16.w8a16_linear(x, q, scale, 768, bias)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = w8a16.w8a16_linear(x, q, scale, 768, bias)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    for bad in ((x.half(), q, scale, 768), (x, q, scale.cpu(), 768), (x, q, scale[:7], 7)):
+        with pytest.raises((TypeError, ValueError)):
+            w8a16.w8a16_linear(*bad)
+
+
+# quantize shapes: the BERT FFN activation, its weight, and odd ones (K not a
+# multiple of 16, fewer rows than a block)
+QUANT_SHAPES = ((4096, 768), (3072, 768), (5, 37), (37, 5), (33, 24))
+
+
+def _quant_input(cuda, shape, dtype, seed):
+    """Normal values with an all-zero row and column, .5 ties at scale 1 and
+    the +-127 codes (as tests/test_torch_int8_kernels.py makes them)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(shape, generator=g, device=cuda) * 3
+    x[0] = 0
+    x[:, 0] = 0
+    ties = torch.tensor([127.0, 0.5, -0.5, 1.5, 2.5, -3.5, 126.5, -127.0], device=cuda)
+    x[1, 1:] = ties.repeat(shape[1])[:shape[1] - 1]
+    x[1:, 1] = ties.repeat(shape[0])[:shape[0] - 1]
+    return x.to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_quantize_and_rescale_equal_plain(cuda, dtype):
+    """The quantize kernels (rows in one launch and as amax + codes; columns,
+    codes transposed) and the rescale kernel (both scale orders, a padded
+    int32 view, fp32 and bf16 out) equal their plain versions bit for bit,
+    eager and inside a captured graph."""
+    from d2r_tpu_torch.ops import qdot
+    from d2r_tpu_torch.ops.kernels import quantize as qk
+    for i, shape in enumerate(QUANT_SHAPES):
+        x = _quant_input(cuda, shape, dtype, i)
+
+        def run():
+            rows = qk.quantize_rows(x)
+            rows2 = qk.quantize_rows(x, qk.row_amax(x))
+            cols = qk.quantize_cols(x, qk.col_amax(x))
+            y = qdot.int_mm(rows[0], rows[0])
+            outs = [qk.rescale(y, rows[1], rows[1].t(), t) for t in (torch.float32, dtype)]
+            outs.append(qk.rescale(y, rows[1].t(), rows[1], dtype))
+            return [*rows, *rows2, *cols, *outs]
+
+        eager = run()
+        want = [*qk.quantize_rows_plain(x), *qk.quantize_rows_plain(x),
+                *qk.quantize_cols_plain(x, qk.col_amax_plain(x))]
+        y = qdot.int_mm(want[0], want[0])
+        want += [qk.rescale_plain(y, want[1], want[1].t(), t) for t in (torch.float32, dtype)]
+        want.append(qk.rescale_plain(y, want[1].t(), want[1], dtype))
+        assert y.stride(0) >= y.shape[1]
+        for got, ref in zip(eager, want):
+            assert got.dtype == ref.dtype and torch.equal(got, ref), shape
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            run()
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = run()
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, ref in zip(captured, want):
+            assert torch.equal(got, ref), shape
+
+
+@pytest.mark.cuda
+def test_cuda_int8_ops_pass_opcheck(cuda):
+    """``torch.library.opcheck`` on the W8A16, quantize and rescale ops."""
+    from d2r_tpu_torch.ops.kernels import quantize as qk
+    for dtype in (torch.float32, torch.bfloat16):
+        x, q, scale, bias = _w8a16_inputs(cuda, 50, 96, 64, 32, True, dtype)
+        torch.library.opcheck(torch.ops.d2r_torch.w8a16_linear.default, (x, q, scale, bias, 32))
+        torch.library.opcheck(torch.ops.d2r_torch.w8a16_linear.default, (x, q, scale, None, 32))
+        torch.library.opcheck(torch.ops.d2r_torch.row_amax.default, (x,))
+        torch.library.opcheck(torch.ops.d2r_torch.quantize_rows.default, (x, None))
+        amax = qk.col_amax(x)
+        torch.library.opcheck(torch.ops.d2r_torch.col_amax.default, (x,))
+        torch.library.opcheck(torch.ops.d2r_torch.quantize_cols.default, (x, amax))
+        y = torch.randint(-1000, 1000, (50, 96), device=cuda, dtype=torch.int32)
+        torch.library.opcheck(torch.ops.d2r_torch.rescale.default,
+                              (y, scale.new_ones(50, 1), scale.new_ones(1, 96), dtype))
+
+
+@pytest.mark.cuda
+def test_cuda_int8_predictor_and_export_run_w8a16_at_every_module(cuda, tmp_path):
+    """A tiny int8 model: every quantized module launches W8A16 once a
+    forward (twice a bucket at warmup: eager and capture), replays equal
+    the eager forward bit for bit, and the exported int8 program holds one
+    W8A16 op node a module and replays equal to ``Predictor``."""
+    import copy
+
+    import numpy as np
+
+    from d2r_tpu_torch import export as texport
+    from d2r_tpu_torch.models.unimo import build_model
+    from d2r_tpu_torch.ops.kernels import w8a16
+    from d2r_tpu_torch.quant import Int8Weight
+    _, gpu, args = _tiny_predictors(cuda, quantize="int8", compute_dtype="bfloat16")
+    modules = sum(isinstance(m, Int8Weight) for m in gpu.model.modules())
+    w8a16.w8a16_linear.launches = 0
+    gpu.warmup()
+    assert w8a16.w8a16_linear.launches == 2 * modules * 2
+    for n in (1, 3):
+        g = gpu.graph(gpu._bucket(n))
+        gpu._stage(g, tuple(x[:n] for x in args))
+        np.testing.assert_array_equal(gpu._replay(g, n), gpu._forward(*g.inputs)[:n].cpu().numpy())
+    model = build_model(gpu.cfg, device="cpu", seed=0)
+    out = str(tmp_path / "art")
+    texport.export_predictor(gpu.cfg, model, out, batch_buckets=(2, 4), quantize="int8")
+    loaded = texport.load_exported(out, copy.deepcopy(model))
+    loaded.warmup()
+    for b in (2, 4):
+        nodes = [n for n in loaded.programs[b].graph.nodes
+                 if n.target is torch.ops.d2r_torch.w8a16_linear.default]
+        assert len(nodes) == modules
+    for n in (1, 3):
+        got, want = loaded.predict(*(x[:n] for x in args)), gpu.predict(*(x[:n] for x in args))
+        np.testing.assert_array_equal(got["probs"], want["probs"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 2), (2,)], ids=["tp2", "dp2"])
+def test_cuda_int8_mesh_predictor_matches_one_process(cuda, shape):
+    """``Predictor(mesh=..., quantize="int8")`` over two gloo ranks on the
+    card: each rank's W8A16 products on its local slices of the codes and
+    scales (the model axis) or on its rows (the data axis); the
+    probabilities within ``QUANT_LOGITS_TOL`` (1e-2) of one process's int8
+    ``Predictor``, labels equal (``tests/test_torch_parallel_ranks.py::
+    int8_serve_rank``)."""
+    import sys
+
+    import numpy as np
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import test_torch_parallel_ranks as ranks
+
+    from d2r_tpu_torch.parallel.launch import spawn
+    for r in spawn(ranks.int8_serve_rank, 2, (shape, "cuda")):
+        assert np.abs(r["mesh"] - r["one"]).max() <= 1e-2, (r["mesh"], r["one"])
+        assert np.array_equal(r["mesh"].argmax(-1), r["one"].argmax(-1))

@@ -64,7 +64,7 @@ def test_no_library_attention_or_compile_in_the_port():
 
 
 @pytest.mark.parametrize("wrapper", ["fused_attention.py", "flash_attention.py", "dropout.py",
-                                     "adamw.py"])
+                                     "adamw.py", "w8a16.py", "quantize.py"])
 def test_cuda_wrapper_has_no_fallback_except(wrapper):
     tree = ast.parse((PKG / "ops" / "kernels" / wrapper).read_text())
     assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]

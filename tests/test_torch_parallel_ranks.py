@@ -553,3 +553,28 @@ def serve_rank(rank, world, shape, tree, requests, buckets, quantize=(None,)):
             assert 0 < stats["p50"] <= stats["p95"], stats
     qkv = pred.model.model.encoder_text_layers.layer_0.attention_self.qkv
     return {"probs": probs, "qkv_hidden": qkv.hidden}
+
+
+def int8_serve_rank(rank, world, shape, device="cpu"):
+    """An int8 mesh ``Predictor`` over ``shape`` of the seeded tiny model
+    (bf16), each rank's quantized modules holding their local slices of the
+    codes and scales (on ``device``: the W8A16 kernel on the ranks' shared
+    card 0, over gloo): the probabilities of a request of three rows, and
+    one process's int8 ``Predictor`` on the same rows."""
+    from d2r_tpu_torch.models.unimo import build_model
+    from d2r_tpu_torch.serve import Predictor
+    if device != "cpu":
+        torch.cuda.set_device(0)
+    mesh = make_mesh(shape, mesh_axes(shape), device=device)
+    cfg = tconfig.tiny_test_config(compute_dtype="bfloat16")
+    rng = np.random.default_rng(0)
+    ids = rng.integers(5, 128, size=(3, cfg.max_seq)).astype(np.int32)
+    mask = np.ones_like(ids)
+    pixels = rng.integers(0, 256, size=(3, 3, 32, 32)).astype(np.uint8)
+    rows = (ids, mask, np.zeros_like(ids), pixels)
+    out = {}
+    for name, m in (("mesh", mesh), ("one", None)):
+        pred = Predictor(cfg, build_model(cfg, device="cpu", seed=0), batch_buckets=(4,),
+                         device=device, quantize="int8", mesh=m)
+        out[name] = pred.predict(*rows)["probs"]
+    return out
