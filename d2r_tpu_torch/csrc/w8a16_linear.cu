@@ -19,40 +19,46 @@
 // (d2r_tpu/quant.py:37,91). The port has to write that fusion by hand.
 //
 // What bounds it on the H100: at serving bucket 1 (M = 49-64 rows) the
-// weight bytes and the launch (D2R-base's FFN weight is 2.4 MB of codes,
-// 0.7 us at 3.35 TB/s); at bucket 32 (M up to 2,048) the bf16 tensor cores
-// (2 M N K operations at 989 TFLOP/s). The design, simple first:
-// - bf16 body: a block computes a BM x BN tile of y over its share of K in
-//   steps of 64. x's rows and the int8 codes go to shared memory by 16-byte
-//   cp.async through a ring of four stages (three steps in flight under
-//   the products of the fourth). Each lane builds its mma.sync m16n8k16 B
-//   fragments straight from the codes: two 2-byte shared loads a fragment,
-//   converted and scaled in registers (its columns' scales read once a
-//   launch); the A fragments come by ldmatrix; fp32 accumulation. One
-//   barrier a step. A 64 x 64 tile of 4 warps, where M <= 256;
-// - above 256 bf16 rows, warpgroup MMA: a 128 x 128 (or, for a long K
-//   under few tiles, 128 x 256) tile of two warpgroups; one thread streams
-//   x's tile (in the 128-byte swizzled layout wgmma reads) and the codes
-//   into a four-stage ring by TMA, the block dequantizes each step's codes
-//   into a swizzled bf16 tile (the same bits), and wgmma m64nNk16 reads
-//   both by descriptor, asynchronously under the next step's dequantize;
-// - where the tiles alone leave SMs idle (few rows, narrow N), the wrapper
-//   splits K over gridDim.z (ops/kernels/w8a16.py::tiling picks the body
-//   and the split from the shape), and the splits of a tile form a thread block
-//   cluster: each leaves its fp32 partial tile in its shared memory, and
-//   after a cluster barrier each block sums a share of the tile over the
-//   splits in split order through distributed shared memory, adds the
-//   bias and rounds. One launch, no workspace, and a result that does not
-//   depend on the schedule, so a replay equals the eager launch bit for
-//   bit;
+// weight bytes and the latency of a block's setup, first loads and
+// epilogue (D2R-base's FFN weight is 2.4 MB of codes, 0.7 us at 3.35
+// TB/s); at bucket 32 (M up to 2,048) the bf16 tensor cores (2 M N K
+// operations at 989 TFLOP/s), the dequantize, which an SM does not overlap
+// with products that read their A operand from registers, and x's re-reads
+// from L2. The bodies:
+// - bf16 above 8 rows: warpgroup MMA with the weight as its register
+//   operand ("swap AB"). A block computes a tile of y^T = W x^T: 64 output
+//   features (wgmma's M) by 64, 128 or 256 tokens (wgmma's N), the widest
+//   tile spreading each dequantized code over the most tokens. One producer
+//   warp streams x's tile (in the 128-byte swizzled K-major layout wgmma
+//   reads as its B operand) and the codes (64-byte swizzled rows) into a
+//   ring of four to twelve stages by TMA, with a full and an empty
+//   mbarrier a stage. Each consumer thread reads its A fragment's codes
+//   from the ring, dequantizes them in registers, and issues wgmma
+//   m64nNk16 from those registers while the previous step's products run
+//   (wgmma.wait_group 1); no dequantized tile is written to shared memory
+//   and no block barrier runs inside the K loop. Two consumer warpgroups
+//   may share a 64-token tile, taking alternate k-steps, their sums added
+//   in shared memory in a fixed order. The finished tile, plus the bias in
+//   fp32, is rounded once and transposed through shared memory by
+//   stmatrix, so that each output row leaves in 16-byte stores. For 256
+//   tokens (128 accumulators a thread) the producer is a warpgroup that
+//   hands its registers to the consumer (setmaxnreg);
+// - where the tiles alone leave most SMs idle (few rows under a long K),
+//   the wrapper splits K over gridDim.z (ops/kernels/w8a16.py::tiling picks
+//   the body and the split from the shape), and the splits of a tile form
+//   a thread block cluster: each leaves its fp32 partial tile in its
+//   shared memory, and after a cluster barrier each block sums a share of
+//   the tile over the splits in split order through distributed shared
+//   memory, adds the bias and rounds. One launch, no workspace, and a
+//   result that does not depend on the schedule, so a replay equals the
+//   eager launch bit for bit;
 // - at most 8 rows (the products of one row a post at buckets 1 and 8): a
 //   warp an output column, the rows of x against 8 codes a lane at a time;
-// - fp32 body: the CUDA cores (64 x 64 tiles, 4 x 4 outputs a thread), as
-//   K1-K3 keep fp32 off the tensor cores, split the same way.
-// Shapes that 16-byte copies cannot stage (K % 16 != 0, or x's rows off
-// alignment) load element by element in the 64 x 64 and fp32 bodies, into
-// the same shared layout (the same sums in the same order); the TMA bodies
-// hand such views to the 64 x 64 body.
+// - fp32: the CUDA cores (64 x 64 tiles, 4 x 4 outputs a thread), as K1-K3
+//   keep fp32 off the tensor cores, split the same way;
+// - bf16 views that TMA cannot take (K % 16 != 0, or x's rows off 16-byte
+//   alignment): 64 x 64 tiles on mma.sync, x and the codes staged element
+//   by element, unsplit.
 
 #include <cooperative_groups.h>
 #include <cuda.h>
@@ -69,26 +75,8 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kBK = 64;          // k a step of the bf16 body
-constexpr int kLdA = kBK + 8;    // shared row stride of x's tile, elements
-constexpr int kLdQ = kBK + 16;   // shared row stride of the code tile, bytes
+constexpr int kBK = 64;          // k a step of the bf16 bodies
 constexpr int kMaxSplits = 8;    // a portable cluster
-
-template <int BM, int BN, int WM, int WN, int STAGES>
-struct Tiling {
-  static constexpr int kThreads = WM * WN * 32;
-  static constexpr int kWarpM = BM / WM;
-  static constexpr int kWarpN = BN / WN;
-  static constexpr int kMT = kWarpM / 16;   // m16 tiles a warp
-  static constexpr int kNT = kWarpN / 8;    // n8 tiles a warp
-  static constexpr int kStageA = BM * kLdA * 2;
-  static constexpr int kStageQ = BN * kLdQ;
-  static constexpr int kLdP = BN + 4;       // the partial tile's row stride, floats
-  static constexpr int kRing = STAGES * (kStageA + kStageQ);
-  static constexpr int kPart = BM * kLdP * 4;
-  static constexpr int kSmem = kRing > kPart ? kRing : kPart;
-  static_assert(STAGES >= 2, "a ring of at least two stages");
-};
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(bf16 v) { return __bfloat162float(v); }
@@ -150,204 +138,133 @@ __device__ __forceinline__ float hi_bf16(uint32_t v) { return __uint_as_float(v 
 
 // The split-K epilogue of a cluster of gridDim.z blocks, one a split, each
 // holding its (rows x cols) fp32 partial tile at `part` (row stride ld, a
-// multiple of 4): after a cluster barrier, block r sums every (splits)-th
-// group of 4 outputs of the tile over the splits, in split order, from
-// their shared memories (all the splits' loads issued before the sums); a
-// second barrier keeps each block's memory alive until the others have
-// read it.
+// multiple of 4): after a cluster barrier, threads [0, threads) of block r
+// sum every (splits)-th group of 4 outputs of the tile over the splits, in
+// split order, from their shared memories, and add the bias (the loads of
+// two groups issued before their sums); a second barrier keeps each
+// block's memory alive until the others have read it.
 template <typename T>
 __device__ __forceinline__ void cluster_reduce(float* part, int ld, int rows, int cols, int m0,
-                                               int n0, const T* bias, T* out, int M, int N) {
+                                               int n0, const T* bias, T* out, int M, int N,
+                                               int threads) {
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();
   const int splits = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
-  const int threads = blockDim.x;
   const float* parts[kMaxSplits];
 #pragma unroll
   for (int s = 0; s < kMaxSplits; ++s) parts[s] = cluster.map_shared_rank(part, s < splits ? s : 0);
-  for (int e = 4 * (rank * threads + (int)threadIdx.x); e < rows * cols;
-       e += 4 * splits * threads) {
-    const int r = e / cols, c = e % cols;
-    float4 p[kMaxSplits];
+  // two groups of 4 outputs at a time: their bias and every split's
+  // partials loaded before any sum
+  const int stride = 4 * splits * threads;
+  for (int e0 = 4 * (rank * threads + (int)threadIdx.x); e0 < rows * cols; e0 += 2 * stride) {
+    float4 p[2][kMaxSplits];
+    float b[2][4];
 #pragma unroll
-    for (int s = 0; s < kMaxSplits; ++s)
-      if (s < splits) p[s] = *reinterpret_cast<const float4*>(parts[s] + r * ld + c);
-    float4 v = p[0];
+    for (int h = 0; h < 2; ++h) {
+      const int e = e0 + h * stride;
+      const int r = e / cols, c = e % cols;
+      const bool live = e < rows * cols && m0 + r < M;
 #pragma unroll
-    for (int s = 1; s < kMaxSplits; ++s) {
-      if (s < splits) {
-        v.x += p[s].x;
-        v.y += p[s].y;
-        v.z += p[s].z;
-        v.w += p[s].w;
-      }
+      for (int j = 0; j < 4; ++j)
+        b[h][j] = (live && bias != nullptr && n0 + c + j < N) ? to_float(bias[n0 + c + j]) : 0.f;
+#pragma unroll
+      for (int s = 0; s < kMaxSplits; ++s)
+        if (live && s < splits) p[h][s] = *reinterpret_cast<const float4*>(parts[s] + r * ld + c);
     }
-    put2(out, bias, M, N, m0 + r, n0 + c, v.x, v.y);
-    put2(out, bias, M, N, m0 + r, n0 + c + 2, v.z, v.w);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int e = e0 + h * stride;
+      const int r = e / cols, c = e % cols;
+      if (e >= rows * cols || m0 + r >= M) continue;
+      float4 v = p[h][0];
+#pragma unroll
+      for (int s = 1; s < kMaxSplits; ++s) {
+        if (s < splits) {
+          v.x += p[h][s].x;
+          v.y += p[h][s].y;
+          v.z += p[h][s].z;
+          v.w += p[h][s].w;
+        }
+      }
+      put2<T>(out, nullptr, M, N, m0 + r, n0 + c, v.x + b[h][0], v.y + b[h][1]);
+      put2<T>(out, nullptr, M, N, m0 + r, n0 + c + 2, v.z + b[h][2], v.w + b[h][3]);
+    }
   }
   cluster.sync();
 }
 
-template <int BM, int BN, int WM, int WN, int STAGES>
-__global__ void __launch_bounds__(WM * WN * 32)
+// ---- bf16 views that TMA cannot take: 64 x 64 tiles on mma.sync ----
+//
+// Four warps of 32 x 32 outputs; x's rows and the codes of each k-step
+// staged element by element (rows and k past the edges as zeros); each
+// lane builds its m16n8k16 B fragments straight from the codes, two 2-byte
+// shared loads a fragment converted and scaled in registers, the A
+// fragments by ldmatrix; fp32 accumulation.
+constexpr int kLdA = kBK + 8;    // shared row stride of x's tile, elements
+constexpr int kLdQ = kBK + 16;   // shared row stride of the code tile, bytes
+
+__global__ void __launch_bounds__(128)
     w8a16_bf16_kernel(const bf16* __restrict__ x, long long ldx, const int8_t* __restrict__ q,
                       const float* __restrict__ scale, int period, const bf16* __restrict__ bias,
-                      bf16* __restrict__ out, int M, int N, int K, int ktiles_per_split,
-                      int vec) {
-  using T = Tiling<BM, BN, WM, WN, STAGES>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* as_base = reinterpret_cast<bf16*>(smem);
-  int8_t* qs_base = reinterpret_cast<int8_t*>(smem + STAGES * T::kStageA);
-
+                      bf16* __restrict__ out, int M, int N, int K) {
+  constexpr int kTile = 64, kMT = 2, kNT = 4;   // m16 and n8 tiles a warp
+  __shared__ __align__(16) bf16 as[kTile * kLdA];
+  __shared__ __align__(16) int8_t qs[kTile * kLdQ];
   const int tid = threadIdx.x;
   const int lane = tid % 32, warp = tid / 32;
-  const int wm = warp / WN, wn = warp % WN;
+  const int wm = warp / 2, wn = warp % 2;
   const int g = lane / 4, t4 = lane % 4;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int ktiles = (K + kBK - 1) / kBK;
-  const int kt0 = blockIdx.z * ktiles_per_split;
-  const int kt1 = min(ktiles, kt0 + ktiles_per_split);
+  const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
 
   // the weight columns of this lane's B fragments (n = g of each n8 tile)
   // and their scales rounded to bf16, as the plain path casts them, twice
-  __nv_bfloat162 sc[T::kNT];
+  __nv_bfloat162 sc[kNT];
 #pragma unroll
-  for (int nt = 0; nt < T::kNT; ++nt) {
-    const int n = n0 + wn * T::kWarpN + nt * 8 + g;
+  for (int nt = 0; nt < kNT; ++nt) {
+    const int n = n0 + wn * 32 + nt * 8 + g;
     sc[nt] = __float2bfloat162_rn(n < N ? __ldg(scale + n % period) : 0.f);
   }
-
-  // x's rows and the codes of k-step kt into ring slot `slot`
-  auto load = [&](int slot, int kt) {
-    const int kb = kt * kBK;
-    bf16* as = as_base + slot * BM * kLdA;
-    int8_t* qs = qs_base + slot * BN * kLdQ;
-    if (vec) {
-#pragma unroll
-      for (int i = tid; i < BM * (kBK / 8); i += T::kThreads) {
-        const int r = i / (kBK / 8), c = (i % (kBK / 8)) * 8;
-        const bool ok = m0 + r < M && kb + c < K;
-        d2r::cp_async16(as + r * kLdA + c, ok ? x + (long long)(m0 + r) * ldx + kb + c : x, ok);
-      }
-#pragma unroll
-      for (int i = tid; i < BN * (kBK / 16); i += T::kThreads) {
-        const int r = i / (kBK / 16), c = (i % (kBK / 16)) * 16;
-        const bool ok = n0 + r < N && kb + c < K;
-        d2r::cp_async16(qs + r * kLdQ + c, ok ? q + (long long)(n0 + r) * K + kb + c : q, ok);
-      }
-    } else {
-      const bf16 zero = __float2bfloat16(0.f);
-      for (int i = tid; i < BM * kBK; i += T::kThreads) {
-        const int r = i / kBK, c = i % kBK;
-        as[r * kLdA + c] =
-            (m0 + r < M && kb + c < K) ? x[(long long)(m0 + r) * ldx + kb + c] : zero;
-      }
-      for (int i = tid; i < BN * kBK; i += T::kThreads) {
-        const int r = i / kBK, c = i % kBK;
-        qs[r * kLdQ + c] = (n0 + r < N && kb + c < K) ? q[(long long)(n0 + r) * K + kb + c] : 0;
-      }
+  float acc[kMT][kNT][4] = {};
+  const bf16 zero = __float2bfloat16(0.f);
+  for (int kb = 0; kb < K; kb += kBK) {
+    for (int i = tid; i < kTile * kBK; i += 128) {
+      const int r = i / kBK, c = i % kBK;
+      as[r * kLdA + c] = (m0 + r < M && kb + c < K) ? x[(long long)(m0 + r) * ldx + kb + c] : zero;
+      qs[r * kLdQ + c] = (n0 + r < N && kb + c < K) ? q[(long long)(n0 + r) * K + kb + c] : 0;
     }
-  };
-
-  float acc[T::kMT][T::kNT][4];
-#pragma unroll
-  for (int i = 0; i < T::kMT; ++i)
-#pragma unroll
-    for (int j = 0; j < T::kNT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (kt0 + s < kt1) load(s, kt0 + s);
-    d2r::cp_async_commit();
-  }
-  for (int kt = kt0; kt < kt1; ++kt) {
-    const int slot = (kt - kt0) % STAGES;
-    d2r::cp_async_wait<STAGES - 2>();
-    // step kt has landed, and every warp is done with step kt - 1, whose
-    // slot takes step kt + STAGES - 1
     __syncthreads();
-    {
-      const int next = kt + STAGES - 1;
-      if (next < kt1) load((next - kt0) % STAGES, next);
-      d2r::cp_async_commit();
-    }
-    const bf16* as = as_base + slot * BM * kLdA;
-    const int8_t* qs = qs_base + slot * BN * kLdQ + (wn * T::kWarpN + g) * kLdQ + 2 * t4;
+    const int8_t* qw = qs + (wn * 32 + g) * kLdQ + 2 * t4;
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t a[T::kMT][4];
+      uint32_t a[kMT][4];
 #pragma unroll
-      for (int mt = 0; mt < T::kMT; ++mt)
-        d2r::ldmatrix_x4(a[mt], as + (wm * T::kWarpM + mt * 16 + lane % 16) * kLdA + kk * 16 +
+      for (int mt = 0; mt < kMT; ++mt)
+        d2r::ldmatrix_x4(a[mt], as + (wm * 32 + mt * 16 + lane % 16) * kLdA + kk * 16 +
                                     (lane / 16) * 8);
 #pragma unroll
-      for (int nt = 0; nt < T::kNT; ++nt) {
+      for (int nt = 0; nt < kNT; ++nt) {
         // B rows (k) 2t, 2t + 1 and 2t + 8, 2t + 9 of column g: two code pairs
-        const int8_t* c = qs + nt * 8 * kLdQ + kk * 16;
+        const int8_t* c = qw + nt * 8 * kLdQ + kk * 16;
         const uint32_t b0 = dequant_bf16x2(*reinterpret_cast<const uint16_t*>(c), sc[nt]);
         const uint32_t b1 = dequant_bf16x2(*reinterpret_cast<const uint16_t*>(c + 8), sc[nt]);
 #pragma unroll
-        for (int mt = 0; mt < T::kMT; ++mt) d2r::mma_bf16(acc[mt][nt], a[mt], b0, b1);
+        for (int mt = 0; mt < kMT; ++mt) d2r::mma_bf16(acc[mt][nt], a[mt], b0, b1);
       }
     }
+    __syncthreads();
   }
-  d2r::cp_async_wait<0>();
-
-  if (gridDim.z == 1) {
 #pragma unroll
-    for (int mt = 0; mt < T::kMT; ++mt)
+  for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
-      for (int nt = 0; nt < T::kNT; ++nt)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          put2(out, bias, M, N, m0 + wm * T::kWarpM + mt * 16 + g + h * 8,
-               n0 + wn * T::kWarpN + nt * 8 + 2 * t4, acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
-    return;
-  }
-  __syncthreads();   // the ring's last reads are done: the partial tile takes its memory
-  float* part = reinterpret_cast<float*>(smem);
-#pragma unroll
-  for (int mt = 0; mt < T::kMT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < T::kNT; ++nt)
+    for (int nt = 0; nt < kNT; ++nt)
 #pragma unroll
       for (int h = 0; h < 2; ++h)
-        *reinterpret_cast<float2*>(part + (wm * T::kWarpM + mt * 16 + g + h * 8) * T::kLdP +
-                                   wn * T::kWarpN + nt * 8 + 2 * t4) =
-            make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
-  cluster_reduce(part, T::kLdP, BM, BN, m0, n0, bias, out, M, N);
+        put2(out, bias, M, N, m0 + wm * 32 + mt * 16 + g + h * 8, n0 + wn * 32 + nt * 8 + 2 * t4,
+             acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
 }
 
-
-// ---- bf16 above 256 rows: warpgroup MMA (wgmma) ----
-//
-// A 128 x BN tile a block of two warpgroups, each 64 rows by wgmma
-// m64nBNk16 (both operands read from shared memory by descriptor). One
-// thread streams x's tile and the codes of each k-step into a ring of
-// four stages by the tensor memory accelerator (TMA, one copy a tile,
-// completion counted on an mbarrier a stage; x's tile lands in the
-// 128-byte swizzled K-major layout wgmma reads, 16-byte chunk c of row r
-// at chunk c ^ (r % 8); rows and columns past the edges arrive as zeros).
-// All 256 threads dequantize the codes into one of two swizzled bf16 B
-// tiles; the products of step k run asynchronously while the block
-// dequantizes step k + 1 into the other. The finished tile is staged in
-// shared memory, so each row goes out in 16-byte stores.
-constexpr int kWgBM = 128, kWgStages = 4, kWgThreads = 256;
-constexpr int kWgTileA = kWgBM * kBK * 2;   // a 128 x 64 bf16 tile, bytes
-
-template <int BN>
-struct WgTiling {
-  static constexpr int kTileB = BN * kBK * 2;
-  static constexpr int kStageQ = BN * kBK;  // the codes, unpadded (a TMA box)
-  static constexpr int kLdO = BN + 8;       // the staged bf16 output's row stride
-  static constexpr int kLdP = BN + 4;       // the fp32 partial tile's row stride
-  static constexpr int kBody = kWgStages * kWgTileA + 2 * kTileB + kWgStages * kStageQ;
-  static constexpr int kSmem = 1024 + kBody + kWgStages * 8;   // + an mbarrier a stage
-  static_assert(kWgBM * kLdP * 4 <= kBody && kWgBM * kLdO * 2 <= kBody, "staging fits");
-};
+// ---- bf16 above 8 rows: the weight as wgmma's register operand ----
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(d2r::smem_addr(bar)), "r"(count));
@@ -358,6 +275,11 @@ __device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
                    d2r::smem_addr(bar)),
                "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(d2r::smem_addr(bar))
                : "memory");
 }
 
@@ -380,9 +302,6 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, i
       : "memory");
 }
 
-// byte offset of 16-byte chunk c of row r in a 128-byte swizzled tile
-__device__ __forceinline__ int swz(int r, int c) { return r * 128 + ((c ^ (r & 7)) << 4); }
-
 // a K-major, 128-byte swizzle descriptor: start address, LBO 1 (unused),
 // SBO 1,024 bytes (the next 8 rows), layout B128
 __device__ __forceinline__ uint64_t desc_b128(uint32_t addr) {
@@ -390,175 +309,300 @@ __device__ __forceinline__ uint64_t desc_b128(uint32_t addr) {
          ((uint64_t)1 << 62);
 }
 
-__device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da, uint64_t db) {
+// wgmma m64nNk16, bf16 in, fp32 accumulated into d: A (64 x 16) from four
+// registers a thread (the mma.sync m16n8k16 A fragment of the thread's
+// warp, rows 16 (warp % 4) + lane / 4 (+ 8), k 2 (lane % 4) (+ 1, + 8, + 9)),
+// B (16 x N) K-major in shared memory by descriptor
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
 }
 
-__device__ __forceinline__ void wgmma_m64n256(float (&d)[128], uint64_t da, uint64_t db) {
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
 }
 
-template <int BN>
-__device__ __forceinline__ void wgmma_step(float (&d)[BN / 2], uint64_t da, uint64_t db) {
-  if constexpr (BN == 128) wgmma_m64n128(d, da, db);
-  else wgmma_m64n256(d, da, db);
+template <int NT>
+__device__ __forceinline__ void wgmma_rs(float (&d)[NT / 2], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (NT == 64) wgmma_rs_n64(d, a, db);
+  else if constexpr (NT == 128) wgmma_rs_n128(d, a, db);
+  else wgmma_rs_n256(d, a, db);
 }
 
-template <int BN>
-__global__ void __launch_bounds__(kWgThreads)
+// keeps the compiler from moving accesses to v across the wgmma bracket
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&v)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(v[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&v)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(v[i])::"memory");
+}
+
+// A block of KW consumer warpgroups and a producer: 64 output features
+// (wgmma's M) by NT tokens (wgmma's N). Consumer warpgroup w takes the
+// block's k-steps i with i % KW == w, so that KW warpgroups run a tile's
+// products side by side; their fp32 sums meet in shared memory at the end,
+// in warpgroup order. The producer is one warp, or for 256 tokens (128
+// accumulators a consumer thread) a warpgroup that hands its registers to
+// the consumer (setmaxnreg).
+template <int KW, int NT>
+struct WsTiling {
+  static constexpr int kF = 64;
+  static constexpr bool kWideN = NT == 256;
+  static constexpr int kThreads = KW * 128 + (kWideN ? 128 : 32);
+  static constexpr int kTileX = NT * kBK * 2;   // x's tile: NT rows of 128 bytes
+  static constexpr int kTileQ = kF * kBK;       // the codes: 64 rows of 64 bytes
+  // a ring of 4-12 stages in at most 96 KiB with one warpgroup (two blocks
+  // an SM), else 192 KiB
+  static constexpr int kFit = (KW == 1 ? 98304 : 196608) / (kTileX + kTileQ);
+  static constexpr int kStages = kFit < 4 ? 4 : (kFit > 12 ? 12 : kFit);
+  static constexpr int kRing = kStages * (kTileX + kTileQ);
+  static constexpr int kLdO = kF + 8;   // the staged bf16 output's row stride (a token a row)
+  static constexpr int kLdP = kF + 4;   // the fp32 partial tile's row stride
+  // the staged output or the partial tile, then the other k-groups' sums
+  static constexpr int kOut = NT * kLdP * 4 > NT * kLdO * 2 ? NT * kLdP * 4 : NT * kLdO * 2;
+  static constexpr int kRed = (KW - 1) * 64 * NT * 4;
+  static constexpr int kSmem = 1024 + kRing + 2 * kStages * 8;   // + a full and an empty barrier
+  static_assert(kOut + kRed <= kRing && kStages >= KW, "the epilogue fits in the ring");
+  static_assert(!kWideN || KW == 1, "232 registers a consumer thread");
+};
+
+template <int KW, int NT>
+__global__ void __launch_bounds__(WsTiling<KW, NT>::kThreads, KW == 1 && NT < 256 ? 2 : 1)
     w8a16_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
                        const __grid_constant__ CUtensorMap q_map, const float* __restrict__ scale,
                        int period, const bf16* __restrict__ bias, bf16* __restrict__ out, int M,
                        int N, int K, int ktiles_per_split) {
-  using T = WgTiling<BN>;
+  using T = WsTiling<KW, NT>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  // the swizzle is a function of address bits 4-9: tiles start 1,024-aligned
+  // the swizzles are functions of address bits 4-9: tiles start 1,024-aligned
   const uint32_t raw = d2r::smem_addr(smem_raw);
   unsigned char* smem = smem_raw + (((raw + 1023) & ~1023u) - raw);
-  unsigned char* a_tiles = smem;                                        // kWgStages
-  unsigned char* b_tiles = smem + kWgStages * kWgTileA;                 // 2
-  int8_t* q_tiles = reinterpret_cast<int8_t*>(b_tiles + 2 * T::kTileB); // kWgStages
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + T::kBody);        // kWgStages
+  unsigned char* x_tiles = smem;
+  unsigned char* q_tiles = smem + T::kStages * T::kTileX;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + T::kRing);
+  uint64_t* empty = full + T::kStages;
 
   const int tid = threadIdx.x;
   const int lane = tid % 32, warp = tid / 32;
-  const int wg = warp / 4;
-  const int m0 = blockIdx.y * kWgBM, n0 = blockIdx.x * BN;
-  const int ktiles = (K + kBK - 1) / kBK;
+  const int n0 = blockIdx.x * T::kF, m0 = blockIdx.y * NT;
   const int kt0 = blockIdx.z * ktiles_per_split;
-  const int kt1 = min(ktiles, kt0 + ktiles_per_split);
-
-  // thread 0: step kt's x tile and codes into ring slot `slot`
-  auto load = [&](int slot, int kt) {
-    uint64_t* bar = full + slot;
-    mbar_expect(bar, kWgTileA + T::kStageQ);
-    tma_load_2d(a_tiles + slot * kWgTileA, &x_map, kt * kBK, m0, bar);
-    tma_load_2d(q_tiles + slot * T::kStageQ, &q_map, kt * kBK, n0, bar);
-  };
-
-  // the weight rows this thread dequantizes (half of each), their scales
-  // rounded to bf16
-  __nv_bfloat162 sc[BN / 128];
-#pragma unroll
-  for (int rr = 0; rr < BN / 128; ++rr) {
-    const int n = n0 + rr * 128 + tid / 2;
-    sc[rr] = __float2bfloat162_rn(n < N ? __ldg(scale + n % period) : 0.f);
-  }
-
-  // the codes of step kt into B tile `buf`: 32 codes a row-half
-  auto dequant = [&](int kt, int buf) {
-    const int8_t* qs = q_tiles + ((kt - kt0) % kWgStages) * T::kStageQ;
-    unsigned char* bs = b_tiles + buf * T::kTileB;
-#pragma unroll
-    for (int rr = 0; rr < BN / 128; ++rr) {
-      const int dn = rr * 128 + tid / 2, dh = tid % 2;
-      const int4* src = reinterpret_cast<const int4*>(qs + dn * kBK + dh * 32);
-      const int4 c2[2] = {src[0], src[1]};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {   // 16-byte chunk 4 dh + j: 8 codes
-        const uint32_t lo = (uint32_t)(j % 2 ? c2[j / 2].z : c2[j / 2].x);
-        const uint32_t hi = (uint32_t)(j % 2 ? c2[j / 2].w : c2[j / 2].y);
-        *reinterpret_cast<int4*>(bs + swz(dn, 4 * dh + j)) =
-            make_int4((int)dequant_bf16x2(lo & 0xFFFFu, sc[rr]),
-                      (int)dequant_bf16x2(lo >> 16, sc[rr]),
-                      (int)dequant_bf16x2(hi & 0xFFFFu, sc[rr]),
-                      (int)dequant_bf16x2(hi >> 16, sc[rr]));
-      }
-    }
-    // the generic-proxy writes (cp.async, the tile above) before wgmma reads them
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  };
-
-  float d[BN / 2];
-#pragma unroll
-  for (int i = 0; i < BN / 2; ++i) d[i] = 0.f;
+  const int steps = min((K + kBK - 1) / kBK, kt0 + ktiles_per_split) - kt0;
+  const bool producer = warp >= 4 * KW;
 
   if (tid == 0) {
-    for (int s = 0; s < kWgStages; ++s) mbar_init(full + s, 1);
+    for (int s = 0; s < T::kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 4);   // lane 0 of each warp of the k-group that reads the step
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  if (tid == 0)
-    for (int s = 0; s < kWgStages - 1; ++s)
-      if (kt0 + s < kt1) load(s, kt0 + s);
-  if (kt0 < kt1) {
-    mbar_wait(full, 0);
-    dequant(kt0, 0);
-  }
-  for (int kt = kt0; kt < kt1; ++kt) {
-    const int i = kt - kt0;
-    __syncthreads();   // B tile i % 2 is complete
-    const uint32_t a_addr =
-        d2r::smem_addr(a_tiles + (i % kWgStages) * kWgTileA) + wg * 64 * 128;
-    const uint32_t b_addr = d2r::smem_addr(b_tiles + (i % 2) * T::kTileB);
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk)
-      wgmma_step<BN>(d, desc_b128(a_addr) + 2 * kk, desc_b128(b_addr) + 2 * kk);
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-    if (kt + 1 < kt1) {
-      // step kt - 1's products are done (this warpgroup's; the barrier
-      // makes it both), so its slot takes step kt + kWgStages - 1
-      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
-      __syncthreads();
-      const int next = kt + kWgStages - 1;
-      if (tid == 0 && next < kt1) load((next - kt0) % kWgStages, next);
-      mbar_wait(full + (i + 1) % kWgStages, ((i + 1) / kWgStages) & 1);
-      dequant(kt + 1, (i + 1) % 2);
-    }
-  }
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-  __syncthreads();   // every product is done: the staging takes the ring's memory
 
-  // accumulator i: row 16 (warp % 4) + lane / 4 (+ 8 for i % 4 >= 2) of the
-  // warpgroup's 64, column 8 (i / 4) + 2 (lane % 4) + i % 2
-  const int row0 = wg * 64 + (warp % 4) * 16 + lane / 4;
-  const int col0 = 2 * (lane % 4);
-  if (gridDim.z > 1) {
-    float* part = reinterpret_cast<float*>(smem);
+  // consumer warpgroup kw takes the k-steps kw (mod KW); accumulator i of
+  // a consumer thread: feature r0 (i % 4 < 2) or r0 + 8 of the block's,
+  // token 8 (i / 4) + 2 (lane % 4) + i % 2
+  const int kw = warp / 4;
+  const int r0 = 16 * (warp % 4) + lane / 4;
+  const int tok0 = 2 * (lane % 4);
+  // the two roles never meet again (the register split holds only so)
+  if (producer) {
+    if constexpr (T::kWideN) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    // step i's x tile and codes into slot i % kStages, once the consumers
+    // have released the slot's previous use
+    if (warp == 4 * KW && lane == 0) {
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&x_map))
+                   : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&q_map))
+                   : "memory");
+      for (int i = 0; i < steps; ++i) {
+        const int slot = i % T::kStages;
+        if (i >= T::kStages) mbar_wait(empty + slot, (i / T::kStages + 1) & 1);
+        mbar_expect(full + slot, T::kTileX + T::kTileQ);
+        tma_load_2d(x_tiles + slot * T::kTileX, &x_map, (kt0 + i) * kBK, m0, full + slot);
+        tma_load_2d(q_tiles + slot * T::kTileQ, &q_map, (kt0 + i) * kBK, n0, full + slot);
+      }
+    }
+    if (gridDim.z > 1) {   // the split reduction's two cluster barriers (cluster_reduce)
+      cg::cluster_group cluster = cg::this_cluster();
+      cluster.sync();
+      cluster.sync();
+    }
+  } else {
+    if constexpr (T::kWideN) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    float d[NT / 2];
 #pragma unroll
-    for (int i = 0; i < BN / 8; ++i)
+    for (int i = 0; i < NT / 2; ++i) d[i] = 0.f;
+    // the scales of rows r0 and r0 + 8, rounded to bf16 as the plain path
+    // casts them, twice; their biases, for the epilogue
+    const int f0 = n0 + r0, f1 = f0 + 8;
+    const __nv_bfloat162 s0 = __float2bfloat162_rn(f0 < N ? __ldg(scale + f0 % period) : 0.f);
+    const __nv_bfloat162 s1 = __float2bfloat162_rn(f1 < N ? __ldg(scale + f1 % period) : 0.f);
+    const float b0 = (bias != nullptr && f0 < N) ? to_float(bias[f0]) : 0.f;
+    const float b1 = (bias != nullptr && f1 < N) ? to_float(bias[f1]) : 0.f;
+    // row r0's codes in a stage: 64-byte rows whose 16-byte chunk c sits at
+    // c ^ ((row / 2) % 4) (TMA's 64-byte swizzle; row r0 + 8 alike), and
+    // this thread's pairs at bytes 2 (lane % 4) and + 8 of each chunk
+    const int sw = (r0 / 2) % 4;
+    const unsigned char* q_row = q_tiles + r0 * kBK + 2 * (lane % 4);
+
+    // step i's codes, once landed, into A fragments: k16 slice kk in a[4 kk
+    // .. 4 kk + 3] (rows r0, r0 + 8 at k 2t; the same at k 2t + 8)
+    auto dequant = [&](int i, uint32_t(&a)[16]) {
+      const int slot = i % T::kStages;
+      mbar_wait(full + slot, (i / T::kStages) & 1);
+      __syncwarp();
+      const unsigned char* qs = q_row + slot * T::kTileQ;
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
-        *reinterpret_cast<float2*>(part + (row0 + 8 * h) * T::kLdP + 8 * i + col0) =
-            make_float2(d[4 * i + 2 * h], d[4 * i + 2 * h + 1]);
-    cluster_reduce(part, T::kLdP, kWgBM, BN, m0, n0, bias, out, M, N);
-    return;
-  }
-  // the tile plus the bias, rounded, staged; then rows out in 16-byte stores
-  bf16* stage = reinterpret_cast<bf16*>(smem);
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        const unsigned char* c = qs + ((kk ^ sw) << 4);
+        a[4 * kk + 0] = dequant_bf16x2(*reinterpret_cast<const uint16_t*>(c), s0);
+        a[4 * kk + 1] = dequant_bf16x2(*reinterpret_cast<const uint16_t*>(c + 8 * kBK), s1);
+        a[4 * kk + 2] = dequant_bf16x2(*reinterpret_cast<const uint16_t*>(c + 8), s0);
+        a[4 * kk + 3] = dequant_bf16x2(*reinterpret_cast<const uint16_t*>(c + 8 * kBK + 8), s1);
+      }
+    };
+    // step i's four products, issued asynchronously as one group
+    auto mma = [&](int i, uint32_t(&a)[16]) {
+      const uint32_t xa = d2r::smem_addr(x_tiles + (i % T::kStages) * T::kTileX);
+      fence_regs(d);
+      fence_regs(a);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-  for (int i = 0; i < BN / 8; ++i) {
-    const int col = 8 * i + col0;
-    const float b0 = (bias != nullptr && n0 + col < N) ? to_float(bias[n0 + col]) : 0.f;
-    const float b1 = (bias != nullptr && n0 + col + 1 < N) ? to_float(bias[n0 + col + 1]) : 0.f;
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        const uint32_t f[4] = {a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3]};
+        wgmma_rs<NT>(d, f, desc_b128(xa) + 2 * kk);
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      fence_regs(d);
+    };
+    // this warpgroup's j-th step, and the release of its (j - 1)-th once
+    // that step's products are done
+    const int mine = steps > kw ? (steps - kw + KW - 1) / KW : 0;
+    auto release = [&](int j) {
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      fence_regs(d);
+      __syncwarp();
+      if (lane == 0 && j > 0) mbar_arrive(empty + (kw + (j - 1) * KW) % T::kStages);
+    };
+    // two fragment buffers: step j + 1 is dequantized into one while step
+    // j's products read the other
+    uint32_t a0[16], a1[16];
+    if (mine > 0) dequant(kw, a0);
+    for (int j = 0; j < mine; j += 2) {
+      mma(kw + j * KW, a0);
+      release(j);
+      if (j + 1 < mine) {
+        dequant(kw + (j + 1) * KW, a1);
+        mma(kw + (j + 1) * KW, a1);
+        release(j + 1);
+        if (j + 2 < mine) dequant(kw + (j + 2) * KW, a0);
+      }
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_regs(d);
+    // every consumer is done with the ring: the epilogue takes its memory
+    asm volatile("bar.sync 1, %0;\n" ::"n"(KW * 128) : "memory");
+    if constexpr (KW > 1) {
+      // the k-groups' sums into k-group 0's, in k-group order
+      float* red = reinterpret_cast<float*>(smem + T::kOut);
+      const int t = tid % 128;
+      if (kw > 0) {
+        float* r = red + (kw - 1) * 64 * NT;
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
-      *reinterpret_cast<__nv_bfloat162*>(stage + (row0 + 8 * h) * T::kLdO + col) =
-          __floats2bfloat162_rn(d[4 * i + 2 * h] + b0, d[4 * i + 2 * h + 1] + b1);
-  }
-  __syncthreads();
-  const bool wide = N % 8 == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
-  for (int e = tid; e < kWgBM * (BN / 8); e += kWgThreads) {
-    const int r = e / (BN / 8), c = (e % (BN / 8)) * 8;
-    const int row = m0 + r, col = n0 + c;
-    if (row >= M || col >= N) continue;
-    const bf16* src = stage + r * T::kLdO + c;
-    bf16* dst = out + (long long)row * N + col;
-    if (wide) {
-      *reinterpret_cast<int4*>(dst) = *reinterpret_cast<const int4*>(src);
-    } else {
-      for (int j = 0; j < 8 && col + j < N; ++j) dst[j] = src[j];
+        for (int i = 0; i < NT / 2; ++i) r[i * 128 + t] = d[i];
+      }
+      asm volatile("bar.sync 1, %0;\n" ::"n"(KW * 128) : "memory");
+      if (kw == 0) {
+#pragma unroll
+        for (int g = 1; g < KW; ++g) {
+          const float* r = red + (g - 1) * 64 * NT;
+#pragma unroll
+          for (int i = 0; i < NT / 2; ++i) d[i] += r[i * 128 + t];
+        }
+      }
+    }
+    if (kw == 0) {
+      if (gridDim.z > 1) {
+        float* part = reinterpret_cast<float*>(smem);
+#pragma unroll
+        for (int i = 0; i < NT / 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            float* p = part + (8 * i + tok0 + j) * T::kLdP + r0;
+            p[0] = d[4 * i + j];
+            p[8] = d[4 * i + 2 + j];
+          }
+      } else {
+        // the tile plus the bias, rounded, transposed into [token][feature]
+        // rows by stmatrix: n8 tiles i and i + 1, features r0 - lane / 4 +
+        // [0, 8) and + [8, 16); lane l addresses row l % 8 of matrix l / 8
+        bf16* stage = reinterpret_cast<bf16*>(smem);
+        const int mat = lane / 8;
+        const uint32_t row_addr = d2r::smem_addr(
+            stage + (8 * (mat / 2) + lane % 8) * T::kLdO + (r0 - lane / 4) + 8 * (mat % 2));
+#pragma unroll
+        for (int i = 0; i < NT / 8; i += 2) {
+          uint32_t p[4];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const __nv_bfloat162 lo =
+                __floats2bfloat162_rn(d[4 * (i + h)] + b0, d[4 * (i + h) + 1] + b0);
+            const __nv_bfloat162 hi =
+                __floats2bfloat162_rn(d[4 * (i + h) + 2] + b1, d[4 * (i + h) + 3] + b1);
+            p[2 * h] = *reinterpret_cast<const uint32_t*>(&lo);
+            p[2 * h + 1] = *reinterpret_cast<const uint32_t*>(&hi);
+          }
+          asm volatile(
+              "stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                  row_addr + 8 * i * T::kLdO * 2),
+              "r"(p[0]), "r"(p[1]), "r"(p[2]), "r"(p[3])
+              : "memory");
+        }
+      }
+    }
+    if (gridDim.z > 1) {
+      cluster_reduce(reinterpret_cast<float*>(smem), T::kLdP, NT, T::kF, m0, n0, bias, out, M, N,
+                     KW * 128);
+      return;
+    }
+    asm volatile("bar.sync 1, %0;\n" ::"n"(KW * 128) : "memory");
+    // the staged tile out, a token's features in 16-byte stores
+    const bf16* stage = reinterpret_cast<const bf16*>(smem);
+    const bool wide = N % 8 == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+    for (int e = tid; e < NT * (T::kF / 8); e += KW * 128) {
+      const int r = e / (T::kF / 8), c = (e % (T::kF / 8)) * 8;
+      const int row = m0 + r, col = n0 + c;
+      if (row >= M || col >= N) continue;
+      const bf16* src = stage + r * T::kLdO + c;
+      bf16* dst = out + (long long)row * N + col;
+      if (wide) {
+        *reinterpret_cast<int4*>(dst) = *reinterpret_cast<const int4*>(src);
+      } else {
+        for (int j = 0; j < 8 && col + j < N; ++j) dst[j] = src[j];
+      }
     }
   }
 }
@@ -624,7 +668,7 @@ __global__ void __launch_bounds__(256)
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) part[(ty * 4 + i) * kF32LdP + tx * 4 + j] = acc[i][j];
-  cluster_reduce(part, kF32LdP, kF32Tile, kF32Tile, m0, n0, bias, out, M, N);
+  cluster_reduce(part, kF32LdP, kF32Tile, kF32Tile, m0, n0, bias, out, M, N, 256);
 }
 
 // M <= kGemvRows (a product of one row a post at small buckets): a warp an
@@ -749,20 +793,6 @@ int launch(Kernel kernel, dim3 grid, int threads, int smem, int splits, cudaStre
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
-template <int BM, int BN, int WM, int WN, int STAGES>
-int launch_bf16(const bf16* x, long long ldx, const int8_t* q, const float* scale, int period,
-                const bf16* bias, bf16* out, int M, int N, int K, int splits,
-                int ktiles_per_split, int vec, cudaStream_t stream) {
-  using T = Tiling<BM, BN, WM, WN, STAGES>;
-  auto kernel = w8a16_bf16_kernel<BM, BN, WM, WN, STAGES>;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
-  return launch(kernel, grid, T::kThreads, T::kSmem, splits, stream, x, ldx, q, scale, period,
-                bias, out, M, N, K, ktiles_per_split, vec);
-}
-
 // cuTensorMapEncodeTiled, looked up through the runtime's entry-point
 // query (no link against libcuda)
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -818,40 +848,52 @@ int gemv(const void* x, long long ldx, const int8_t* q, const float* scale, int 
   }
 }
 
-template <int BN>
+template <int KW, int NT>
 int launch_wgmma(const bf16* x, long long ldx, const int8_t* q, const float* scale, int period,
                  const bf16* bias, bf16* out, int M, int N, int K, int splits,
                  int ktiles_per_split, cudaStream_t stream) {
+  using T = WsTiling<KW, NT>;
+  auto kernel = w8a16_wgmma_kernel<KW, NT>;
+  // the shared-memory limit, raised once a device
+  static unsigned raised = 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= 32 || !((raised >> dev) & 1u)) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < 32) raised |= 1u << dev;
+  }
   CUtensorMap x_map, q_map;
-  int err = tensor_map(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, M, K, ldx * 2, kWgBM, kBK,
+  int err = tensor_map(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, M, K, ldx * 2, NT, kBK,
                        CU_TENSOR_MAP_SWIZZLE_128B);
   if (err == 0)
-    err = tensor_map(&q_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, N, K, K, BN, kBK,
-                     CU_TENSOR_MAP_SWIZZLE_NONE);
+    err = tensor_map(&q_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, N, K, K, T::kF, kBK,
+                     CU_TENSOR_MAP_SWIZZLE_64B);
   if (err != 0) return err;
-  auto kernel = w8a16_wgmma_kernel<BN>;
-  const int smem = WgTiling<BN>::kSmem;
-  const cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((N + BN - 1) / BN, (M + kWgBM - 1) / kWgBM, splits);
-  return launch(kernel, grid, kWgThreads, smem, splits, stream, x_map, q_map, scale, period,
+  const dim3 grid((N + T::kF - 1) / T::kF, (M + NT - 1) / NT, splits);
+  return launch(kernel, grid, T::kThreads, T::kSmem, splits, stream, x_map, q_map, scale, period,
                 bias, out, M, N, K, ktiles_per_split);
 }
 
 }  // namespace
 
-// dtype 0 fp32, 1 bf16 (x, bias and out); tile 0 = 64 x 64, 1 = 128 x 128
-// on wgmma, 3 = 128 x 256 on wgmma (bf16 only), 2 = a warp an output
-// column (M <= 8, no split). K is cut
-// into `splits` (at most 8) runs of ktiles_per_split steps (64 in bf16, 16
-// in fp32), the splits of a tile one cluster.
+// dtype 0 fp32, 1 bf16 (x, bias and out). tile: 2, a warp an output column
+// (M <= 8, no split); 0, 64 x 64 tiles (fp32 on the CUDA cores; bf16 on
+// mma.sync, no split); in bf16 10 KW + NT / 64, the warp-specialized
+// wgmma body of 64 features by NT tokens with KW warpgroups along K
+// (WsTiling; the instantiations below), which
+// views that TMA cannot take (x or q off 16-byte alignment, K % 16 != 0, a
+// row stride not a multiple of 8) hand to tile 0. K is cut into `splits`
+// (at most 8) runs of ktiles_per_split steps (64 in bf16, 16 in fp32), the
+// splits of a tile one cluster, none of them empty.
 extern "C" int d2r_w8a16_linear(int dtype, int tile, const void* x, long long ldx,
                                 const void* q, const void* scale, int period,
                                 const void* bias, void* out, int M, int N, int K, int splits,
                                 int ktiles_per_split, void* stream) {
+  const int ktiles = (K + (dtype == 0 ? kF32BK : kBK) - 1) / (dtype == 0 ? kF32BK : kBK);
   if (M < 1 || N < 1 || K < 1 || period < 1 || splits < 1 || splits > kMaxSplits ||
-      ktiles_per_split < 1 || ldx < K)
+      ktiles_per_split < 1 || ldx < K || (splits - 1) * ktiles_per_split >= ktiles)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int8_t* qc = static_cast<const int8_t*>(q);
@@ -865,6 +907,7 @@ extern "C" int d2r_w8a16_linear(int dtype, int tile, const void* x, long long ld
                         : (int)cudaErrorInvalidValue;
   }
   if (dtype == 0) {
+    if (tile != 0) return (int)cudaErrorInvalidValue;
     const dim3 grid((N + kF32Tile - 1) / kF32Tile, (M + kF32Tile - 1) / kF32Tile, splits);
     return launch(w8a16_f32_kernel, grid, 256, 0, splits, st, static_cast<const float*>(x), ldx,
                   qc, sc, period, static_cast<const float*>(bias), static_cast<float*>(out), M, N,
@@ -874,15 +917,21 @@ extern "C" int d2r_w8a16_linear(int dtype, int tile, const void* x, long long ld
   const bf16* xb = static_cast<const bf16*>(x);
   const bf16* bb = static_cast<const bf16*>(bias);
   bf16* ob = static_cast<bf16*>(out);
-  // the wgmma bodies load by TMA, which needs 16-byte aligned rows: other
-  // views take the 64 x 64 body, unsplit
-  if ((tile == 1 || tile == 3) && !vec) tile = 0, splits = 1, ktiles_per_split = (K + 63) / 64;
-  if (tile == 0)
-    return launch_bf16<64, 64, 2, 2, 4>(xb, ldx, qc, sc, period, bb, ob, M, N, K, splits,
-                                        ktiles_per_split, vec, st);
-  if (tile == 1) return launch_wgmma<128>(xb, ldx, qc, sc, period, bb, ob, M, N, K, splits,
-                                         ktiles_per_split, st);
-  if (tile == 3) return launch_wgmma<256>(xb, ldx, qc, sc, period, bb, ob, M, N, K, splits,
-                                         ktiles_per_split, st);
-  return (int)cudaErrorInvalidValue;
+  if (tile == 0 || !vec) {
+    const dim3 grid((N + 63) / 64, (M + 63) / 64);
+    w8a16_bf16_kernel<<<grid, 128, 0, st>>>(xb, ldx, qc, sc, period, bb, ob, M, N, K);
+    return (int)cudaGetLastError();
+  }
+#define D2R_BODY(KW, NT)                                                                      \
+  case 10 * KW + NT / 64:                                                                     \
+    return launch_wgmma<KW, NT>(xb, ldx, qc, sc, period, bb, ob, M, N, K, splits,             \
+                                ktiles_per_split, st);
+  switch (tile) {
+    D2R_BODY(1, 64)
+    D2R_BODY(2, 64)
+    D2R_BODY(1, 128)
+    D2R_BODY(1, 256)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef D2R_BODY
 }

@@ -11,7 +11,9 @@ columns (:func:`col_amax`, :func:`quantize_cols`, whose codes come out
 transposed, (C, R), the layout ``torch._int_mm`` takes). The amax is a
 pass of its own where the caller reduces it over a process group between
 the two; :func:`quantize_rows` without an amax reads each row twice in one
-launch.
+launch, and :func:`col_amax` is one launch whose last block of a column
+tile merges the row bands in a fixed order, so its result never depends
+on the schedule.
 
 Rescale: ``(float(y) * a) * b`` in fp32, rounded to the output type, for
 the int32 product ``y`` (M, N) and two scales each (M, 1) or (1, N): the
@@ -79,12 +81,15 @@ def rescale_plain(y: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
 _fns = {}
 
 
+_ARGTYPES = {"quantize_rows": "ipLiippppp", "col_amax": "ipLiipppp", "quantize_cols": "ipLiipppp",
+             "rescale": "ipLiipipipp"}
+
+
 def _kernel(name: str):
     if name not in _fns:
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        kinds = {"i": ctypes.c_int, "p": ctypes.c_void_p, "L": ctypes.c_longlong}
         fn = getattr(build.load("quantize"), f"d2r_{name}")
-        fn.argtypes = ([i, p, ll, i, i, p, p, p, p, p] if name != "rescale"
-                       else [i, p, ll, i, i, p, i, p, i, p, p])
+        fn.argtypes = [kinds[k] for k in _ARGTYPES[name]]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return _fns[name]
@@ -98,15 +103,30 @@ def _check(x: torch.Tensor, name: str) -> None:
                          f"got shape {tuple(x.shape)} strides {x.stride()}")
 
 
-def _launch(name: str, x: torch.Tensor, amax, amax_out, codes, scale) -> None:
+def _launch(name: str, x: torch.Tensor, *tensors) -> None:
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         ptr = lambda t: None if t is None else t.data_ptr()
         err = _kernel(name)(_DTYPE_CODES[x.dtype], x.data_ptr(), x.stride(0), x.shape[0],
-                            x.shape[1], ptr(amax), ptr(amax_out), ptr(codes), ptr(scale),
-                            stream)
+                            x.shape[1], *(ptr(t) for t in tensors), stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+# the column amax's arrival counts, one a 64-column tile: zero, and left
+# zero by every launch; one buffer a (device, stream), so that launches on
+# two streams never share one
+_arrivals = {}
+
+
+def _arrival_counts(x: torch.Tensor) -> torch.Tensor:
+    tiles = -(-x.shape[1] // 64)
+    key = (x.device, torch.cuda.current_stream(x.device).cuda_stream)
+    counts = _arrivals.get(key)
+    if counts is None or counts.numel() < tiles:
+        counts = _arrivals[key] = torch.zeros(max(tiles, 1024), dtype=torch.int32,
+                                              device=x.device)
+    return counts
 
 
 @torch.library.custom_op("d2r_torch::row_amax", mutates_args=(), device_types="cuda",
@@ -145,8 +165,10 @@ def _(x, amax):
                          schema="(Tensor x) -> Tensor")
 def col_amax_op(x):
     _check(x, "col_amax")
-    amax = torch.zeros((1, x.shape[1]), dtype=torch.float32, device=x.device)
-    _launch("quantize_cols", x, None, amax, None, None)
+    amax = torch.empty((1, x.shape[1]), dtype=torch.float32, device=x.device)
+    work = torch.empty((-(-x.shape[0] // 256), x.shape[1]), dtype=torch.float32,
+                       device=x.device)
+    _launch("col_amax", x, work, _arrival_counts(x), amax)
     quantize_cols.launches += 1
     return amax
 
@@ -162,7 +184,7 @@ def quantize_cols_op(x, amax):
     _check(x, "quantize_cols")
     codes_t = torch.empty((x.shape[1], x.shape[0]), dtype=torch.int8, device=x.device)
     scale = torch.empty((1, x.shape[1]), dtype=torch.float32, device=x.device)
-    _launch("quantize_cols", x, amax.contiguous(), None, codes_t, scale)
+    _launch("quantize_cols", x, amax.contiguous(), codes_t, scale)
     quantize_cols.launches += 1
     return codes_t, scale
 

@@ -23,13 +23,16 @@ in bf16 an output may differ by one bf16 ulp where the fp32 sum lies near
 a rounding midpoint.
 
 What the wrapper decides (:func:`tiling`): the body (a warp an output
-column for at most :data:`GEMV_M` rows; 64 x 64 tiles on ``mma.sync``;
-128 x 128 or 128 x 256 tiles on warpgroup MMA, ``wgmma``, for bf16 above
-:data:`SMALL_M` rows; fp32 takes 64 x 64 on the CUDA cores), and a split
-of K over the grid where the tiles alone would leave SMs idle. The splits of a
-tile are one thread block cluster that sums their fp32 partials in split
-order through distributed shared memory: one launch, and a shape's result
-never depends on the schedule.
+column for at most :data:`GEMV_M` rows; in bf16 above that, the
+warp-specialized ``wgmma`` body with the weight as the register operand,
+a block computing 64 output features by 64, 128 or 256 tokens with one or
+two warpgroups along K (:data:`WGMMA_TILES`); fp32 takes 64 x 64 tiles on
+the CUDA cores), and a split of K over the grid where the tiles alone
+would leave SMs idle. The splits of a tile are one thread block cluster
+that sums their fp32 partials in split order through distributed shared
+memory: one launch, and a shape's result never depends on the schedule. A bf16 view that TMA
+cannot take (rows off 16-byte alignment, K % 16 != 0) runs 64 x 64
+``mma.sync`` tiles, unsplit, whatever the tiling says.
 """
 
 from __future__ import annotations
@@ -46,16 +49,22 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # k a step of the bf16 and fp32 bodies
 K_STEP = {torch.bfloat16: 64, torch.float32: 16}
 # the largest M of the one-warp-a-column body (the products of one row a
-# post at buckets 1 and 8), and of the 64 x 64 bf16 tiling (serving bucket
-# 1's 49-64 rows up to bucket 4's)
+# post at buckets 1 and 8)
 GEMV_M = 8
-SMALL_M = 256
+# the bf16 wgmma bodies, by the code the kernel takes (10 KW + NT / 64):
+# (tokens NT, k-groups KW) of a block of 64 output features, its KW
+# consumer warpgroups taking alternate k-steps side by side
+WGMMA_TILES = {11: (64, 1), 21: (64, 2), 12: (128, 1), 14: (256, 1)}
+# the clocks an SM spends on one 64-feature, 64-deep step of a 64-token,
+# 128-token and 256-token body, dequantize and products together (the SM
+# does not overlap them), as in-kernel clock probes read them on an H100;
+# the token widths they choose are the fastest of w8a16_sweep.py's table
+# at the sites, or within 10% of it
+STEP_CLOCKS = {64: 300, 128: 400, 256: 690}
 # a split of K: at most this many (a portable cluster), each at least
-# MIN_SPLIT_STEPS k-steps; LONG_K: the K from which a small bf16 grid takes
-# the 128 x 256 wgmma tiles split over K (the FFN-out products)
+# MIN_SPLIT_STEPS k-steps
 MAX_SPLITS = 8
 MIN_SPLIT_STEPS = 2
-LONG_K = 2048
 
 
 def dequantize(q: torch.Tensor, scale: torch.Tensor, period: int,
@@ -86,30 +95,43 @@ def _sm_count(device: torch.device) -> int:
 
 
 def tiling(m: int, n: int, k: int, dtype: torch.dtype, sms: int = 132) -> Tuple[int, int, int]:
-    """``(body, splits, steps a split)`` of an (M, N, K) product. Bodies:
-    2, a warp an output column (M <= :data:`GEMV_M`, never split); 0, 64 x
-    64 tiles on ``mma.sync`` (M <= :data:`SMALL_M`, and fp32); in bf16 above
-    that, 1, 128 x 128 tiles on ``wgmma``, never split, except that a long
-    K (>= :data:`LONG_K`) under a grid of fewer such tiles than half the
-    SMs takes 3, 128 x 256 tiles split over K. A 64 x 64 grid of fewer
-    tiles than half the SMs splits K too, at most :data:`MAX_SPLITS` ways
-    and :data:`MIN_SPLIT_STEPS` k-steps a split, until it covers ``sms``; a
-    fuller grid is not split (each split's cluster reduction then costs
-    more than the SMs it fills)."""
+    """``(body, splits, steps a split)`` of an (M, N, K) product. Bodies: 2,
+    a warp an output column (M <= :data:`GEMV_M`, never split); fp32 0, 64
+    x 64 tiles; bf16 a key of :data:`WGMMA_TILES`: the token width of 64,
+    128 and 256 that spends the fewest clocks on M rows
+    (:data:`STEP_CLOCKS`), the wider on a tie, over 64-feature tiles. A
+    grid of fewer tiles than a quarter of the SMs (half, in fp32) splits K
+    over a cluster, until about ``sms`` blocks, at most
+    :data:`MAX_SPLITS` ways and :data:`MIN_SPLIT_STEPS` k-steps a split,
+    in bf16 a power of two ways; a fuller grid is not split (each split's
+    cluster reduction costs more than the SMs it fills). A bf16 64-token
+    grid that still fills fewer than ``sms`` blocks runs two k-groups where
+    a split holds 4 steps or more."""
     steps = -(-k // K_STEP[dtype])
     if m <= GEMV_M:
         return 2, 1, steps
     count = lambda em, en: -(-m // em) * -(-n // en)
-    body, tiles = 0, count(64, 64)
-    if dtype == torch.bfloat16 and m > SMALL_M:
-        if k < LONG_K or 2 * count(128, 128) >= sms:
-            return 1, 1, steps
-        body, tiles = 3, count(128, 256)
+    if dtype == torch.float32:
+        tiles = count(64, 64)
+        splits = 1
+        if 2 * tiles < sms:
+            splits = max(1, min(MAX_SPLITS, -(-sms // tiles), steps // MIN_SPLIT_STEPS))
+        per = -(-steps // splits)
+        return 0, -(-steps // per), per
+    tokens = min((64, 128, 256), key=lambda t: (-(-m // t) * STEP_CLOCKS[t], -t))
+    tiles = count(tokens, 64)
     splits = 1
-    if 2 * tiles < sms:
-        splits = max(1, min(MAX_SPLITS, -(-sms // tiles), steps // MIN_SPLIT_STEPS))
+    if 4 * tiles < sms:
+        # a power of two: the clusters of a split must pack into the
+        # card's processing clusters of 16-18 SMs, or part of the grid
+        # waits for a second wave
+        most = max(1, min(MAX_SPLITS, sms // tiles, steps // MIN_SPLIT_STEPS))
+        splits = 1 << (most.bit_length() - 1)
     per = -(-steps // splits)
-    return body, -(-steps // per), per
+    splits = -(-steps // per)
+    kgroups = 2 if tokens == 64 and tiles * splits < sms and per >= 4 else 1
+    body = next(c for c, tile in WGMMA_TILES.items() if tile == (tokens, kgroups))
+    return body, splits, per
 
 
 def _check(x, q, scale, bias, period) -> None:

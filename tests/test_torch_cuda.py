@@ -976,17 +976,21 @@ def test_cuda_quant_dot_under_two_gloo_ranks_is_one_process_s_bits(cuda, dtype):
                 assert all(checks), (mode, side, checks)
 
 
-# (M, N, K, period, bias): W8A16 at D2R-base's serving sites (bucket 1's 64
-# BERT rows: FFN in and out, the QKV with one scale a hidden unit; the patch
-# conv's 49 patches), bucket 32's FFN (the 128 x 128 tiling), an odd shape
-# that 16-byte copies cannot stage, one row and eight (the warp-a-column
-# body), a ragged grid, and bucket 8's FFN out (128 x 256 wgmma tiles split
-# over K) and a 128 x 128 wgmma grid
-W8A16_CASES = ((64, 3072, 768, 3072, True), (64, 768, 3072, 768, True),
-               (64, 2304, 768, 768, True), (49, 768, 3072, 768, False),
-               (2048, 3072, 768, 3072, True), (5, 3, 37, 3, True), (1, 768, 768, 768, True),
-               (8, 6, 768, 6, True), (300, 77, 200, 77, False), (512, 768, 3072, 768, True),
-               (2048, 768, 768, 768, True))
+# (M, N, K, period, bias): W8A16 at D2R-base's serving sites at buckets 1,
+# 8 and 32 (BERT rows 64 a post: FFN in and out, the QKV with one scale a
+# hidden unit; the patch conv's 49 patches a post), a 50-row CLIP product,
+# an odd shape that 16-byte copies cannot stage, one row and eight (the
+# warp-a-column body), a ragged grid, and one row a post at bucket 32
+W8A16_SITES = ((64, 3072, 768, 3072, True), (64, 768, 3072, 768, True),
+               (64, 2304, 768, 768, True), (49, 768, 3072, 768, False))
+W8A16_CASES = (*((rows * b, n, k, period, with_bias) for b in (1, 8, 32)
+                 for rows, n, k, period, with_bias in W8A16_SITES),
+               (50, 768, 768, 768, True), (5, 3, 37, 3, True), (1, 768, 768, 768, True),
+               (8, 6, 768, 6, True), (300, 77, 200, 77, False), (32, 768, 768, 768, True))
+# shapes for every wgmma body and split called directly: a site, a ragged
+# grid with K not a multiple of the 64-deep step, bucket 8's patch conv
+W8A16_BODY_CASES = ((64, 3072, 768, 3072, True), (130, 200, 1040, 100, True),
+                    (392, 768, 3072, 768, False))
 W8A16_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
 
@@ -999,16 +1003,35 @@ def _w8a16_inputs(cuda, m, n, k, period, with_bias, dtype, seed=0):
     return x, q, scale, bias
 
 
+def _w8a16_body(x, q, scale, period, bias, body, splits):
+    """The bf16 kernel launched directly with ``body`` and K cut into
+    ``splits``."""
+    from d2r_tpu_torch.ops.kernels import w8a16
+    m, k = x.shape
+    n = q.shape[0]
+    steps = -(-k // w8a16.K_STEP[x.dtype])
+    per = -(-steps // splits)
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    err = w8a16._kernel()(1, body, x.data_ptr(), x.stride(0), q.data_ptr(), scale.data_ptr(),
+                          period, None if bias is None else bias.data_ptr(), out.data_ptr(), m,
+                          n, k, -(-steps // per), per, torch.cuda.current_stream().cuda_stream)
+    assert err == 0, (body, splits, err)
+    return out
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_w8a16_matches_plain(cuda, dtype):
     """The W8A16 kernel against its plain version (the dequantized weight,
-    then ``F.linear``) at the serving sites, within 1e-5 (fp32) / 1e-2
-    (bf16) of max(1, max |ref|): the sums run in another order, and bf16
-    rounds once at the end. A view of x with a row stride gives the
-    contiguous input's bits; so does one off 16-byte alignment, except where
-    the shape takes a TMA (wgmma) body, which hands such a view to the 64 x
-    64 body: that sums in another order, within the same tolerance."""
+    then ``F.linear``) at every serving site of buckets 1, 8 and 32 and the
+    edge shapes, within 1e-5 (fp32) / 1e-2 (bf16) of max(1, max |ref|):
+    the sums run in another order, and bf16 rounds once at the end. A view
+    of x with a row stride gives the contiguous input's bits; so does one
+    off 16-byte alignment, except where the shape takes a wgmma body,
+    which hands such a view to the 64 x 64 mma.sync body: that sums in
+    another order, within the same tolerance. In bf16 every wgmma body
+    under one, two and three splits of K, called directly, is within the
+    tolerance too."""
     from d2r_tpu_torch.ops.kernels import w8a16
     for m, n, k, period, with_bias in W8A16_CASES:
         x, q, scale, bias = _w8a16_inputs(cuda, m, n, k, period, with_bias, dtype)
@@ -1027,40 +1050,62 @@ def test_cuda_w8a16_matches_plain(cuda, dtype):
         off = torch.zeros(m * k + 1, dtype=dtype, device=cuda)
         off[1:] = x.reshape(-1)
         got = w8a16.w8a16_linear(off[1:].view(m, k), q, scale, period, bias)
-        if w8a16.tiling(m, n, k, dtype)[0] in (1, 3):
+        if w8a16.tiling(m, n, k, dtype)[0] in w8a16.WGMMA_TILES:
             assert (got.float() - ref.float()).abs().max().item() <= tol, (m, n, k)
         else:
             assert torch.equal(got, out), (m, n, k)
+    if dtype != torch.bfloat16:
+        return
+    for m, n, k, period, with_bias in W8A16_BODY_CASES:
+        x, q, scale, bias = _w8a16_inputs(cuda, m, n, k, period, with_bias, dtype, seed=1)
+        ref = w8a16.w8a16_linear_plain(x, q, scale, period, bias).float()
+        tol = W8A16_TOL[dtype] * max(1.0, ref.abs().max().item())
+        for body in w8a16.WGMMA_TILES:
+            for splits in (1, 2, 3):
+                got = _w8a16_body(x, q, scale, period, bias, body, splits)
+                torch.cuda.synchronize()
+                err = (got.float() - ref).abs().max().item()
+                assert err <= tol, (m, n, k, body, splits, err)
 
 
 @pytest.mark.cuda
 def test_cuda_w8a16_captured_equals_eager_and_raises_instead_of_falling_back(cuda):
-    """A captured W8A16 launch replays the eager launch's bits (split-K
-    included); fp16, a CPU scale and a period that does not divide N
-    raise."""
+    """Captured W8A16 launches replay the eager launches' bits at every
+    bf16 serving site of buckets 1, 8 and 32 (their bodies and splits as
+    the wrapper picks them, split-K included) and for every wgmma body
+    under two splits; fp16, a CPU scale and a period that does not divide
+    N raise."""
     from d2r_tpu_torch.ops.kernels import w8a16
-    x, q, scale, bias = _w8a16_inputs(cuda, 64, 768, 3072, 768, True, torch.bfloat16)
     assert w8a16.tiling(64, 768, 3072, torch.bfloat16)[1] > 1
-    eager = w8a16.w8a16_linear(x, q, scale, 768, bias)
+    inputs = [_w8a16_inputs(cuda, m, n, k, period, with_bias, torch.bfloat16, seed=i)
+              for i, (m, n, k, period, with_bias) in enumerate(W8A16_CASES[:12])]
+    x0, q0, scale0, bias0 = inputs[0]
+    run = lambda: ([w8a16.w8a16_linear(x, q, s, s.numel(), b) for x, q, s, b in inputs]
+                   + [_w8a16_body(x0, q0, scale0, scale0.numel(), bias0, body, 2)
+                      for body in w8a16.WGMMA_TILES])
+    eager = run()
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):
-        w8a16.w8a16_linear(x, q, scale, 768, bias)
+        run()
     torch.cuda.current_stream().wait_stream(stream)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        out = w8a16.w8a16_linear(x, q, scale, 768, bias)
+        captured = run()
     graph.replay()
     torch.cuda.synchronize()
-    assert torch.equal(out, eager)
+    for i, (a, b) in enumerate(zip(captured, eager)):
+        assert torch.equal(a, b), i
+    x, q, scale, bias = inputs[1]
     for bad in ((x.half(), q, scale, 768), (x, q, scale.cpu(), 768), (x, q, scale[:7], 7)):
         with pytest.raises((TypeError, ValueError)):
             w8a16.w8a16_linear(*bad)
 
 
 # quantize shapes: the BERT FFN activation, its weight, and odd ones (K not a
-# multiple of 16, fewer rows than a block)
-QUANT_SHAPES = ((4096, 768), (3072, 768), (5, 37), (37, 5), (33, 24))
+# multiple of 16, fewer rows than a block, rows and columns past the
+# column passes' 128 x 64 and 64-column tiles)
+QUANT_SHAPES = ((4096, 768), (3072, 768), (5, 37), (37, 5), (33, 24), (4097, 771), (257, 130))
 
 
 def _quant_input(cuda, shape, dtype, seed):
@@ -1082,7 +1127,10 @@ def test_cuda_quantize_and_rescale_equal_plain(cuda, dtype):
     """The quantize kernels (rows in one launch and as amax + codes; columns,
     codes transposed) and the rescale kernel (both scale orders, a padded
     int32 view, fp32 and bf16 out) equal their plain versions bit for bit,
-    eager and inside a captured graph."""
+    eager and inside a captured graph. The column passes keep a NaN: a
+    column holding one has a NaN amax (scale 1/127, as the plain version's
+    amax > 0 test gives it), and every other code and scale equals the
+    plain version's, on contiguous, row-strided and misaligned views."""
     from d2r_tpu_torch.ops import qdot
     from d2r_tpu_torch.ops.kernels import quantize as qk
     for i, shape in enumerate(QUANT_SHAPES):
@@ -1118,12 +1166,34 @@ def test_cuda_quantize_and_rescale_equal_plain(cuda, dtype):
         torch.cuda.synchronize()
         for got, ref in zip(captured, want):
             assert torch.equal(got, ref), shape
+    for shape in ((4097, 771), (37, 5), (4096, 768)):
+        x = _quant_input(cuda, shape, dtype, 7)
+        x[shape[0] // 2, 2] = float("nan")
+        views = {"contiguous": x}
+        wide = torch.zeros((shape[0], shape[1] + 8), dtype=dtype, device=cuda)
+        wide[:, :shape[1]] = x
+        views["row stride"] = wide[:, :shape[1]]
+        flat = torch.zeros(x.numel() + 1, dtype=dtype, device=cuda)
+        flat[1:] = x.reshape(-1)
+        views["misaligned"] = flat[1:].view(shape)
+        want_amax = qk.col_amax_plain(x)
+        want_codes, want_scale = qk.quantize_cols_plain(x, want_amax)
+        keep = ~x.isnan().t()
+        for name, v in views.items():
+            amax = qk.col_amax(v)
+            codes, scale = qk.quantize_cols(v, amax)
+            torch.cuda.synchronize()
+            assert amax[0, 2].isnan() and torch.equal(amax.isnan(), want_amax.isnan()), name
+            assert torch.equal(amax.nan_to_num(), want_amax.nan_to_num()), name
+            assert torch.equal(scale, want_scale), name
+            assert torch.equal(codes[keep], want_codes[keep]), name
 
 
 @pytest.mark.cuda
 def test_cuda_int8_ops_pass_opcheck(cuda):
     """``torch.library.opcheck`` on the W8A16, quantize and rescale ops."""
     from d2r_tpu_torch.ops.kernels import quantize as qk
+    from d2r_tpu_torch.ops.kernels import w8a16  # noqa: F401 (registers d2r_torch::w8a16_linear)
     for dtype in (torch.float32, torch.bfloat16):
         x, q, scale, bias = _w8a16_inputs(cuda, 50, 96, 64, 32, True, dtype)
         torch.library.opcheck(torch.ops.d2r_torch.w8a16_linear.default, (x, q, scale, bias, 32))

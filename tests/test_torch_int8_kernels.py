@@ -18,7 +18,15 @@ and the W8A16 product of int8 serving (``ops/kernels/w8a16.py``, kernel
   kernel) layouts; the dequantized weight bit for bit. The sums run in
   another order in each framework; bf16 rounds once at the end, so an
   output may land one bf16 ulp (2^-8 of its size) apart;
-- the split-K choice of the kernel's wrapper covers K exactly.
+- the W8A16 kernel's dequantize (``codes_to_float2``, ``dequant_bf16x2``),
+  written out in integer and bit-view tensor ops, gives
+  ``w8a16.dequantize``'s bits for every code and a sweep of scales;
+- the column amax kernel's order (row lanes, then a fixed tree, then the
+  row bands in rank order), modelled in tensor ops, gives
+  ``col_amax_plain``'s values, NaN and all-zero columns included;
+- the tiling of the kernel's wrapper covers (M, N) with its tiles and K
+  with its splits at every site of D2R-base and D2R-large and the
+  training shapes.
 
 The card holds each kernel against these plain versions
 (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
@@ -189,24 +197,190 @@ def test_w8a16_plain_matches_jax_dequant_dot(dtype, layout):
     assert torch.equal(got.reshape(-1, n), plain)
 
 
-@pytest.mark.parametrize("m,n,k", [(64, 768, 768), (64, 768, 3072), (50, 2304, 768),
-                                   (2048, 3072, 768), (512, 768, 768), (5, 3, 37),
-                                   (4096, 768, 3072), (1, 768, 768), (9, 6, 768),
-                                   (512, 768, 3072), (2048, 768, 768)])
+# (M, N, K): D2R-base's bf16 serving sites at buckets 1 / 8 / 32 (BERT rows
+# 64 a post: the attention out, FFN in and out, the QKV; CLIP-B/32 50 a
+# post and its 49-patch conv), D2R-large's (RoBERTa-large 64 a post, CLIP
+# ViT-L/14 257 a post, widths 1024 / 4096), products of one row a post,
+# training shapes (batch 64 by 64 rows), an odd shape, a ragged grid
+SPLIT_CASES = sorted({
+    *((rows * b, n, k) for b in (1, 8, 32)
+      for rows, n, k in ((64, 768, 768), (64, 3072, 768), (64, 768, 3072), (64, 2304, 768),
+                         (50, 768, 768), (50, 3072, 768), (50, 768, 3072), (50, 2304, 768),
+                         (49, 768, 3072), (64, 1024, 1024), (64, 4096, 1024),
+                         (64, 1024, 4096), (64, 3072, 1024), (257, 1024, 1024),
+                         (257, 4096, 1024), (257, 1024, 4096), (257, 3072, 1024),
+                         (1, 768, 768), (1, 1024, 1024))),
+    (4096, 768, 3072), (4096, 3072, 768), (2048, 768, 768), (5, 3, 37), (9, 6, 768),
+    (300, 77, 200)})
+
+
+@pytest.mark.parametrize("m,n,k", SPLIT_CASES)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_w8a16_split_covers_k(dtype, m, n, k):
     """Products of at most GEMV_M rows take the warp-a-column body, unsplit;
-    else every split holds at least one k-step and together they hold all
-    of them, and only a grid of fewer tiles than half the SMs is split."""
+    above that fp32 takes 64 x 64 tiles and bf16 a wgmma body of
+    ``WGMMA_TILES``, whose tiles cover (M, N); every split holds at least
+    one k-step and together they hold all of them, only a grid of fewer
+    tiles than half the SMs is split, never past the SMs, and a bf16 grid
+    is split a power of two ways and fills at least a quarter of them where
+    K allows it."""
     tile, splits, per = w8a16.tiling(m, n, k, dtype, sms=132)
     steps = -(-k // w8a16.K_STEP[dtype])
     if m <= w8a16.GEMV_M:
         assert (tile, splits, per) == (2, 1, steps)
         return
-    if dtype == torch.float32 or m <= w8a16.SMALL_M:
+    if dtype == torch.float32:
         assert tile == 0
+        features, tokens = 64, 64
+    else:
+        features = 64
+        tokens, kgroups = w8a16.WGMMA_TILES[tile]
+        assert tokens in (64, 128, 256) and kgroups in (1, 2)
+    grid = (-(-m // tokens), -(-n // features))
+    assert grid[0] * tokens >= m and grid[1] * features >= n
     assert 1 <= splits <= w8a16.MAX_SPLITS
     assert (splits - 1) * per < steps <= splits * per
-    em, en = {0: (64, 64), 1: (128, 128), 3: (128, 256)}[tile]
-    tiles = -(-m // em) * -(-n // en)
+    tiles = grid[0] * grid[1]
     assert splits == 1 or (2 * tiles < 132 and tiles * (splits - 1) < 132)
+    if dtype == torch.bfloat16:
+        # a power of two ways (clusters that pack into the card's processing
+        # clusters), a quarter of the SMs or more where K allows it
+        assert splits & (splits - 1) == 0
+        most = max(1, min(w8a16.MAX_SPLITS, steps // w8a16.MIN_SPLIT_STEPS))
+        assert tiles * splits >= min(33, tiles * (1 << (most.bit_length() - 1)))
+
+
+def _dequant_bf16x2_bits(pairs: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``csrc/w8a16_linear.cu``'s ``codes_to_float2`` and ``dequant_bf16x2``
+    in integer and bit-view ops: ``pairs`` int32 holds two codes in bits
+    0-15 (code 0 low); returns the kernel's bf16x2 word, int32 (code 0's
+    bf16 in the low half)."""
+    u = pairs ^ 0x8080
+    # __byte_perm(u, 0x4B000000, 0x7650 / 0x7651): 0x4B0000uu, the float 2^23 + uu
+    f0 = (0x4B000000 | (u & 0xFF)).view(torch.float32) - 8388736.0
+    f1 = (0x4B000000 | ((u >> 8) & 0xFF)).view(torch.float32) - 8388736.0
+    # __byte_perm(f0, f1, 0x7632): each float's high half, the code's exact bf16
+    hi = lambda f: (f.view(torch.int32) >> 16) & 0xFFFF
+    s2 = scale.to(torch.bfloat16).float()
+    # __hmul2 in bf16: the product of two bf16 is exact in fp32, rounded once
+    w0 = (hi(f0).to(torch.int16).view(torch.bfloat16).float() * s2).to(torch.bfloat16)
+    w1 = (hi(f1).to(torch.int16).view(torch.bfloat16).float() * s2).to(torch.bfloat16)
+    as_u16 = lambda w: w.view(torch.int16).to(torch.int32) & 0xFFFF
+    return as_u16(w0) | (as_u16(w1) << 16)
+
+
+def test_w8a16_register_dequantize_matches_dequantize_bits():
+    """Every pair of codes (all 65,536) under a sweep of scales: the
+    kernel's register dequantize gives ``dequantize``'s bf16 bits, the plain
+    path's ``q.to(bf16) * s.to(bf16)``."""
+    codes = torch.arange(-128, 128, dtype=torch.int32)
+    c0, c1 = torch.meshgrid(codes, codes, indexing="ij")
+    c0, c1 = c0.reshape(-1), c1.reshape(-1)
+    pairs = (c0 & 0xFF) | ((c1 & 0xFF) << 8)
+    scales = torch.cat([torch.tensor([1 / 127, 1.0, 2.0 ** -20, 3.0e-3, 0.0]),
+                        torch.logspace(-30, 30, 41), torch.rand(16) * 2e-3 + 1e-4])
+    q = torch.stack([c0, c1], dim=1).to(torch.int8)                 # (65536, 2)
+    for s in scales:
+        want = w8a16.dequantize(q, s.reshape(1), 1, torch.bfloat16)
+        want_bits = ((want[:, 0].view(torch.int16).to(torch.int32) & 0xFFFF)
+                     | ((want[:, 1].view(torch.int16).to(torch.int32) & 0xFFFF) << 16))
+        got = _dequant_bf16x2_bits(pairs, s)
+        assert torch.equal(got, want_bits), float(s)
+
+
+def _nan_max(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``csrc/quantize.cu``'s nan_max: v where v > m or v is NaN, else m."""
+    return torch.where((v > m) | v.isnan(), v, m)
+
+
+def _col_amax_model(x: torch.Tensor) -> torch.Tensor:
+    """``amax_cols_kernel``'s order in tensor ops: each row lane folds its
+    rows of a 256-row band in order, the row lanes of a warp merge by a
+    butterfly (lane xor 1, 2, ...), the block's 8 warps in order; then (the
+    last block of a column tile to finish, whichever it is) four runs of
+    bands g, g + 4, ... each folded in order, and the runs in order."""
+    r, c = x.shape
+    per_row = 64 // (16 // x.element_size())
+    lanes = 256 // per_row
+    in_warp = 32 // per_row
+    rows_per_band = 256
+    bands = []
+    a = x.abs().float()
+    for b in range(-(-r // rows_per_band)):
+        part = torch.zeros((lanes, c))
+        for lane in range(lanes):
+            for row in range(b * rows_per_band + lane, min(r, (b + 1) * rows_per_band), lanes):
+                part[lane] = _nan_max(part[lane], a[row])
+        warps = part.view(8, in_warp, c)
+        o = 1
+        while o < in_warp:
+            warps = _nan_max(warps, warps[:, torch.arange(in_warp) ^ o])
+            o *= 2
+        band = warps[0, 0]
+        for w in range(1, 8):
+            band = _nan_max(band, warps[w, 0])
+        bands.append(band)
+    if len(bands) == 1:
+        return bands[0][None]
+    runs = []
+    for g in range(4):
+        run = torch.zeros(c)
+        for band in bands[g::4]:
+            run = _nan_max(run, band)
+        runs.append(run)
+    merged = runs[0]
+    for run in runs[1:]:
+        merged = _nan_max(merged, run)
+    return merged[None]
+
+
+def _codes_by_reciprocal_model(v: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """``csrc/quantize.cu``'s ``code_by_reciprocal`` in fp32 tensor ops:
+    rint(v * (1 / s)) away from rounding boundaries, rint(v / s) near them
+    (within 2^-10 of a half-integer) and where 1 / s is not finite."""
+    r = torch.reciprocal(s)
+    t = v * r
+    exact = torch.round(v / s)
+    near = (t - torch.floor(t) - 0.5).abs() < 2.0 ** -10
+    q = torch.where(near | ~torch.isfinite(r).expand_as(t), exact, torch.round(t))
+    return torch.clamp(q, -127, 127).to(torch.int8)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_codes_by_reciprocal_model_matches_plain(dtype):
+    """The codes pass's multiply-by-reciprocal path with its exact fallback
+    gives the plain codes bit for bit: normal values, exact .5 ties and
+    values one ulp either side of a tie, at scales of many sizes, the
+    column's amax among them (the +-127 codes)."""
+    tdt = DTYPES[dtype][1]
+    g = torch.Generator().manual_seed(5)
+    amax = torch.cat([torch.tensor([127.0, 1.0, 3.0, 1e-3, 7.25, 1e-30, 1e30, 2.0 ** -126]),
+                      torch.rand(24, generator=g) * 10 ** torch.randint(-6, 6, (24,),
+                                                                           generator=g)])
+    x = (torch.rand((512, amax.numel()), generator=g) * 2 - 1) * amax
+    scale = torch.where(amax > 0, amax, torch.ones_like(amax)) / torch.full_like(amax, 127.0)
+    halves = (torch.arange(-127, 127) + 0.5)[:, None] * scale
+    x = torch.cat([x, amax[None], -amax[None], halves, torch.nextafter(halves, halves * 2),
+                   torch.nextafter(halves, torch.zeros_like(halves))]).to(tdt).float()
+    want, _ = qk.quantize_cols_plain(x, amax[None])
+    got = _codes_by_reciprocal_model(x, scale[None]).t().contiguous()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape", [(4096, 40), (3072, 24), (37, 5), (700, 9)],
+                         ids=["r4096", "r3072", "r37", "r700"])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_col_amax_kernel_order_matches_plain(dtype, shape):
+    """The column amax merged in the kernel's order equals ``col_amax_plain``
+    on columns that hold a NaN (kept) and are all zero (amax 0, then scale
+    1/127 and codes 0), at 16, 12, 3 and 1 bands, the last one ragged."""
+    tdt = DTYPES[dtype][1]
+    x = _as_torch(_adversarial(shape, seed=sum(shape)), tdt)
+    x[shape[0] // 2, 2] = float("nan")
+    x[0, 3] = float("nan")
+    got, want = _col_amax_model(x), qk.col_amax_plain(x)
+    assert got.isnan()[0, 2] and got.isnan()[0, 3] and got[0, 0] == 0
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.nan_to_num(), want.nan_to_num())
+    _, scale = qk.quantize_cols_plain(x, got)
+    assert scale[0, 0] == torch.tensor(1.0) / torch.tensor(127.0)
