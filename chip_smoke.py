@@ -225,8 +225,11 @@ operations at the type's peak).
    launch and as amax + codes; by columns, codes transposed) and the
    rescale kernel against their plain versions at :data:`QDOT_SHAPES`,
    fp32 and bf16, bit for bit, at the FFN shape inside a captured graph
-   too, with their times beside the plain versions' and their bounds;
-   then ``quant_dot`` card against CPU on the same operands at a BERT FFN
+   too; the rows quantize at every site of :data:`QUANT_ROW_SITES` (bf16,
+   the two activation sites in fp32 too), bit for bit in its three uses,
+   the columns quantize and the rescale at the FFN shape, with their times
+   beside the plain versions' and their bounds; then ``quant_dot`` card
+   against CPU on the same operands at a BERT FFN
    product and at an odd shape that takes the
    padding to ``_int_mm``'s shapes (:data:`QDOT_SHAPES`), fp32 and bf16:
    the forward bit for bit, the backwards in fp32 within
@@ -234,9 +237,11 @@ operations at the type's peak).
    and ``_int_mm`` alone. Phase 5 with ``quant_train="int8"`` (within
    :data:`QUANT_LOGITS_TOL`, equal labels). 13 bf16 steps each with
    ``quant_train`` none, int8 and int8_all from the same weights and batch
-   (34 K1 and 34 K2 a step), and one traced step of each: device time of
-   ``_int_mm``, of the float products and of the rest, whose growth over
-   ``none`` is the quantize passes.
+   (34 K1 and 34 K2 a step), one traced replay of each (the quantize
+   kernels' launches and device ms a replayed step, by name) and one
+   traced eager step of each: device time of ``_int_mm``, of the float
+   products and of the rest, whose growth over ``none`` is the quantize
+   passes.
 19. The trainer extras through the CLI at ``run.sh``'s recipe, one epoch
    on :data:`EXTRAS_DATA`: ``--dry_run`` prints the JAX CLI's keys (one
    step: 34 K1, 34 K2); ``--auto_resume`` with and without
@@ -245,13 +250,16 @@ operations at the type's peak).
    after its reload equal to a restore probe's; the two runs' weights
    compared for the record); ``--prng_impl threefry2x32`` (the rbg run's
    losses bit for bit); :data:`EXTRAS_RUNS`; then ``debug_nans`` on a batch
-   with NaN pixels raises ``FloatingPointError``.
+   with NaN pixels raises ``FloatingPointError``. It runs in the second
+   process after ``serve_export``'s checks (host work: the CLI a few steps
+   at a time), and the last phase, ``train_extras``, takes its report and
+   launch counts.
 
-Between phases 13 and ``serve_export``, ``mesh_start``: the one-process
+Between phases 13 and 14, ``mesh_start``: the one-process
 fp32 runs of phases 23, 21 and 20's meshes (:data:`BACKGROUND_MESHES`) and
 ``serve_mesh``'s checkpoint and posts, then their ranks and servers from a
-thread of the script's process, one after the other, beside
-``serve_export``, 14 and 15 and on: the ranks spend most of a step waiting
+thread of the script's process, one after the other, beside phases 14
+and 15 and on: the ranks spend most of a step waiting
 on gloo's copies through host memory, and those phases mostly on the host
 or in CUDA graphs. Phases 20, 21, 23 and ``serve_mesh`` wait for them and
 check them.
@@ -333,16 +341,19 @@ check them.
    ``QUANT_LOGITS_TOL``, labels equal, both ranks' answers equal. Not a
    scaling figure: the ranks share one card.
 
-Between phases 13 and 14, ``serve_export``: the serving artifact as a
-user makes it. After ``step_kernels``, ``export_start`` saves phase 13's
-D2R-base checkpoint under ``build/`` and starts ``export_artifacts`` in a
-process of its own, which runs beside phases 4-13 (exporting is host
-work: tracing and JSON; a program's trace and save take 15-28 s and its
-load 8-14 s on that machine): ``python -m d2r_tpu_torch.export`` at
+After phase 15, ``serve_export``: the serving artifact as a user makes
+it. After ``step_kernels``, ``export_start`` saves phase 13's D2R-base
+checkpoint under ``build/`` and starts a second process
+(``background_process``), which runs beside phases 4-18 (exporting and
+loading programs is host work: tracing and JSON; a program's trace and
+save take 15-28 s and its load 8-19 s on that machine):
+``export_artifacts``, that is ``python -m d2r_tpu_torch.export`` at
 buckets 1/8/32 (uint8 pixels; the CLI's self-check reloads bucket 1),
 again with ``--quantize int8`` at ``EXPORT_INT8_BUCKETS``, D2R-large at
 ``EXPORT_LARGE_BUCKETS`` through ``export_predictor``, and ``--format
-torch``. ``serve_export`` waits for it, then ``load_exported`` with the
+torch``; then their checks (``serve_export_checks``), whose report
+``serve_export`` takes; then phase 19, which the last phase,
+``train_extras``, takes. The checks: ``load_exported`` with the
 checkpoint's model: each bucket's program holds 34 K1 op nodes
 (``d2r_torch::fused_attention_fwd``; D2R-large 29 and 29 K3; an int8
 program also one ``d2r_torch::w8a16_linear`` node a quantized module) and
@@ -512,9 +523,10 @@ SCALED_CLI_DATA = {"n": 64, "image_size": 256, "corrupt_every": 50}
 # bucket 1
 EXPORT_INT8_BUCKETS = (1, 8)
 EXPORT_LARGE_BUCKETS = (1,)
-# the most phase serve_export waits for the exports still running (on an
-# H100 host they ran 266.5 s beside phases 4-13's 262 s)
-EXPORT_WAIT_S = 400
+# the most phase serve_export waits for the export process still running
+# (on an H100 host its exports ran 386.9 s beside phases 4-13, and its
+# checks ≈120 s after them)
+EXPORT_WAIT_S = 900
 # the CCR weight of the alpha card-vs-CPU check
 CCR_ALPHA = 0.5
 # int8 quantized training (phase 18): fp32 logits card against CPU. The
@@ -526,6 +538,16 @@ QUANT_LOGITS_TOL = 1e-2
 # 4096 rows, 768 -> 3072) and an odd one that takes the padding to
 # _int_mm's shapes; the backwards in fp32 within 1e-5 of the largest value
 QDOT_SHAPES = (("bert_ffn", 4096, 768, 3072), ("odd", 5, 37, 3))
+# the rows quantize's sites in a D2R-base step at batch 64 (64 x 64 tokens)
+# and CLIP-B's (64 x 50): (name, R, K, types); each is timed beside its
+# plain version and its bound and held to the plain version bit for bit
+QUANT_ROW_SITES = (("x", 4096, 768, ("bfloat16", "float32")),         # QKV, FFN in, attn out
+                   ("x_ffn_out", 4096, 3072, ("bfloat16", "float32")),  # FFN out; int8_all's g
+                   ("clip_x", 3200, 768, ("bfloat16",)),
+                   ("qkv_w", 2304, 768, ("bfloat16",)),
+                   ("ffn_in_w", 3072, 768, ("bfloat16",)),
+                   ("ffn_out_w", 768, 3072, ("bfloat16",)),
+                   ("attn_out_w", 768, 768, ("bfloat16",)))
 QDOT_BWD_TOL = 1e-5
 # the trainer extras through the CLI (phase 19): run.sh's recipe for one
 # epoch on a small fabricated dataset (two train steps, one dev and one
@@ -575,9 +597,9 @@ PARALLEL_MESHES = {
 }
 PARALLEL_BF16_STEPS = 3
 # the meshes whose ranks run in a thread of the script's process beside
-# the phases after mesh_start (serve_export, pretrained, train_scaled: host
-# work and the card's, while the ranks wait on gloo), one after the other;
-# phases 20, 21 and 23 collect them, waiting at most MESH_WAIT_S
+# the phases after mesh_start (pretrained, train_scaled, ...: host work and
+# the card's, while the ranks wait on gloo), one after the other; phases
+# 20, 21 and 23 collect them, waiting at most MESH_WAIT_S
 BACKGROUND_MESHES = ("train_pp", "train_tp", "train_dp")
 MESH_WAIT_S = 1300
 # serving over a mesh (phase serve_mesh), D2R-base at full width: the HTTP
@@ -633,8 +655,12 @@ def model_config(key, **overrides):
     return D2RConfig(**{**MODELS[key]["cfg"], **overrides})
 
 
+T0 = time.perf_counter()
+
+
 def log(msg):
-    print(msg, flush=True)
+    """``msg`` on stdout behind the seconds since the script started."""
+    print(f"{time.perf_counter() - T0:7.1f} {msg}", flush=True)
 
 
 def memory_gb():
@@ -2010,12 +2036,14 @@ def device_profile(fn, n, unit):
             f"dropout_ms_per_{unit}": ms("hidden_dropout_kernel"),
             # full names: two kernels may share a long prefix
             f"top_kernels_ms_per_{unit}": {k: v / n / 1e3 for k, v in top},
-            f"kernel_calls_per_{unit}": {k: c / n for k, c in calls.items()}}
+            f"kernel_calls_per_{unit}": {k: c / n for k, c in calls.items()},
+            f"kernel_ms_per_{unit}": {k: v / n / 1e3 for k, v in by_name.items()}}
 
 
 def brief(prof):
-    """A profile without its per-kernel call table, for the log."""
-    return {k: v for k, v in prof.items() if not k.startswith("kernel_calls_per_")}
+    """A profile without its per-kernel tables, for the log."""
+    return {k: v for k, v in prof.items() if not k.startswith(("kernel_calls_per_",
+                                                                "kernel_ms_per_"))}
 
 
 def phase_card_vs_cpu(report, key="base", alpha=0.0, sentic=False, quant="none"):
@@ -3069,6 +3097,9 @@ EXPORT_LINE = re.compile(r"exported bucket (\d+) for (\w+): trace ([\d.]+) s, sa
                          r"(\d+) bytes")
 # the processes this script starts, stopped by main() if still running
 STARTED = []
+EXPORTS = {}     # the process that phase export_start started
+LANE_LOG = os.path.join("build", "chip_smoke_lane.log")          # its output
+EXTRAS_OUT = os.path.join("build", "chip_smoke_extras_lane.json")   # phase 19's result
 
 
 def export_cli(argv):
@@ -3087,13 +3118,15 @@ def export_cli(argv):
 
 
 def export_artifacts(root):
-    """The exports of phase ``serve_export``, run in a process of their own
-    (``phase_export_start``) beside phases 4-13: they are host work
-    (tracing, JSON) but for the self-checks' few forwards. The CLI on the
-    D2R-base checkpoint at ``BUCKETS`` and, with ``--quantize int8``, at
-    ``EXPORT_INT8_BUCKETS``; D2R-large (seed 0, built on the card) through
-    ``export_predictor`` at ``EXPORT_LARGE_BUCKETS``; ``--format torch``.
-    Writes ``root/exports.json``."""
+    """Phase ``serve_export``'s work, run in the second process
+    (``background_process``) beside phases 4-15: it is host work (tracing,
+    JSON, loading programs) but for the self-checks' few forwards and the
+    replays. The exports: the CLI on the D2R-base checkpoint at ``BUCKETS``
+    and, with ``--quantize int8``, at ``EXPORT_INT8_BUCKETS``; D2R-large
+    (seed 0, built on the card) through ``export_predictor`` at
+    ``EXPORT_LARGE_BUCKETS``; ``--format torch``. Then their checks
+    (:func:`serve_export_checks`). Writes ``root/serve_export.json`` (the
+    checks' report and launch counts)."""
     import logging
     from d2r_tpu_torch import export as texport
     from d2r_tpu_torch.models.unimo import build_model
@@ -3120,14 +3153,49 @@ def export_artifacts(root):
                                 for b, _, tr, sv, n in rows}}
     out["torch"] = export_cli(["--load_path", best, "--out_dir", os.path.join(root, "torch"),
                                "--format", "torch"])
-    with open(os.path.join(root, "exports.json"), "w") as f:
-        json.dump(out, f)
+    result = {"exports_s": time.perf_counter() - T0}
+    launches = serve_export_checks(result, out)
+    write_json(os.path.join(root, "serve_export.json"), {"result": result, "launches": launches})
+
+
+def background_process(root, lane_out):
+    """The script's second process: :func:`export_artifacts` (the exports
+    and their checks, for ``phase_serve_export``), then phase 19
+    (:func:`phase_extras`, host work: the CLI a few steps at a time) with
+    its report and launch counts into ``lane_out``, for the phase that
+    collects it (:func:`phase_extras_collect`). A failure of either goes
+    into its file as ``error``."""
+    import torch
+    for fn, out in ((lambda: export_artifacts(root), os.path.join(root, "serve_export.json")),
+                    (lambda: extras_process(lane_out), lane_out)):
+        try:
+            fn()
+        except BaseException:  # noqa: BLE001 - the collecting phase raises it
+            write_json(out, {"error": traceback.format_exc()[-3000:]})
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def write_json(path, obj):
+    """``obj`` as JSON at ``path``, which appears whole or not at all."""
+    with open(path + ".tmp", "w") as f:
+        json.dump(obj, f)
+    os.replace(path + ".tmp", path)
+
+
+def extras_process(out):
+    """:func:`phase_extras` in this process; its report and launch counts
+    into ``out``."""
+    report = {}
+    counts = phase_extras(report)
+    write_json(out, {"report": report["extras"], "counts": counts})
 
 
 def phase_export_start(report):
     """Save phase 13's D2R-base checkpoint (phase 4's model) under
-    ``EXPORT_ROOT`` and start :func:`export_artifacts` in a process of its
-    own; ``phase_serve_export`` waits for it."""
+    ``EXPORT_ROOT`` and start :func:`background_process` (the exports and
+    their checks, then phase 19); ``phase_serve_export`` and
+    ``phase_extras_collect`` collect it."""
     import shutil
     import types
     from d2r_tpu_torch.config import save_config_json
@@ -3138,12 +3206,13 @@ def phase_export_start(report):
     save_checkpoint(os.path.join(EXPORT_ROOT, "best_model"),
                     types.SimpleNamespace(model=build_model(cfg, device="cpu", seed=0)))
     save_config_json(cfg, os.path.join(EXPORT_ROOT, "config.json"))
-    log_file = open(os.path.join(EXPORT_ROOT, "exports.log"), "w")
+    log_file = open(LANE_LOG, "w")
     STARTED.append(subprocess.Popen(
-        [sys.executable, "-c", f"import chip_smoke as c; c.export_artifacts({EXPORT_ROOT!r})"],
+        [sys.executable, "-c",
+         f"import chip_smoke as c; c.background_process({EXPORT_ROOT!r}, {EXTRAS_OUT!r})"],
         stdout=log_file, stderr=subprocess.STDOUT))
     log_file.close()
-    report["export_start_t"] = time.time()
+    EXPORTS["proc"] = STARTED[-1]
     log(f"[export_start] D2R-base checkpoint saved; exports started (pid {STARTED[-1].pid})")
 
 
@@ -3253,80 +3322,124 @@ def export_run(tag, out, live, model, rows, spec, tol, exported, trace=True):
     return result
 
 
-def phase_serve_export(report):
-    """The serving artifacts that ``export_artifacts`` wrote beside phases
-    4-13 (waited for here), loaded with ``load_exported`` and replayed in
-    their bucket graphs beside ``Predictor``'s on the same rows: D2R-base
-    through the CLI at buckets 1/8/32, uint8 pixels (atol 1e-6, labels
-    equal, 34 K1 op nodes a program), int8 at ``EXPORT_INT8_BUCKETS``
-    (within ``QUANT_LOGITS_TOL``, labels equal) and D2R-large at
-    ``EXPORT_LARGE_BUCKETS`` (29 K1 and 29 K3 op nodes); the ``--format
-    torch`` file's keys."""
+def serve_export_checks(result, exported):
+    """The serving artifacts that :func:`export_artifacts` wrote (their
+    trace and save times in ``exported``), loaded with ``load_exported``
+    and replayed in their bucket graphs beside ``Predictor``'s on the same
+    rows: D2R-base through the CLI at buckets 1/8/32, uint8 pixels (atol
+    1e-6, labels equal, 34 K1 op nodes a program), int8 at
+    ``EXPORT_INT8_BUCKETS`` (within ``QUANT_LOGITS_TOL``, labels equal) and
+    D2R-large at ``EXPORT_LARGE_BUCKETS`` (29 K1 and 29 K3 op nodes); the
+    ``--format torch`` file's keys. Into ``result``; returns the launch
+    counts."""
     import copy
-    import shutil
     import torch
     from d2r_tpu_torch.models.unimo import build_model
     from d2r_tpu_torch.serve import Predictor
     from d2r_tpu_torch.train.checkpoint import restore_model
 
     zero_counts()
+    result["cli"] = {k: {"wall_s": v["wall_s"], "line": v.get("line")} for k, v in exported.items()}
+    log(f"[export] the exports ran {result['exports_s']:.1f} s (CLI wall s: "
+        f"{({k: round(v['wall_s'], 1) for k, v in exported.items()})})")
+    cfg = model_config("base", compute_dtype="bfloat16")
+    model = restore_model(os.path.join(EXPORT_ROOT, "best_model"), cfg)
+    requests = make_requests(cfg)[-1]
+    for name, quantize, tol in (("bf16", None, 1e-6), ("int8", "int8", QUANT_LOGITS_TOL)):
+        buckets = exported[name]["line"]["buckets"]
+        # a Predictor takes its model over: each side gets a copy
+        live = Predictor(cfg, copy.deepcopy(model), batch_buckets=buckets, quantize=quantize)
+        run = export_run(name, os.path.join(EXPORT_ROOT, name), live, copy.deepcopy(model),
+                         requests, MODELS["base"], tol,
+                         {int(b): v for b, v in exported[name]["buckets"].items()},
+                         trace=quantize is None)
+        result[name] = {"buckets": run,
+                        "tensor_bytes": sum(t.nbytes for t in live.tensors().values())}
+        log(f"[export] {name}: program bytes {[run[b]['bytes'] for b in run]} against "
+            f"{result[name]['tensor_bytes']} bytes of the tensors a program takes")
+        del live
+        gc.collect()
+        torch.cuda.empty_cache()
+    del model
+    large = model_config("large", compute_dtype="bfloat16")
+    model = build_model(large, device="cuda", seed=0)
+    live = Predictor(large, copy.deepcopy(model), batch_buckets=EXPORT_LARGE_BUCKETS)
+    result["large"] = {"buckets": export_run(
+        "large", os.path.join(EXPORT_ROOT, "large"), live, model, make_requests(large)[-1],
+        MODELS["large"], 1e-6, {int(b): v for b, v in exported["large"]["buckets"].items()})}
+    del live, model
+    sd = torch.load(os.path.join(EXPORT_ROOT, "torch", "best_model.pth"), weights_only=True,
+                    mmap=True)
+    result["format_torch"] = {"keys": len(sd), "wall_s": exported["torch"]["wall_s"],
+                              "bytes": sum(t.nbytes for t in sd.values())}
+    log(f"[export] --format torch: {len(sd)} keys, {result['format_torch']['bytes']} bytes "
+        f"(the CLI's wall {exported['torch']['wall_s']:.1f} s)")
+    assert len(sd) == exported["torch"]["line"]["keys"], result["format_torch"]
+    launches = read_counts()
+    result["launches"] = launches
+    assert launches["k2"] == 0 and launches["k1"] > 0 and launches["k3"] > 0, launches
+    return launches
+
+
+def lane_file(path, tag):
+    """The JSON that :func:`background_process` writes to ``path``, once it
+    is there (at most ``EXPORT_WAIT_S`` from here, and not after the process
+    ended), with the process's log lines that hold ``tag`` shown first;
+    raises the process's error."""
+    proc = EXPORTS["proc"]
+    t0 = time.perf_counter()
+    while not os.path.exists(path) and proc.poll() is None:
+        if time.perf_counter() - t0 > EXPORT_WAIT_S:
+            raise TimeoutError(f"{path}: not written within {EXPORT_WAIT_S} s")
+        time.sleep(0.5)
+    waited = time.perf_counter() - t0
+    with open(LANE_LOG) as f:
+        lines = f.read().splitlines()
+    for line in lines:
+        if tag in line:
+            log(f"[second process] {line.strip()}")
+    if not os.path.exists(path):
+        raise RuntimeError(f"the second process exited {proc.returncode} before writing "
+                           f"{path}: " + "\n".join(lines)[-3000:])
+    with open(path) as f:
+        got = json.load(f)
+    if "error" in got:
+        raise RuntimeError(f"the second process failed: {got['error']}")
+    return {**got, "waited_s": waited}
+
+
+def phase_extras_collect(report):
+    """Phase 19: the trainer extras (:func:`phase_extras`), run by the
+    second process after the exports' checks; its log lines, report and
+    launch counts here."""
     try:
-        proc = STARTED[-1]
-        t0 = time.perf_counter()
-        rc = proc.wait(timeout=EXPORT_WAIT_S)
-        waited = time.perf_counter() - t0
-        with open(os.path.join(EXPORT_ROOT, "exports.log")) as f:
-            tail = f.read()[-3000:]
-        assert rc == 0, f"the exports exited {rc}: {tail}"
-        with open(os.path.join(EXPORT_ROOT, "exports.json")) as f:
-            exported = json.load(f)
-        result = report["serve_export"] = {
-            "waited_s": waited, "exports_s": time.time() - report["export_start_t"] - waited,
-            "cli": {k: {"wall_s": v["wall_s"], "line": v.get("line")}
-                    for k, v in exported.items()}}
-        log(f"[export] the exports ran {result['exports_s']:.1f} s beside phases 4-13 "
-            f"(CLI wall s: {({k: round(v['wall_s'], 1) for k, v in exported.items()})}); "
-            f"waited {waited:.1f} s for them")
-        cfg = model_config("base", compute_dtype="bfloat16")
-        model = restore_model(os.path.join(EXPORT_ROOT, "best_model"), cfg)
-        requests = make_requests(cfg)[-1]
-        for name, quantize, tol in (("bf16", None, 1e-6), ("int8", "int8", QUANT_LOGITS_TOL)):
-            buckets = exported[name]["line"]["buckets"]
-            # a Predictor takes its model over: each side gets a copy
-            live = Predictor(cfg, copy.deepcopy(model), batch_buckets=buckets,
-                             quantize=quantize)
-            run = export_run(name, os.path.join(EXPORT_ROOT, name), live,
-                             copy.deepcopy(model), requests, MODELS["base"], tol,
-                             {int(b): v for b, v in exported[name]["buckets"].items()},
-                             trace=quantize is None)
-            result[name] = {"buckets": run,
-                            "tensor_bytes": sum(t.nbytes for t in live.tensors().values())}
-            log(f"[export] {name}: program bytes {[run[b]['bytes'] for b in run]} against "
-                f"{result[name]['tensor_bytes']} bytes of the tensors a program takes")
-            del live
-            gc.collect()
-            torch.cuda.empty_cache()
-        del model
-        large = model_config("large", compute_dtype="bfloat16")
-        model = build_model(large, device="cuda", seed=0)
-        live = Predictor(large, copy.deepcopy(model), batch_buckets=EXPORT_LARGE_BUCKETS)
-        result["large"] = {"buckets": export_run(
-            "large", os.path.join(EXPORT_ROOT, "large"), live, model, make_requests(large)[-1],
-            MODELS["large"], 1e-6, {int(b): v for b, v in exported["large"]["buckets"].items()})}
-        del live, model
-        sd = torch.load(os.path.join(EXPORT_ROOT, "torch", "best_model.pth"), weights_only=True,
-                        mmap=True)
-        result["format_torch"] = {"keys": len(sd), "wall_s": exported["torch"]["wall_s"],
-                                  "bytes": sum(t.nbytes for t in sd.values())}
-        log(f"[export] --format torch: {len(sd)} keys, {result['format_torch']['bytes']} bytes "
-            f"(the CLI's wall {exported['torch']['wall_s']:.1f} s)")
-        assert len(sd) == exported["torch"]["line"]["keys"], result["format_torch"]
-        launches = read_counts()
-        result["launches"] = launches
-        assert launches["k2"] == 0 and launches["k1"] > 0 and launches["k3"] > 0, launches
-        return launches
+        got = lane_file(EXTRAS_OUT, "[extras]")
+        report["extras"] = {**got["report"], "waited_s": got["waited_s"]}
+        log(f"[train_extras] the second process ran phase 19 beside the phases since "
+            f"serve_export's checks; waited {got['waited_s']:.1f} s for it here")
+        return got["counts"]
+    finally:
+        for path in (EXTRAS_OUT, LANE_LOG):
+            if os.path.exists(path):
+                os.remove(path)
+
+
+def phase_serve_export(report):
+    """The serving artifacts as a user makes them: the process that
+    ``phase_export_start`` started exported them and ran their checks
+    (:func:`export_artifacts`, :func:`serve_export_checks`) beside the
+    phases since; here it is waited for, its log lines are shown and its
+    report and launch counts taken."""
+    import shutil
+    try:
+        got = lane_file(os.path.join(EXPORT_ROOT, "serve_export.json"), "[export")
+        report["serve_export"] = {**got["result"], "waited_s": got["waited_s"]}
+        log(f"[serve_export] the second process ran the exports and their checks beside the "
+            f"phases since export_start; waited {got['waited_s']:.1f} s for them here")
+        return got["launches"]
     finally:
         shutil.rmtree(EXPORT_ROOT, ignore_errors=True)
+
 
 def fabricate_pretrained(cfg, directory, seed):
     """Write ``bert.pt`` and ``clip_vit.pt`` for ``cfg``'s two towers into
@@ -3943,6 +4056,13 @@ def op_profile(fn):
             "top_ops_ms": {k: v / 1e3 for k, v in sorted(by_op.items(), key=lambda kv: -kv[1])[:10]}}
 
 
+def rows_bound_ms(r, k, dtype_name):
+    """The rows quantize's bound: x read once, the codes and the scales
+    written once, over the card's memory rate."""
+    item = 4 if dtype_name == "float32" else 2
+    return (r * k * (item + 1) + 4 * r) / HBM_BYTES_PER_S * 1e3
+
+
 def quantize_checks():
     """The quantize and rescale kernels against their plain versions at
     :data:`QDOT_SHAPES` (x (M, K), w (N, K), g (M, N)), fp32 and bf16, bit
@@ -3950,10 +4070,13 @@ def quantize_checks():
     and g; by columns (codes transposed) x, w and g; the rescale of
     ``int_mm``'s product in the forward's order (rows, then columns) and
     the dW order, into fp32 and the input's type; at the FFN shape in bf16
-    again inside a captured graph. Then each kernel's time at the FFN shape
-    in bf16 beside its plain version and its bound (bytes: the input read
-    once, the codes, scales or output written once); no single PyTorch call
-    computes either, so they have no library time."""
+    again inside a captured graph. Then the rows quantize at every site of
+    :data:`QUANT_ROW_SITES`, bit for bit in its three uses (one launch, the
+    amax alone, the codes from a given amax) and timed beside its plain
+    version and its bound, and the column quantize and the rescale at the
+    FFN shape in bf16 (bytes: the input read once, the codes, scales or
+    output written once); no single PyTorch call computes any of them, so
+    they have no library time."""
     import torch
     from d2r_tpu_torch.ops import qdot
     from d2r_tpu_torch.ops.kernels import quantize as qk
@@ -4014,6 +4137,45 @@ def quantize_checks():
                 bad += [f"{name} {dtype} {how} {key}" for key in unequal]
     assert not bad, f"quantize / rescale kernels differ from their plain versions: {bad}"
 
+    bound = lambda ms: {"bound_ms": ms, "bound_by": "bytes", "library_ms": None,
+                        "library_device_ms": None}
+
+    def timings(kernel, plain_fn, r, what):
+        r = {**r, "site": what, "ms": cuda_time_ms(kernel), "plain_ms": cuda_time_ms(plain_fn),
+             "device_ms": device_time_ms(kernel), "plain_device_ms": device_time_ms(plain_fn),
+             "max_abs_err": 0.0}
+        log(f"[int8] {what}: {r['ms'] * 1e3:.2f} us back to back, {r['device_ms'] * 1e3:.2f} us "
+            f"alone; plain {r['plain_ms'] * 1e3:.2f} / {r['plain_device_ms'] * 1e3:.2f} us; "
+            f"bound {r['bound_ms'] * 1e3:.2f} us (bytes), "
+            f"{r['bound_ms'] / r['device_ms']:.0%} of it alone")
+        return r
+
+    row_sites = []
+    for i, (site, r, k, dtypes) in enumerate(QUANT_ROW_SITES):
+        for dtype in dtypes:
+            g = torch.Generator(device="cuda").manual_seed(40 + i)
+            x = torch.randn((r, k), generator=g, device="cuda") * 3
+            x[0] = 0    # an all-zero row
+            x = x.to(getattr(torch, dtype))
+            want = qk.quantize_rows_plain(x)
+            amax = qk.row_amax(x)
+            got = {"one launch": qk.quantize_rows(x), "amax + codes": qk.quantize_rows(x, amax),
+                   "amax": (amax,)}
+            unequal = [how for how, out in got.items()
+                       if not all(torch.equal(a, b)
+                                  for a, b in zip(out, (qk.row_amax_plain(x),) if how == "amax"
+                                                  else want))]
+            log(f"[int8] quantize by rows, {site} ({r}, {k}) {dtype}: "
+                + (f"DIFFER: {unequal}" if unequal else "== plain in all three uses"))
+            bad += [f"rows {site} {dtype} {how}" for how in unequal]
+            row_sites.append({**timings(lambda: qk.quantize_rows(x),
+                                        lambda: qk.quantize_rows_plain(x),
+                                        bound(rows_bound_ms(r, k, dtype)),
+                                        f"quantize by rows, {site} ({r}, {k}) {dtype}"),
+                              "site": site, "R": r, "K": k, "dtype": dtype,
+                              "tiling": list(qk.rows_tiling(k, x.dtype))})
+    assert not bad, f"the rows quantize differs from its plain version: {bad}"
+
     _, m, k, n = QDOT_SHAPES[0]
     g = torch.Generator(device="cuda").manual_seed(5)
     x = torch.randn((m, k), generator=g, device="cuda").bfloat16()
@@ -4021,26 +4183,21 @@ def quantize_checks():
     qx, sx = qk.quantize_rows(x)
     qw, sw = qk.quantize_rows(w)
     y = qdot.int_mm(qx, qw)
-    bound = lambda nbytes: {"bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-                            "library_ms": None, "library_device_ms": None}
     timed = {
-        "quantize_rows": (lambda: qk.quantize_rows(x), lambda: qk.quantize_rows_plain(x),
-                          bound(m * k * 3 + 4 * m), f"x ({m}, {k}) bf16"),
         "quantize_cols": (lambda: qk.quantize_cols(x, qk.col_amax(x)),
                           lambda: qk.quantize_cols_plain(x, qk.col_amax_plain(x)),
-                          bound(m * k * 3 + 4 * k), f"x ({m}, {k}) bf16, codes (K, M)"),
+                          bound((m * k * 3 + 4 * k) / HBM_BYTES_PER_S * 1e3),
+                          f"quantize by columns, x ({m}, {k}) bf16, codes (K, M)"),
         "rescale": (lambda: qk.rescale(y, sx, sw.t(), torch.bfloat16),
                     lambda: qk.rescale_plain(y, sx, sw.t(), torch.bfloat16),
-                    bound(m * n * 6 + 4 * (m + n)), f"y ({m}, {n}) int32 -> bf16")}
-    rows = {}
-    for name, (kernel, plain_fn, r, what) in timed.items():
-        r = rows[name] = {**r, "site": what, "ms": cuda_time_ms(kernel),
-                          "plain_ms": cuda_time_ms(plain_fn), "device_ms": device_time_ms(kernel),
-                          "plain_device_ms": device_time_ms(plain_fn), "max_abs_err": 0.0}
-        log(f"[int8] {name} kernel, {what}: {r['ms'] * 1e3:.2f} us back to back, "
-            f"{r['device_ms'] * 1e3:.2f} us alone; plain {r['plain_ms'] * 1e3:.2f} / "
-            f"{r['plain_device_ms'] * 1e3:.2f} us; bound {r['bound_ms'] * 1e3:.2f} us (bytes)")
-    return {"checks": checks, "timed": rows}
+                    bound((m * n * 6 + 4 * (m + n)) / HBM_BYTES_PER_S * 1e3),
+                    f"rescale, y ({m}, {n}) int32 -> bf16")}
+    rows = {name: timings(*args) for name, args in timed.items()}
+    # the kernels line's rows entry: x of the QKV / FFN-in / attention-out
+    # products in bf16
+    rows["quantize_rows"] = next(r for r in row_sites
+                                 if (r["site"], r["dtype"]) == ("x", "bfloat16"))
+    return {"checks": checks, "timed": rows, "row_sites": row_sites}
 
 
 def phase_int8(report):
@@ -4055,9 +4212,7 @@ def phase_int8(report):
     are what the rest grows by)."""
     import torch
     import torch.nn.functional as F
-    from d2r_tpu_torch.models.unimo import build_model
     from d2r_tpu_torch.ops import qdot
-    from d2r_tpu_torch.train import state as st
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4108,6 +4263,25 @@ def phase_int8(report):
         f"{k} {v * 1e3:.2f} us" for k, v in times.items()))
 
     phase_card_vs_cpu(report, "base", quant="int8")
+    return int8_steps(result)[1]
+
+
+# the int8 kernels of csrc/quantize.cu, by the names a trace gives them
+QUANT_KERNELS = ("quantize_rows_kernel", "amax_cols_kernel", "codes_cols_kernel",
+                 "rescale_kernel")
+
+
+def int8_steps(result):
+    """Ten bf16 steps of D2R-base at batch 64 with ``quant_train`` none,
+    int8 and int8_all on the same weights and batch (``step_runs``), then
+    of each one replayed step traced (its kernels by name, the quantize
+    kernels' launches and device ms) and one eager step traced by aten op
+    (``op_profile``). Into ``result["steps"]``; returns (runs, launch
+    counts)."""
+    import torch
+    from d2r_tpu_torch.models.unimo import build_model
+    from d2r_tpu_torch.ops import qdot
+    from d2r_tpu_torch.train import state as st
 
     cfg = {mode: model_config("base", batch_size=TRAIN_BATCH, compute_dtype="bfloat16",
                               quant_train=mode) for mode in qdot.MODES}
@@ -4115,6 +4289,18 @@ def phase_int8(report):
     batch = {k: torch.from_numpy(v).cuda() for k, v in model_batch(cfg["none"], TRAIN_BATCH, 0).items()}
 
     def after(mode, state, r, b):
+        step = st.make_train_step()
+        replay = device_profile(lambda: step(state, b, 1), 1, "step")
+        calls = replay.get("kernel_calls_per_step", {})
+        times = replay.get("kernel_ms_per_step", {})
+        r["replay"] = {**brief(replay), **{
+            f"{name}{what}_per_step": sum(v for k, v in table.items() if name in k)
+            for name in QUANT_KERNELS for what, table in (("", calls), ("_ms", times))}}
+        log(f"[int8] {mode} replayed step traced: busy "
+            f"{replay.get('device_busy_ms_per_step', float('nan')):.2f} ms; " + ", ".join(
+                f"{name} {r['replay'][name + '_per_step']:g} launches "
+                f"{r['replay'][name + '_ms_per_step']:.3f} ms" for name in QUANT_KERNELS))
+
         # an eager step: a replay's kernels carry no aten op to attribute
         # them to
         def eager():
@@ -4140,7 +4326,7 @@ def phase_int8(report):
         f"{runs[m]['profile'].get('quantize_passes_ms_estimate', float('nan')):.2f} ms of device "
         f"time, _int_mm {runs[m]['profile'].get('int_mm_ms', float('nan')):.2f} ms)"
         for m in ("int8", "int8_all")))
-    return total
+    return runs, total
 
 
 def phase_extras(report):
@@ -4937,7 +5123,7 @@ LANE = {}
 
 
 def phase_mesh_start(report):
-    """Phase ``mesh_start``, between phases 13 and ``serve_export``: the
+    """Phase ``mesh_start``, between phases 13 and 14: the
     one-process runs of :data:`BACKGROUND_MESHES` here (:func:`mesh_refs`)
     and ``serve_mesh``'s checkpoint and posts (:func:`serve_mesh_prepare`),
     then their ranks, one mesh after the other, and ``serve_mesh``'s
@@ -5447,14 +5633,13 @@ def main():
     phases.append(("train_cli", phase_train_cli))
     phases.append(("serve_http", phase_serve_http))
     phases.append(("mesh_start", phase_mesh_start))
-    phases.append(("serve_export", phase_serve_export))
     phases += [("pretrained", phase_pretrained), ("train_scaled", phase_train_scaled),
+               ("serve_export", phase_serve_export),
                ("card_vs_cpu_alpha", lambda r: phase_card_vs_cpu(r, "base", alpha=CCR_ALPHA))]
-    phases += [("train_sentic", phase_sentic), ("train_int8", phase_int8),
-               ("train_extras", phase_extras)]
+    phases += [("train_sentic", phase_sentic), ("train_int8", phase_int8)]
     phases += [("train_dp", phase_train_dp), ("train_tp", phase_train_tp),
                ("train_cli_mp", phase_train_cli_mp), ("train_pp", phase_train_pp),
-               ("serve_mesh", phase_serve_mesh)]
+               ("serve_mesh", phase_serve_mesh), ("train_extras", phase_extras_collect)]
     failed = {}
     for name, fn in phases:
         t0 = time.perf_counter()

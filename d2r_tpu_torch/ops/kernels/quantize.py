@@ -10,10 +10,11 @@ By rows (a slice a row: :func:`row_amax`, :func:`quantize_rows`) or by
 columns (:func:`col_amax`, :func:`quantize_cols`, whose codes come out
 transposed, (C, R), the layout ``torch._int_mm`` takes). The amax is a
 pass of its own where the caller reduces it over a process group between
-the two; :func:`quantize_rows` without an amax reads each row twice in one
-launch, and :func:`col_amax` is one launch whose last block of a column
-tile merges the row bands in a fixed order, so its result never depends
-on the schedule.
+the two; :func:`quantize_rows` without an amax reads each row once, into
+registers, and writes its codes from there, in a launch shape that
+:func:`rows_tiling` picks from the shape; :func:`col_amax` is one launch
+whose last block of a column tile merges the row bands in a fixed order,
+so its result never depends on the schedule.
 
 Rescale: ``(float(y) * a) * b`` in fp32, rounded to the output type, for
 the int32 product ``y`` (M, N) and two scales each (M, 1) or (1, N): the
@@ -31,7 +32,7 @@ step stays one CUDA graph.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -78,11 +79,51 @@ def rescale_plain(y: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     return (y.float() * a * b).to(dtype)
 
 
+UNIT = 16                     # elements a lane takes at a time (its codes: one 16-byte store)
+# units a lane holds in registers: 64 registers of x in either type
+REGISTER_UNITS = {torch.bfloat16: 8, torch.float32: 4}
+MAX_LANES = 256               # lanes a row: a block's threads at most
+MIN_BLOCK = 64                # threads a block at least
+# units a lane, read off quantize_sweep.py's table on the card: three were
+# within 0.2 us of the fastest shape at every site (NVIDIA H100 80GB HBM3)
+LANE_UNITS = 3
+
+
+class RowsTiling(NamedTuple):
+    """The rows kernel's launch shape: ``units`` of 16 elements a lane,
+    ``lanes`` a row (a power of two; above 32 the row's warps merge their
+    maxima in shared memory), ``block`` threads a block (``block //
+    lanes`` rows), and the ``segments`` a row is read in (1 unless the row
+    is wider than ``MAX_LANES`` lanes' registers; each segment but the last
+    is read twice)."""
+    units: int
+    lanes: int
+    block: int
+    segments: int
+
+
+def rows_tiling(k: int, dtype: torch.dtype) -> RowsTiling:
+    """The launch shape of the rows kernel for rows of ``k`` elements of
+    ``dtype``: as many lanes a row (a power of two, at most ``MAX_LANES``)
+    as ``LANE_UNITS`` units a lane need, then as few units a lane as those
+    lanes need (at most ``REGISTER_UNITS``; a wider row runs in segments),
+    and ``MIN_BLOCK`` threads a block, or a row's lanes where they are
+    more. The row count does not enter: 64-thread blocks already spread
+    768 rows of 768 over 192 blocks, more than the card's 132 SMs, and the
+    sweep found no shape faster by more than 0.2 us at any site."""
+    units = -(-k // UNIT)
+    lanes = 1
+    while lanes < MAX_LANES and lanes * LANE_UNITS < units:
+        lanes *= 2
+    per_lane = min(REGISTER_UNITS[dtype], -(-units // lanes))
+    return RowsTiling(per_lane, lanes, max(MIN_BLOCK, lanes), -(-units // (lanes * per_lane)))
+
+
 _fns = {}
 
 
-_ARGTYPES = {"quantize_rows": "ipLiippppp", "col_amax": "ipLiipppp", "quantize_cols": "ipLiipppp",
-             "rescale": "ipLiipipipp"}
+_ARGTYPES = {"quantize_rows": "ipLiippppiiip", "col_amax": "ipLiipppp",
+             "quantize_cols": "ipLiipppp", "rescale": "ipLiipipipp"}
 
 
 def _kernel(name: str):
@@ -103,14 +144,22 @@ def _check(x: torch.Tensor, name: str) -> None:
                          f"got shape {tuple(x.shape)} strides {x.stride()}")
 
 
-def _launch(name: str, x: torch.Tensor, *tensors) -> None:
+def _launch(name: str, x: torch.Tensor, *args) -> None:
+    """Launch kernel ``name`` on x's current stream: x, then ``args``
+    (tensors as their pointers, None as null, ints as they are)."""
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        ptr = lambda t: None if t is None else t.data_ptr()
+        arg = lambda a: a.data_ptr() if isinstance(a, torch.Tensor) else a
         err = _kernel(name)(_DTYPE_CODES[x.dtype], x.data_ptr(), x.stride(0), x.shape[0],
-                            x.shape[1], *(ptr(t) for t in tensors), stream)
+                            x.shape[1], *(arg(a) for a in args), stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def _launch_rows(x: torch.Tensor, amax_in, amax_out, codes, scale,
+                 tiling: Optional[RowsTiling] = None) -> None:
+    t = tiling or rows_tiling(x.shape[1], x.dtype)
+    _launch("quantize_rows", x, amax_in, amax_out, codes, scale, t.units, t.lanes, t.block)
 
 
 # the column amax's arrival counts, one a 64-column tile: zero, and left
@@ -134,7 +183,7 @@ def _arrival_counts(x: torch.Tensor) -> torch.Tensor:
 def row_amax_op(x):
     _check(x, "row_amax")
     amax = torch.empty((x.shape[0], 1), dtype=torch.float32, device=x.device)
-    _launch("quantize_rows", x, None, amax, None, None)
+    _launch_rows(x, None, amax, None, None)
     quantize_rows.launches += 1
     return amax
 
@@ -150,7 +199,7 @@ def quantize_rows_op(x, amax):
     _check(x, "quantize_rows")
     codes = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     scale = torch.empty((x.shape[0], 1), dtype=torch.float32, device=x.device)
-    _launch("quantize_rows", x, None if amax is None else amax.contiguous(), None, codes, scale)
+    _launch_rows(x, None if amax is None else amax.contiguous(), None, codes, scale)
     quantize_rows.launches += 1
     return codes, scale
 

@@ -1189,6 +1189,128 @@ def test_cuda_quantize_and_rescale_equal_plain(cuda, dtype):
             assert torch.equal(codes[keep], want_codes[keep]), name
 
 
+def _rows_input(cuda, shape, dtype, seed):
+    """Normal values; the last row holds .5 ties at scale 1 and the +-127
+    codes, and the first (of two or more) is all zero."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(shape, generator=g, device=cuda) * 3
+    ties = torch.tensor([127.0, 0.5, -0.5, 1.5, 2.5, -3.5, 126.5, -127.0], device=cuda)
+    x[-1] = ties.repeat(-(-shape[1] // 8))[:shape[1]]
+    if shape[0] > 1:
+        x[0] = 0
+    return x.to(dtype)
+
+
+def _nan_equal(a, b):
+    return torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(), b.nan_to_num())
+
+
+def _rows_uses(v, tiling=None):
+    """The rows kernel's three uses on ``v``: one launch, the amax alone,
+    the codes from the plain amax (as an all-reduce would hand it over);
+    with ``tiling``, launched in that shape."""
+    from d2r_tpu_torch.ops.kernels import quantize as qk
+    if tiling is None:
+        return (*qk.quantize_rows(v), qk.row_amax(v),
+                *qk.quantize_rows(v, qk.row_amax_plain(v)))
+    r, k = v.shape
+    out = [torch.empty((r, k), dtype=torch.int8, device=v.device),
+           torch.empty((r, 1), dtype=torch.float32, device=v.device),
+           torch.empty((r, 1), dtype=torch.float32, device=v.device),
+           torch.empty((r, k), dtype=torch.int8, device=v.device),
+           torch.empty((r, 1), dtype=torch.float32, device=v.device)]
+    qk._launch_rows(v, None, None, out[0], out[1], tiling)
+    qk._launch_rows(v, None, out[2], None, None, tiling)
+    qk._launch_rows(v, qk.row_amax_plain(v), None, out[3], out[4], tiling)
+    return out
+
+
+def _rows_agree(got, x, what):
+    """``got`` (:func:`_rows_uses`) against the plain versions on ``x``:
+    the amax NaN-aware, the scales bit for bit, the codes bit for bit except
+    at a NaN element (whose cast the plain version leaves to the
+    platform)."""
+    from d2r_tpu_torch.ops.kernels import quantize as qk
+    torch.cuda.synchronize()
+    codes, scale = qk.quantize_rows_plain(x)
+    keep = ~x.isnan()
+    for got_codes, got_scale in ((got[0], got[1]), (got[3], got[4])):
+        assert torch.equal(got_scale, scale), what
+        assert torch.equal(got_codes[keep], codes[keep]), what
+    assert _nan_equal(got[2], qk.row_amax_plain(x)), what
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_quantize_rows_adversarial_inputs(cuda, dtype):
+    """The rows kernel in its three uses (one launch, the amax alone, the
+    codes from a given amax) equals its plain version bit for bit: in every
+    body (units a lane 1 to the register limit, lanes a row 1 to 256, a
+    segmented row) launched directly; in the shape ``rows_tiling`` picks at
+    K % 8 in {1, ..., 7}, K past a warp's registers in fp32, R = 1 and
+    rows fewer than a block's; on row-strided views and views 2, 4 and 8
+    bytes off alignment; on a row holding a NaN and an all-zero row; on
+    every finite bf16 value (the rows' own amax, and a group's); eager and
+    inside a captured graph."""
+    from d2r_tpu_torch.ops.kernels import quantize as qk
+    most = qk.REGISTER_UNITS[dtype]
+    for units in range(1, most + 1):
+        for lanes in (1, 4, 32, 64, 256):
+            x = _rows_input(cuda, (5, 16 * units * lanes - 3), dtype, units + lanes)
+            t = qk.RowsTiling(units, lanes, max(lanes, 64), 1)
+            _rows_agree(_rows_uses(x, t), x, t)
+    x = _rows_input(cuda, (3, 2000), dtype, 1)
+    _rows_agree(_rows_uses(x, qk.RowsTiling(1, 32, 64, 4)), x, "four segments")
+    shapes = [(33, 96 + r) for r in range(1, 8)]
+    shapes += [(1, 768), (1, 5), (3, 1030), (2, 4100), (7, 3072), (3, 70001), (257, 130),
+               (4097, 771), (4096, 768)]
+    for i, shape in enumerate(shapes):
+        x = _rows_input(cuda, shape, dtype, 20 + i)
+        if shape[0] > 3:
+            x[3, shape[1] // 2] = float("nan")
+        views = {"contiguous": x}
+        wide = torch.zeros((shape[0], shape[1] + 8), dtype=dtype, device=cuda)
+        wide[:, :shape[1]] = x
+        views["row stride"] = wide[:, :shape[1]]
+        for nbytes in (2, 4, 8):
+            if nbytes % x.element_size() == 0:
+                off = nbytes // x.element_size()
+                flat = torch.zeros(x.numel() + off, dtype=dtype, device=cuda)
+                flat[off:] = x.reshape(-1)
+                views[f"{nbytes} bytes off"] = flat[off:].view(shape)
+        for name, v in views.items():
+            _rows_agree(_rows_uses(v), x, (shape, name, qk.rows_tiling(shape[1], dtype)))
+    # every finite bf16 value, ordered by size, each 16 rows of 256 shuffled
+    # among themselves (a row spans ~16 binades): coarse values whose
+    # quotients land on and beside rounding boundaries, in both types; the
+    # codes from the rows' own amax and from a group's above it
+    values = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    values = values[torch.isfinite(values)].float()
+    values = values[values.abs().argsort()][: values.numel() // 4096 * 4096].view(-1, 4096)
+    g = torch.Generator().manual_seed(0)
+    values = torch.stack([b[torch.randperm(4096, generator=g)] for b in values])
+    x = values.view(-1, 256).to(cuda, dtype)
+    _rows_agree(_rows_uses(x), x, "every finite bf16 value")
+    group = x.float().abs().amax(1, keepdim=True) * 1.7
+    codes, scale = qk.quantize_rows(x, group)
+    want_codes, want_scale = qk.quantize_rows_plain(x, group)
+    assert torch.equal(codes, want_codes) and torch.equal(scale, want_scale)
+    x = _rows_input(cuda, (4096, 768), dtype, 3)
+    x[5, 7] = float("nan")
+    small = _rows_input(cuda, (3, 1030), dtype, 4)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        _rows_uses(x), _rows_uses(small[:, 1:])
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = _rows_uses(x), _rows_uses(small[:, 1:])
+    graph.replay()
+    _rows_agree(captured[0], x, "captured")
+    _rows_agree(captured[1], small[:, 1:], "captured, off alignment")
+
+
 @pytest.mark.cuda
 def test_cuda_int8_ops_pass_opcheck(cuda):
     """``torch.library.opcheck`` on the W8A16, quantize and rescale ops."""

@@ -26,7 +26,12 @@ and the W8A16 product of int8 serving (``ops/kernels/w8a16.py``, kernel
   ``col_amax_plain``'s values, NaN and all-zero columns included;
 - the tiling of the kernel's wrapper covers (M, N) with its tiles and K
   with its splits at every site of D2R-base and D2R-large and the
-  training shapes.
+  training shapes;
+- the rows quantize kernel's launch shape (``quantize.rows_tiling``)
+  takes every row with its lanes and every element once, at the sites
+  and at rows of one element up to past 256 lanes' registers, and its
+  quotient corrected from the reciprocal (``codes16``), modelled in
+  tensor ops, gives the plain codes.
 
 The card holds each kernel against these plain versions
 (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
@@ -72,11 +77,15 @@ def _adversarial(shape, seed: int) -> np.ndarray:
     ties = np.array([127.0, 0.5, -0.5, 1.5, 2.5, -3.5, 126.5, -127.0], np.float32)
     x[1, 1:] = np.resize(ties, c - 1)
     x[1:, 1] = np.resize(ties, r - 1)
-    x[2, 2], x[3, 2] = 7.25, -7.25
+    if r > 3:
+        x[2, 2], x[3, 2] = 7.25, -7.25
     return x
 
 
-@pytest.mark.parametrize("shape", [(64, 48), (9, 37)], ids=["k48", "k37"])
+# (3, 1030) and (2, 4100): widths where the rows kernel's launch shapes
+# branch (a ragged last unit; fp32 past a warp's registers), few rows
+@pytest.mark.parametrize("shape", [(64, 48), (9, 37), (3, 1030), (2, 4100)],
+                         ids=["k48", "k37", "k1030", "k4100"])
 @pytest.mark.parametrize("axis", ["rows", "cols"])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_quantize_matches_jax(dtype, axis, shape):
@@ -346,12 +355,31 @@ def _codes_by_reciprocal_model(v: torch.Tensor, s: torch.Tensor) -> torch.Tensor
     return torch.clamp(q, -127, 127).to(torch.int8)
 
 
+def _codes16_model(v: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """The rows kernel's ``codes16`` for rows whose |v| <= amax, in tensor
+    ops: y = v * r in fp32 for r = 1 / s (correctly rounded), two
+    corrections y + r * (v - s * y), the residual exact (in fp64, as an FMA
+    computes it) and the sum rounded to fp32 once, then rint; where s is
+    not a normal float (r may not be finite), rint(v / s) (``code_of``)."""
+    r = torch.reciprocal(s)
+    y = v * r
+    for _ in range(2):
+        e = v.double() - s.double() * y.double()
+        y = (y.double() + r.double() * e).float()
+    normal = (s >= torch.finfo(torch.float32).tiny) & torch.isfinite(r)
+    return torch.clamp(torch.round(torch.where(normal, y, v / s)), -127, 127).to(torch.int8)
+
+
+@pytest.mark.parametrize("axis", ["cols", "rows"])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-def test_codes_by_reciprocal_model_matches_plain(dtype):
-    """The codes pass's multiply-by-reciprocal path with its exact fallback
-    gives the plain codes bit for bit: normal values, exact .5 ties and
-    values one ulp either side of a tie, at scales of many sizes, the
-    column's amax among them (the +-127 codes)."""
+def test_codes_by_reciprocal_model_matches_plain(dtype, axis):
+    """The codes passes' multiply-by-reciprocal paths give the plain codes
+    bit for bit: the column pass's ``code_by_reciprocal`` (with its exact
+    fallback), by columns and by rows, and the rows pass's corrected
+    quotient (``codes16``) from a row's own amax and a group's: normal
+    values, exact .5 ties, values one ulp either side of a tie and 2^-16 to
+    2^-15 from one, at scales of many sizes, the slice's amax among them
+    (the +-127 codes)."""
     tdt = DTYPES[dtype][1]
     g = torch.Generator().manual_seed(5)
     amax = torch.cat([torch.tensor([127.0, 1.0, 3.0, 1e-3, 7.25, 1e-30, 1e30, 2.0 ** -126]),
@@ -360,10 +388,26 @@ def test_codes_by_reciprocal_model_matches_plain(dtype):
     x = (torch.rand((512, amax.numel()), generator=g) * 2 - 1) * amax
     scale = torch.where(amax > 0, amax, torch.ones_like(amax)) / torch.full_like(amax, 127.0)
     halves = (torch.arange(-127, 127) + 0.5)[:, None] * scale
+    # values 2^-16 to 2^-15 either side of a tie
+    edges = [(torch.arange(-127, 127) + 0.5 + d)[:, None] * scale
+             for d in (2.0 ** -16, -2.0 ** -16, 1.6 * 2.0 ** -16, -1.6 * 2.0 ** -16,
+                       1.1 * 2.0 ** -15, -1.1 * 2.0 ** -15)]
     x = torch.cat([x, amax[None], -amax[None], halves, torch.nextafter(halves, halves * 2),
-                   torch.nextafter(halves, torch.zeros_like(halves))]).to(tdt).float()
-    want, _ = qk.quantize_cols_plain(x, amax[None])
-    got = _codes_by_reciprocal_model(x, scale[None]).t().contiguous()
+                   torch.nextafter(halves, torch.zeros_like(halves)), *edges]).to(tdt).float()
+    if axis == "cols":
+        want, _ = qk.quantize_cols_plain(x, amax[None])
+        got = _codes_by_reciprocal_model(x, scale[None]).t().contiguous()
+    else:
+        x = x.t().contiguous()
+        want, _ = qk.quantize_rows_plain(x, amax[:, None])
+        got = _codes_by_reciprocal_model(x, scale[:, None])
+        # the rows kernel's quotient (codes16), from the row's own amax and
+        # from a group's above it
+        own_codes, own_scale = qk.quantize_rows_plain(x)
+        assert torch.equal(_codes16_model(x, own_scale), own_codes)
+        group = torch.maximum(amax, x.abs().amax(1)) * 1.7
+        group_codes, group_scale = qk.quantize_rows_plain(x, group[:, None])
+        assert torch.equal(_codes16_model(x, group_scale), group_codes)
     assert torch.equal(got, want)
 
 
@@ -384,3 +428,65 @@ def test_col_amax_kernel_order_matches_plain(dtype, shape):
     assert torch.equal(got.nan_to_num(), want.nan_to_num())
     _, scale = qk.quantize_cols_plain(x, got)
     assert scale[0, 0] == torch.tensor(1.0) / torch.tensor(127.0)
+
+
+# the rows quantize's sites (chip_smoke.QUANT_ROW_SITES): activations of a
+# D2R-base step at batch 64 and CLIP-B's, and the weights of its products
+ROW_SITES = [(4096, 768), (4096, 3072), (3200, 768), (2304, 768), (3072, 768), (768, 3072),
+             (768, 768)]
+# one row; fewer rows than a block holds; K of a ragged unit, of one unit,
+# past a warp's registers, past 256 lanes' units at three a lane, and past
+# 256 lanes' registers (segments)
+ROW_EDGES = [(1, 768), (1, 5), (5, 37), (3, 5), (3, 1030), (2, 4100), (2, 13000), (3, 70001)]
+
+
+def _rows_cover(r, k, t):
+    """How often the rows kernel's threads, in launch shape ``t``, take each
+    row and each element of a row, by the kernel's index math: thread th of
+    block b holds row b (block / lanes) + th / lanes as lane j = th % lanes,
+    and a lane's units are seg lanes units + j + i lanes (16 elements each)
+    for each segment seg and i < units."""
+    rows_a_block = t.block // t.lanes
+    th = np.arange(-(-r // rows_a_block) * t.block)
+    row = th // t.block * rows_a_block + th % t.block // t.lanes
+    lane = th % t.block % t.lanes
+    live = row < r
+    rows = np.bincount(row[live], minlength=r)
+    seg = np.arange(t.segments)[:, None, None]
+    i = np.arange(t.units)[None, :, None]
+    unit = seg * t.lanes * t.units + np.arange(t.lanes)[None, None, :] + i * t.lanes
+    e = (16 * unit[..., None] + np.arange(16)).ravel()
+    return rows, np.bincount(e[e < k], minlength=k), lane[live]
+
+
+@pytest.mark.parametrize("r,k", ROW_SITES + ROW_EDGES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_rows_tiling_covers_each_row_once(dtype, r, k):
+    """``quantize.rows_tiling``'s launch shape takes every row with exactly
+    its lanes and every element of a row exactly once; holds the row in
+    registers (one segment, each element read once) wherever 256 lanes'
+    registers hold it; gives a lane at most three units where 256 lanes
+    allow; and at the sites takes the shape that ``quantize_sweep.py``
+    timed within 0.2 us of the fastest on the card."""
+    t = qk.rows_tiling(k, dtype)
+    most = qk.REGISTER_UNITS[dtype]
+    assert 1 <= t.units <= most and t.lanes & (t.lanes - 1) == 0
+    assert t.block == max(qk.MIN_BLOCK, t.lanes) and t.block <= qk.MAX_LANES
+    rows, elements, lanes = _rows_cover(r, k, t)
+    assert (rows == t.lanes).all() and (np.bincount(lanes, minlength=t.lanes) == r).all()
+    assert (elements == 1).all()
+    units = -(-k // qk.UNIT)
+    want = qk.LANE_UNITS
+    if units <= qk.MAX_LANES * want:
+        assert t.segments == 1 and t.units <= want and t.units * t.lanes >= units
+        assert t.lanes == 1 or (t.lanes // 2) * want < units
+    elif units <= qk.MAX_LANES * most:
+        assert t.segments == 1 and t.lanes == qk.MAX_LANES
+    else:
+        assert (t.lanes, t.units, t.segments) == (qk.MAX_LANES, most,
+                                                  -(-units // (qk.MAX_LANES * most)))
+    fastest = {(4096, 768): (3, 16), (4096, 3072): (3, 64), (3200, 768): (3, 16),
+               (2304, 768): (3, 16), (3072, 768): (3, 16), (768, 3072): (3, 64),
+               (768, 768): (3, 16)}
+    if (r, k) in fastest:
+        assert (t.units, t.lanes) == fastest[(r, k)]
