@@ -480,14 +480,18 @@ K2_EDGES = K1_EDGES
 # W8A16 (int8 serving's product) at D2R-base's sites, (name, rows a post,
 # N, K, scale period): the BERT FFN in and out and the QKV (one scale a
 # hidden unit, shared by q, k and v) at 64 rows a post, the patch conv's
-# 49 patches of 3,072 pixels; at the rows of buckets 1, 8 and 32 (each of
-# the kernel's bodies), bf16 and fp32; then an odd shape that 16-byte copies cannot stage. The sums run in
+# 49 patches of 3,072 pixels, the 768 x 768 products (the attention
+# outputs and the fabric's token projections: 194 of a forward's 449
+# products) at 64 rows a post, and the fabric's products of one row a post
+# (116 a forward); at the rows of buckets 1, 8 and 32 (each of the
+# kernel's bodies), bf16 and fp32; then an odd shape that 16-byte copies cannot stage. The sums run in
 # another order than the library GEMM's, so an output is within fp32
 # summation noise of the plain path's before its one rounding: bf16 within
 # 1e-2 of max(1, max |plain|) (one bf16 ulp of the largest outputs, 2^-8 of
 # their size, twice over), fp32 within 1e-5
 W8A16_SITES = (("ffn_in", 64, 3072, 768, 3072), ("ffn_out", 64, 768, 3072, 768),
-               ("qkv", 64, 2304, 768, 768), ("patch_conv", 49, 768, 3072, 768))
+               ("qkv", 64, 2304, 768, 768), ("patch_conv", 49, 768, 3072, 768),
+               ("proj_768", 64, 768, 768, 768), ("row_a_post", 1, 768, 768, 768))
 W8A16_BUCKETS = (1, 8, 32)
 W8A16_ODD = ("odd", 5, 3, 37, 3)
 W8A16_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
@@ -1845,7 +1849,12 @@ def phase_main_path(report, key="base"):
                 result[f"profile_{mode}_b{b}"] = prof = device_profile(fn, 3, "forward")
                 log(f"[profile{spec['tag']}] {mode} bucket {b:2d}: " + json.dumps(brief(prof)))
                 wrong = [n for n in ("k1", "k3") if prof.get(f"{n}_kernels_per_forward") != spec[n]]
-                lost = not float(prof.get("kernels_per_forward", 0)).is_integer()
+                # lost events: a fractional count of three forwards, or a
+                # replay that counts fewer kernels than the eager forward
+                # traced just before it (the same kernels)
+                kernels = prof.get("kernels_per_forward", 0)
+                eager = result.get(f"profile_eager_b{b}", {}).get("kernels_per_forward", 0)
+                lost = not float(kernels).is_integer() or (mode == "replay" and kernels < eager)
                 if not (wrong and lost):
                     break
                 log(f"[profile{spec['tag']}] {mode} bucket {b:2d}: the trace lost kernel "
@@ -1905,10 +1914,13 @@ def int8_serving(bf16_pred, requests):
     :data:`QUANT_LOGITS_TOL`, labels equal wherever the plain top
     probability leads by more than twice that), its replay ms beside the
     bf16 one's (in turns: bf16, int8, int8, bf16), and the bf16 model's
-    labels for the record; a profile of the bucket-1 replay: one W8A16
-    kernel a quantized module and no more elementwise kernels than the bf16
-    replay's (each plain-path product adds two over its weight). Returns
-    (the result, the launch counts of the warmup)."""
+    labels for the record; a trace of the int8 and bf16 replays at every
+    bucket (``profile_replay_b{b}``: kernels, W8A16 kernels and ms, the
+    library GEMMs' in bf16, busy and idle share, the idle time just before
+    those kernels): one W8A16 kernel a quantized module and no more
+    elementwise kernels than the bf16 replay's (each plain-path product
+    adds two over its weight). Returns (the result, the launch counts of
+    the warmup)."""
     import numpy as np
     from d2r_tpu_torch.models.unimo import build_model
     from d2r_tpu_torch.quant import Int8Weight
@@ -1960,25 +1972,45 @@ def int8_serving(bf16_pred, requests):
             f"{ms['bf16']} ms (in turns): {r['ratio']:.3f}x")
         assert r["replay_bit_equal_eager"], (b, r)
         assert r["max_abs_diff_plain"] <= QUANT_LOGITS_TOL and r["labels_equal_plain"], (b, r)
-    prof = device_profile(pred.graph(1).graph.replay, 3, "forward")
-    prof16 = device_profile(bf16_pred.graph(1).graph.replay, 3, "forward")
-    calls = prof.get("kernel_calls_per_forward", {})
-    result["profile_replay_b1"] = {
-        **brief(prof), "w8a16_kernels_per_forward":
-        sum(c for n, c in calls.items() if "w8a16_" in n),
-        "elementwise_kernels_per_forward": elementwise_kernels(prof),
-        "bf16_elementwise_kernels_per_forward": elementwise_kernels(prof16),
-        "bf16_kernels_per_forward": prof16.get("kernels_per_forward"),
-        "bf16_device_busy_ms_per_forward": prof16.get("device_busy_ms_per_forward")}
-    p = result["profile_replay_b1"]
-    log(f"[main int8] bucket 1 replay traced: {p.get('kernels_per_forward')} kernels "
-        f"({p['w8a16_kernels_per_forward']} W8A16, {p['elementwise_kernels_per_forward']} "
-        f"elementwise; bf16: "
-        f"{p['bf16_kernels_per_forward']} kernels, {p['bf16_elementwise_kernels_per_forward']} "
-        f"elementwise), busy {p.get('device_busy_ms_per_forward')} ms (bf16 "
-        f"{p['bf16_device_busy_ms_per_forward']})")
-    assert p["w8a16_kernels_per_forward"] == modules, p
-    assert p["elementwise_kernels_per_forward"] <= p["bf16_elementwise_kernels_per_forward"] + 2, p
+    # the replays traced at every bucket, int8 beside bf16: the W8A16 kernels
+    # (one a quantized module), their ms, the idle share, and the idle time
+    # just before W8A16 kernels (int8) or the library's GEMMs (bf16)
+    keys = {"w8a16": ("w8a16_",), "library_gemm": ("gemm", "nvjet", "cutlass")}
+    for b in BUCKETS:
+        prof = device_profile(pred.graph(b).graph.replay, 3, "forward", keys)
+        prof16 = device_profile(bf16_pred.graph(b).graph.replay, 3, "forward", keys)
+        p = result[f"profile_replay_b{b}"] = {
+            **brief(prof), "elementwise_kernels_per_forward": elementwise_kernels(prof),
+            "w8a16_kernels_per_forward": prof.get("w8a16_kernels_per_forward"),
+            "bf16": {**brief(prof16),
+                     "elementwise_kernels_per_forward": elementwise_kernels(prof16)}}
+        q = p["bf16"]
+        # the kernels (by name) whose time a forward differs most between
+        # the two replays, beyond the W8A16 kernels and the GEMMs they replace
+        mine, theirs = prof.get("kernel_ms_per_forward", {}), prof16.get("kernel_ms_per_forward", {})
+        diff = {k: mine.get(k, 0.0) - theirs.get(k, 0.0) for k in {*mine, *theirs}
+                if not any(sub in k for sub in keys["w8a16"] + keys["library_gemm"])}
+        p["other_kernels_ms_minus_bf16"] = dict(sorted(diff.items(), key=lambda kv: -abs(kv[1]))[:6])
+        log(f"[main int8] bucket {b:2d} other kernels, int8 minus bf16 ms a forward: "
+            + json.dumps({k[:80]: round(v, 4) for k, v in p["other_kernels_ms_minus_bf16"].items()}))
+        log(f"[main int8] bucket {b:2d} replays traced: int8 {p.get('kernels_per_forward')} "
+            f"kernels ({p['w8a16_kernels_per_forward']} W8A16, "
+            f"{p.get('w8a16_ms_per_forward', 0):.3f} ms; {p['elementwise_kernels_per_forward']} "
+            f"elementwise), busy {p.get('device_busy_ms_per_forward', 0):.3f} of "
+            f"{p.get('window_ms_per_forward', 0):.3f} ms, idle share "
+            f"{p.get('device_idle_share', 0):.3f}, idle before W8A16 "
+            f"{p.get('idle_before_w8a16_ms_per_forward', 0):.3f} ms; bf16 "
+            f"{q.get('kernels_per_forward')} kernels ({q.get('library_gemm_kernels_per_forward')} "
+            f"library GEMMs, {q.get('library_gemm_ms_per_forward', 0):.3f} ms; "
+            f"{q['elementwise_kernels_per_forward']} elementwise), busy "
+            f"{q.get('device_busy_ms_per_forward', 0):.3f} of "
+            f"{q.get('window_ms_per_forward', 0):.3f} ms, idle share "
+            f"{q.get('device_idle_share', 0):.3f}, idle before the GEMMs "
+            f"{q.get('idle_before_library_gemm_ms_per_forward', 0):.3f} ms")
+        if "kernels_per_forward" in p:
+            assert p["w8a16_kernels_per_forward"] == modules, (b, p)
+            assert (p["elementwise_kernels_per_forward"]
+                    <= q["elementwise_kernels_per_forward"] + 2), (b, p)
     del pred
     return result, counts
 
@@ -1994,20 +2026,25 @@ def busy_time(spans):
     return busy + cur_e - cur_s
 
 
-def device_profile(fn, n, unit):
+def device_profile(fn, n, unit, gap_keys=None):
     """Device busy share and kernel time by name over ``n`` back-to-back
-    calls of ``fn``, from torch.profiler's CUDA kernel events."""
+    calls of ``fn``, from torch.profiler's CUDA kernel events. ``gap_keys``
+    (label: name substrings) adds, for each label, the device's idle time
+    just before the kernels whose name holds one of its substrings (the gap
+    from the last end of any earlier kernel to the kernel's start), and
+    their count and ms, a ``unit``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    spans, by_name, calls = [], {}, {}
+    spans, by_name, calls, named = [], {}, {}, []
     for e in prof.events():
         if (e.device_type == torch.autograd.DeviceType.CUDA and e.time_range.elapsed_us() > 0
                 and not getattr(e, "is_user_annotation", False)):   # e.g. Optimizer.step
             spans.append((e.time_range.start, e.time_range.end))
+            named.append((e.time_range.start, e.time_range.end, e.name))
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
             calls[e.name] = calls.get(e.name, 0) + 1
     if not spans:
@@ -2021,7 +2058,25 @@ def device_profile(fn, n, unit):
     k2 = sum(v for k, v in by_name.items() if "fused_attention_bwd" in k)
     k3 = sum(v for k, v in by_name.items() if "flash_attention_fwd" in k)
     ms = lambda key: sum(v for k, v in by_name.items() if key in k) / n / 1e3
-    return {f"{unit}s": n, f"kernels_per_{unit}": len(spans) / n,
+    gaps = {}
+    if gap_keys:
+        named.sort()
+        frontier = named[0][0]
+        before = {label: 0.0 for label in gap_keys}
+        matched = {label: 0 for label in gap_keys}
+        kernel_us = {label: 0.0 for label in gap_keys}
+        for start, end, name in named:
+            for label, subs in gap_keys.items():
+                if any(sub in name for sub in subs):
+                    before[label] += max(0.0, start - frontier)
+                    matched[label] += 1
+                    kernel_us[label] += end - start
+            frontier = max(frontier, end)
+        for label in gap_keys:
+            gaps[f"{label}_kernels_per_{unit}"] = matched[label] / n
+            gaps[f"{label}_ms_per_{unit}"] = kernel_us[label] / n / 1e3
+            gaps[f"idle_before_{label}_ms_per_{unit}"] = before[label] / n / 1e3
+    return {**gaps,f"{unit}s": n, f"kernels_per_{unit}": len(spans) / n,
             f"window_ms_per_{unit}": window / n / 1e3,
             f"device_busy_ms_per_{unit}": busy / n / 1e3,
             "device_idle_share": 1.0 - busy / window,

@@ -19,41 +19,54 @@
 // (d2r_tpu/quant.py:37,91). The port has to write that fusion by hand.
 //
 // What bounds it on the H100: at serving bucket 1 (M = 49-64 rows) the
-// weight bytes and the latency of a block's setup, first loads and
-// epilogue (D2R-base's FFN weight is 2.4 MB of codes, 0.7 us at 3.35
-// TB/s); at bucket 32 (M up to 2,048) the bf16 tensor cores (2 M N K
-// operations at 989 TFLOP/s), the dequantize, which an SM does not overlap
-// with products that read their A operand from registers, and x's re-reads
-// from L2. The bodies:
-// - bf16 above 8 rows: warpgroup MMA with the weight as its register
-//   operand ("swap AB"). A block computes a tile of y^T = W x^T: 64 output
-//   features (wgmma's M) by 64, 128 or 256 tokens (wgmma's N), the widest
-//   tile spreading each dequantized code over the most tokens. One producer
-//   warp streams x's tile (in the 128-byte swizzled K-major layout wgmma
-//   reads as its B operand) and the codes (64-byte swizzled rows) into a
-//   ring of four to twelve stages by TMA, with a full and an empty
-//   mbarrier a stage. Each consumer thread reads its A fragment's codes
-//   from the ring, dequantizes them in registers, and issues wgmma
-//   m64nNk16 from those registers while the previous step's products run
-//   (wgmma.wait_group 1); no dequantized tile is written to shared memory
-//   and no block barrier runs inside the K loop. Two consumer warpgroups
-//   may share a 64-token tile, taking alternate k-steps, their sums added
-//   in shared memory in a fixed order. The finished tile, plus the bias in
-//   fp32, is rounded once and transposed through shared memory by
-//   stmatrix, so that each output row leaves in 16-byte stores. For 256
-//   tokens (128 accumulators a thread) the producer is a warpgroup that
-//   hands its registers to the consumer (setmaxnreg);
-// - where the tiles alone leave most SMs idle (few rows under a long K),
-//   the wrapper splits K over gridDim.z (ops/kernels/w8a16.py::tiling picks
-//   the body and the split from the shape), and the splits of a tile form
-//   a thread block cluster: each leaves its fp32 partial tile in its
-//   shared memory, and after a cluster barrier each block sums a share of
-//   the tile over the splits in split order through distributed shared
-//   memory, adds the bias and rounds. One launch, no workspace, and a
-//   result that does not depend on the schedule, so a replay equals the
-//   eager launch bit for bit;
-// - at most 8 rows (the products of one row a post at buckets 1 and 8): a
-//   warp an output column, the rows of x against 8 codes a lane at a time;
+// latency of a block's setup, first loads and epilogue (D2R-base's FFN
+// weight is 2.4 MB of codes, 0.7 us at 3.35 TB/s); at buckets 8 and 32 (M
+// up to 2,048) the bf16 tensor cores (2 M N K operations at 989 TFLOP/s)
+// and the dequantize, which a warpgroup runs between its own products: a
+// warpgroup's register-sourced wgmma do not overlap its own conversion of
+// the next step, so a tile's step costs the products plus the conversion
+// unless another warpgroup's products fill the gap. The bodies:
+// - bf16 above 4 rows: warpgroup MMA with the weight as its register
+//   operand ("swap AB"): y^T = W x^T, features as wgmma's M, tokens as its
+//   N, so the dequantized weight never touches shared memory. A tile is 64
+//   output features by NT = 64, 128 or 256 tokens. One producer warp (a
+//   producer warpgroup that hands its registers to the consumer with
+//   setmaxnreg at NT = 256, 128 accumulators a consumer thread) streams x's
+//   tile (the 128-byte swizzled K-major layout wgmma reads as B) and the
+//   codes (64-byte swizzled rows) into a ring of stages by TMA, a full and
+//   an empty mbarrier a stage. A consumer thread reads each 16-byte chunk
+//   of its two code rows with one shared load (the four threads of a quad
+//   read the same chunk, a broadcast), picks its two code pairs with one
+//   byte permute each, dequantizes them with integer masks and two bf16x2
+//   operations (no float conversion), and issues wgmma m64nNk16 from those
+//   registers while its previous step's products run (wgmma.wait_group 1).
+//   To take the dequantize off the tensor cores' critical path, the
+//   64-token body runs two consumer warpgroups on alternate k-steps of one
+//   tile (k-groups): while one converts its step, the other's products run,
+//   and their fp32 sums meet through shared memory at the end in k-group
+//   order; the 64- and 128-token bodies also run two blocks an SM, whose
+//   products interleave the same way. The grid is persistent: gridDim.x
+//   blocks (the wrapper's count, at most the SMs times the blocks an SM
+//   holds) walk the tiles blockIdx.x, + gridDim.x, ... feature tile fastest,
+//   an order fixed by the shape and the grid; the producer loads the next
+//   tile's first stages while the consumers run the current tile's
+//   epilogue. The finished tile, plus the bias in fp32, is rounded once,
+//   transposed by stmatrix into a staging area (128-byte swizzled token
+//   rows, outside the ring) and written by one TMA store that runs on
+//   beside the next tile (16-byte stores where the rows are not 16-byte
+//   multiples). The body and the grid are the wrapper's choice by shape
+//   (ops/kernels/w8a16.py::tiling), which takes a narrower tile where the
+//   wide one would leave the last wave ragged;
+// - where even those tiles leave most SMs idle (few rows under a long K),
+//   the wrapper splits K over gridDim.z, one tile a block, and the splits of
+//   a tile form a thread block cluster: each leaves its fp32 partial tile in
+//   its shared memory, and after a cluster barrier each block sums a share
+//   of the tile over the splits in split order through distributed shared
+//   memory, adds the bias and rounds. One launch, no workspace, no atomics,
+//   and a result that does not depend on the schedule, so a replay equals
+//   the eager launch bit for bit;
+// - at most 4 rows (the products of one row a post at bucket 1): a warp an
+//   output column, the rows of x against 8 codes a lane at a time;
 // - fp32: the CUDA cores (64 x 64 tiles, 4 x 4 outputs a thread), as K1-K3
 //   keep fp32 off the tensor cores, split the same way;
 // - bf16 views that TMA cannot take (K % 16 != 0, or x's rows off 16-byte
@@ -66,6 +79,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "mma_bf16.cuh"
 
@@ -129,6 +143,27 @@ __device__ __forceinline__ uint32_t dequant_bf16x2(uint32_t c, __nv_bfloat162 s2
   codes_to_float2(c, f0, f1);
   const uint32_t qb = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
   const __nv_bfloat162 w = __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&qb), s2);
+  return *reinterpret_cast<const uint32_t*>(&w);
+}
+
+// The same product from the codes in bytes 0 and 2 of v (bytes 1 and 3
+// ignored), in four operations and no float conversion: the bf16 0x43 |
+// (c & 127) is exactly 128 + (c & 127) and 0x43 | (c & 128) exactly 128 or
+// 256 by c's sign, so their bf16x2 difference is the code (exact: at most
+// 8 significant bits), and the multiply by s2 rounds the exact product
+// once, as dequant_bf16x2 does.
+__device__ __forceinline__ uint32_t lop_and_or(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t d;   // (a & b) | c in one LOP3 (b and c in registers)
+  asm("lop3.b32 %0, %1, %2, %3, 0xEA;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+__device__ __forceinline__ uint32_t dequant_pair(uint32_t v, __nv_bfloat162 s2, uint32_t m7f,
+                                                 uint32_t m80, uint32_t k43) {
+  const uint32_t hi = lop_and_or(v, m7f, k43);
+  const uint32_t lo = lop_and_or(v, m80, k43);
+  const __nv_bfloat162 q = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&hi),
+                                   *reinterpret_cast<const __nv_bfloat162*>(&lo));
+  const __nv_bfloat162 w = __hmul2(q, s2);
   return *reinterpret_cast<const uint32_t*>(&w);
 }
 
@@ -264,7 +299,7 @@ __global__ void __launch_bounds__(128)
              acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
 }
 
-// ---- bf16 above 8 rows: the weight as wgmma's register operand ----
+// ---- bf16 above 4 rows: the weight as wgmma's register operand ----
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(d2r::smem_addr(bar)), "r"(count));
@@ -299,6 +334,17 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, i
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(d2r::smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(d2r::smem_addr(bar))
+      : "memory");
+}
+
+// the (c0 inner, c1 outer) box of `map` from shared memory, as one bulk
+// group; its rows and columns past the tensor's edges are not written
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, int c0, int c1,
+                                             const void* src) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n"
+      "cp.async.bulk.commit_group;\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(d2r::smem_addr(src)), "r"(c0), "r"(c1)
       : "memory");
 }
 
@@ -340,6 +386,7 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
 }
 
+
 template <int NT>
 __device__ __forceinline__ void wgmma_rs(float (&d)[NT / 2], const uint32_t (&a)[4],
                                          uint64_t db) {
@@ -360,89 +407,120 @@ __device__ __forceinline__ void fence_regs(uint32_t (&v)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(v[i])::"memory");
 }
 
-// A block of KW consumer warpgroups and a producer: 64 output features
-// (wgmma's M) by NT tokens (wgmma's N). Consumer warpgroup w takes the
-// block's k-steps i with i % KW == w, so that KW warpgroups run a tile's
-// products side by side; their fp32 sums meet in shared memory at the end,
-// in warpgroup order. The producer is one warp, or for 256 tokens (128
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// the generic proxy's shared-memory writes made visible to wgmma's reads
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A tile of 64 output features (wgmma's M) by NT tokens (wgmma's N), BPS
+// blocks an SM. KW consumer warpgroups: warpgroup kw takes the tile's
+// k-steps kw (mod KW), so that one converts its step's codes while the
+// other's products run; their fp32 sums meet in shared memory at the end,
+// in k-group order. The producer is one warp, or for 256 tokens (128
 // accumulators a consumer thread) a warpgroup that hands its registers to
-// the consumer (setmaxnreg).
-template <int KW, int NT>
+// the consumer (setmaxnreg). Shared memory: the ring (x tiles, then code
+// tiles), the staged output (NT token rows of 64 bf16 features, 128-byte
+// swizzled; k-group 1's sums pass through it first, half at a time), the
+// barriers.
+template <int NT, int KW, int BPS>
 struct WsTiling {
-  static constexpr int kF = 64;
+  static constexpr int kWG = KW;            // consumer warpgroups
+  static constexpr int kF = 64;             // features a tile
   static constexpr bool kWideN = NT == 256;
-  static constexpr int kThreads = KW * 128 + (kWideN ? 128 : 32);
+  static constexpr int kThreads = kWG * 128 + (kWideN ? 128 : 32);
   static constexpr int kTileX = NT * kBK * 2;   // x's tile: NT rows of 128 bytes
   static constexpr int kTileQ = kF * kBK;       // the codes: 64 rows of 64 bytes
-  // a ring of 4-12 stages in at most 96 KiB with one warpgroup (two blocks
-  // an SM), else 192 KiB
-  static constexpr int kFit = (KW == 1 ? 98304 : 196608) / (kTileX + kTileQ);
-  static constexpr int kStages = kFit < 4 ? 4 : (kFit > 12 ? 12 : kFit);
+  static constexpr int kStage = NT * 128;       // the staged output
+  // what a block may take of the SM's 228 KiB (1 KiB each kept by the
+  // system), less the 1,024-byte alignment slack and the barriers
+  static constexpr int kFit =
+      ((BPS == 1 ? 232448 : 115712) - 1024 - kStage - 256) / (kTileX + kTileQ);
+  static constexpr int kStages = kFit > 8 ? 8 : kFit;
   static constexpr int kRing = kStages * (kTileX + kTileQ);
-  static constexpr int kLdO = kF + 8;   // the staged bf16 output's row stride (a token a row)
-  static constexpr int kLdP = kF + 4;   // the fp32 partial tile's row stride
-  // the staged output or the partial tile, then the other k-groups' sums
-  static constexpr int kOut = NT * kLdP * 4 > NT * kLdO * 2 ? NT * kLdP * 4 : NT * kLdO * 2;
-  static constexpr int kRed = (KW - 1) * 64 * NT * 4;
-  static constexpr int kSmem = 1024 + kRing + 2 * kStages * 8;   // + a full and an empty barrier
-  static_assert(kOut + kRed <= kRing && kStages >= KW, "the epilogue fits in the ring");
-  static_assert(!kWideN || KW == 1, "232 registers a consumer thread");
+  static constexpr int kLdP = kF + 4;   // the split's fp32 partial tile, row stride
+  static constexpr int kSmem = 1024 + kRing + kStage + 2 * kStages * 8;
+  static_assert(kStages >= 2 * KW + 1, "the ring feeds every k-group");
+  static_assert(NT * kLdP * 4 <= kRing + kStage, "the partial tile fits");
+  static_assert(KW <= 2 && (!kWideN || (BPS == 1 && KW == 1)), "232 registers a consumer thread");
 };
 
-template <int KW, int NT>
-__global__ void __launch_bounds__(WsTiling<KW, NT>::kThreads, KW == 1 && NT < 256 ? 2 : 1)
+#ifdef D2R_W8_PROBE
+// w8a16_sweep.py --probe: clock64 of the first consumer thread of a block
+// at four points of each of its first 8 tiles (the tile's start, its first
+// step's products issued, its last products done, its output issued)
+__device__ long long g_w8_probe[4096 * 32];
+#define D2R_PROBE(k)                                                                   \
+  do {                                                                                 \
+    if (tid == 0 && it < 8)                                                            \
+      g_w8_probe[(blockIdx.x + gridDim.x * blockIdx.z) * 32 + it * 4 + (k)] = clock64(); \
+  } while (0)
+#else
+#define D2R_PROBE(k) \
+  do {               \
+  } while (0)
+#endif
+
+template <int NT, int KW, int BPS>
+__global__ void __launch_bounds__(WsTiling<NT, KW, BPS>::kThreads, BPS)
     w8a16_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
-                       const __grid_constant__ CUtensorMap q_map, const float* __restrict__ scale,
-                       int period, const bf16* __restrict__ bias, bf16* __restrict__ out, int M,
-                       int N, int K, int ktiles_per_split) {
-  using T = WsTiling<KW, NT>;
+                       const __grid_constant__ CUtensorMap q_map,
+                       const __grid_constant__ CUtensorMap out_map, int tma_out,
+                       const float* __restrict__ scale, int period,
+                       const bf16* __restrict__ bias, bf16* __restrict__ out, int M, int N, int K,
+                       int ktiles_per_split) {
+  using T = WsTiling<NT, KW, BPS>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // the swizzles are functions of address bits 4-9: tiles start 1,024-aligned
   const uint32_t raw = d2r::smem_addr(smem_raw);
   unsigned char* smem = smem_raw + (((raw + 1023) & ~1023u) - raw);
   unsigned char* x_tiles = smem;
-  unsigned char* q_tiles = smem + T::kStages * T::kTileX;
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + T::kRing);
+  unsigned char* q_tiles = x_tiles + T::kStages * T::kTileX;
+  unsigned char* stage = smem + T::kRing;
+  uint64_t* full = reinterpret_cast<uint64_t*>(stage + T::kStage);
   uint64_t* empty = full + T::kStages;
 
   const int tid = threadIdx.x;
   const int lane = tid % 32, warp = tid / 32;
-  const int n0 = blockIdx.x * T::kF, m0 = blockIdx.y * NT;
+  // tile t: features (t % tiles_n) * 64, tokens (t / tiles_n) * NT; a
+  // split launch has one tile a block (gridDim.x = tiles)
+  const int tiles_n = (N + T::kF - 1) / T::kF;
+  const int tiles = tiles_n * ((M + NT - 1) / NT);
   const int kt0 = blockIdx.z * ktiles_per_split;
   const int steps = min((K + kBK - 1) / kBK, kt0 + ktiles_per_split) - kt0;
-  const bool producer = warp >= 4 * KW;
 
   if (tid == 0) {
     for (int s = 0; s < T::kStages; ++s) {
       mbar_init(full + s, 1);
-      mbar_init(empty + s, 4);   // lane 0 of each warp of the k-group that reads the step
+      mbar_init(empty + s, 4);   // lane 0 of each warp of the step's k-group
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  // consumer warpgroup kw takes the k-steps kw (mod KW); accumulator i of
-  // a consumer thread: feature r0 (i % 4 < 2) or r0 + 8 of the block's,
-  // token 8 (i / 4) + 2 (lane % 4) + i % 2
-  const int kw = warp / 4;
-  const int r0 = 16 * (warp % 4) + lane / 4;
-  const int tok0 = 2 * (lane % 4);
   // the two roles never meet again (the register split holds only so)
-  if (producer) {
+  if (warp >= 4 * T::kWG) {
     if constexpr (T::kWideN) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
-    // step i's x tile and codes into slot i % kStages, once the consumers
-    // have released the slot's previous use
-    if (warp == 4 * KW && lane == 0) {
+    // the block's g-th step (over its tiles) into slot g % kStages, once
+    // the consumers have released the slot's previous use
+    if (warp == 4 * T::kWG && lane == 0) {
       asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&x_map))
                    : "memory");
       asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&q_map))
                    : "memory");
-      for (int i = 0; i < steps; ++i) {
-        const int slot = i % T::kStages;
-        if (i >= T::kStages) mbar_wait(empty + slot, (i / T::kStages + 1) & 1);
-        mbar_expect(full + slot, T::kTileX + T::kTileQ);
-        tma_load_2d(x_tiles + slot * T::kTileX, &x_map, (kt0 + i) * kBK, m0, full + slot);
-        tma_load_2d(q_tiles + slot * T::kTileQ, &q_map, (kt0 + i) * kBK, n0, full + slot);
+      int g = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int n0 = (tile % tiles_n) * T::kF, m0 = (tile / tiles_n) * NT;
+        for (int i = 0; i < steps; ++i, ++g) {
+          const int slot = g % T::kStages;
+          if (g >= T::kStages) mbar_wait(empty + slot, (g / T::kStages + 1) & 1);
+          mbar_expect(full + slot, T::kTileX + T::kTileQ);
+          tma_load_2d(x_tiles + slot * T::kTileX, &x_map, (kt0 + i) * kBK, m0, full + slot);
+          tma_load_2d(q_tiles + slot * T::kTileQ, &q_map, (kt0 + i) * kBK, n0, full + slot);
+        }
       }
     }
     if (gridDim.z > 1) {   // the split reduction's two cluster barriers (cluster_reduce)
@@ -450,9 +528,33 @@ __global__ void __launch_bounds__(WsTiling<KW, NT>::kThreads, KW == 1 && NT < 25
       cluster.sync();
       cluster.sync();
     }
-  } else {
-    if constexpr (T::kWideN) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
-    float d[NT / 2];
+    return;
+  }
+  if constexpr (T::kWideN) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  // accumulator i of a thread: feature r0 (i % 4 < 2) or r0 + 8 of the
+  // tile's 64, token 8 (i / 4) + 2 (lane % 4) + i % 2
+  const int kw = warp / 4;
+  const int r0 = 16 * (warp % 4) + lane / 4;
+  const int t4 = lane % 4;
+  // row r0's codes in a stage: 64-byte rows whose 16-byte chunk c sits at
+  // c ^ ((row / 2) % 4) (TMA's 64-byte swizzle; row r0 + 8 alike)
+  const int sw = (r0 / 2) % 4;
+  const unsigned char* q_row = q_tiles + r0 * kBK;
+  // of a chunk's words (w0, w1), this thread's code pair (k = 2 t4, + 1) to
+  // bytes 0 and 2; of (w2, w3) the pair at k + 8
+  const uint32_t pick = 0x1100u * (2 * t4 + 1) + 0x11u * (2 * t4);
+  uint32_t m7f, m80, k43;   // the masks, in registers (one LOP3 each)
+  asm volatile("mov.b32 %0, 0x007F007F;\n" : "=r"(m7f));
+  asm volatile("mov.b32 %0, 0x00800080;\n" : "=r"(m80));
+  asm volatile("mov.b32 %0, 0x43004300;\n" : "=r"(k43));
+  float d[NT / 2];
+  int g = 0;   // the block's steps so far, as the producer counts them
+#ifdef D2R_W8_PROBE
+  int it = 0;
+#endif
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    D2R_PROBE(0);
+    const int n0 = (tile % tiles_n) * T::kF, m0 = (tile / tiles_n) * NT;
 #pragma unroll
     for (int i = 0; i < NT / 2; ++i) d[i] = 0.f;
     // the scales of rows r0 and r0 + 8, rounded to bf16 as the plain path
@@ -462,31 +564,28 @@ __global__ void __launch_bounds__(WsTiling<KW, NT>::kThreads, KW == 1 && NT < 25
     const __nv_bfloat162 s1 = __float2bfloat162_rn(f1 < N ? __ldg(scale + f1 % period) : 0.f);
     const float b0 = (bias != nullptr && f0 < N) ? to_float(bias[f0]) : 0.f;
     const float b1 = (bias != nullptr && f1 < N) ? to_float(bias[f1]) : 0.f;
-    // row r0's codes in a stage: 64-byte rows whose 16-byte chunk c sits at
-    // c ^ ((row / 2) % 4) (TMA's 64-byte swizzle; row r0 + 8 alike), and
-    // this thread's pairs at bytes 2 (lane % 4) and + 8 of each chunk
-    const int sw = (r0 / 2) % 4;
-    const unsigned char* q_row = q_tiles + r0 * kBK + 2 * (lane % 4);
 
-    // step i's codes, once landed, into A fragments: k16 slice kk in a[4 kk
-    // .. 4 kk + 3] (rows r0, r0 + 8 at k 2t; the same at k 2t + 8)
-    auto dequant = [&](int i, uint32_t(&a)[16]) {
-      const int slot = i % T::kStages;
-      mbar_wait(full + slot, (i / T::kStages) & 1);
+    // step gi's codes, once landed, into A fragments: k16 slice kk in a[4
+    // kk .. 4 kk + 3] (rows r0, r0 + 8 at k 2t; the same at k 2t + 8), each
+    // chunk of a row one 16-byte load, a quad's four threads on one chunk
+    auto dequant = [&](int gi, uint32_t(&a)[16]) {
+      const int slot = gi % T::kStages;
+      mbar_wait(full + slot, (gi / T::kStages) & 1);
       __syncwarp();
       const unsigned char* qs = q_row + slot * T::kTileQ;
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk) {
-        const unsigned char* c = qs + ((kk ^ sw) << 4);
-        a[4 * kk + 0] = dequant_bf16x2(*reinterpret_cast<const uint16_t*>(c), s0);
-        a[4 * kk + 1] = dequant_bf16x2(*reinterpret_cast<const uint16_t*>(c + 8 * kBK), s1);
-        a[4 * kk + 2] = dequant_bf16x2(*reinterpret_cast<const uint16_t*>(c + 8), s0);
-        a[4 * kk + 3] = dequant_bf16x2(*reinterpret_cast<const uint16_t*>(c + 8 * kBK + 8), s1);
+        const uint4 c0 = *reinterpret_cast<const uint4*>(qs + ((kk ^ sw) << 4));
+        const uint4 c1 = *reinterpret_cast<const uint4*>(qs + 8 * kBK + ((kk ^ sw) << 4));
+        a[4 * kk + 0] = dequant_pair(__byte_perm(c0.x, c0.y, pick), s0, m7f, m80, k43);
+        a[4 * kk + 1] = dequant_pair(__byte_perm(c1.x, c1.y, pick), s1, m7f, m80, k43);
+        a[4 * kk + 2] = dequant_pair(__byte_perm(c0.z, c0.w, pick), s0, m7f, m80, k43);
+        a[4 * kk + 3] = dequant_pair(__byte_perm(c1.z, c1.w, pick), s1, m7f, m80, k43);
       }
     };
-    // step i's four products, issued asynchronously as one group
-    auto mma = [&](int i, uint32_t(&a)[16]) {
-      const uint32_t xa = d2r::smem_addr(x_tiles + (i % T::kStages) * T::kTileX);
+    // step gi's four products, issued asynchronously as one group
+    auto mma = [&](int gi, uint32_t(&a)[16]) {
+      const uint32_t xa = d2r::smem_addr(x_tiles + (gi % T::kStages) * T::kTileX);
       fence_regs(d);
       fence_regs(a);
       asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -498,113 +597,147 @@ __global__ void __launch_bounds__(WsTiling<KW, NT>::kThreads, KW == 1 && NT < 25
       asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
       fence_regs(d);
     };
-    // this warpgroup's j-th step, and the release of its (j - 1)-th once
-    // that step's products are done
+    // this warpgroup's i-th step of the tile is the tile's step kw + i KW;
+    // once its products are issued, its (i - 1)-th step's are done and that
+    // slot is released
     const int mine = steps > kw ? (steps - kw + KW - 1) / KW : 0;
-    auto release = [&](int j) {
+    auto release = [&](int i) {
       asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
       fence_regs(d);
       __syncwarp();
-      if (lane == 0 && j > 0) mbar_arrive(empty + (kw + (j - 1) * KW) % T::kStages);
+      if (lane == 0 && i > 0) mbar_arrive(empty + (g + kw + (i - 1) * KW) % T::kStages);
     };
-    // two fragment buffers: step j + 1 is dequantized into one while step
-    // j's products read the other
+    // two fragment buffers: step i + 1 is dequantized into one while step
+    // i's products read the other
     uint32_t a0[16], a1[16];
-    if (mine > 0) dequant(kw, a0);
-    for (int j = 0; j < mine; j += 2) {
-      mma(kw + j * KW, a0);
-      release(j);
-      if (j + 1 < mine) {
-        dequant(kw + (j + 1) * KW, a1);
-        mma(kw + (j + 1) * KW, a1);
-        release(j + 1);
-        if (j + 2 < mine) dequant(kw + (j + 2) * KW, a0);
+    if (mine > 0) dequant(g + kw, a0);
+    for (int i = 0; i < mine; i += 2) {
+      mma(g + kw + i * KW, a0);
+      if (i == 0) D2R_PROBE(1);
+      release(i);
+      if (i + 1 < mine) {
+        dequant(g + kw + (i + 1) * KW, a1);
+        mma(g + kw + (i + 1) * KW, a1);
+        release(i + 1);
+        if (i + 2 < mine) dequant(g + kw + (i + 2) * KW, a0);
       }
     }
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
     fence_regs(d);
-    // every consumer is done with the ring: the epilogue takes its memory
-    asm volatile("bar.sync 1, %0;\n" ::"n"(KW * 128) : "memory");
+    __syncwarp();
+    if (lane == 0 && mine > 0) mbar_arrive(empty + (g + kw + (mine - 1) * KW) % T::kStages);
+    g += steps;
+    D2R_PROBE(2);
     if constexpr (KW > 1) {
-      // the k-groups' sums into k-group 0's, in k-group order
-      float* red = reinterpret_cast<float*>(smem + T::kOut);
-      const int t = tid % 128;
-      if (kw > 0) {
-        float* r = red + (kw - 1) * 64 * NT;
+      // k-group 1's sums into k-group 0's, half at a time through the
+      // staging area, once the previous tile's store has read it (k-group 1
+      // writes the next tile's only after k-group 0 reaches that tile's
+      // first barrier, its epilogue done)
+      // (16-byte accesses: thread t's four sums i .. i + 3 at float4 (i / 4)
+      // * 128 + t)
+      float4* red = reinterpret_cast<float4*>(stage);
+      if (tma_out && tid == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      bar_sync(1, T::kWG * 128);
 #pragma unroll
-        for (int i = 0; i < NT / 2; ++i) r[i * 128 + t] = d[i];
-      }
-      asm volatile("bar.sync 1, %0;\n" ::"n"(KW * 128) : "memory");
-      if (kw == 0) {
+      for (int h = 0; h < 2; ++h) {
+        if (kw == 1) {
 #pragma unroll
-        for (int g = 1; g < KW; ++g) {
-          const float* r = red + (g - 1) * 64 * NT;
-#pragma unroll
-          for (int i = 0; i < NT / 2; ++i) d[i] += r[i * 128 + t];
+          for (int i = 0; i < NT / 4; i += 4)
+            red[(i / 4) * 128 + tid % 128] = make_float4(
+                d[h * NT / 4 + i], d[h * NT / 4 + i + 1], d[h * NT / 4 + i + 2],
+                d[h * NT / 4 + i + 3]);
         }
+        bar_sync(1, T::kWG * 128);
+        if (kw == 0) {
+#pragma unroll
+          for (int i = 0; i < NT / 4; i += 4) {
+            const float4 v = red[(i / 4) * 128 + tid % 128];
+            d[h * NT / 4 + i] += v.x;
+            d[h * NT / 4 + i + 1] += v.y;
+            d[h * NT / 4 + i + 2] += v.z;
+            d[h * NT / 4 + i + 3] += v.w;
+          }
+        }
+        if (h == 0) bar_sync(1, T::kWG * 128);
       }
     }
-    if (kw == 0) {
-      if (gridDim.z > 1) {
-        float* part = reinterpret_cast<float*>(smem);
+
+    if (gridDim.z > 1) {
+      // the partial tile takes the ring
+      float* part = reinterpret_cast<float*>(smem);
+      if (kw == 0) {
 #pragma unroll
         for (int i = 0; i < NT / 8; ++i)
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
-            float* p = part + (8 * i + tok0 + j) * T::kLdP + r0;
+            float* p = part + (8 * i + 2 * t4 + j) * T::kLdP + r0;
             p[0] = d[4 * i + j];
             p[8] = d[4 * i + 2 + j];
           }
-      } else {
-        // the tile plus the bias, rounded, transposed into [token][feature]
-        // rows by stmatrix: n8 tiles i and i + 1, features r0 - lane / 4 +
-        // [0, 8) and + [8, 16); lane l addresses row l % 8 of matrix l / 8
-        bf16* stage = reinterpret_cast<bf16*>(smem);
-        const int mat = lane / 8;
-        const uint32_t row_addr = d2r::smem_addr(
-            stage + (8 * (mat / 2) + lane % 8) * T::kLdO + (r0 - lane / 4) + 8 * (mat % 2));
+      }
+      cluster_reduce(part, T::kLdP, NT, T::kF, m0, n0, bias, out, M, N, T::kWG * 128);
+      return;   // a split launch has one tile a block
+    }
+    if (kw > 0) continue;   // k-group 0 stores the tile
+    // the warpgroup's previous tile has left its staging area
+    if (tma_out && tid == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    bar_sync(2, 128);
+    // the tile plus the bias, rounded, transposed into token rows by
+    // stmatrix: n8 tiles i and i + 1, features 16 (warp % 4) + [0, 8) and +
+    // [8, 16); lane l addresses row l % 8 of matrix l / 8: token 8 (i + mat
+    // / 2) + l % 8, its 16-byte chunk 2 (warp % 4) + mat % 2 at chunk ^ (l % 8)
+    const int mat = lane / 8;
+    const uint32_t row_addr = d2r::smem_addr(
+        stage + (8 * (mat / 2) + lane % 8) * 128 +
+        (((2 * (warp % 4) + mat % 2) ^ (lane % 8)) << 4));
 #pragma unroll
-        for (int i = 0; i < NT / 8; i += 2) {
-          uint32_t p[4];
+    for (int i = 0; i < NT / 8; i += 2) {
+      uint32_t p[4];
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const __nv_bfloat162 lo =
-                __floats2bfloat162_rn(d[4 * (i + h)] + b0, d[4 * (i + h) + 1] + b0);
-            const __nv_bfloat162 hi =
-                __floats2bfloat162_rn(d[4 * (i + h) + 2] + b1, d[4 * (i + h) + 3] + b1);
-            p[2 * h] = *reinterpret_cast<const uint32_t*>(&lo);
-            p[2 * h + 1] = *reinterpret_cast<const uint32_t*>(&hi);
-          }
-          asm volatile(
-              "stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(
-                  row_addr + 8 * i * T::kLdO * 2),
-              "r"(p[0]), "r"(p[1]), "r"(p[2]), "r"(p[3])
-              : "memory");
+      for (int h = 0; h < 2; ++h) {
+        const __nv_bfloat162 lo =
+            __floats2bfloat162_rn(d[4 * (i + h)] + b0, d[4 * (i + h) + 1] + b0);
+        const __nv_bfloat162 hi =
+            __floats2bfloat162_rn(d[4 * (i + h) + 2] + b1, d[4 * (i + h) + 3] + b1);
+        p[2 * h] = *reinterpret_cast<const uint32_t*>(&lo);
+        p[2 * h + 1] = *reinterpret_cast<const uint32_t*>(&hi);
+      }
+      asm volatile(
+          "stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(
+              row_addr + i * 1024),
+          "r"(p[0]), "r"(p[1]), "r"(p[2]), "r"(p[3])
+          : "memory");
+    }
+    if (tma_out) {
+      // the staged tile out by one TMA store (the staging area is the
+      // box's 128-byte swizzled layout), asynchronous to the next tile
+      fence_async_smem();
+      bar_sync(2, 128);
+      if (tid == 0) tma_store_2d(&out_map, n0, m0, stage);
+    } else {
+      bar_sync(2, 128);
+      // else a token's 64 features in 16-byte stores
+      const bool wide = N % 8 == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+      for (int e = tid % 128; e < NT * 8; e += 128) {
+        const int r = e / 8, c = e % 8;
+        const int row = m0 + r, col = n0 + 8 * c;
+        if (row >= M || col >= N) continue;
+        const unsigned char* src = stage + r * 128 + ((c ^ (r % 8)) << 4);
+        bf16* dst = out + (long long)row * N + col;
+        if (wide) {
+          *reinterpret_cast<int4*>(dst) = *reinterpret_cast<const int4*>(src);
+        } else {
+          const bf16* v = reinterpret_cast<const bf16*>(src);
+          for (int j = 0; j < 8 && col + j < N; ++j) dst[j] = v[j];
         }
       }
     }
-    if (gridDim.z > 1) {
-      cluster_reduce(reinterpret_cast<float*>(smem), T::kLdP, NT, T::kF, m0, n0, bias, out, M, N,
-                     KW * 128);
-      return;
-    }
-    asm volatile("bar.sync 1, %0;\n" ::"n"(KW * 128) : "memory");
-    // the staged tile out, a token's features in 16-byte stores
-    const bf16* stage = reinterpret_cast<const bf16*>(smem);
-    const bool wide = N % 8 == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
-    for (int e = tid; e < NT * (T::kF / 8); e += KW * 128) {
-      const int r = e / (T::kF / 8), c = (e % (T::kF / 8)) * 8;
-      const int row = m0 + r, col = n0 + c;
-      if (row >= M || col >= N) continue;
-      const bf16* src = stage + r * T::kLdO + c;
-      bf16* dst = out + (long long)row * N + col;
-      if (wide) {
-        *reinterpret_cast<int4*>(dst) = *reinterpret_cast<const int4*>(src);
-      } else {
-        for (int j = 0; j < 8 && col + j < N; ++j) dst[j] = src[j];
-      }
-    }
+    D2R_PROBE(3);
+#ifdef D2R_W8_PROBE
+    ++it;
+#endif
   }
+  if (tma_out && tid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // fp32 on the CUDA cores: a 64 x 64 tile, 256 threads of 4 x 4 outputs,
@@ -676,7 +809,7 @@ __global__ void __launch_bounds__(256)
 // 8) + 256 i), every row of x against them in fp32; the lanes' sums
 // combined by a butterfly, so the order is fixed, the same in the scalar
 // body that takes unaligned views.
-constexpr int kGemvRows = 8;
+constexpr int kGemvRows = 4;
 constexpr int kGemvWarps = 4;
 
 // 8 codes (two words) dequantized to floats: bf16(code * s) in bf16,
@@ -840,20 +973,18 @@ int gemv(const void* x, long long ldx, const int8_t* q, const float* scale, int 
     case 2: return gemv_rows<T, 2>(x, ldx, q, scale, period, bias, out, N, K, vec, stream);
     case 3: return gemv_rows<T, 3>(x, ldx, q, scale, period, bias, out, N, K, vec, stream);
     case 4: return gemv_rows<T, 4>(x, ldx, q, scale, period, bias, out, N, K, vec, stream);
-    case 5: return gemv_rows<T, 5>(x, ldx, q, scale, period, bias, out, N, K, vec, stream);
-    case 6: return gemv_rows<T, 6>(x, ldx, q, scale, period, bias, out, N, K, vec, stream);
-    case 7: return gemv_rows<T, 7>(x, ldx, q, scale, period, bias, out, N, K, vec, stream);
-    case 8: return gemv_rows<T, 8>(x, ldx, q, scale, period, bias, out, N, K, vec, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-template <int KW, int NT>
+template <int NT, int KW, int BPS>
 int launch_wgmma(const bf16* x, long long ldx, const int8_t* q, const float* scale, int period,
                  const bf16* bias, bf16* out, int M, int N, int K, int splits,
-                 int ktiles_per_split, cudaStream_t stream) {
-  using T = WsTiling<KW, NT>;
-  auto kernel = w8a16_wgmma_kernel<KW, NT>;
+                 int ktiles_per_split, int blocks, cudaStream_t stream) {
+  using T = WsTiling<NT, KW, BPS>;
+  auto kernel = w8a16_wgmma_kernel<NT, KW, BPS>;
+  const int tiles = ((N + T::kF - 1) / T::kF) * ((M + NT - 1) / NT);
+  if (splits == 1 && (blocks < 1 || blocks > tiles)) return (int)cudaErrorInvalidValue;
   // the shared-memory limit, raised once a device
   static unsigned raised = 0;
   int dev = 0;
@@ -864,33 +995,42 @@ int launch_wgmma(const bf16* x, long long ldx, const int8_t* q, const float* sca
     if (e != cudaSuccess) return (int)e;
     if (dev < 32) raised |= 1u << dev;
   }
-  CUtensorMap x_map, q_map;
+  CUtensorMap x_map, q_map, out_map;
   int err = tensor_map(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, M, K, ldx * 2, NT, kBK,
                        CU_TENSOR_MAP_SWIZZLE_128B);
   if (err == 0)
     err = tensor_map(&q_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, N, K, K, T::kF, kBK,
                      CU_TENSOR_MAP_SWIZZLE_64B);
+  // the output by TMA where its rows are 16-byte multiples: a tile's 64
+  // features (128 bytes) by NT tokens a box
+  const int tma_out = N % 8 == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+  memset(&out_map, 0, sizeof(out_map));
+  if (err == 0 && tma_out)
+    err = tensor_map(&out_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, out, M, N, (long long)N * 2, NT,
+                     64, CU_TENSOR_MAP_SWIZZLE_128B);
   if (err != 0) return err;
-  const dim3 grid((N + T::kF - 1) / T::kF, (M + NT - 1) / NT, splits);
-  return launch(kernel, grid, T::kThreads, T::kSmem, splits, stream, x_map, q_map, scale, period,
-                bias, out, M, N, K, ktiles_per_split);
+  // persistent (`blocks` blocks walk the tiles), or one tile a cluster of splits
+  const dim3 grid(splits > 1 ? tiles : blocks, 1, splits);
+  return launch(kernel, grid, T::kThreads, T::kSmem, splits, stream, x_map, q_map, out_map,
+                tma_out, scale, period, bias, out, M, N, K, ktiles_per_split);
 }
 
 }  // namespace
 
 // dtype 0 fp32, 1 bf16 (x, bias and out). tile: 2, a warp an output column
-// (M <= 8, no split); 0, 64 x 64 tiles (fp32 on the CUDA cores; bf16 on
-// mma.sync, no split); in bf16 10 KW + NT / 64, the warp-specialized
-// wgmma body of 64 features by NT tokens with KW warpgroups along K
-// (WsTiling; the instantiations below), which
-// views that TMA cannot take (x or q off 16-byte alignment, K % 16 != 0, a
-// row stride not a multiple of 8) hand to tile 0. K is cut into `splits`
-// (at most 8) runs of ktiles_per_split steps (64 in bf16, 16 in fp32), the
-// splits of a tile one cluster, none of them empty.
+// (M <= 4, no split); 0, 64 x 64 tiles (fp32 on the CUDA cores; bf16 on
+// mma.sync, no split); in bf16 100 KW + 10 + NT / 64, the warp-specialized
+// wgmma body of 64 features by NT tokens with KW k-groups (WsTiling; the
+// instantiations below), which views that TMA cannot take (x or q off
+// 16-byte alignment, K % 16 != 0, a row stride not a multiple of 8) hand to
+// tile 0. K is cut into `splits` (at most 8) runs of ktiles_per_split steps
+// (64 in bf16, 16 in fp32), the splits of a tile one cluster, none of them
+// empty. An unsplit wgmma launch is persistent: `blocks` blocks (1 to the
+// tile count) walk the tiles; other launches ignore `blocks`.
 extern "C" int d2r_w8a16_linear(int dtype, int tile, const void* x, long long ldx,
                                 const void* q, const void* scale, int period,
                                 const void* bias, void* out, int M, int N, int K, int splits,
-                                int ktiles_per_split, void* stream) {
+                                int ktiles_per_split, int blocks, void* stream) {
   const int ktiles = (K + (dtype == 0 ? kF32BK : kBK) - 1) / (dtype == 0 ? kF32BK : kBK);
   if (M < 1 || N < 1 || K < 1 || period < 1 || splits < 1 || splits > kMaxSplits ||
       ktiles_per_split < 1 || ldx < K || (splits - 1) * ktiles_per_split >= ktiles)
@@ -922,16 +1062,23 @@ extern "C" int d2r_w8a16_linear(int dtype, int tile, const void* x, long long ld
     w8a16_bf16_kernel<<<grid, 128, 0, st>>>(xb, ldx, qc, sc, period, bb, ob, M, N, K);
     return (int)cudaGetLastError();
   }
-#define D2R_BODY(KW, NT)                                                                      \
-  case 10 * KW + NT / 64:                                                                     \
-    return launch_wgmma<KW, NT>(xb, ldx, qc, sc, period, bb, ob, M, N, K, splits,             \
-                                ktiles_per_split, st);
+#define D2R_BODY(NT, KW, BPS)                                                                 \
+  case 100 * KW + 10 + NT / 64:                                                               \
+    return launch_wgmma<NT, KW, BPS>(xb, ldx, qc, sc, period, bb, ob, M, N, K, splits,        \
+                                     ktiles_per_split, blocks, st);
   switch (tile) {
-    D2R_BODY(1, 64)
-    D2R_BODY(2, 64)
-    D2R_BODY(1, 128)
-    D2R_BODY(1, 256)
+    D2R_BODY(64, 2, 1)
+    D2R_BODY(64, 1, 2)
+    D2R_BODY(128, 1, 2)
+    D2R_BODY(256, 1, 1)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef D2R_BODY
 }
+
+#ifdef D2R_W8_PROBE
+// the probe's clocks (w8a16_sweep.py --probe), n values from the start
+extern "C" int d2r_w8a16_probe(long long* host, int n) {
+  return (int)cudaMemcpyFromSymbol(host, g_w8_probe, (size_t)n * sizeof(long long));
+}
+#endif

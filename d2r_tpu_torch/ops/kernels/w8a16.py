@@ -22,17 +22,21 @@ within fp32 summation noise before the one rounding to the compute type:
 in bf16 an output may differ by one bf16 ulp where the fp32 sum lies near
 a rounding midpoint.
 
-What the wrapper decides (:func:`tiling`): the body (a warp an output
-column for at most :data:`GEMV_M` rows; in bf16 above that, the
-warp-specialized ``wgmma`` body with the weight as the register operand,
-a block computing 64 output features by 64, 128 or 256 tokens with one or
-two warpgroups along K (:data:`WGMMA_TILES`); fp32 takes 64 x 64 tiles on
-the CUDA cores), and a split of K over the grid where the tiles alone
-would leave SMs idle. The splits of a tile are one thread block cluster
-that sums their fp32 partials in split order through distributed shared
-memory: one launch, and a shape's result never depends on the schedule. A bf16 view that TMA
-cannot take (rows off 16-byte alignment, K % 16 != 0) runs 64 x 64
-``mma.sync`` tiles, unsplit, whatever the tiling says.
+What the wrapper decides (:func:`tiling`): the body, the grid and a split
+of K. A warp an output column for at most :data:`GEMV_M` rows; in bf16
+above that the warp-specialized ``wgmma`` body with the weight as the
+register operand, a tile of 64 output features by 64, 128 or 256 tokens
+(:data:`WGMMA_TILES`): at 64 tokens two consumer warpgroups on alternate
+k-steps of the tile, so that one dequantizes while the other's products
+run, or two blocks an SM, as at 128 tokens; fp32 takes 64 x 64 tiles on
+the CUDA cores. The ``wgmma`` grid is persistent (at most the SMs times
+the body's blocks an SM, walking the tiles in a fixed order:
+:func:`schedule`). K is split where even the narrow tiles would leave most
+SMs idle; the splits of a tile are one thread block cluster that sums
+their fp32 partials in split order through distributed shared memory: one
+launch, and a shape's result never depends on the schedule. A bf16 view
+that TMA cannot take (rows off 16-byte alignment, K % 16 != 0) runs 64 x
+64 ``mma.sync`` tiles, unsplit, whatever the tiling says.
 """
 
 from __future__ import annotations
@@ -49,18 +53,23 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # k a step of the bf16 and fp32 bodies
 K_STEP = {torch.bfloat16: 64, torch.float32: 16}
 # the largest M of the one-warp-a-column body (the products of one row a
-# post at buckets 1 and 8)
-GEMV_M = 8
-# the bf16 wgmma bodies, by the code the kernel takes (10 KW + NT / 64):
-# (tokens NT, k-groups KW) of a block of 64 output features, its KW
-# consumer warpgroups taking alternate k-steps side by side
-WGMMA_TILES = {11: (64, 1), 21: (64, 2), 12: (128, 1), 14: (256, 1)}
-# the clocks an SM spends on one 64-feature, 64-deep step of a 64-token,
-# 128-token and 256-token body, dequantize and products together (the SM
-# does not overlap them), as in-kernel clock probes read them on an H100;
-# the token widths they choose are the fastest of w8a16_sweep.py's table
-# at the sites, or within 10% of it
-STEP_CLOCKS = {64: 300, 128: 400, 256: 690}
+# post at bucket 1; at 8 rows the wgmma bodies are faster, w8a16_sweep.py)
+GEMV_M = 4
+# the bf16 wgmma bodies, by the code the kernel takes (100 KW + NT / 64 +
+# 10): (tokens NT, k-groups KW, blocks an SM) of a tile of 64 output
+# features; KW consumer warpgroups take alternate k-steps of the tile and
+# add their sums at the end
+WGMMA_TILES = {211: (64, 2, 1), 111: (64, 1, 2), 112: (128, 1, 2), 114: (256, 1, 1)}
+# the SM clocks a tile's 64-deep step takes (alone on its SM, and beside a
+# second block of the SM for the bodies that hold two), and the clocks a
+# tile costs outside its K loop (its first stage's wait, the epilogue; the
+# persistent grid hides part of it), from the kernel's clock probe on an
+# H100 (w8a16_sweep.py --probe); the tensor cores alone need NT clocks a
+# step. A split costs about SPLIT_CLOCKS_PER_TOKEN a token of the tile
+# (the cluster's reduction of its fp32 partial tiles)
+STEP_CLOCKS = {211: (320, 320), 111: (380, 650), 112: (540, 790), 114: (780, 780)}
+TILE_CLOCKS = {211: 3000, 111: 2600, 112: 2700, 114: 2600}
+SPLIT_CLOCKS_PER_TOKEN = 31
 # a split of K: at most this many (a portable cluster), each at least
 # MIN_SPLIT_STEPS k-steps
 MAX_SPLITS = 8
@@ -94,22 +103,25 @@ def _sm_count(device: torch.device) -> int:
     return _sms[index]
 
 
-def tiling(m: int, n: int, k: int, dtype: torch.dtype, sms: int = 132) -> Tuple[int, int, int]:
-    """``(body, splits, steps a split)`` of an (M, N, K) product. Bodies: 2,
-    a warp an output column (M <= :data:`GEMV_M`, never split); fp32 0, 64
-    x 64 tiles; bf16 a key of :data:`WGMMA_TILES`: the token width of 64,
-    128 and 256 that spends the fewest clocks on M rows
-    (:data:`STEP_CLOCKS`), the wider on a tie, over 64-feature tiles. A
-    grid of fewer tiles than a quarter of the SMs (half, in fp32) splits K
-    over a cluster, until about ``sms`` blocks, at most
-    :data:`MAX_SPLITS` ways and :data:`MIN_SPLIT_STEPS` k-steps a split,
-    in bf16 a power of two ways; a fuller grid is not split (each split's
-    cluster reduction costs more than the SMs it fills). A bf16 64-token
-    grid that still fills fewer than ``sms`` blocks runs two k-groups where
-    a split holds 4 steps or more."""
+def tiling(m: int, n: int, k: int, dtype: torch.dtype,
+           sms: int = 132) -> Tuple[int, int, int, int]:
+    """``(body, splits, steps a split, blocks)`` of an (M, N, K) product.
+    Bodies: 2, a warp an output column (M <= :data:`GEMV_M`, never split);
+    fp32 0, 64 x 64 tiles; bf16 the key of :data:`WGMMA_TILES` and split
+    whose launch takes the fewest clocks by :data:`STEP_CLOCKS`,
+    :data:`TILE_CLOCKS` and :data:`SPLIT_CLOCKS_PER_TOKEN` (unsplit, then
+    the wider tile, on a tie): the busiest SM's tiles (of tiles times
+    splits over the SMs), each a tile's steps and its fixed cost, two at a
+    time for the bodies an SM holds twice, so that a narrower tile wins
+    where a wide one would leave the last round ragged. K is split over a
+    cluster only for a grid of fewer tiles than half the SMs, a power of
+    two ways up to about ``sms`` blocks, at most :data:`MAX_SPLITS` ways
+    and :data:`MIN_SPLIT_STEPS` k-steps a split. ``blocks`` is the grid of
+    the persistent bf16 body (each block a tile or more; a split launch,
+    one tile a block), else the blocks the launch starts."""
     steps = -(-k // K_STEP[dtype])
     if m <= GEMV_M:
-        return 2, 1, steps
+        return 2, 1, steps, -(-n // 4)
     count = lambda em, en: -(-m // em) * -(-n // en)
     if dtype == torch.float32:
         tiles = count(64, 64)
@@ -117,21 +129,53 @@ def tiling(m: int, n: int, k: int, dtype: torch.dtype, sms: int = 132) -> Tuple[
         if 2 * tiles < sms:
             splits = max(1, min(MAX_SPLITS, -(-sms // tiles), steps // MIN_SPLIT_STEPS))
         per = -(-steps // splits)
-        return 0, -(-steps // per), per
-    tokens = min((64, 128, 256), key=lambda t: (-(-m // t) * STEP_CLOCKS[t], -t))
-    tiles = count(tokens, 64)
-    splits = 1
-    if 4 * tiles < sms:
-        # a power of two: the clusters of a split must pack into the
-        # card's processing clusters of 16-18 SMs, or part of the grid
-        # waits for a second wave
-        most = max(1, min(MAX_SPLITS, sms // tiles, steps // MIN_SPLIT_STEPS))
-        splits = 1 << (most.bit_length() - 1)
-    per = -(-steps // splits)
-    splits = -(-steps // per)
-    kgroups = 2 if tokens == 64 and tiles * splits < sms and per >= 4 else 1
-    body = next(c for c, tile in WGMMA_TILES.items() if tile == (tokens, kgroups))
-    return body, splits, per
+        return 0, -(-steps // per), per, tiles * -(-steps // per)
+    best = None
+    for body, (tokens, _, per_sm) in WGMMA_TILES.items():
+        tiles = count(tokens, 64)
+        choices = [1]
+        if 2 * tiles < sms:
+            # a power of two: the clusters of a split must pack into the
+            # card's processing clusters of 16-18 SMs, or part of the grid
+            # waits for a second wave
+            most = max(1, min(MAX_SPLITS, sms // tiles, steps // MIN_SPLIT_STEPS))
+            choices.append(1 << (most.bit_length() - 1))
+        for want in choices:
+            per = -(-steps // want)
+            splits = -(-steps // per)
+            busiest = -(-tiles * splits // sms)
+            alone, shared = STEP_CLOCKS[body]
+            tile_clocks = per * (shared if busiest > 1 else alone) + TILE_CLOCKS[body]
+            clocks = (busiest / per_sm if busiest > 1 else 1) * tile_clocks
+            if splits > 1:
+                clocks += SPLIT_CLOCKS_PER_TOKEN * tokens
+            key = (clocks, splits, -tokens)
+            if best is None or key < best[0]:
+                blocks = tiles if splits > 1 else min(tiles, sms * per_sm)
+                best = (key, (body, splits, per, blocks))
+    return best[1]
+
+
+def schedule(m: int, n: int, k: int, body: int, splits: int, per: int, blocks: int):
+    """The bf16 ``wgmma`` launch's work as the kernel walks it: for each
+    block, in its order, ``(token0, feature0, [k-steps])`` of every tile it
+    computes (a split launch: one tile a block, its split's steps).
+    Mirrors ``w8a16_wgmma_kernel``'s index math: tile t covers features (t %
+    tiles_n) * 64 and tokens (t // tiles_n) * NT; unsplit, block b takes
+    tiles b, b + blocks, ...; split, block (t, z) takes tile t's steps [z
+    per, (z + 1) per). Within a tile (or split), k-group kw of a body takes
+    the steps kw, kw + KW, ..."""
+    tokens, _, _ = WGMMA_TILES[body]
+    features = 64
+    steps = -(-k // K_STEP[torch.bfloat16])
+    tiles_n = -(-n // features)
+    tiles = tiles_n * -(-m // tokens)
+    where = lambda t: ((t // tiles_n) * tokens, (t % tiles_n) * features)
+    if splits > 1:
+        return [[(*where(t), list(range(z * per, min(steps, (z + 1) * per))))]
+                for t in range(tiles) for z in range(splits)]
+    return [[(*where(t), list(range(steps))) for t in range(b, tiles, blocks)]
+            for b in range(blocks)]
 
 
 def _check(x, q, scale, bias, period) -> None:
@@ -164,7 +208,7 @@ def _kernel():
     if not _fn:
         fn = build.load("w8a16_linear").d2r_w8a16_linear
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i, i, p, ctypes.c_longlong, p, p, i, p, p, i, i, i, i, i, p]
+        fn.argtypes = [i, i, p, ctypes.c_longlong, p, p, i, p, p, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
         _fn.append(fn)
     return _fn[0]
@@ -180,12 +224,12 @@ def w8a16_linear_op(x, q, scale, bias, period):
     m, k = x.shape
     n = q.shape[0]
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    tile, splits, per = tiling(m, n, k, x.dtype, _sm_count(x.device))
+    tile, splits, per, blocks = tiling(m, n, k, x.dtype, _sm_count(x.device))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _kernel()(_DTYPE_CODES[x.dtype], tile, x.data_ptr(), x.stride(0), q.data_ptr(),
                         scale.data_ptr(), period, None if bias is None else bias.data_ptr(),
-                        out.data_ptr(), m, n, k, splits, per, stream)
+                        out.data_ptr(), m, n, k, splits, per, blocks, stream)
     if err != 0:
         raise RuntimeError(f"w8a16_linear launch failed: cudaError {err}")
     w8a16_linear.launches += 1

@@ -982,15 +982,18 @@ def test_cuda_quant_dot_under_two_gloo_ranks_is_one_process_s_bits(cuda, dtype):
 # an odd shape that 16-byte copies cannot stage, one row and eight (the
 # warp-a-column body), a ragged grid, and one row a post at bucket 32
 W8A16_SITES = ((64, 3072, 768, 3072, True), (64, 768, 3072, 768, True),
-               (64, 2304, 768, 768, True), (49, 768, 3072, 768, False))
+               (64, 2304, 768, 768, True), (49, 768, 3072, 768, False),
+               (64, 768, 768, 768, True), (1, 768, 768, 768, True))
 W8A16_CASES = (*((rows * b, n, k, period, with_bias) for b in (1, 8, 32)
                  for rows, n, k, period, with_bias in W8A16_SITES),
                (50, 768, 768, 768, True), (5, 3, 37, 3, True), (1, 768, 768, 768, True),
                (8, 6, 768, 6, True), (300, 77, 200, 77, False), (32, 768, 768, 768, True))
 # shapes for every wgmma body and split called directly: a site, a ragged
-# grid with K not a multiple of the 64-deep step, bucket 8's patch conv
+# grid with K not a multiple of the 64-deep step, bucket 8's patch conv, and
+# a grid of tiles ragged in tokens and features that persistent blocks walk
+# several tiles each
 W8A16_BODY_CASES = ((64, 3072, 768, 3072, True), (130, 200, 1040, 100, True),
-                    (392, 768, 3072, 768, False))
+                    (392, 768, 3072, 768, False), (1000, 2312, 768, 2312, True))
 W8A16_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
 
@@ -1003,19 +1006,25 @@ def _w8a16_inputs(cuda, m, n, k, period, with_bias, dtype, seed=0):
     return x, q, scale, bias
 
 
-def _w8a16_body(x, q, scale, period, bias, body, splits):
+def _w8a16_body(x, q, scale, period, bias, body, splits, blocks=None):
     """The bf16 kernel launched directly with ``body`` and K cut into
-    ``splits``."""
+    ``splits``; unsplit, ``blocks`` persistent blocks (at most one a tile)
+    walk the tiles (by default at most the SMs times the body's blocks an
+    SM)."""
     from d2r_tpu_torch.ops.kernels import w8a16
     m, k = x.shape
     n = q.shape[0]
     steps = -(-k // w8a16.K_STEP[x.dtype])
     per = -(-steps // splits)
+    tokens, _, per_sm = w8a16.WGMMA_TILES[body]
+    tiles = -(-m // tokens) * -(-n // 64)
+    blocks = min(tiles, w8a16._sm_count(x.device) * per_sm if blocks is None else blocks)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     err = w8a16._kernel()(1, body, x.data_ptr(), x.stride(0), q.data_ptr(), scale.data_ptr(),
                           period, None if bias is None else bias.data_ptr(), out.data_ptr(), m,
-                          n, k, -(-steps // per), per, torch.cuda.current_stream().cuda_stream)
-    assert err == 0, (body, splits, err)
+                          n, k, -(-steps // per), per, blocks,
+                          torch.cuda.current_stream().cuda_stream)
+    assert err == 0, (body, splits, blocks, err)
     return out
 
 
@@ -1031,7 +1040,8 @@ def test_cuda_w8a16_matches_plain(cuda, dtype):
     which hands such a view to the 64 x 64 mma.sync body: that sums in
     another order, within the same tolerance. In bf16 every wgmma body
     under one, two and three splits of K, called directly, is within the
-    tolerance too."""
+    tolerance too, and unsplit gives the same bits whether one, three or
+    the default number of persistent blocks walk the tiles."""
     from d2r_tpu_torch.ops.kernels import w8a16
     for m, n, k, period, with_bias in W8A16_CASES:
         x, q, scale, bias = _w8a16_inputs(cuda, m, n, k, period, with_bias, dtype)
@@ -1066,6 +1076,10 @@ def test_cuda_w8a16_matches_plain(cuda, dtype):
                 torch.cuda.synchronize()
                 err = (got.float() - ref).abs().max().item()
                 assert err <= tol, (m, n, k, body, splits, err)
+                if splits == 1:
+                    for blocks in (1, 3):
+                        walked = _w8a16_body(x, q, scale, period, bias, body, 1, blocks)
+                        assert torch.equal(walked, got), (m, n, k, body, blocks)
 
 
 @pytest.mark.cuda
@@ -1073,15 +1087,19 @@ def test_cuda_w8a16_captured_equals_eager_and_raises_instead_of_falling_back(cud
     """Captured W8A16 launches replay the eager launches' bits at every
     bf16 serving site of buckets 1, 8 and 32 (their bodies and splits as
     the wrapper picks them, split-K included) and for every wgmma body
-    under two splits; fp16, a CPU scale and a period that does not divide
-    N raise."""
+    under two splits and unsplit on a persistent grid of 5 blocks, again
+    after eager launches of other shapes between two replays (a
+    persistent launch leaves no state behind); fp16, a CPU scale and a
+    period that does not divide N raise."""
     from d2r_tpu_torch.ops.kernels import w8a16
     assert w8a16.tiling(64, 768, 3072, torch.bfloat16)[1] > 1
     inputs = [_w8a16_inputs(cuda, m, n, k, period, with_bias, torch.bfloat16, seed=i)
-              for i, (m, n, k, period, with_bias) in enumerate(W8A16_CASES[:12])]
+              for i, (m, n, k, period, with_bias) in enumerate(W8A16_CASES[:18])]
     x0, q0, scale0, bias0 = inputs[0]
     run = lambda: ([w8a16.w8a16_linear(x, q, s, s.numel(), b) for x, q, s, b in inputs]
                    + [_w8a16_body(x0, q0, scale0, scale0.numel(), bias0, body, 2)
+                      for body in w8a16.WGMMA_TILES]
+                   + [_w8a16_body(x0, q0, scale0, scale0.numel(), bias0, body, 1, 5)
                       for body in w8a16.WGMMA_TILES])
     eager = run()
     stream = torch.cuda.Stream()
@@ -1092,6 +1110,12 @@ def test_cuda_w8a16_captured_equals_eager_and_raises_instead_of_falling_back(cud
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         captured = run()
+    graph.replay()
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(captured, eager)):
+        assert torch.equal(a, b), i
+    for x, q, s, b in reversed(inputs):
+        w8a16.w8a16_linear(x[: x.shape[0] // 2 + 9], q, s, s.numel(), b)
     graph.replay()
     torch.cuda.synchronize()
     for i, (a, b) in enumerate(zip(captured, eager)):

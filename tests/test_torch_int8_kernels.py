@@ -228,12 +228,16 @@ SPLIT_CASES = sorted({
 def test_w8a16_split_covers_k(dtype, m, n, k):
     """Products of at most GEMV_M rows take the warp-a-column body, unsplit;
     above that fp32 takes 64 x 64 tiles and bf16 a wgmma body of
-    ``WGMMA_TILES``, whose tiles cover (M, N); every split holds at least
-    one k-step and together they hold all of them, only a grid of fewer
-    tiles than half the SMs is split, never past the SMs, and a bf16 grid
-    is split a power of two ways and fills at least a quarter of them where
-    K allows it."""
-    tile, splits, per = w8a16.tiling(m, n, k, dtype, sms=132)
+    ``WGMMA_TILES``. Every split holds at least one k-step and together
+    they hold all of them, only a grid of fewer tiles than half the SMs is
+    split, never past the SMs, a bf16 grid a power of two ways. The bf16
+    launch as the kernel walks it (``w8a16.schedule``): every (token,
+    feature) tile is computed once, by one block (unsplit: a persistent
+    block of at most the SMs times the blocks an SM holds walks its tiles
+    in a fixed order) or by one cluster whose splits, taken in split
+    order, hold every k-step once, in order; every output lies in one
+    tile."""
+    tile, splits, per, blocks = w8a16.tiling(m, n, k, dtype, sms=132)
     steps = -(-k // w8a16.K_STEP[dtype])
     if m <= w8a16.GEMV_M:
         assert (tile, splits, per) == (2, 1, steps)
@@ -242,28 +246,62 @@ def test_w8a16_split_covers_k(dtype, m, n, k):
         assert tile == 0
         features, tokens = 64, 64
     else:
+        tokens, kgroups, per_sm = w8a16.WGMMA_TILES[tile]
         features = 64
-        tokens, kgroups = w8a16.WGMMA_TILES[tile]
-        assert tokens in (64, 128, 256) and kgroups in (1, 2)
+        assert tokens in (64, 128, 256) and kgroups in (1, 2) and per_sm in (1, 2)
     grid = (-(-m // tokens), -(-n // features))
     assert grid[0] * tokens >= m and grid[1] * features >= n
     assert 1 <= splits <= w8a16.MAX_SPLITS
     assert (splits - 1) * per < steps <= splits * per
     tiles = grid[0] * grid[1]
     assert splits == 1 or (2 * tiles < 132 and tiles * (splits - 1) < 132)
-    if dtype == torch.bfloat16:
-        # a power of two ways (clusters that pack into the card's processing
-        # clusters), a quarter of the SMs or more where K allows it
-        assert splits & (splits - 1) == 0
-        most = max(1, min(w8a16.MAX_SPLITS, steps // w8a16.MIN_SPLIT_STEPS))
-        assert tiles * splits >= min(33, tiles * (1 << (most.bit_length() - 1)))
+    if dtype == torch.float32:
+        return
+    assert splits & (splits - 1) == 0
+    assert blocks == (tiles if splits > 1 else min(tiles, 132 * per_sm))
+    work = w8a16.schedule(m, n, k, tile, splits, per, blocks)
+    assert len(work) == blocks * splits
+    seen = {}
+    for block in work:
+        assert block, "a block with no tile"
+        for t0, f0, ks in block:
+            assert t0 % tokens == 0 and f0 % features == 0 and t0 < m and f0 < n
+            seen.setdefault((t0, f0), []).append(ks)
+    assert len(seen) == tiles
+    for parts in seen.values():
+        assert len(parts) == splits and all(parts)
+        assert sum(parts, []) == list(range(steps))
+        # within a split, the k-groups (the kernel's ``mine`` steps kw, kw +
+        # KW, ... of a warpgroup) take every step once
+        for ks in parts:
+            mine = [(len(ks) - kw + kgroups - 1) // kgroups if len(ks) > kw else 0
+                    for kw in range(kgroups)]
+            groups = [[kw + i * kgroups for i in range(count)] for kw, count in enumerate(mine)]
+            assert sorted(sum(groups, [])) == list(range(len(ks)))
+    # each output (token, feature) in exactly one tile
+    covered = torch.zeros((grid[0] * tokens, grid[1] * features), dtype=torch.int32)
+    for t0, f0 in seen:
+        covered[t0:t0 + tokens, f0:f0 + features] += 1
+    assert bool((covered[:m, :n] == 1).all())
+
+
+def _byte_perm(x: torch.Tensor, y: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
+    """CUDA's ``__byte_perm(x, y, sel)`` on int64 tensors holding 32-bit
+    words: result byte i is byte ``(sel >> 4 i) & 7`` of (y:x), x's bytes
+    0-3 (selectors below 8, no sign replication)."""
+    both = (x & 0xFFFFFFFF) | ((y & 0xFFFFFFFF) << 32)
+    out = torch.zeros_like(both)
+    for i in range(4):
+        b = (both >> (8 * ((sel >> (4 * i)) & 7))) & 0xFF
+        out |= b << (8 * i)
+    return out
 
 
 def _dequant_bf16x2_bits(pairs: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """``csrc/w8a16_linear.cu``'s ``codes_to_float2`` and ``dequant_bf16x2``
-    in integer and bit-view ops: ``pairs`` int32 holds two codes in bits
-    0-15 (code 0 low); returns the kernel's bf16x2 word, int32 (code 0's
-    bf16 in the low half)."""
+    (the GEMV and mma.sync bodies) in integer and bit-view ops: ``pairs``
+    int32 holds two codes in bits 0-15 (code 0 low); returns the kernel's
+    bf16x2 word, int32 (code 0's bf16 in the low half)."""
     u = pairs ^ 0x8080
     # __byte_perm(u, 0x4B000000, 0x7650 / 0x7651): 0x4B0000uu, the float 2^23 + uu
     f0 = (0x4B000000 | (u & 0xFF)).view(torch.float32) - 8388736.0
@@ -278,10 +316,45 @@ def _dequant_bf16x2_bits(pairs: torch.Tensor, scale: torch.Tensor) -> torch.Tens
     return as_u16(w0) | (as_u16(w1) << 16)
 
 
-def test_w8a16_register_dequantize_matches_dequantize_bits():
+def _bf16_of_bits(bits: torch.Tensor) -> torch.Tensor:
+    """The float value of the bf16 in bits 0-15 of an int64 tensor."""
+    return ((bits & 0xFFFF) << 16).to(torch.int32).view(torch.float32)
+
+
+def _dequant_pair_bits(chunks: torch.Tensor, t4: torch.Tensor, half: torch.Tensor,
+                       scale: torch.Tensor) -> torch.Tensor:
+    """The wgmma body's conversion in integer and bit-view ops: from a
+    16-byte chunk of a code row (``chunks`` int64 (n, 4), its four
+    little-endian words), the pair a thread of quad lane ``t4`` picks
+    (``__byte_perm`` of words 0-1, or 2-3 for ``half`` 1, by the selector
+    ``pick``), then ``dequant_pair``: (0x4300 | c & 127) - (0x4300 | c &
+    128) in bf16 (exact), times bf16(s) rounded once. Returns int32 bf16x2
+    words."""
+    pick = 0x1100 * (2 * t4 + 1) + 0x11 * (2 * t4)
+    lo_word = torch.where(half == 1, chunks[:, 2], chunks[:, 0])
+    hi_word = torch.where(half == 1, chunks[:, 3], chunks[:, 1])
+    v = _byte_perm(lo_word, hi_word, pick)
+    a = (v & 0x007F007F) | 0x43004300
+    b = (v & 0x00800080) | 0x43004300
+    s2 = scale.to(torch.bfloat16).float()
+    words = []
+    for shift in (0, 16):
+        q = _bf16_of_bits(a >> shift) - _bf16_of_bits(b >> shift)   # exact, |q| <= 128
+        assert bool((q == q.to(torch.bfloat16).float()).all())
+        w = (q * s2).to(torch.bfloat16)
+        words.append(w.view(torch.int16).to(torch.int32) & 0xFFFF)
+    return words[0] | (words[1] << 16)
+
+
+@pytest.mark.parametrize("body", ["gemv_mma_sync", "wgmma"])
+def test_w8a16_register_dequantize_matches_dequantize_bits(body):
     """Every pair of codes (all 65,536) under a sweep of scales: the
     kernel's register dequantize gives ``dequantize``'s bf16 bits, the plain
-    path's ``q.to(bf16) * s.to(bf16)``."""
+    path's ``q.to(bf16) * s.to(bf16)``. The GEMV and mma.sync bodies
+    convert through floats (``dequant_bf16x2``); the wgmma body picks each
+    pair out of a 16-byte chunk with a byte permute (every quad lane, both
+    halves of the chunk, the other bytes random codes) and converts it as
+    a difference of two bf16 (``dequant_pair``)."""
     codes = torch.arange(-128, 128, dtype=torch.int32)
     c0, c1 = torch.meshgrid(codes, codes, indexing="ij")
     c0, c1 = c0.reshape(-1), c1.reshape(-1)
@@ -289,11 +362,22 @@ def test_w8a16_register_dequantize_matches_dequantize_bits():
     scales = torch.cat([torch.tensor([1 / 127, 1.0, 2.0 ** -20, 3.0e-3, 0.0]),
                         torch.logspace(-30, 30, 41), torch.rand(16) * 2e-3 + 1e-4])
     q = torch.stack([c0, c1], dim=1).to(torch.int8)                 # (65536, 2)
+    if body == "wgmma":
+        n = c0.numel()
+        gen = torch.Generator().manual_seed(5)
+        t4 = torch.arange(n) % 4
+        half = (torch.arange(n) // 4) % 2
+        raw = torch.randint(0, 256, (n, 16), generator=gen, dtype=torch.int64)
+        at = 8 * half + 2 * t4                        # the pair's byte in the chunk
+        raw[torch.arange(n), at] = (c0 & 0xFF).long()
+        raw[torch.arange(n), at + 1] = (c1 & 0xFF).long()
+        chunks = (raw.view(n, 4, 4) << torch.tensor([0, 8, 16, 24])).sum(-1)
     for s in scales:
         want = w8a16.dequantize(q, s.reshape(1), 1, torch.bfloat16)
         want_bits = ((want[:, 0].view(torch.int16).to(torch.int32) & 0xFFFF)
                      | ((want[:, 1].view(torch.int16).to(torch.int32) & 0xFFFF) << 16))
-        got = _dequant_bf16x2_bits(pairs, s)
+        got = (_dequant_bf16x2_bits(pairs, s) if body == "gemv_mma_sync"
+               else _dequant_pair_bits(chunks, t4, half, s))
         assert torch.equal(got, want_bits), float(s)
 
 
