@@ -466,7 +466,12 @@ K3_SHAPES = (("clip_l", 32, 257, 257, 16, 64, False, 0),
              # heads wider than 256: the wide body (any D), at the
              # 257-token geometry
              ("wide_d320", 2, 257, 257, 2, 320, True, 0),
-             ("wide_d512", 2, 257, 257, 2, 512, False, 0))
+             ("wide_d512", 2, 257, 257, 2, 512, False, 0),
+             # the CLIP-L site at the other serving buckets and the
+             # training batch
+             ("clip_l_b1", 1, 257, 257, 16, 64, False, 0),
+             ("clip_l_b8", 8, 257, 257, 16, 64, False, 0),
+             ("clip_l_b16", 16, 257, 257, 16, 64, False, 0))
 # (name, B, L, S, H, D, key bias, row pad): K1 at the edges of its bf16
 # tiling: D not a multiple of 16, 7 query rows against 128 keys, the largest
 # tile, one key, and the two views that only element loads stage
@@ -746,7 +751,8 @@ def phase_build(report):
     log(f"[build] {len(build.SOURCES)} kernel source(s) in {report['build_s']:.1f} s")
     for name, out in reports.items():
         for line in out.splitlines():
-            if any(w in line for w in ("entry function", "registers", "spill", "smem")):
+            if any(w in line for w in ("entry function", "registers", "spill", "smem",
+                                       "serialized", "setmaxnreg")):
                 log(f"[build] {name}: {line.strip()}")
 
 
@@ -1215,6 +1221,7 @@ def phase_k3(report):
         for i, (site, b, l, s, h, d, with_bias, pad) in enumerate(K3_SHAPES):
             q, k, v, bias = k3_inputs(b, l, s, h, d, with_bias, dtype, seed=500 + i, row_pad=pad)
             scale = d ** -0.5
+            body = fl.body_for(q, k, v)
             before = fl.flash_attention.launches
             out = fl.flash_attention(q, k, v, bias, scale)
             torch.cuda.synchronize()
@@ -1244,7 +1251,8 @@ def phase_k3(report):
             bound_ms, bound_by = k1_bound(b, l, s, h, d, dtype_name, with_bias)
             rows.append({
                 "site": site, "dtype": dtype_name, "B": b, "L": l, "S": s, "H": h, "D": d,
-                "bias": with_bias, "row_pad": pad, "max_abs_err": err, "max_abs_ref": ref_max,
+                "bias": with_bias, "row_pad": pad, "body": body, "max_abs_err": err,
+                "max_abs_ref": ref_max,
                 **rounding,
                 "sdpa_max_abs_diff": (out.float() - sdpa().transpose(1, 2).float()).abs().max().item(),
                 "ms": cuda_time_ms(kernel, iters=20),
@@ -1256,14 +1264,30 @@ def phase_k3(report):
             if (site, dtype_name) in (("clip_l", "bfloat16"),    # the kernels line's site
                                       ("wide_d512", "bfloat16")):
                 r.update(device_times(kernel, sdpa, iters=20))
+            turns = ""
+            if site.startswith("clip_l") and dtype_name == "bfloat16":
+                # the body that runs against the mma.sync body, forced
+                # through the wrapper for timing only, on the card alone in
+                # turns (body, mma.sync, mma.sync, body)
+                mma_sync = lambda: fl.flash_attention(q, k, v, bias, scale, body="mma_sync")
+                t = [device_time_ms(fn, iters=20) for fn in (kernel, mma_sync, mma_sync, kernel)]
+                r.update({"device_ms_turns": [t[0], t[3]], "mma_sync_device_ms_turns": t[1:3],
+                          "device_ms": (t[0] + t[3]) / 2, "mma_sync_device_ms": (t[1] + t[2]) / 2})
+                r.setdefault("library_device_ms", device_time_ms(sdpa, iters=20))
+                turns = (f"; in turns on the card alone: {body} "
+                         f"{' / '.join(f'{x * 1e3:.2f}' for x in r['device_ms_turns'])} us, "
+                         f"mma_sync {' / '.join(f'{x * 1e3:.2f}' for x in t[1:3])} us")
+                if body != "wgmma":
+                    failures.append(f"K3 {site}: body {body}, not wgmma")
             share = (f"; differs from plain in {rounding['diff_share']:.3g} of outputs "
                      f"(p rounded once: {rounding['control_diff_share']:.3g}), mean abs err "
                      f"{rounding['mean_abs_err']:.3g}" if rounding else "")
-            log(f"[K3] {site:11s} {dtype_name:8s} B{b} L{l} S{s} H{h} D{d} row pad {pad}: "
+            log(f"[K3] {site:11s} {dtype_name:8s} B{b} L{l} S{s} H{h} D{d} row pad {pad} "
+                f"body {body}: "
                 f"err {err:.3g} (max |ref| {ref_max:.3g}; vs sdpa {r['sdpa_max_abs_diff']:.3g})"
                 f"{share}; kernel {r['ms'] * 1e3:.2f} us, "
                 f"plain {r['plain_ms'] * 1e3:.2f} us, sdpa {r['library_ms'] * 1e3:.2f} us, "
-                f"bound {bound_ms * 1e3:.2f} us ({bound_by})" + device_note(r))
+                f"bound {bound_ms * 1e3:.2f} us ({bound_by})" + device_note(r) + turns)
     report["k3_sites"] = rows
 
     # backward: the plain twin through autograd, card against CPU (fp32)
@@ -1842,30 +1866,40 @@ def phase_main_path(report, key="base"):
         "k1_launches": launches["k1"], "k3_launches": launches["k3"],
         "replay_vs_eager": equal, "latency": latency, "latency_stats_b8_ms": stats8}
 
-    for b in (1, BUCKETS[-1]):
+    # traced forwards at the first and last bucket; D2R-large's replay at
+    # every bucket too (K3's ms a forward at each)
+    traced = [(b, m) for b in BUCKETS for m in ("eager", "replay")
+              if b in (1, BUCKETS[-1]) or (m == "replay" and spec["k3"])]
+    for b, mode in traced:
         g = pred.graph(b)
-        for mode, fn in (("eager", lambda: pred._forward(*g.inputs)), ("replay", g.graph.replay)):
-            for attempt in range(TRACE_ATTEMPTS):
-                result[f"profile_{mode}_b{b}"] = prof = device_profile(fn, 3, "forward")
-                log(f"[profile{spec['tag']}] {mode} bucket {b:2d}: " + json.dumps(brief(prof)))
-                wrong = [n for n in ("k1", "k3") if prof.get(f"{n}_kernels_per_forward") != spec[n]]
-                # lost events: a fractional count of three forwards, or a
-                # replay that counts fewer kernels than the eager forward
-                # traced just before it (the same kernels)
-                kernels = prof.get("kernels_per_forward", 0)
-                eager = result.get(f"profile_eager_b{b}", {}).get("kernels_per_forward", 0)
-                lost = not float(kernels).is_integer() or (mode == "replay" and kernels < eager)
-                if not (wrong and lost):
-                    break
-                log(f"[profile{spec['tag']}] {mode} bucket {b:2d}: the trace lost kernel "
-                    f"events (three runs of one forward, {prof['kernels_per_forward']} "
-                    f"kernels each on average); profiling again")
-            result[f"profile_{mode}_b{b}"]["trace_attempts"] = attempt + 1
-            for name in ("k1", "k3"):
-                got = prof.get(f"{name}_kernels_per_forward")
-                assert got == spec[name], (
-                    f"{mode} bucket {b}: {got} {name.upper()} kernels a forward in the "
-                    f"trace, expected {spec[name]}")
+        fn = {"eager": lambda: pred._forward(*g.inputs), "replay": g.graph.replay}[mode]
+        for attempt in range(TRACE_ATTEMPTS):
+            result[f"profile_{mode}_b{b}"] = prof = device_profile(fn, 3, "forward")
+            log(f"[profile{spec['tag']}] {mode} bucket {b:2d}: " + json.dumps(brief(prof)))
+            wrong = [n for n in ("k1", "k3") if prof.get(f"{n}_kernels_per_forward") != spec[n]]
+            # lost events: a fractional count of three forwards, or a
+            # replay that counts fewer kernels than the eager forward
+            # traced just before it (the same kernels)
+            kernels = prof.get("kernels_per_forward", 0)
+            eager = result.get(f"profile_eager_b{b}", {}).get("kernels_per_forward", 0)
+            lost = not float(kernels).is_integer() or (mode == "replay" and kernels < eager)
+            if not (wrong and lost):
+                break
+            log(f"[profile{spec['tag']}] {mode} bucket {b:2d}: the trace lost kernel "
+                f"events (three runs of one forward, {prof['kernels_per_forward']} "
+                f"kernels each on average); profiling again")
+        result[f"profile_{mode}_b{b}"]["trace_attempts"] = attempt + 1
+        for name in ("k1", "k3"):
+            got = prof.get(f"{name}_kernels_per_forward")
+            assert got == spec[name], (
+                f"{mode} bucket {b}: {got} {name.upper()} kernels a forward in the "
+                f"trace, expected {spec[name]}")
+    if spec["k3"]:
+        result["k3_replay_ms_per_forward"] = {
+            b: result[f"profile_replay_b{b}"]["k3_ms_per_forward"] for b in BUCKETS}
+        log(f"{tag} K3 in the traced replays, ms a forward (kernels a forward): " + ", ".join(
+            f"bucket {b} {result[f'profile_replay_b{b}']['k3_ms_per_forward']:.3f} "
+            f"({result[f'profile_replay_b{b}']['k3_kernels_per_forward']:g})" for b in BUCKETS))
     bad = [b for b in BUCKETS if not equal[b]["bit_equal"]]
     assert not bad, f"replay differs from eager at buckets {bad}: {equal}"
     if key == "base":

@@ -81,6 +81,7 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "hopper.cuh"
 #include "mma_bf16.cuh"
 
 namespace cg = cooperative_groups;
@@ -88,6 +89,13 @@ namespace cg = cooperative_groups;
 namespace {
 
 using bf16 = __nv_bfloat16;
+using d2r::desc_b128;
+using d2r::fence_async_smem;
+using d2r::fence_regs;
+using d2r::mbar_arrive;
+using d2r::mbar_expect;
+using d2r::mbar_init;
+using d2r::mbar_wait;
 
 constexpr int kBK = 64;          // k a step of the bf16 bodies
 constexpr int kMaxSplits = 8;    // a portable cluster
@@ -301,32 +309,6 @@ __global__ void __launch_bounds__(128)
 
 // ---- bf16 above 4 rows: the weight as wgmma's register operand ----
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(d2r::smem_addr(bar)), "r"(count));
-}
-
-// one arrival that also expects `bytes` of TMA transactions this phase
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   d2r::smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(d2r::smem_addr(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  asm volatile(
-      "{\n.reg .pred P1;\nLAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(d2r::smem_addr(bar)),
-      "r"(parity)
-      : "memory");
-}
-
 // the (c0 inner, c1 outer) box of `map` into shared memory, counted on `bar`
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
                                             uint64_t* bar) {
@@ -346,13 +328,6 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, int c0, int
       "cp.async.bulk.commit_group;\n" ::"l"(reinterpret_cast<uint64_t>(map)),
       "r"(d2r::smem_addr(src)), "r"(c0), "r"(c1)
       : "memory");
-}
-
-// a K-major, 128-byte swizzle descriptor: start address, LBO 1 (unused),
-// SBO 1,024 bytes (the next 8 rows), layout B128
-__device__ __forceinline__ uint64_t desc_b128(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)64 << 32) |
-         ((uint64_t)1 << 62);
 }
 
 // wgmma m64nNk16, bf16 in, fp32 accumulated into d: A (64 x 16) from four
@@ -395,25 +370,8 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[NT / 2], const uint32_t (&a)
   else wgmma_rs_n256(d, a, db);
 }
 
-// keeps the compiler from moving accesses to v across the wgmma bracket
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&v)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(v[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&v)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(v[i])::"memory");
-}
-
 __device__ __forceinline__ void bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-// the generic proxy's shared-memory writes made visible to wgmma's reads
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // A tile of 64 output features (wgmma's M) by NT tokens (wgmma's N), BPS
@@ -926,26 +884,12 @@ int launch(Kernel kernel, dim3 grid, int threads, int smem, int splits, cudaStre
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
-// cuTensorMapEncodeTiled, looked up through the runtime's entry-point
-// query (no link against libcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
+// a 2-D tensor map of `rows` rows of `cols` elements, `row_bytes` apart
 int tensor_map(CUtensorMap* map, CUtensorMapDataType type, const void* base, int rows,
                int cols, long long row_bytes, int box_rows, int box_cols,
                CUtensorMapSwizzle swizzle) {
-  static EncodeTiled encode = nullptr;
-  if (encode == nullptr) {
-    cudaDriverEntryPointQueryResult found;
-    void* fn = nullptr;
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess || fn == nullptr)
-      return (int)cudaErrorNotSupported;
-    encode = reinterpret_cast<EncodeTiled>(fn);
-  }
+  const d2r::EncodeTiled encode = d2r::encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)row_bytes};
   const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};

@@ -18,18 +18,32 @@ p.V). It returns no bias gradient.
 
 What bounds K3 on the H100 is bytes in bf16 and operations in fp32 (see the
 source's header). In bf16 the kernel runs its products on the tensor cores
-(``mma.sync``, fp32 sums) over K and V tiles brought in by ``cp.async``, and
-keeps the JAX rounding as closely as bf16 operands allow: the scale is
-applied in fp32 to the fp32 sum of the raw bf16 products (the JAX kernel
-scales q first: the two differ by fp32 rounding alone), and p enters p.V as
-two bf16 terms, hi = bf16(p) and lo = bf16(p - hi), into one fp32
-accumulator, within one output ulp of fp32 p. In fp32 it runs on the CUDA
-cores, with exactly the rounding above. Heads wider than 256 (no configuration of
-the repo has one) take a third body on the CUDA cores for both types, with
-the fp32 arithmetic, the head walked in slabs and the output in chunks of
-128 columns a block, so its shared memory and registers do not grow with D.
-It reads q, k and v through their batch and row strides, so the strided
-views of the fused QKV projection need no copies.
+(fp32 sums) and keeps the JAX rounding as closely as bf16 operands allow:
+the scale is applied in fp32 to the fp32 sum of the raw bf16 products (the
+JAX kernel scales q first: the two differ by fp32 rounding alone), and p
+enters p.V as two bf16 terms, hi = bf16(p) and lo = bf16(p - hi), into one
+fp32 accumulator, within one output ulp of fp32 p. In fp32 it runs on the
+CUDA cores, with exactly the rounding above. It reads q, k and v through
+their batch and row strides, so the strided views of the fused QKV
+projection need no copies.
+
+The kernel has four bodies, and :func:`body_for` picks one by type, shape
+and alignment alone (never as a fallback: a body that cannot take a launch
+raises):
+
+- ``wgmma``: bf16 at D = 64 where TMA can describe the views (16-byte
+  aligned bases, row and batch strides that are multiples of 8 elements)
+  and K and V fit in shared memory whole (S up to ``WGMMA_MAX_KEYS``):
+  Hopper's warpgroup MMA over tiles that TMA loads, a persistent block an
+  SM with a load warp, two consumer warpgroups and K and V once a unit of
+  up to four tiles. Every D2R-large K3 site (L = S = 257, D = 64) takes it;
+- ``mma_sync``: the other bf16 views up to D = 256, ``mma.sync`` over
+  ``cp.async`` tiles (or element loads where 16-byte copies cannot stage);
+- ``fp32``: fp32 up to D = 256 on the CUDA cores;
+- ``wide``: heads wider than 256 (no configuration of the repo has one),
+  both types, on the CUDA cores with the fp32 arithmetic, the head walked
+  in slabs and the output in chunks of 128 columns a block, so its shared
+  memory and registers do not grow with D.
 
 :func:`flash_attention` launches the kernel for CUDA tensors and raises for
 what it cannot take; only a tensor on the CPU goes to the plain version.
@@ -49,6 +63,12 @@ from d2r_tpu_torch.ops.kernels import build
 from d2r_tpu_torch.ops.kernels.fused_attention import fused_attention_small_plain
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the bodies of csrc/flash_attention_fwd.cu, by their code in the C call
+BODIES = {"mma_sync": 0, "fp32": 1, "wide": 2, "wgmma": 3}
+# the head width of the wgmma body, and the most keys whose K and V it
+# holds in shared memory
+WGMMA_DIM = 64
+WGMMA_MAX_KEYS = 640
 
 
 def flash_attention_plain(
@@ -95,6 +115,30 @@ def _check(q, k, v, key_bias):
                          f"{key_bias.device}")
 
 
+def _tma_view(t: torch.Tensor) -> bool:
+    """Whether TMA can describe the (B, N, H, D) view: a 16-byte aligned
+    base, and row and batch strides that are positive multiples of 8
+    elements (16 bytes) on every axis of more than one index."""
+    return t.data_ptr() % 16 == 0 and all(
+        t.shape[i] == 1 or (t.stride(i) > 0 and t.stride(i) % 8 == 0) for i in (0, 1))
+
+
+def body_for(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The body of the kernel that takes (q, k, v), by type, shape and
+    alignment: ``wide`` above D = 256, ``fp32`` for fp32, ``wgmma`` for
+    bf16 views TMA can describe at D = 64 whose K and V fit in shared
+    memory, ``mma_sync`` for the other bf16 views."""
+    d = q.shape[-1]
+    if d > 256:
+        return "wide"
+    if q.dtype == torch.float32:
+        return "fp32"
+    if (d == WGMMA_DIM and k.shape[1] <= WGMMA_MAX_KEYS
+            and all(_tma_view(t) for t in (q, k, v))):
+        return "wgmma"
+    return "mma_sync"
+
+
 _fn = []
 
 
@@ -103,7 +147,7 @@ def _kernel():
     if not _fn:
         p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
         fn = build.load("flash_attention_fwd").d2r_flash_attention_fwd
-        fn.argtypes = [i, p, p, p, p, p, i, i, i, i, i, ll, ll, ll, ll, ll, ll, f, p]
+        fn.argtypes = [i, i, p, p, p, p, p, i, i, i, i, i, ll, ll, ll, ll, ll, ll, f, p]
         fn.restype = ctypes.c_int
         _fn.append(fn)
     return _fn[0]
@@ -117,7 +161,14 @@ def _kernel():
     schema="(Tensor q, Tensor k, Tensor v, Tensor? bias, float scale) -> Tensor")
 def flash_attention_fwd_op(q, k, v, bias, scale):
     """K3's launch: online-softmax attention of q over k, v with the fp32
-    (B, S) key bias."""
+    (B, S) key bias, in the body ``body_for`` picks."""
+    return _launch(q, k, v, bias, scale, BODIES[body_for(q, k, v)])
+
+
+def _launch(q, k, v, bias, scale, code):
+    """One launch of the body with C code ``code`` (``BODIES``; 4-7 the
+    wgmma body's variants, for timing); raises if the body refuses the
+    launch."""
     _check(q, k, v, bias)
     b, l, h, d = q.shape
     s = k.shape[1]
@@ -125,12 +176,13 @@ def flash_attention_fwd_op(q, k, v, bias, scale):
     fn = _kernel()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        err = fn(_DTYPE_CODES[q.dtype], code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  None if bias is None else bias.data_ptr(), out.data_ptr(),
                  b, l, s, h, d, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
                  v.stride(0), v.stride(1), float(scale), stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention_fwd launch failed: cudaError {err}")
+        raise RuntimeError(f"flash_attention_fwd launch failed (body code {code}): "
+                           f"cudaError {err}")
     flash_attention.launches += 1
     flash_attention.flops += 4 * b * h * l * s * d
     return out
@@ -149,11 +201,13 @@ class FlashAttention(torch.autograd.Function):
     (B, H, L, S) tensor; no gradient for the bias."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, scale):
+    def forward(ctx, q, k, v, bias, scale, body):
         ctx.save_for_backward(q, k, v, bias)
         ctx.scale = scale
         if q.device.type == "cpu":
             return flash_attention_plain(q, k, v, bias, scale)
+        if body is not None:
+            return _launch(q, k, v, bias, scale, body)
         return flash_attention_fwd_op(q, k, v, bias, scale)
 
     @staticmethod
@@ -163,7 +217,7 @@ class FlashAttention(torch.autograd.Function):
             leaves = [x.detach().requires_grad_() for x in (q, k, v)]
             out = fused_attention_small_plain(*leaves, bias, ctx.scale)
             dq, dk, dv = torch.autograd.grad(out, leaves, g)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(
@@ -172,14 +226,18 @@ def flash_attention(
     v: torch.Tensor,
     key_bias: Optional[torch.Tensor],
     scale: float,
+    body: Optional[str] = None,
 ) -> torch.Tensor:
     """Differentiable long-context attention over (B, L, H, D): K3 forward on
     a CUDA tensor, the plain version on a CPU tensor, the twin's gradient
-    backward. Returns a contiguous (B, L, H, D) in q's type."""
+    backward. Returns a contiguous (B, L, H, D) in q's type. ``body`` (a
+    key of ``BODIES``) forces a body of the kernel past ``body_for``, for
+    timing one against another; the launch then bypasses the custom op."""
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    code = None if body is None else BODIES[body]
     bias = None if key_bias is None else key_bias.to(torch.float32).contiguous()
-    return FlashAttention.apply(q, k, v, bias, float(scale))
+    return FlashAttention.apply(q, k, v, bias, float(scale), code)
 
 
 # host calls that launched the K3 kernel since the count was last set to 0:

@@ -15,7 +15,8 @@ absolute and bf16 4e-3 of max(1, max |ref|), one ulp of outputs in
 [0.5, 1). That bound does not tell K3's rounding (p fp32 into p.V, which
 the bf16 kernel carries as p = hi + lo) from K1's (p rounded to bf16); the
 share of outputs that differ from the plain version at all does (at most
-1% for K3 in bf16).
+1% for K3 in bf16). K3's wgmma body runs at the CLIP-L site at every batch
+of the main path, under capture, and refuses what it cannot take.
 
 This file imports neither JAX nor ``d2r_tpu``, because the GPU machine has
 no JAX; ``tests/conftest.py`` does, so run it there without the conftest:
@@ -468,6 +469,83 @@ def test_cuda_k3_tile_edges(cuda, dtype, tol):
         err = (out.float() - ref.float()).abs().max().item()
         size = max(1.0, ref.float().abs().max().item()) if dtype == torch.bfloat16 else 1.0
         assert err <= tol * size, (b, l, s, h, d, err)
+
+
+def _clip_l_views(cuda, b, seed, l=257, h=16, d=64):
+    """q, k, v at the CLIP-L site: strided bf16 views of one fused (B, L,
+    3 H D) QKV tensor, as the vision tower's projection gives them."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    qkv = torch.randn((b, l, 3 * h * d), generator=g, device=cuda).bfloat16()
+    return tuple(qkv[:, :, i * h * d:(i + 1) * h * d].view(b, l, h, d) for i in range(3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 8, 16, 32])
+def test_cuda_k3_wgmma_body_at_the_clip_l_site(cuda, b):
+    """The wgmma body at the CLIP-L geometry (L = S = 257, H 16, D 64) on
+    the strided QKV views, at the serving buckets and the training batch:
+    ``body_for`` picks it, one launch, within K3's bf16 tolerance of the
+    plain version, and at most 1% of the outputs differ from the plain
+    version's at all where K1's rounding (p rounded once) moves more."""
+    q, k, v = _clip_l_views(cuda, b, seed=60 + b)
+    scale = 64 ** -0.5
+    assert tfl.body_for(q, k, v) == "wgmma"
+    before = tfl.flash_attention.launches
+    out = tfl.flash_attention(q, k, v, None, scale)
+    torch.cuda.synchronize()
+    assert tfl.flash_attention.launches == before + 1
+    ref = tfl.flash_attention_plain(q, k, v, None, scale)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= 4e-3 * max(1.0, ref.float().abs().max().item()), (b, err)
+    once = tfa.fused_attention_small_plain(q, k, v, None, scale)
+    share = (out != ref).float().mean().item()
+    assert share <= 0.01 < (once != ref).float().mean().item(), (b, share)
+
+
+@pytest.mark.cuda
+def test_cuda_k3_wgmma_replay_equals_eager(cuda):
+    """A captured and replayed launch of the wgmma body (with a key bias)
+    equals the eager launch bit for bit, and stays so after other launches
+    of K3 at other shapes."""
+    q, k, v = _clip_l_views(cuda, 4, seed=70)
+    lengths = torch.tensor([[257], [100], [5], [200]], device=cuda)
+    bias = tattn.padding_key_bias(torch.arange(257, device=cuda)[None] < lengths)
+    run = lambda: tfl.flash_attention(q, k, v, bias, 0.125)
+    eager = run()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        run()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = run()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
+    tfl.flash_attention(*_clip_l_views(cuda, 2, seed=71, l=100), None, 0.125)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
+
+
+@pytest.mark.cuda
+def test_cuda_k3_refused_body_raises(cuda):
+    """A body the launch's type, shape or alignment cannot take raises, and
+    no other body runs in its place: the wgmma body on rows 4 elements
+    longer than the heads' width (off 16 bytes), at D = 37, and past its
+    keys; the fp32 body on bf16; the mma.sync body on fp32."""
+    q, k, v, _ = _views(cuda, torch.bfloat16, 2, 257, 257, 2, 64, False, seed=72, pad=4)
+    odd = _views(cuda, torch.bfloat16, 2, 70, 90, 2, 37, False, seed=73)[:3]
+    long = _views(cuda, torch.bfloat16, 1, 64, 656, 1, 64, False, seed=74)[:3]
+    fine = _clip_l_views(cuda, 1, seed=75, h=2)
+    for (a, b, c), body in (((q, k, v), "wgmma"), (odd, "wgmma"), (long, "wgmma"),
+                            (fine, "fp32"), (tuple(x.float() for x in fine), "mma_sync")):
+        assert tfl.body_for(a, b, c) != body
+        before = tfl.flash_attention.launches
+        with pytest.raises(RuntimeError, match="launch failed"):
+            tfl.flash_attention(a, b, c, None, 0.125, body=body)
+        assert tfl.flash_attention.launches == before
 
 
 @pytest.mark.cuda

@@ -79,24 +79,40 @@ def test_plain_matches_jax_interpret(shape, with_bias, dtype):
     np.testing.assert_allclose(got, np.asarray(ref, np.float32), atol=TOL[dtype], rtol=0)
 
 
+def _wgmma_key_blocks(s):
+    """The wgmma body's key blocks as (first key, width): 64 keys each, and
+    the last block's live keys rounded up to 16, a narrow wgmma (keys
+    256-271 at S = 257)."""
+    full = s // 64 * 64
+    return [(j0, 64) for j0 in range(0, full, 64)] + (
+        [(full, -(-(s - full) // 16) * 16)] if s > full else [])
+
+
 def _tensor_core_arithmetic(q, k, v, bias, scale, split=True, tile=64):
     """The bf16 K3 kernel's arithmetic in plain tensor ops, on (B, N, H, D)
-    bf16 tensors; returns acc / l in fp32, before the one cast. Per key tile
-    of 64: fp32 sums of the bf16 products, scaled afterwards, plus the bias;
-    the online softmax in fp32 with m from -1e30; p split into bf16 hi =
-    bf16(p) and lo = bf16(p - hi), both through p.V into one fp32
-    accumulator. ``split=False`` rounds p to bf16 once instead (K1's
-    rounding), the contrast the tolerance has to see."""
+    bf16 tensors; returns acc / l in fp32, before the one cast. Per key
+    block: fp32 sums of the bf16 products, scaled afterwards, plus the
+    bias, keys past S at -inf; the online softmax in fp32 with m from
+    -1e30; p split into bf16 hi = bf16(p) and lo = bf16(p - hi), both
+    through p.V into one fp32 accumulator. ``tile``: the blocks, tiles of
+    that many keys (the mma.sync body's 64, a ragged last tile masked to
+    its full width) or a list of (first key, width) (the wgmma body's,
+    ``_wgmma_key_blocks``). ``split=False`` rounds p to bf16 once instead
+    (K1's rounding), the contrast the tolerance has to see."""
     qf, kf, vf = (x.float() for x in (q, k, v))
     b, l, h, d = q.shape
     m = torch.full((b, h, l, 1), -1e30)
     lsum = torch.zeros((b, h, l, 1))
     acc = torch.zeros((b, h, l, d))
-    for j0 in range(0, k.shape[1], tile):
-        kt, vt = kf[:, j0:j0 + tile], vf[:, j0:j0 + tile]
+    blocks = tile if isinstance(tile, list) else [(j0, tile) for j0 in range(0, k.shape[1], tile)]
+    for j0, width in blocks:
+        kt, vt = kf[:, j0:j0 + width], vf[:, j0:j0 + width]
         s = torch.einsum("blhd,bshd->bhls", qf, kt) * scale
         if bias is not None:
-            s = s + bias[:, None, None, j0:j0 + tile]
+            s = s + bias[:, None, None, j0:j0 + width]
+        absent = width - kt.shape[1]     # keys past S in the block: -inf, zero rows of V
+        s = torch.nn.functional.pad(s, (0, absent), value=-float("inf"))
+        vt = torch.nn.functional.pad(vt, (0, 0, 0, 0, 0, absent))
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         p, c = torch.exp(s - m_new), torch.exp(m - m_new)
         lsum = lsum * c + p.sum(-1, keepdim=True)
@@ -113,7 +129,8 @@ def _tensor_core_arithmetic(q, k, v, bias, scale, split=True, tile=64):
 def test_tensor_core_rounding_matches_jax_interpret(with_bias):
     """What the bf16 kernel computes (scale after the bf16 product, p as
     bf16 hi + lo) against JAX's kernel in interpret mode at the 257-token
-    site: within 1e-4 of its fp32 result before the cast (JAX's kernel on
+    site, over the mma.sync body's 64-key tiles (the last one masked to
+    64): within 1e-4 of its fp32 result before the cast (JAX's kernel on
     the same bf16 values held in fp32), and within K3's tolerance, 4e-3 of
     max(1, max |ref|), of its bf16 output after it. Rounding p to bf16 once
     misses the first bound. The measure that holds the kernel's rounding on
@@ -121,6 +138,17 @@ def test_tensor_core_rounding_matches_jax_interpret(with_bias):
     version's, stays within 1% for this arithmetic (against the port's
     plain version and JAX's kernel alike) and exceeds it for p rounded once
     and for the card's control, K1's plain version."""
+    _check_tensor_core_rounding(with_bias, tile=64)
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_wgmma_rounding_matches_jax_interpret(with_bias):
+    """The same bounds over the wgmma body's key blocks: 64 keys each and
+    a narrow last block of 16 (keys 256-271, 257-271 absent)."""
+    _check_tensor_core_rounding(with_bias, tile=_wgmma_key_blocks(257))
+
+
+def _check_tensor_core_rounding(with_bias, tile):
     b, h, l, s, d = 2, 2, 257, 257, 64
     q, k, v, bias = _inputs(b, h, l, s, d, with_bias, seed=41)
     scale = d ** -0.5
@@ -134,11 +162,11 @@ def test_tensor_core_rounding_matches_jax_interpret(with_bias):
     tb = None if bias is None else torch.from_numpy(bias)
     to_bhld = lambda x: x.float().numpy().transpose(0, 2, 1, 3)
 
-    pre = _tensor_core_arithmetic(tq, tk, tv, tb, scale)
+    pre = _tensor_core_arithmetic(tq, tk, tv, tb, scale, tile=tile)
     assert np.abs(to_bhld(pre) - ref_fp32).max() <= 1e-4
     size = max(1.0, np.abs(ref_cast).max())
     assert np.abs(to_bhld(pre.to(torch.bfloat16)) - ref_cast).max() <= 4e-3 * size
-    once = _tensor_core_arithmetic(tq, tk, tv, tb, scale, split=False)
+    once = _tensor_core_arithmetic(tq, tk, tv, tb, scale, split=False, tile=tile)
     assert np.abs(to_bhld(once) - ref_fp32).max() > 1e-4
 
     share = lambda x, y: float(np.mean(to_bhld(x) != y))
@@ -147,6 +175,81 @@ def test_tensor_core_rounding_matches_jax_interpret(with_bias):
     assert share(pre.to(torch.bfloat16), ref_cast) <= 0.01
     assert share(once.to(torch.bfloat16), plain) > 0.01
     assert share(tfa.fused_attention_small_plain(tq, tk, tv, tb, scale), plain) > 0.01
+
+
+def test_wgmma_key_blocks_end_in_a_narrow_block():
+    assert _wgmma_key_blocks(257) == [(0, 64), (64, 64), (128, 64), (192, 64), (256, 16)]
+    assert _wgmma_key_blocks(256)[-1] == (192, 64)
+    assert _wgmma_key_blocks(1) == [(0, 16)]
+    assert _wgmma_key_blocks(300)[-1] == (256, 48)
+
+
+def _views(b, l, s, h, d, dtype, row_pad=0, offset=0):
+    """q, k, v as the card's checks make them (chip_smoke.k3_inputs): at
+    L = S strided views of one (B, L, 3 H D + row_pad) tensor, else q of a
+    (B, L, 2 H D + row_pad) one and k, v of a (B, S, 2 H D + row_pad) one;
+    ``offset`` elements into the buffer (off 16-byte alignment when it is
+    not a multiple of 8)."""
+    hd = h * d
+
+    def buf(n, parts):
+        flat = torch.zeros(offset + b * n * (parts * hd + row_pad), dtype=dtype)
+        return flat[offset:].view(b, n, parts * hd + row_pad)
+
+    view = lambda x, i, n: x[:, :, i * hd:(i + 1) * hd].view(b, n, h, d)
+    if l == s:
+        qkv = buf(l, 3)
+        return tuple(view(qkv, i, l) for i in range(3))
+    qx, kv = buf(l, 2), buf(s, 2)
+    return view(qx, 0, l), view(kv, 0, s), view(kv, 1, s)
+
+
+# name: (B, L, S, H, D, type, row pad, offset, body): the main-path site
+# and every K3_SHAPES edge of chip_smoke.py, with the bounds of the rule
+BODY_CASES = {
+    "clip_l": (2, 257, 257, 16, 64, torch.bfloat16, 0, 0, "wgmma"),
+    "clip_l_fp32": (2, 257, 257, 16, 64, torch.float32, 0, 0, "fp32"),
+    "row_pad": (2, 257, 257, 4, 64, torch.bfloat16, 4, 0, "mma_sync"),
+    "d37_odd": (2, 70, 90, 4, 37, torch.bfloat16, 0, 0, "mma_sync"),
+    "s1": (2, 100, 1, 4, 64, torch.bfloat16, 0, 0, "wgmma"),
+    "l17_bias": (3, 17, 300, 4, 64, torch.bfloat16, 0, 0, "wgmma"),
+    "ragged_bias_d48": (2, 200, 333, 2, 48, torch.bfloat16, 0, 0, "mma_sync"),
+    "d128": (2, 257, 257, 2, 128, torch.bfloat16, 0, 0, "mma_sync"),
+    "long_d128": (1, 1024, 1024, 1, 128, torch.bfloat16, 0, 0, "mma_sync"),
+    "wide_d256": (2, 300, 300, 1, 256, torch.bfloat16, 0, 0, "mma_sync"),
+    "wide_d320": (2, 257, 257, 1, 320, torch.bfloat16, 0, 0, "wide"),
+    "wide_d320_fp32": (2, 257, 257, 1, 320, torch.float32, 0, 0, "wide"),
+    "misaligned": (2, 257, 257, 2, 64, torch.bfloat16, 0, 4, "mma_sync"),
+    "aligned_offset": (2, 257, 257, 2, 64, torch.bfloat16, 0, 8, "wgmma"),
+    "most_keys_d64": (1, 100, 640, 1, 64, torch.bfloat16, 0, 0, "wgmma"),
+    "too_many_keys_d64": (1, 100, 641, 1, 64, torch.bfloat16, 0, 0, "mma_sync"),
+    "d32": (2, 257, 257, 2, 32, torch.bfloat16, 0, 0, "mma_sync"),
+}
+
+
+@pytest.mark.parametrize("case", list(BODY_CASES))
+def test_body_for_picks_by_type_shape_and_alignment(case):
+    """Which body of the kernel takes a launch is a rule on type, shape and
+    alignment: ``wgmma`` for bf16 views TMA can describe (16-byte aligned
+    bases, strides in multiples of 8 elements) at D = 64 whose K and V fit
+    in shared memory, ``mma_sync`` for the other bf16 views up to
+    D = 256, ``fp32`` for fp32 up to D = 256, ``wide`` above."""
+    b, l, s, h, d, dtype, row_pad, offset, body = BODY_CASES[case]
+    q, k, v = _views(b, l, s, h, d, dtype, row_pad, offset)
+    assert tfl.body_for(q, k, v) == body
+    assert body in tfl.BODIES
+
+
+def test_a_forced_body_on_the_cpu_runs_the_plain_version():
+    """``body`` picks among the card's bodies; a CPU tensor still takes the
+    plain version, whatever it names."""
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 70, 2, 64)).astype(np.float32))
+               .to(torch.bfloat16) for _ in range(3))
+    ref = tfl.flash_attention_plain(q, k, v, None, 0.125)
+    for body in tfl.BODIES:
+        torch.testing.assert_close(tfl.flash_attention(q, k, v, None, 0.125, body=body), ref,
+                                   atol=0, rtol=0)
 
 
 def test_gradient_matches_jax_custom_vjp():
